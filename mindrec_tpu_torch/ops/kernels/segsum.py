@@ -1,0 +1,70 @@
+"""Sorted segment-sum of per-position gradients into per-unique-id sums.
+
+Counterpart of ``mindrec_tpu/ops/pallas/stream_segsum.py:streamed_segsum``
+with ``row_major=True`` (the kernel ``csrc/segsum.cu``; see its header for
+the design and bound).  Contract, as in the reference: ``uidx_sorted`` is
+non-decreasing with unit steps; the result is ``[D, n_out]`` float32 with
+column ``u`` the sum of rows ``n`` of ``g`` where ``uidx_sorted[n] == u``;
+columns past the last segment are zero.  Segment ids outside
+``[0, n_out)`` add nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mindrec_tpu_torch.ops.kernels import (
+    LAUNCHES, _build, on_cpu, require, require_contiguous,
+)
+
+_NAME = "segsum_sorted"
+_ARGS = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
+]
+_CHUNK = 64  # positions per warp: kChunk in csrc/segsum.cu
+
+
+def segsum_sorted_plain(g: torch.Tensor, uidx_sorted: torch.Tensor,
+                        n_out: int) -> torch.Tensor:
+    """Plain PyTorch version (``index_add_`` in float32)."""
+    keep = (uidx_sorted >= 0) & (uidx_sorted < n_out)
+    out = torch.zeros((n_out, g.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    out.index_add_(0, uidx_sorted[keep].long(), g[keep].float())
+    return out.T.contiguous()
+
+
+def segsum_sorted(g: torch.Tensor, uidx_sorted: torch.Tensor,
+                  n_out: int) -> torch.Tensor:
+    """``out[:, u] = sum(g[n, :] for uidx_sorted[n] == u)`` -> [D, n_out].
+
+    ``g``: [N, D] bfloat16 or float32 (D <= 256); ``uidx_sorted``: [N]
+    int32.  CPU tensors take :func:`segsum_sorted_plain`; CUDA tensors
+    launch the kernel."""
+    require(g.dim() == 2 and uidx_sorted.shape == (g.shape[0],), _NAME,
+            f"g [N, D] and uidx_sorted [N] expected, got {tuple(g.shape)} "
+            f"and {tuple(uidx_sorted.shape)}")
+    if on_cpu(_NAME, g, uidx_sorted):
+        return segsum_sorted_plain(g, uidx_sorted, n_out)
+    n, d = g.shape
+    require(g.dtype in (torch.bfloat16, torch.float32), _NAME,
+            f"g must be bfloat16 or float32, got {g.dtype}")
+    require(uidx_sorted.dtype == torch.int32, _NAME, "uidx_sorted must be int32")
+    require(0 < d <= 256, _NAME, f"D must be in [1, 256], got {d}")
+    require(n < 2**31 and 0 <= n_out < 2**31, _NAME, "sizes must fit int32")
+    require_contiguous(_NAME, g=g, uidx_sorted=uidx_sorted)
+    out = torch.empty((d, n_out), dtype=torch.float32, device=g.device)
+    seg = torch.empty((2, n_out), dtype=torch.int32, device=g.device)
+    partial = torch.empty((-(-n // _CHUNK), 2, d), dtype=torch.float32,
+                          device=g.device)
+    fn = _build.kernel_fn("mr_segsum_sorted", _ARGS)
+    rc = fn(g.data_ptr(), int(g.dtype == torch.bfloat16),
+            uidx_sorted.data_ptr(), n, d, n_out, seg.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), _build.stream_of(g))
+    _build.check(rc, _NAME)
+    LAUNCHES[_NAME] += 1
+    return out

@@ -23,8 +23,15 @@ setup(
     name="mindrec_tpu",
     version="0.1.0",
     description="TPU-native recommender-systems training framework",
-    packages=find_packages(include=["mindrec_tpu", "mindrec_tpu.*"]),
-    package_data={"mindrec_tpu.native": ["*.so", "*.cc", "Makefile"]},
+    packages=find_packages(include=[
+        "mindrec_tpu", "mindrec_tpu.*",
+        "mindrec_tpu_torch", "mindrec_tpu_torch.*",
+    ]),
+    package_data={
+        "mindrec_tpu.native": ["*.so", "*.cc", "Makefile"],
+        # CUDA sources of the PyTorch port, built at first use
+        "mindrec_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+    },
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     cmdclass={"build_py": BuildWithNative},
