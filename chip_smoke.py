@@ -18,16 +18,34 @@ Phases (any failure exits non-zero):
 3. drive the train step at the recipe's full width (batch 16000 x 39,
    vocab 5.86M, emb 16, 7x1024 bf16 MLP, FTRL + LazyAdam with bf16 m/v,
    host-prepared batches, the x1.2 unique bucket): 3 warm-up and 10 timed
-   steps, with the launch counters set to 0 just before and read just
-   after; every kernel must have launched at least once per step and
-   every loss must be finite;
+   steps, with the launch counters set to 0 just before the timed steps
+   and read just after; every kernel must have launched at least once per
+   step and every loss must be finite;
 4. take 3 steps of a small model with the kernels and 3 with the plain
    versions from one state and compare losses, tables and optimizer
-   state.
+   state;
+5. the multitable (Outbrain) recipe's kernels against their plain
+   versions on a real synthetic batch after host prep: the gather of the
+   emb128 group's feature-major tables into its [ub, 256] buffer, the
+   unsorted segment-sum of the indicator group's [1.7M, 128] bf16
+   gradient and its [1.7M, 1] presence counts, the sorted segment-sum of
+   the emb128 group's [N, 256] and the multi group's [N, 128] gradients
+   (segment sums held against a float64 sum), LazyAdam on emb128 with
+   f32 m/v and FTRL on the folded w128;
+6. drive the multitable step at the recipe's full width (batch 131072,
+   the eight feature-major tables at reference vocab and width, 5x1024
+   bf16 MLP, FTRL + LazyAdam, host prep with multi-group compaction and
+   x1.2 buckets): 3 warm-up and 10 timed steps, the launch counters set
+   to 0 just before the timed steps and read just after; every kernel of
+   the path must have launched its per-step count every step and every
+   loss must be finite;
+7. take 3 steps of a small multitable model (two tiny and two sorted id
+   groups) with the kernels and 3 with the plain versions from one state
+   and compare losses, the eight tables and their optimizer state.
 
 ``--profile`` adds the device time by kernel over 5 more steps of
-phase 3.  It prints a ``{"kernels": [...]}`` JSON line before the last line and
-ends with ``{"ok": true, "device": {...}}``.
+phases 3 and 6.  It prints a ``{"kernels": [...]}`` JSON line before the
+last line and ends with ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -42,32 +60,55 @@ import numpy as np
 import torch
 
 from mindrec_tpu_torch.data.criteo import SyntheticCriteo, to_device
-from mindrec_tpu_torch.data.pipeline import AdaptiveBucket
+from mindrec_tpu_torch.data.outbrain import SyntheticOutbrain
+from mindrec_tpu_torch.data.pipeline import AdaptiveBucket, round_bucket
+from mindrec_tpu_torch.models.multitable import (
+    MULTI_FIELDS, MultiTableConfig, MultiTableWideDeepModel,
+)
 from mindrec_tpu_torch.models.wide_deep import WideDeepConfig, WideDeepModel
 from mindrec_tpu_torch.ops import kernels
 from mindrec_tpu_torch.ops.kernels import _build
-from mindrec_tpu_torch.ops.kernels.segsum import segsum_sorted, segsum_sorted_plain
+from mindrec_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
+from mindrec_tpu_torch.ops.kernels.segsum import (
+    segsum_sorted, segsum_sorted_plain, segsum_unsorted, segsum_unsorted_plain,
+)
+from mindrec_tpu_torch.ops.kernels.update_cols import (
+    adam_cols, adam_cols_plain, ftrl_cols, ftrl_cols_plain, make_aug_grads,
+)
 from mindrec_tpu_torch.ops.kernels.update_rows import (
     adam_rows, adam_rows_plain, ftrl_rows, ftrl_rows_plain,
 )
 from mindrec_tpu_torch.train import optim
 from mindrec_tpu_torch.train.step import (
-    SENTINEL, init_train_state, make_batch_sort, make_train_step,
+    SENTINEL, init_train_state, make_batch_sort, make_train_step, prep_groups,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BATCH, FIELDS, VOCAB, EMB = 16000, 39, 5_860_000, 16
+MT_BATCH = 131072  # multitable recipe, benchmarks/bench_multitable.py
 REPLACES = {
     "segsum_sorted": "mindrec_tpu/ops/pallas/stream_segsum.py:222",
     "adam_rows": "mindrec_tpu/ops/pallas/stream_update_rows.py:285",
     "ftrl_rows": "mindrec_tpu/ops/pallas/stream_update_rows.py:338",
+    "segsum_unsorted": "mindrec_tpu/ops/pallas/stream_segsum.py:158",
+    "adam_cols": "mindrec_tpu/ops/pallas/stream_update.py:380",
+    "ftrl_cols": "mindrec_tpu/ops/pallas/stream_update.py:463",
+    "gather_rows": "mindrec_tpu/ops/pallas/stream_gather.py:257",
 }
 SOURCES = {
     "segsum_sorted": "mindrec_tpu_torch/csrc/segsum.cu",
     "adam_rows": "mindrec_tpu_torch/csrc/update_rows.cu",
     "ftrl_rows": "mindrec_tpu_torch/csrc/update_rows.cu",
+    "segsum_unsorted": "mindrec_tpu_torch/csrc/segsum.cu",
+    "adam_cols": "mindrec_tpu_torch/csrc/update_cols.cu",
+    "ftrl_cols": "mindrec_tpu_torch/csrc/update_cols.cu",
+    "gather_rows": "mindrec_tpu_torch/csrc/gather_rows.cu",
 }
+# launches per step of each kernel on the W&D and the multitable path
+WD_PER_STEP = {"segsum_sorted": 1, "adam_rows": 1, "ftrl_rows": 1}
+MT_PER_STEP = {"gather_rows": 8, "segsum_unsorted": 2, "adam_cols": 4,
+               "ftrl_cols": 4, "segsum_sorted": 3}
 
 
 def log(*a):
@@ -108,6 +149,36 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
+def check_segsum(name, got, plain, g, ids, n_out) -> tuple[float, float]:
+    """Hold a segment-sum ``[D, n_out]`` (kernel and plain version) against
+    a float64 ``index_add_`` of the same ``g``.  A float32 sum of n_s terms
+    in any order is off by about 2**-24 * sqrt(n_s) * sqrt(sum g**2) (the
+    rounding errors add like a random walk, ~0.4 of that unit when summed
+    in one sequence); the tolerance is 8 units, which a wrong sum (zeros,
+    a wrong column block, a lost partial) exceeds by orders of magnitude.
+    Returns the max abs and rel difference of the kernel from the plain
+    version."""
+    keep = (ids >= 0) & (ids < n_out)
+    idx, g64 = ids[keep].long(), g[keep].double()
+    ref = torch.zeros((n_out, g.shape[1]), dtype=torch.float64, device=g.device)
+    sq = torch.zeros_like(ref)
+    ref = ref.index_add_(0, idx, g64).T
+    sq = sq.index_add_(0, idx, g64 * g64).T
+    cnt = torch.bincount(idx, minlength=n_out)[:n_out].double()
+    tol = 8.0 * 2.0**-24 * cnt.sqrt()[None, :] * sq.sqrt()
+    del g64, sq
+    for who, x in (("kernel", got), ("plain version", plain)):
+        err = (x.double() - ref).abs()
+        if not bool((err <= tol).all()):
+            worst = int(torch.argmax(err - tol))
+            fail(f"{name} ({who}) disagrees with a float64 sum: max err "
+                 f"{err.max().item()}, worst cell err "
+                 f"{err.flatten()[worst].item()} > tol "
+                 f"{tol.flatten()[worst].item()}")
+    err = (got - plain).abs()
+    return err.max().item(), (err / plain.abs().clamp_min(1e-30)).max().item()
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     path = _build.build()
@@ -127,30 +198,21 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
 
     # -- segsum: g [N, 128] bf16, the step's per-position gradients ------
     g = torch.randn((n, 128), generator=gen, device=dev).to(torch.bfloat16)
-    got = segsum_sorted(g, uidx, n_out)
-    want = segsum_sorted_plain(g, uidx, n_out)
-    # two float32 sums of the same n_u terms differ by at most
-    # 2 * n_u * 2**-24 * sum|g| (the plain version sums with atomics)
-    counts = torch.bincount(uidx.long(), minlength=n_out)[:n_out].float()
-    absum = segsum_sorted_plain(g.abs(), uidx, n_out)
-    tol = 2.0 * counts[None, :] * 2.0**-24 * absum
-    err = (got - want).abs()
-    if not bool((err <= tol).all()):
-        fail(f"segsum_sorted disagrees: max err {err.max().item()}")
+    err, rel = check_segsum("segsum_sorted", segsum_sorted(g, uidx, n_out),
+                            segsum_sorted_plain(g, uidx, n_out), g, uidx, n_out)
     ui_long = uidx.long()
     lib_out = torch.zeros((n_out, 128), device=dev)
     gf = g.float()
     t_b, by = bound(n * 128 * 2 + n * 4 + 128 * n_out * 4, n * 128)
     res["segsum_sorted"] = dict(
-        max_abs_err=err.max().item(),
-        max_rel_err=(err / want.abs().clamp_min(1e-30)).max().item(),
+        max_abs_err=err, max_rel_err=rel,
         ms=cuda_ms(lambda: segsum_sorted(g, uidx, n_out), 20),
         plain_ms=cuda_ms(lambda: segsum_sorted_plain(g, uidx, n_out), 5),
         bound_ms=t_b, bound_by=by,
         library_ms=cuda_ms(lambda: lib_out.index_add_(0, ui_long, gf), 10),
     )
     log("[kernel] segsum_sorted", json.dumps(res["segsum_sorted"]))
-    del g, gf, absum, got, want, err, tol, lib_out
+    del g, gf, lib_out
 
     # -- the unique slots of this batch, padded to the bucket -----------
     uq = torch.from_numpy(host_batch["uq_ids"][:bucket]).to(dev)
@@ -267,14 +329,28 @@ def phase_main_path(dev, data, bucket, warmup=3, steps=10,
         host.append(hb)
     batches = [to_device(hb, dev) for hb in host]
     step = make_train_step(model, opt_w, opt_d)
+    out = timed_steps("main", step, state, batches, BATCH, WD_PER_STEP,
+                      warmup, steps, profile)
+    out["bucket"] = bucket
+    return out
+
+
+def timed_steps(tag, step, state, batches, batch_size, per_step,
+                warmup=3, steps=10, profile=False) -> dict:
+    """``warmup`` steps, then ``steps`` timed steps (host clock between
+    ``torch.cuda.synchronize()`` fences) with the launch counters set to 0
+    just before them and read just after.  Fails unless every loss is
+    finite and each kernel of ``per_step`` launched at least its count
+    per step times ``steps``."""
+    dev = batches[0]["label"].device
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     losses = []
-    kernels.reset_launches()
     for i in range(warmup):
         state, (_lw, ld) = step(state, batches[i % len(batches)])
         losses.append(ld)
     torch.cuda.synchronize()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     for i in range(steps):
         state, (_lw, ld) = step(state, batches[(warmup + i) % len(batches)])
@@ -284,58 +360,286 @@ def phase_main_path(dev, data, bucket, warmup=3, steps=10,
     launches = dict(kernels.LAUNCHES)
     losses = torch.stack(losses).float().cpu().numpy()
     out = dict(
-        samples_per_s=steps * BATCH / dt, ms_per_step=dt / steps * 1e3,
-        steps=warmup + steps, bucket=bucket,
+        samples_per_s=steps * batch_size / dt, ms_per_step=dt / steps * 1e3,
+        warmup_steps=warmup, timed_steps=steps,
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
         launches=launches, first_loss=float(losses[0]),
         last_loss=float(losses[-1]),
     )
-    log("[main]", json.dumps(out))
+    log(f"[{tag}]", json.dumps(out))
     if not np.isfinite(losses).all():
-        fail(f"non-finite losses {losses}")
-    for k, n in launches.items():
-        if n < warmup + steps:
-            fail(f"kernel {k} launched {n} times in {warmup + steps} steps")
+        fail(f"{tag}: non-finite losses {losses}")
+    for k, per in per_step.items():
+        if launches[k] < per * steps:
+            fail(f"{tag}: kernel {k} launched {launches[k]} times in {steps} "
+                 f"timed steps (expected {per} per step)")
     if profile:
         busy = profile_steps(step, state, batches)
-        log(f"[profile] device busy share {busy / out['ms_per_step']:.3f} "
-            f"of the unprofiled {out['ms_per_step']:.3f} ms/step")
+        log(f"[profile] {tag} device busy share "
+            f"{busy / out['ms_per_step']:.3f} of the unprofiled "
+            f"{out['ms_per_step']:.3f} ms/step")
     return out
 
 
+def kernel_vs_plain(tag, dev, model, opts, batches) -> None:
+    """Steps with the kernels and with the plain versions from one state,
+    one per batch: losses, every table and its optimizer state compared.
+    Only the segment sums differ (the plain versions add with atomics), by
+    float32 rounding; a bf16 moment may round to its neighbour."""
+    opt_w, opt_d = opts
+    sa = init_train_state(model, 1, opt_w, opt_d, device=dev)
+    sb = init_train_state(model, 1, opt_w, opt_d, device=dev)
+    fa = make_train_step(model, opt_w, opt_d)
+    fb = make_train_step(model, opt_w, opt_d, use_kernels=False)
+    for batch in batches:
+        sa, (_, la) = fa(sa, batch)
+        sb, (_, lb) = fb(sb, batch)
+        torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
+    for name, (path, _spec) in model.table_specs.items():
+        key = "/".join(path)
+        leaves = [(name, sa.params[path[0]][path[1]], sb.params[path[0]][path[1]])]
+        st_a = (sa.opt_w if path[0] == "wide" else sa.opt_d)[key]
+        st_b = (sb.opt_w if path[0] == "wide" else sb.opt_d)[key]
+        leaves += [(f"{name} {k}", st_a[k], st_b[k]) for k in st_a]
+        for what, x, y in leaves:
+            rtol = 2.0**-7 if x.dtype == torch.bfloat16 else 1e-4
+            torch.testing.assert_close(x.float(), y.float(), rtol=rtol,
+                                       atol=1e-6, msg=what)
+    log(f"[check] {tag} kernel step == plain step over {len(batches)} steps")
+
+
 def phase_kernel_vs_plain_step(dev) -> None:
-    """3 steps with the kernels and 3 with the plain versions, one state."""
+    """3 W&D steps with the kernels and 3 with the plain versions."""
     cfg = WideDeepConfig(
         batch_size=512, field_size=FIELDS, vocab_size=100_000, emb_dim=EMB,
         deep_layer_dim=(256, 256), use_mixed_precision=True, sparse=True,
         loss_scale=1024.0,
     )
-    model = WideDeepModel(cfg)
-    opt_w = optim.ftrl(loss_scale=1024.0)
-    opt_d = optim.lazy_adam(loss_scale=1024.0, state_dtype=torch.bfloat16)
-    sa = init_train_state(model, 1, opt_w, opt_d, device=dev)
-    sb = init_train_state(model, 1, opt_w, opt_d, device=dev)
-    fa = make_train_step(model, opt_w, opt_d)
-    fb = make_train_step(model, opt_w, opt_d, use_kernels=False)
+    opts = (optim.ftrl(loss_scale=1024.0),
+            optim.lazy_adam(loss_scale=1024.0, state_dtype=torch.bfloat16))
     data = SyntheticCriteo(512, FIELDS, 100_000, seed=11, fields="criteo")
-    for i in range(3):
-        batch = to_device(data.get_batch(i), dev)
-        sa, (_, la) = fa(sa, batch)
-        sb, (_, lb) = fb(sb, batch)
-        torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
-    # only the segment sums differ (the plain one adds with atomics), by
-    # float32 rounding; a bf16 moment may round to its neighbour
-    pairs = [("deep table", sa.params["deep"]["table"], sb.params["deep"]["table"]),
-             ("wide table", sa.params["wide"]["table"], sb.params["wide"]["table"]),
-             ("accum", sa.opt_w["wide/table"]["accum"], sb.opt_w["wide/table"]["accum"]),
-             ("linear", sa.opt_w["wide/table"]["linear"], sb.opt_w["wide/table"]["linear"])]
-    for name, x, y in pairs:
-        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-6, msg=name)
-    for k in ("m", "v"):
-        x, y = sa.opt_d["deep/table"][k], sb.opt_d["deep/table"][k]
-        torch.testing.assert_close(x.float(), y.float(), rtol=2.0**-7,
-                                   atol=1e-6, msg=k)
-    log("[check] kernel step == plain step over 3 steps")
+    kernel_vs_plain("W&D", dev, WideDeepModel(cfg), opts,
+                    [to_device(data.get_batch(i), dev) for i in range(3)])
+
+
+def mt_setup(batch=MT_BATCH, steps=2):
+    """The multitable recipe (benchmarks/bench_multitable.py): model,
+    optimizers, and ``steps`` host-prepared SyntheticOutbrain batches:
+    the sorted groups prepped with the multi group compacted to its
+    masked-in positions (kept budget x1.05) and each sorted group's
+    unique ids trimmed to a shared x1.2 bucket."""
+    cfg = MultiTableConfig(batch_size=batch, sparse=True)
+    model = MultiTableWideDeepModel(cfg)
+    opt_w = optim.ftrl(learning_rate=cfg.ftrl_lr, l1=5e-4, l2=5e-4,
+                       initial_accum=0.1, loss_scale=cfg.loss_scale)
+    opt_d = optim.lazy_adam(learning_rate=cfg.adam_lr, eps=1e-6,
+                            loss_scale=cfg.loss_scale)
+    data = SyntheticOutbrain(cfg, steps, seed=0)
+    raw = [data.get_batch(i) for i in range(steps)]
+    groups = prep_groups(model)
+    kept = max(int(sum(b[f"multi_{f}_mask"].sum() for f in MULTI_FIELDS))
+               for b in raw)
+    budget = (int(kept * 1.05) + 511) // 512 * 512
+    prep = make_batch_sort(0, groups=groups, minimal=True,
+                           kept_budget={"multi": budget})
+    t0 = time.perf_counter()
+    host = [prep(b) for b in raw]
+    prep_ms = (time.perf_counter() - t0) / steps * 1e3
+    buckets = {}
+    for g in groups:
+        nu = max(int(b[f"{g}:uidx_sorted"][-1]) + 1 for b in host)
+        buckets[g] = round_bucket(int(nu * 1.2))
+        for b in host:
+            b[f"{g}:uq_ids"] = b[f"{g}:uq_ids"][: buckets[g]]
+    log(f"[mt-data] groups {sorted(groups)}, buckets {buckets}, multi kept "
+        f"{kept} of {batch * sum(cfg.multi_hot_sizes)} (budget {budget}), "
+        f"numpy prep {prep_ms:.1f} ms/batch")
+    return model, (opt_w, opt_d), host, buckets
+
+
+def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
+    """Kernels 5-8 against their plain versions at the multitable
+    recipe's shapes, on host batch 0's ids."""
+    res = {}
+    ub = buckets["emb128"]
+    uq = torch.from_numpy(host0["emb128:uq_ids"][:ub]).to(dev)
+    if uq.numel() < ub:
+        uq = torch.cat([uq, uq.new_full((ub - uq.numel(),), SENTINEL)])
+    valid = int((uq < model.config.emb_128_size).sum())
+
+    def rnd(shape, scale):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    # -- gather: emb128 into lanes 0..127, w128 (fold 8) into 128..135 --
+    t128 = rnd(model.specs["emb128"].storage_shape, 0.01)
+    tw = rnd(model.specs["w128"].storage_shape, 0.01)
+    cols_w = torch.div(uq, 8, rounding_mode="floor")
+    a = torch.zeros((ub, 256), device=dev)
+    b = torch.zeros((ub, 256), device=dev)
+    for fn, buf in ((gather_rows, a), (gather_rows_plain, b)):
+        fn(t128, uq, buf, 0)
+        fn(tw, cols_w, buf, 128)
+    err, rel = max_errs([(a, b)])
+    if err != 0.0:
+        fail(f"gather_rows disagrees: max err {err}")
+    t_b, by = bound(ub * 4 + valid * 128 * 4 * 2, 0)
+    live = uq[:valid].long()
+    res["gather_rows"] = dict(
+        max_abs_err=err, max_rel_err=rel,
+        ms=cuda_ms(lambda: gather_rows(t128, uq, a, 0), 20),
+        plain_ms=cuda_ms(lambda: gather_rows_plain(t128, uq, b, 0), 5),
+        bound_ms=t_b, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.index_select(t128, 1, live), 10),
+    )
+    log("[kernel] gather_rows (emb128 [128, 655360] -> [ub, 256] lanes 0..127)",
+        json.dumps(res["gather_rows"]))
+    del t128, tw, a, b
+
+    # -- unsorted segsum: the indicator group's [1.7M, 128] bf16 grads --
+    seg = torch.from_numpy(np.ascontiguousarray(
+        host0["indicator_id"].reshape(-1))).to(dev)
+    n, n_out = seg.numel(), 2048
+    g = torch.randn((n, 128), generator=gen, device=dev).to(torch.bfloat16)
+    got = segsum_unsorted(g, seg, n_out)
+    err, rel = check_segsum("segsum_unsorted", got,
+                            segsum_unsorted_plain(g, seg, n_out), g, seg, n_out)
+    if not torch.equal(segsum_unsorted(g, seg, n_out), got):
+        fail("segsum_unsorted is not deterministic")
+    del got
+    # small integers: every float32 partial sum is exact, so each of the
+    # 8 column blocks must equal the float64 sum bit for bit
+    gi = torch.randint(-4, 5, (n, 128), generator=gen, device=dev).float()
+    keep = (seg >= 0) & (seg < n_out)
+    exact = torch.zeros((n_out, 128), dtype=torch.float64, device=dev)
+    exact = exact.index_add_(0, seg[keep].long(), gi[keep].double()).T.float()
+    if not torch.equal(segsum_unsorted(gi, seg, n_out), exact):
+        fail("segsum_unsorted differs from the exact sum of float32 integers")
+    del gi, exact
+    # presence counts, as the step takes them: ones [N, 1]
+    ones = torch.ones((n, 1), dtype=torch.bfloat16, device=dev)
+    counts = torch.bincount(seg.long(), minlength=n_out)[:n_out].float()
+    if not torch.equal(segsum_unsorted(ones, seg, n_out)[0], counts):
+        fail("segsum_unsorted presence counts disagree with bincount")
+    t_b, by = bound(n * 128 * 2 + n * 4 + 128 * n_out * 4, n * 128)
+    lib_out = torch.zeros((n_out, 128), device=dev)
+    gf, seg_l = g.float(), seg.long()
+    res["segsum_unsorted"] = dict(
+        max_abs_err=err, max_rel_err=rel,
+        ms=cuda_ms(lambda: segsum_unsorted(g, seg, n_out), 20),
+        plain_ms=cuda_ms(lambda: segsum_unsorted_plain(g, seg, n_out), 5),
+        bound_ms=t_b, bound_by=by,
+        library_ms=cuda_ms(lambda: lib_out.index_add_(0, seg_l, gf), 10),
+    )
+    res["segsum_unsorted"]["presence_ms"] = cuda_ms(
+        lambda: segsum_unsorted(ones, seg, n_out), 20)
+    log("[kernel] segsum_unsorted ([1.7M, 128] bf16 -> [128, 2048])",
+        json.dumps(res["segsum_unsorted"]))
+    del g, gf, lib_out, ones
+
+    # -- sorted segsum at the two sorted groups' widest shapes ----------
+    for grp, d in (("emb128", 256), ("multi", 128)):
+        uidx = torch.from_numpy(host0[f"{grp}:uidx_sorted"]).to(dev)
+        n, n_out = uidx.numel(), buckets[grp]
+        g = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
+        err, rel = check_segsum(f"segsum_sorted ({grp})",
+                                segsum_sorted(g, uidx, n_out),
+                                segsum_sorted_plain(g, uidx, n_out), g, uidx,
+                                n_out)
+        t_b, _by = bound(n * d * 2 + n * 4 + d * n_out * 4, n * d)
+        log(f"[kernel] segsum_sorted ({grp} [{n}, {d}] bf16 -> [{d}, {n_out}])",
+            json.dumps(dict(
+                max_abs_err=err, max_rel_err=rel,
+                ms=cuda_ms(lambda: segsum_sorted(g, uidx, n_out), 20),
+                plain_ms=cuda_ms(lambda: segsum_sorted_plain(g, uidx, n_out), 5),
+                bound_ms=t_b)))
+        del g
+
+    # -- LazyAdam on emb128 [128, 655360], f32 m/v ----------------------
+    dp = 128
+    shape = model.specs["emb128"].storage_shape
+    base = [rnd(shape, 0.01), rnd(shape, 1e-3), rnd(shape, 1e-6).abs()]
+    aug = make_aug_grads(rnd((dp, ub), 10.0), None).contiguous()
+    lr_t = torch.tensor(1e-3, device=dev)
+    hyper = dict(dim=dp, fold=1, eps=1e-6, loss_scale=1000.0)
+    a = [x.clone() for x in base]
+    b = [x.clone() for x in base]
+    del base
+    adam_cols(*a, uq, aug, lr_t, **hyper)
+    adam_cols_plain(*b, uq, aug, lr_t, **hyper)
+    err, rel = max_errs(zip(a, b))
+    for x, y in zip(a, b):  # same float32 operations: equal to rounding
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    sectors = int(torch.unique(torch.div(live, 8, rounding_mode="floor")).numel())
+    io = ub * 4 + (dp + 8) * ub * 4
+    t_b, by = bound(io + valid * dp * 3 * 4 * 2, valid * dp * 12)
+    res["adam_cols"] = dict(
+        max_abs_err=err, max_rel_err=rel,
+        ms=cuda_ms(lambda: adam_cols(*a, uq, aug, lr_t, **hyper), 20),
+        plain_ms=cuda_ms(lambda: adam_cols_plain(*b, uq, aug, lr_t, **hyper), 5),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        sector_bound_ms=bound(io + sectors * dp * 3 * 2 * 32, 0)[0],
+    )
+    log("[kernel] adam_cols (emb128, f32 m/v)", json.dumps(res["adam_cols"]))
+    del a, b, aug
+
+    # -- FTRL on w128 [8, 81920], fold 8 ------------------------------
+    shape = model.specs["w128"].storage_shape
+    sub = torch.remainder(uq, 8)
+    gw = rnd((8, ub), 10.0) * (torch.arange(8, device=dev)[:, None] == sub[None, :])
+    aug = make_aug_grads(gw, sub).contiguous()
+    base = [rnd(shape, 0.01), 0.1 + torch.rand(shape, generator=gen, device=dev),
+            rnd(shape, 0.1)]
+    a = [x.clone() for x in base]
+    b = [x.clone() for x in base]
+    hyper = dict(dim=1, fold=8, learning_rate=5e-2, l1=5e-4, l2=5e-4,
+                 loss_scale=1000.0)
+    ftrl_cols(*a, cols_w, aug, **hyper)
+    ftrl_cols_plain(*b, cols_w, aug, **hyper)
+    err, rel = max_errs(zip(a, b))
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    io = ub * 4 + 16 * ub * 4
+    wsec = int(torch.unique(torch.div(live, 64, rounding_mode="floor")).numel())
+    t_b, by = bound(io + valid * 3 * 4 * 2, valid * 16)
+    res["ftrl_cols"] = dict(
+        max_abs_err=err, max_rel_err=rel,
+        ms=cuda_ms(lambda: ftrl_cols(*a, cols_w, aug, **hyper), 20),
+        plain_ms=cuda_ms(lambda: ftrl_cols_plain(*b, cols_w, aug, **hyper), 5),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        sector_bound_ms=bound(io + wsec * 8 * 3 * 2 * 32, 0)[0],
+    )
+    log("[kernel] ftrl_cols (w128, fold 8)", json.dumps(res["ftrl_cols"]))
+    torch.cuda.synchronize()
+    return res
+
+
+def phase_mt_main_path(dev, model, opts, host, warmup=3, steps=10,
+                       profile=False) -> dict:
+    """The multitable step at the recipe's full width."""
+    opt_w, opt_d = opts
+    state = init_train_state(model, 0, opt_w, opt_d, device=dev)
+    batches = [to_device(hb, dev) for hb in host]
+    step = make_train_step(model, opt_w, opt_d)
+    return timed_steps("mt-main", step, state, batches, MT_BATCH, MT_PER_STEP,
+                       warmup, steps, profile)
+
+
+def phase_mt_kernel_vs_plain_step(dev) -> None:
+    """3 multitable steps with the kernels and 3 with the plain versions
+    from one state: two tiny groups (indicator, emb64_single) and two
+    sorted ones (emb128, multi)."""
+    cfg = MultiTableConfig(
+        batch_size=1024, continue_field_size=4, indicator_field_size=2,
+        emb128_field_size=1, emb64_single_field_size=2,
+        multi_hot_sizes=(3, 4, 3, 2, 2, 3), emb_128_size=3000,
+        emb64_single_size=50, emb64_multi_size=2500, indicator_size=16,
+        deep_layer_dim=(256, 256), sparse=True,
+    )
+    opts = (optim.ftrl(l1=5e-4, l2=5e-4, initial_accum=0.1, loss_scale=1000.0),
+            optim.lazy_adam(learning_rate=1e-3, eps=1e-6, loss_scale=1000.0))
+    data = SyntheticOutbrain(cfg, 3, seed=11)
+    kernel_vs_plain("multitable", dev, MultiTableWideDeepModel(cfg), opts,
+                    [to_device(data.get_batch(i), dev) for i in range(3)])
 
 
 def main() -> int:
@@ -372,13 +676,25 @@ def main() -> int:
     main_path = phase_main_path(dev, data, bucket, profile=args.profile)
     torch.cuda.empty_cache()
     phase_kernel_vs_plain_step(dev)
+    torch.cuda.empty_cache()
 
+    model, opts, host, buckets = mt_setup()
+    res.update(phase_mt_kernels(dev, gen, model, host[0], buckets))
+    torch.cuda.empty_cache()
+    mt_path = phase_mt_main_path(dev, model, opts, host, profile=args.profile)
+    del host
+    torch.cuda.empty_cache()
+    phase_mt_kernel_vs_plain_step(dev)
+
+    launches = {**main_path["launches"],
+                **{k: mt_path["launches"][k] for k in MT_PER_STEP
+                   if k != "segsum_sorted"}}
     rows = [
         {"name": k, "route": "cuda", "source": SOURCES[k],
-         "replaces": REPLACES[k], "launches": main_path["launches"][k],
+         "replaces": REPLACES[k], "launches": launches[k],
          **{f: res[k][f] for f in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}}
-        for k in ("segsum_sorted", "adam_rows", "ftrl_rows")
+        for k in SOURCES
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -7,8 +7,10 @@ is a CUDA C++ kernel under ``csrc/`` (built at first use by
 ``ops/kernels/_build.py``); each kernel module also holds the plain
 PyTorch version that CPU tensors take.
 
-Ported so far: the sparse Wide&Deep train step on one device with
-row_packed tables (``train/step.py:make_train_step``).
+Ported so far: the sparse train step on one device
+(``train/step.py:make_train_step``) for one or several id groups of
+row_packed or feature-major tables, with the tiny-vocab path, and the
+Wide&Deep and multitable (Outbrain) Wide&Deep models.
 """
 
 __version__ = "0.1.0"

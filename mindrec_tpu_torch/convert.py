@@ -26,12 +26,14 @@ def _to_torch(x, device) -> torch.Tensor:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy (the step updates tables in place, so a view would change
+    under a later step)."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes  # the type JAX gives bf16 arrays on the host
 
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-    return t.numpy()
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
 
 
 def _tree(fn, node):

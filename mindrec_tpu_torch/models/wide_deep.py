@@ -24,7 +24,7 @@ from typing import Sequence
 
 import torch
 
-from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, packed_gather
+from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, lookup
 
 ACTS = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh}
 
@@ -126,7 +126,9 @@ class WideDeepModel:
 
     def apply_rows(self, params, rows, wts):
         """Forward from pre-gathered rows ``{"wide": [B,F,1],
-        "deep": [B,F,D]}`` and weights ``wts [B,F]`` -> logits [B, 1]."""
+        "deep": [B,F,D]}`` and weights ``wts [B,F]`` -> logits [B, 1].
+        A folded feature-major wide table gives ``[B,F,8]`` rows with
+        only the owning sublane nonzero; the wide sum covers them too."""
         c = self.config
         wide_rows, deep_rows = rows["wide"], rows["deep"]
         mask = wts[:, :, None].to(deep_rows.dtype)
@@ -161,18 +163,6 @@ class WideDeepModel:
             return ce, ce
         l2 = 0.5 * torch.sum(torch.square(params["deep"]["table"].float()))
         return ce, ce + self.config.l2_coef * l2
-
-
-def lookup(spec: EmbeddingTableSpec, table, ids):
-    """Rows of ``table`` for ``ids`` of any shape -> ``ids.shape + [D]``."""
-    if spec.max_norm is not None:
-        raise NotImplementedError("max_norm lookups are not ported yet")
-    if spec.row_packed:
-        flat = packed_gather(spec, table, ids.reshape(-1))
-        return flat.reshape(*ids.shape, spec.emb_dim)
-    if spec.feature_major:
-        raise NotImplementedError("feature_major tables are not ported yet")
-    return table[ids.long()]
 
 
 def sigmoid_cross_entropy(logits, labels):

@@ -1,16 +1,22 @@
-"""Embedding table specs and row_packed storage helpers.
+"""Embedding table specs and storage helpers.
 
 Port of the parts of ``mindrec_tpu/ops/embedding.py`` that the sparse
-Wide&Deep step needs: :class:`EmbeddingTableSpec` (layout arithmetic),
-``_init_rows``, ``to_storage`` / ``from_storage`` and the row_packed
-``packed_gather`` / ``packed_expand``.  Storage layouts are bit-identical
-to the reference, so tables convert between the two packages by a plain
-copy (``convert.py``).
+steps need: :class:`EmbeddingTableSpec` (layout arithmetic),
+``_init_rows``, ``to_storage`` / ``from_storage``, the row_packed
+``packed_gather`` / ``packed_expand`` and the lookup of either layout
+(:func:`lookup`, the reference's ``EmbeddingLookup.__call__``).  Storage
+layouts are bit-identical to the reference, so tables convert between
+the two packages by a plain copy (``convert.py``).
 
-Row_packed storage is ``[packed_rows, 128]``: logical row ``i`` lives in
-lanes ``[(i % pack) * emb_dim, (i % pack + 1) * emb_dim)`` of storage row
-``i // pack``.  Only this layout is ported; ``feature_major`` tables (the
-sharded regimes) raise ``NotImplementedError`` where they would be used.
+* row_packed storage is ``[packed_rows, 128]``: logical row ``i`` lives
+  in lanes ``[(i % pack) * emb_dim, (i % pack + 1) * emb_dim)`` of
+  storage row ``i // pack``.
+* feature_major storage is ``[padded_dim, padded_vocab // fold]``: the
+  vocab axis is minor-most; ``fold`` (8 for ``emb_dim == 1``, else 1)
+  logical rows share a storage column, logical row ``i`` living at
+  sublanes ``[(i % fold) * emb_dim, (i % fold + 1) * emb_dim)`` of
+  column ``i // fold``; sublanes past ``emb_dim`` (``fold == 1``) are
+  zero padding.
 """
 
 from __future__ import annotations
@@ -109,13 +115,26 @@ class EmbeddingTableSpec:
         return (n + 2047) // 2048 * 2048
 
     @property
+    def fold(self) -> int:
+        """Logical rows per feature-major storage column (8 for scalar
+        tables)."""
+        if not self.feature_major:
+            return 1
+        return 8 if self.emb_dim == 1 else 1
+
+    @property
+    def padded_dim(self) -> int:
+        """Feature-major sublane count: emb_dim rounded up to 8."""
+        if not self.feature_major:
+            return self.emb_dim
+        return max(8, (self.emb_dim + 7) // 8 * 8) if self.fold == 1 else 8
+
+    @property
     def storage_shape(self) -> tuple[int, int]:
         if self.row_packed:
             return (self.packed_rows, 128)
         if self.feature_major:
-            raise NotImplementedError(
-                "feature_major storage is not ported yet (sharded tables)"
-            )
+            return (self.padded_dim, self.padded_vocab // self.fold)
         return (self.padded_vocab, self.emb_dim)
 
     def init_table(self, generator: torch.Generator, device) -> torch.Tensor:
@@ -173,11 +192,15 @@ def to_storage(spec: EmbeddingTableSpec, logical: torch.Tensor) -> torch.Tensor:
         if p * d < 128:
             t = torch.cat([t, t.new_zeros((vr, 128 - p * d))], dim=1)
         return t.contiguous()
-    if spec.feature_major:
-        raise NotImplementedError(
-            "feature_major storage is not ported yet (sharded tables)"
-        )
-    return logical
+    if not spec.feature_major:
+        return logical
+    r, d, dp = spec.fold, spec.emb_dim, spec.padded_dim
+    if r > 1:  # column c, sublane s holds logical row c * r + s
+        return logical.reshape(spec.padded_vocab // r, r * d).T.contiguous()
+    t = logical.T
+    if dp > d:
+        t = torch.cat([t, t.new_zeros((dp - d, t.shape[1]))])
+    return t.contiguous()
 
 
 def from_storage(spec: EmbeddingTableSpec, storage: torch.Tensor) -> torch.Tensor:
@@ -186,8 +209,29 @@ def from_storage(spec: EmbeddingTableSpec, storage: torch.Tensor) -> torch.Tenso
         p, d = spec.pack, spec.emb_dim
         flat = storage[:, : p * d].reshape(-1, d)
         return flat[: spec.padded_vocab]
-    if spec.feature_major:
-        raise NotImplementedError(
-            "feature_major storage is not ported yet (sharded tables)"
-        )
-    return storage
+    if not spec.feature_major:
+        return storage
+    if spec.fold > 1:
+        return storage.T.reshape(spec.padded_vocab, spec.emb_dim)
+    return storage[: spec.emb_dim].T
+
+
+def lookup(spec: EmbeddingTableSpec, table: torch.Tensor,
+           ids: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` (storage layout) for ``ids`` of any shape ->
+    ``ids.shape + [emb_dim]`` (the reference's ``EmbeddingLookup``).
+    Ids must lie in the table; ``max_norm`` is not ported."""
+    if spec.max_norm is not None:
+        raise NotImplementedError("max_norm lookups are not ported yet")
+    flat = ids.reshape(-1)
+    if spec.row_packed:
+        out = packed_gather(spec, table, flat)
+    elif spec.feature_major:
+        r, d = spec.fold, spec.emb_dim
+        cols = torch.div(flat, r, rounding_mode="floor").long()
+        g = table[: r * d, cols].T.reshape(-1, r, d)  # drop sublane padding
+        sub = torch.remainder(flat, r).long()
+        out = g[torch.arange(g.shape[0], device=g.device), sub]
+    else:
+        out = table[flat.long()]
+    return out.reshape(*ids.shape, spec.emb_dim)

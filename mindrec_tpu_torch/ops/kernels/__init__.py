@@ -9,7 +9,10 @@ that its path went through the kernels.
 
 import torch
 
-LAUNCHES = {"segsum_sorted": 0, "adam_rows": 0, "ftrl_rows": 0}
+LAUNCHES = {
+    "segsum_sorted": 0, "adam_rows": 0, "ftrl_rows": 0,
+    "segsum_unsorted": 0, "adam_cols": 0, "ftrl_cols": 0, "gather_rows": 0,
+}
 
 
 def reset_launches() -> None:

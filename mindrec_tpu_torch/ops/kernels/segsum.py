@@ -1,12 +1,17 @@
-"""Sorted segment-sum of per-position gradients into per-unique-id sums.
+"""Segment-sums of per-position gradients into per-unique-id sums.
 
-Counterpart of ``mindrec_tpu/ops/pallas/stream_segsum.py:streamed_segsum``
-with ``row_major=True`` (the kernel ``csrc/segsum.cu``; see its header for
-the design and bound).  Contract, as in the reference: ``uidx_sorted`` is
-non-decreasing with unit steps; the result is ``[D, n_out]`` float32 with
-column ``u`` the sum of rows ``n`` of ``g`` where ``uidx_sorted[n] == u``;
-columns past the last segment are zero.  Segment ids outside
-``[0, n_out)`` add nothing.
+Counterparts of ``mindrec_tpu/ops/pallas/stream_segsum.py`` (the kernels
+are in ``csrc/segsum.cu``; see its header for the designs and bounds):
+
+* :func:`segsum_sorted` - ``streamed_segsum`` with ``row_major=True``.
+  ``uidx_sorted`` is non-decreasing with unit steps; the result is
+  ``[D, n_out]`` float32 with column ``u`` the sum of rows ``n`` of ``g``
+  where ``uidx_sorted[n] == u``; columns past the last segment are zero.
+* :func:`segsum_unsorted` - ``streamed_segsum_unsorted``: the same sum
+  for segment ids in any order, ``n_out <= 2048`` (the tiny-vocab path,
+  whose segment ids are the raw ids).
+
+In both, segment ids outside ``[0, n_out)`` add nothing.
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ def segsum_sorted(g: torch.Tensor, uidx_sorted: torch.Tensor,
 
     ``g``: [N, D] bfloat16 or float32 (D <= 256); ``uidx_sorted``: [N]
     int32.  CPU tensors take :func:`segsum_sorted_plain`; CUDA tensors
-    launch the kernel."""
+    launch the kernel, whose result is the transposed view of a
+    row-major [n_out, D] array."""
     require(g.dim() == 2 and uidx_sorted.shape == (g.shape[0],), _NAME,
             f"g [N, D] and uidx_sorted [N] expected, got {tuple(g.shape)} "
             f"and {tuple(uidx_sorted.shape)}")
@@ -57,7 +63,7 @@ def segsum_sorted(g: torch.Tensor, uidx_sorted: torch.Tensor,
     require(0 < d <= 256, _NAME, f"D must be in [1, 256], got {d}")
     require(n < 2**31 and 0 <= n_out < 2**31, _NAME, "sizes must fit int32")
     require_contiguous(_NAME, g=g, uidx_sorted=uidx_sorted)
-    out = torch.empty((d, n_out), dtype=torch.float32, device=g.device)
+    out = torch.empty((n_out, d), dtype=torch.float32, device=g.device)
     seg = torch.empty((2, n_out), dtype=torch.int32, device=g.device)
     partial = torch.empty((-(-n // _CHUNK), 2, d), dtype=torch.float32,
                           device=g.device)
@@ -67,4 +73,53 @@ def segsum_sorted(g: torch.Tensor, uidx_sorted: torch.Tensor,
             partial.data_ptr(), out.data_ptr(), _build.stream_of(g))
     _build.check(rc, _NAME)
     LAUNCHES[_NAME] += 1
+    return out.T  # the kernel writes coalesced [n_out, D] rows
+
+
+_UNSORTED = "segsum_unsorted"
+_UNSORTED_ARGS = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
+]
+_UCOLS, _UCHUNK = 16, 1024  # kUCols, kUChunk in csrc/segsum.cu
+
+
+def segsum_unsorted_plain(g: torch.Tensor, seg_ids: torch.Tensor,
+                          n_out: int) -> torch.Tensor:
+    """Plain PyTorch version (``index_add_`` in float32)."""
+    return segsum_sorted_plain(g, seg_ids, n_out)
+
+
+def segsum_unsorted(g: torch.Tensor, seg_ids: torch.Tensor,
+                    n_out: int) -> torch.Tensor:
+    """``out[:, s] = sum(g[n, :] for seg_ids[n] == s)`` -> [D, n_out].
+
+    ``g``: [N, D] bfloat16 or float32; ``seg_ids``: [N] int32 in any
+    order; ``n_out <= 2048``.  CPU tensors take
+    :func:`segsum_unsorted_plain`; CUDA tensors launch the kernel."""
+    require(g.dim() == 2 and seg_ids.shape == (g.shape[0],), _UNSORTED,
+            f"g [N, D] and seg_ids [N] expected, got {tuple(g.shape)} and "
+            f"{tuple(seg_ids.shape)}")
+    require(0 <= n_out <= 2048, _UNSORTED, f"n_out must be <= 2048, got {n_out}")
+    if on_cpu(_UNSORTED, g, seg_ids):
+        return segsum_unsorted_plain(g, seg_ids, n_out)
+    n, d = g.shape
+    require(g.dtype in (torch.bfloat16, torch.float32), _UNSORTED,
+            f"g must be bfloat16 or float32, got {g.dtype}")
+    require(seg_ids.dtype == torch.int32, _UNSORTED, "seg_ids must be int32")
+    require(d > 0 and n < 2**31, _UNSORTED, "sizes out of range")
+    require_contiguous(_UNSORTED, g=g, seg_ids=seg_ids)
+    # position ranges: about two waves of blocks over the 132 SMs
+    col_blocks = -(-d // _UCOLS)
+    n_part = max(1, min(-(-264 // col_blocks), -(-n // _UCHUNK)))
+    out = torch.empty((d, n_out), dtype=torch.float32, device=g.device)
+    partial = torch.empty((n_part, d, n_out), dtype=torch.float32,
+                          device=g.device)
+    fn = _build.kernel_fn("mr_segsum_unsorted", _UNSORTED_ARGS)
+    rc = fn(g.data_ptr(), int(g.dtype == torch.bfloat16), seg_ids.data_ptr(),
+            n, d, n_out, n_part, partial.data_ptr(), out.data_ptr(),
+            _build.stream_of(g))
+    _build.check(rc, _UNSORTED)
+    LAUNCHES[_UNSORTED] += 1
     return out

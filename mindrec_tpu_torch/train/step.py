@@ -1,30 +1,40 @@
-"""Sparse CTR train step (one device, row_packed tables) and eval step.
+"""Sparse CTR train step (one device) and eval step.
 
 Port of the ``use_pallas and row_layout`` branch of
-``mindrec_tpu/train/step.py:make_train_step`` for one id group of
-unsharded, non-tiny, row_packed tables, with its tail ``_finish_sparse``
-and ``_packed_table_update``.  One step, in order:
+``mindrec_tpu/train/step.py:make_train_step`` for unsharded tables in
+one or several id groups (the multitable model declares four), with its
+tail ``_finish_sparse``, ``_packed_table_update`` and
+``_streamed_table_update``.  One step, per id group, in order:
 
 1. sort metadata (``perm``, ``uq_ids``, ``uidx``, ``uidx_sorted``) from
-   host prep (:func:`make_batch_sort`) or from a device sort;
+   host prep (:func:`make_batch_sort`, ``{group}:``-prefixed keys for
+   named groups) or from a device sort; a tiny group (whole id space
+   within ``tiny_vocab`` <= 2048) skips the sort, its unique set being
+   the whole id space;
 2. the unique ids, cut or padded with the sentinel ``2**31 - 2`` to the
-   static bucket ``ub``, gather their rows from packed storage into one
-   ``[ub, 128]`` float32 buffer, the tables side by side in its lanes;
+   static bucket ``ub``, gather their rows into one ``[ub, width]``
+   float32 buffer, the group's tables side by side in its lanes:
+   row_packed tables first (``packed_gather``), then feature-major
+   tables, each over its full ``Dp`` sublanes (``gather_rows``, kernel);
 3. the buffer expands to batch order (``buf[uidx]``, in ``matmul_dtype``)
-   and the model runs forward and backward from it;
-4. the per-position gradients move to sorted order (``g[perm]``);
-5. ``segsum_sorted`` sums duplicates per unique id (kernel);
-6. ``adam_rows`` / ``ftrl_rows`` update only the touched rows (kernels);
-   the dense parameters take their optimizer's dense update.
+   and the model runs forward and backward from it (folded wide tables
+   masked to the owning sublane);
+4. the per-position gradients are summed per unique slot: moved to
+   sorted order (``g[perm]``) and summed by ``segsum_sorted`` (kernel),
+   or, in a tiny group, summed by raw id with ``segsum_unsorted``
+   (kernel), whose presence counts gate the lazy updates;
+5. the tables update only the touched rows: row_packed tables with
+   ``adam_rows`` / ``ftrl_rows``, feature-major tables with
+   ``adam_cols`` / ``ftrl_cols`` from touch-augmented gradients
+   (kernels); the dense parameters take their optimizer's dense update.
 
 The step updates the tables and their optimizer state **in place** and
 returns a new :class:`TrainState` that shares them: the state passed in
 must not be used again (the reference donates it).  With
 ``use_kernels=False`` the step calls the kernels' plain versions
 directly on any device (the reference for the kernels on the card).
-Every other branch of the reference (dense models, multi-group,
-tiny-vocab, feature-major, sharded, ``row_layout=False``) raises
-``NotImplementedError``.
+The dense step, ``row_layout=False``, sharded or host-resident tables and
+non-sparse table specs raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,7 +45,14 @@ import numpy as np
 import torch
 
 from mindrec_tpu_torch.ops.embedding import packed_expand, packed_gather
-from mindrec_tpu_torch.ops.kernels.segsum import segsum_sorted, segsum_sorted_plain
+from mindrec_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
+from mindrec_tpu_torch.ops.kernels.segsum import (
+    segsum_sorted, segsum_sorted_plain, segsum_unsorted, segsum_unsorted_plain,
+)
+from mindrec_tpu_torch.ops.kernels.update_cols import (
+    AUG, adam_cols, adam_cols_plain, ftrl_cols, ftrl_cols_plain,
+    make_aug_grads,
+)
 from mindrec_tpu_torch.ops.kernels.update_rows import (
     adam_rows, adam_rows_plain, ftrl_rows, ftrl_rows_plain,
 )
@@ -167,6 +184,48 @@ def _packed_table_update(opt: Optimizer, g_cols, rows_sorted, sub_sorted,
 
 
 # ---------------------------------------------------------------------------
+# feature-major table update
+# ---------------------------------------------------------------------------
+
+
+def _streamed_table_update(opt: Optimizer, grads_aug, cols, leaf_state, table,
+                           spec, use_kernels=True):
+    """Column-sparse optimizer update of a feature-major ``[Dp, Vc]``
+    table, in place.
+
+    ``grads_aug``: [Dp+8, U] touch-augmented summed gradients
+    (``make_aug_grads``); ``cols``: [U] int32 sorted storage columns.
+    Returns (table, new leaf state)."""
+    h = opt.hyper
+    dp, vc = table.shape
+    kw = dict(dim=spec.emb_dim, fold=spec.fold, loss_scale=h["loss_scale"])
+    if opt.kind == "sgd":
+        # no touch mask (as the reference): absent columns get no gradient
+        delta = (-h["learning_rate"] / h["loss_scale"]) * grads_aug[:dp].float()
+        ok = (cols >= 0) & (cols < vc)
+        table.index_add_(1, cols[ok].long(), delta[:, ok].to(table.dtype))
+        return table, leaf_state
+    if opt.kind == "adam":
+        step = leaf_state["step"] + 1
+        lr_t = adam_lr_t(step, learning_rate=h["learning_rate"], b1=h["b1"],
+                         b2=h["b2"])
+        fn = adam_cols if use_kernels else adam_cols_plain
+        fn(table, leaf_state["m"], leaf_state["v"], cols, grads_aug, lr_t,
+           b1=h["b1"], b2=h["b2"], eps=h["eps"], **kw)
+        return table, {"m": leaf_state["m"], "v": leaf_state["v"],
+                       "step": step}
+    if opt.kind == "ftrl":
+        if h["lr_power"] != -0.5:
+            raise NotImplementedError("column updates fix lr_power at -0.5")
+        fn = ftrl_cols if use_kernels else ftrl_cols_plain
+        fn(table, leaf_state["accum"], leaf_state["linear"], cols, grads_aug,
+           learning_rate=h["learning_rate"], l1=h["l1"], l2=h["l2"], **kw)
+        return table, leaf_state
+    raise ValueError(f"feature-major update supports ftrl/adam/sgd "
+                     f"(kind={opt.kind})")
+
+
+# ---------------------------------------------------------------------------
 # step builder
 # ---------------------------------------------------------------------------
 
@@ -178,7 +237,7 @@ def _get(params, path):
     return node
 
 
-def _supported(model, sparse, row_layout, tiny_vocab):
+def _supported(model, sparse, row_layout):
     """Raise NotImplementedError for every branch this port lacks."""
     if not sparse:
         raise NotImplementedError("the dense train step is not ported yet")
@@ -186,50 +245,73 @@ def _supported(model, sparse, row_layout, tiny_vocab):
         raise NotImplementedError(
             "row_layout=False (feature-major streaming) is not ported yet"
         )
-    if getattr(model, "table_groups", None):
-        raise NotImplementedError("multi-group models are not ported yet")
-    specs = model.table_specs
-    for name, (_path, spec) in specs.items():
-        if not spec.row_packed:
-            raise NotImplementedError(
-                f"table {name}: only row_packed tables are ported "
-                f"(layout={spec.layout!r}, slice_mode={spec.slice_mode!r})"
-            )
+    for name, (_path, spec) in model.table_specs.items():
         if spec.slice_mode != "none" or spec.target != "device":
             raise NotImplementedError(
-                f"table {name}: sharded or host tables are not ported yet"
+                f"table {name}: sharded or host tables are not ported yet "
+                f"(slice_mode={spec.slice_mode!r}, target={spec.target!r})"
             )
-    bound = max(spec.vocab_size + 9 for _p, spec in specs.values())
-    if (bound + 2047) // 2048 * 2048 <= min(tiny_vocab, 2048):
-        raise NotImplementedError(
-            "tiny-vocab id groups (streamed_segsum_unsorted) are not "
-            "ported yet; pass tiny_vocab=0 to sort them instead"
-        )
+        if not spec.sparse:
+            raise NotImplementedError(
+                f"table {name}: the sparse step needs sparse table specs"
+            )
 
 
-def _sort_meta(batch, flat):
-    """-> (perm, uq_ids, uidx, uidx_sorted, uq_len): host-prepared (batch
-    keys of :func:`make_batch_sort`) or derived by a device sort."""
+def _id_bound(table_specs, names) -> int:
+    """Ids of a group lie below this bound (vocab + dummy + spare),
+    rounded up to 2048."""
+    bound = max(table_specs[n][1].vocab_size + 9 for n in names)
+    return (bound + 2047) // 2048 * 2048
+
+
+def _group_ids(batch, keys):
+    """[B, F_g] ids of an id group: its batch keys side by side."""
+    parts = [batch[k] for k in keys]
+    if len(parts) == 1:
+        return parts[0]
+    B = int(parts[0].shape[0])
+    return torch.cat([p.reshape(B, -1) for p in parts], dim=1)
+
+
+def _fold_mask(dp: int, dim: int, sub, dtype):
+    """[Dp, N] one-hot: 1 where sublane p belongs to fold sub-row sub[n]."""
+    p_row = torch.arange(dp, device=sub.device) // dim
+    return (p_row[:, None] == sub[None, :]).to(dtype)
+
+
+def _fold_mask_rows(dp: int, dim: int, sub, dtype):
+    """Row-major twin of :func:`_fold_mask`: [N, Dp]."""
+    lane = torch.arange(dp, device=sub.device) // dim
+    return (lane[None, :] == sub[:, None]).to(dtype)
+
+
+def _sort_meta(batch, flat, pref=""):
+    """-> (perm, uq_ids, uidx, uidx_sorted, uq_len) of one id group:
+    host-prepared (batch keys of :func:`make_batch_sort`, ``{group}:``
+    prefixed for named groups) or derived by a device sort."""
     n = flat.numel()
-    if "perm" in batch:
-        perm = batch["perm"].reshape(-1)
-        sorted_ids = batch["sorted_ids"].reshape(-1) if "sorted_ids" in batch else None
-        inv = batch["inv"].reshape(-1) if "inv" in batch else None
+    if pref + "perm" in batch:
+        perm = batch[pref + "perm"].reshape(-1)
+        sorted_ids = batch.get(pref + "sorted_ids")
+        inv = batch.get(pref + "inv")
+        sorted_ids = None if sorted_ids is None else sorted_ids.reshape(-1)
+        inv = None if inv is None else inv.reshape(-1)
     else:
         sorted_ids, perm = torch.sort(flat, stable=True)
         inv = torch.empty_like(perm)
         inv[perm] = torch.arange(n, dtype=perm.dtype, device=perm.device)
 
     def uidx_of(sorted_ids):
-        newv = torch.ones(n, dtype=torch.bool, device=flat.device)
+        newv = torch.ones(sorted_ids.numel(), dtype=torch.bool,
+                          device=flat.device)
         newv[1:] = sorted_ids[1:] != sorted_ids[:-1]
         return newv, torch.cumsum(newv, 0, dtype=torch.int32) - 1
 
-    if "uq_ids" in batch:
-        uq = batch["uq_ids"].reshape(-1)
-        uidx_b = batch["uidx"].reshape(-1)
-        if "uidx_sorted" in batch:
-            uidx_s = batch["uidx_sorted"].reshape(-1)
+    if pref + "uq_ids" in batch:
+        uq = batch[pref + "uq_ids"].reshape(-1)
+        uidx_b = batch[pref + "uidx"].reshape(-1)
+        if pref + "uidx_sorted" in batch:
+            uidx_s = batch[pref + "uidx_sorted"].reshape(-1)
         elif sorted_ids is None:
             raise ValueError("batch has uq_ids but neither uidx_sorted nor "
                              "sorted_ids to derive it from")
@@ -245,6 +327,38 @@ def _sort_meta(batch, flat):
     return perm, uq, uidx_s[inv], uidx_s, n
 
 
+class _Group(NamedTuple):
+    """Static layout of one id group's unique-row buffer."""
+
+    keys: tuple
+    tables: tuple  # table names, row_packed first (the lane order)
+    offs: dict  # table name -> first lane
+    lanes: dict  # table name -> lanes (emb_dim, or Dp if feature-major)
+    width: int  # buffer lanes, a multiple of 128
+    tiny: bool  # sort-free path: the whole id space is the unique set
+    id_bound: int
+
+
+def _group_layouts(table_specs, table_groups, tiny_vocab):
+    out = {}
+    for g, info in table_groups.items():
+        names = tuple(sorted(info["tables"],
+                             key=lambda n: not table_specs[n][1].row_packed))
+        offs, lanes, off = {}, {}, 0
+        for name in names:
+            spec = table_specs[name][1]
+            offs[name] = off
+            lanes[name] = spec.emb_dim if spec.row_packed else spec.padded_dim
+            off += lanes[name]
+        bound = _id_bound(table_specs, names)
+        out[g] = _Group(
+            keys=tuple(info["keys"]), tables=names, offs=offs, lanes=lanes,
+            width=max(128, -(-off // 128) * 128),
+            tiny=bound <= min(tiny_vocab, 2048), id_bound=bound,
+        )
+    return out
+
+
 def make_train_step(
     model,
     opt_w: Optimizer,
@@ -255,62 +369,162 @@ def make_train_step(
     check_overflow: bool = False,
     matmul_dtype: torch.dtype = torch.bfloat16,
     row_layout: bool = True,
-    unique_bucket: int | None = None,
+    unique_bucket: int | dict | None = None,
     tiny_vocab: int = 2048,
 ):
     """Build ``step(state, batch) -> (state, (loss_w, loss_d))``.
 
-    ``batch``: tensors on the state's device, ``ids [B,F] int32``,
-    ``wts [B,F] f32``, ``label [B,1] f32``, plus optionally the host-prep
-    keys of :func:`make_batch_sort`.  ``unique_bucket``: static bound on
-    distinct ids per batch (rounded up to 2048); defaults to the length
-    of the batch's ``uq_ids`` (host prep) or the lossless ``B*F``.
-    ``matmul_dtype``: type of the expanded rows and of their gradients
-    (bf16 in production, as the reference).  ``check_overflow``: skip
-    the update (but advance the step) when a gradient is not finite;
-    this reads one flag on the host each step."""
+    ``batch``: tensors on the state's device: the model's id keys (``ids
+    [B,F] int32`` and ``wts [B,F] f32`` for Criteo models; the
+    multitable keys otherwise), ``label [B,1] f32``, plus optionally the
+    host-prep keys of :func:`make_batch_sort`.  ``unique_bucket``: static
+    bound on distinct ids per batch (rounded up to 2048), an int for a
+    sole id group or ``{group: int}``; defaults to the length of the
+    group's ``uq_ids`` (host prep) or the lossless position count.
+    ``tiny_vocab``: groups whose id space fits this bound (at most 2048)
+    skip the sort: their unique set is the whole id space and the
+    backward is one unsorted segment-sum, with presence counts gating
+    the lazy updates.  ``matmul_dtype``: type of the expanded rows and of
+    their gradients (bf16 in production, as the reference).
+    ``check_overflow``: skip the update (but advance the step) when a
+    gradient is not finite; this reads one flag on the host each step."""
     cfg = model.config
     if sparse is None:
         sparse = bool(getattr(cfg, "sparse", False))
-    _supported(model, sparse, row_layout, tiny_vocab)
+    _supported(model, sparse, row_layout)
     sens = float(loss_scale if loss_scale is not None
                  else getattr(cfg, "loss_scale", 1.0))
     table_specs = model.table_specs
     table_keys = {"/".join(path): (name, path, spec)
                   for name, (path, spec) in table_specs.items()}
-    # lane layout of the unique row buffer: tables side by side
-    offs, off = {}, 0
-    for name, (_path, spec) in table_specs.items():
-        offs[name] = off
-        off += spec.emb_dim
-    width = max(128, -(-off // 128) * 128)
+    table_groups = getattr(model, "table_groups", None) or {
+        "_default": {"keys": ("ids",), "tables": tuple(table_specs)}
+    }
+    layouts = _group_layouts(table_specs, table_groups, tiny_vocab)
     segsum = segsum_sorted if use_kernels else segsum_sorted_plain
+    unsorted = segsum_unsorted if use_kernels else segsum_unsorted_plain
+    gather = gather_rows if use_kernels else gather_rows_plain
+    ones_cache = {}  # (positions, device) -> the [N, 1] presence input
+
+    def presence_ones(n, device):
+        key = (n, str(device))
+        if key not in ones_cache:
+            ones_cache[key] = torch.ones((n, 1), dtype=matmul_dtype,
+                                         device=device)
+        return ones_cache[key]
+
+    def bucket_of(g, uq_len):
+        if isinstance(unique_bucket, dict):
+            ub = unique_bucket.get(g)
+        else:
+            ub = unique_bucket if len(table_groups) == 1 else None
+        ub = ub if ub is not None else uq_len
+        return (int(ub) + 2047) // 2048 * 2048
+
+    def forward_meta(params, batch):
+        """Per group: sort metadata and the [ub, width] unique-row buffer
+        (row_packed tables gathered first, then the feature-major tables
+        by the gather kernel into their lanes)."""
+        gdata = {}
+        for g, lay in layouts.items():
+            ids_g = _group_ids(batch, lay.keys)
+            flat = ids_g.reshape(-1).contiguous()
+            if lay.tiny:
+                perm = uidx_s = None
+                ub = lay.id_bound
+                uq_b = torch.arange(ub, dtype=torch.int32, device=flat.device)
+                uidx_b = flat
+            else:
+                pref = "" if g == "_default" else f"{g}:"
+                perm, uq, uidx_b, uidx_s, uq_len = _sort_meta(batch, flat, pref)
+                ub = bucket_of(g, uq_len)
+                if ub <= uq_len:
+                    uq_b = uq[:ub]
+                else:
+                    uq_b = torch.cat([uq, uq.new_full((ub - uq_len,), SENTINEL)])
+                uq_b = uq_b.to(torch.int32)
+            parts, cols, subs = [], {}, {}
+            for name in lay.tables:
+                path, spec = table_specs[name]
+                if spec.row_packed:
+                    p = spec.pack
+                    cols[name] = torch.div(uq_b, p, rounding_mode="floor")
+                    subs[name] = torch.remainder(uq_b, p)
+                    parts.append(packed_gather(spec, _get(params, path), uq_b)
+                                 .float())
+                else:
+                    r = spec.fold
+                    cols[name] = torch.div(uq_b, r, rounding_mode="floor")
+                    subs[name] = torch.remainder(uq_b, r) if r > 1 else None
+            used = sum(x.shape[1] for x in parts)
+            if used < lay.width:
+                parts.append(uq_b.new_zeros((ub, lay.width - used),
+                                            dtype=torch.float32))
+            buf = torch.cat(parts, dim=1)  # [ub, width]
+            for name in lay.tables:
+                path, spec = table_specs[name]
+                if not spec.row_packed:
+                    gather(_get(params, path), cols[name], buf, lay.offs[name])
+            gdata[g] = dict(buf=buf, flat=flat, perm=perm, uidx_b=uidx_b,
+                            uidx_s=uidx_s, ub=ub, cols=cols, subs=subs,
+                            shape=tuple(ids_g.shape[:2]))
+        return gdata
+
+    def table_rows(gdata, rows_pos):
+        """Each table's rows in batch order: its lanes of the group's
+        expanded buffer, folded tables masked to the owning sublane."""
+        rows = {}
+        for g, lay in layouts.items():
+            gd = gdata[g]
+            for name in lay.tables:
+                spec = table_specs[name][1]
+                o, dpf = lay.offs[name], lay.lanes[name]
+                r = rows_pos[g][:, o: o + dpf]
+                if spec.fold > 1:
+                    sub = torch.remainder(gd["flat"], spec.fold)
+                    r = r * _fold_mask_rows(dpf, spec.emb_dim, sub, r.dtype)
+                else:
+                    r = r[:, : spec.emb_dim]  # drop sublane padding
+                rows[name] = r.reshape(*gd["shape"], -1)
+        return rows
+
+    def backward_sums(gdata, g_deltas):
+        """Per table: summed gradients per unique slot [lanes, ub] f32,
+        and the presence gate [1, ub] of tiny groups' tables."""
+        col_grads, touch_mask = {}, {}
+        for g, lay in layouts.items():
+            gd = gdata[g]
+            gpos = g_deltas[g].contiguous()
+            if lay.tiny:
+                # no crossing: reduce batch-order gradients by raw id;
+                # presence counts keep absent ids untouched
+                g_uq_all = unsorted(gpos, gd["flat"], gd["ub"])
+                counts = unsorted(presence_ones(gd["flat"].numel(), gpos.device),
+                                  gd["flat"], gd["ub"])
+                present = (counts > 0).float()
+                for name in lay.tables:
+                    touch_mask[name] = present
+            else:
+                g_uq_all = segsum(gpos[gd["perm"].long()],
+                                  gd["uidx_s"].to(torch.int32), gd["ub"])
+            for name in lay.tables:
+                spec = table_specs[name][1]
+                o, dpf = lay.offs[name], lay.lanes[name]
+                gcol = g_uq_all[o: o + dpf]
+                if spec.fold > 1:  # defensive re-mask, as the reference
+                    gcol = gcol * _fold_mask(dpf, spec.emb_dim,
+                                             gd["subs"][name], gcol.dtype)
+                col_grads[name] = gcol
+        return col_grads, touch_mask
 
     def step(state: TrainState, batch):
         params = state.params
-        ids = batch["ids"]
-        B, F = int(ids.shape[0]), int(ids.shape[1])
-        flat = ids.reshape(-1)
-        perm, uq, uidx_b, uidx_s, uq_len = _sort_meta(batch, flat)
-        ub = unique_bucket if unique_bucket is not None else uq_len
-        ub = (int(ub) + 2047) // 2048 * 2048
-        if ub <= uq_len:
-            uq_b = uq[:ub]
-        else:
-            uq_b = torch.cat([uq, uq.new_full((ub - uq_len,), SENTINEL)])
-        uq_b = uq_b.to(torch.int32)
-
-        parts, rows_sorted, sub_sorted = [], {}, {}
-        for name, (path, spec) in table_specs.items():
-            p = spec.pack
-            rows_sorted[name] = torch.div(uq_b, p, rounding_mode="floor")
-            sub_sorted[name] = torch.remainder(uq_b, p)
-            parts.append(packed_gather(spec, _get(params, path), uq_b).float())
-        if off < width:
-            parts.append(uq_b.new_zeros((ub, width - off), dtype=torch.float32))
-        buf = torch.cat(parts, dim=1)  # [ub, width]
-        rows_pos = buf.to(matmul_dtype)[uidx_b.long()].requires_grad_(True)
-
+        gdata = forward_meta(params, batch)
+        rows_pos = {
+            g: gd["buf"].to(matmul_dtype)[gd["uidx_b"].long()]
+            .requires_grad_(True)
+            for g, gd in gdata.items()
+        }
         leaves = {}  # dense parameters, tracked for autograd
 
         def track(key, leaf):
@@ -320,20 +534,19 @@ def make_train_step(
             return leaves[key]
 
         p_view = map_leaves(track, params)
-        rows = {
-            name: rows_pos[:, offs[name]: offs[name] + spec.emb_dim]
-            .reshape(B, F, spec.emb_dim)
-            for name, (_path, spec) in table_specs.items()
-        }
         with torch.enable_grad():
-            logits = model.apply_rows(p_view, rows, batch["wts"])
+            rows = table_rows(gdata, rows_pos)
+            if hasattr(model, "apply_rows_batch"):
+                logits = model.apply_rows_batch(p_view, rows, batch)
+            else:
+                logits = model.apply_rows(p_view, rows, batch["wts"])
             loss_w, loss_d = model.loss(p_view, logits, batch["label"])
-            inputs = [*leaves.values(), rows_pos]
+            inputs = [*leaves.values(), *rows_pos.values()]
             grads = torch.autograd.grad(loss_d * sens, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(inputs, grads)]
-        g_deltas = grads[-1]  # [N, width] batch order
-        dense_grads = dict(zip(leaves, grads[:-1]))
+        dense_grads = dict(zip(leaves, grads[: len(leaves)]))
+        g_deltas = dict(zip(rows_pos, grads[len(leaves):]))
         losses = (loss_w.detach(), loss_d.detach())
         next_step = state.step + 1
 
@@ -344,7 +557,7 @@ def make_train_step(
             if not bool(finite):  # keep params and state, advance step
                 return state._replace(step=next_step), losses
 
-        g_uq_all = segsum(g_deltas[perm.long()], uidx_s.to(torch.int32), ub)
+        col_grads, touch_mask = backward_sums(gdata, g_deltas)
         opt_w_state, opt_d_state = dict(state.opt_w), dict(state.opt_d)
 
         def dense_update(key, leaf):
@@ -357,14 +570,30 @@ def make_train_step(
             return p2
 
         new_params = map_leaves(dense_update, params)
+        cols, subs = {}, {}
+        for gd in gdata.values():
+            cols.update(gd["cols"])
+            subs.update(gd["subs"])
         for key, (name, path, spec) in table_keys.items():
             wide = is_wide_key(key)
             states = opt_w_state if wide else opt_d_state
-            o = offs[name]
-            _table, states[key] = _packed_table_update(
-                opt_w if wide else opt_d, g_uq_all[o: o + spec.emb_dim],
-                rows_sorted[name], sub_sorted[name], states[key],
-                _get(params, path), spec, use_kernels=use_kernels,
+            opt = opt_w if wide else opt_d
+            table = _get(params, path)
+            gate = touch_mask.get(name)
+            if spec.row_packed:
+                present = None if gate is None else (gate.reshape(-1) > 0).to(
+                    torch.int32)
+                _t, states[key] = _packed_table_update(
+                    opt, col_grads[name], cols[name], subs[name], states[key],
+                    table, spec, present=present, use_kernels=use_kernels,
+                )
+                continue
+            g_aug = make_aug_grads(col_grads[name], subs[name])
+            if gate is not None:  # absent ids of a tiny group: no touch
+                g_aug = torch.cat([g_aug[:-AUG], g_aug[-AUG:] * gate])
+            _t, states[key] = _streamed_table_update(
+                opt, g_aug.contiguous(), cols[name], states[key], table, spec,
+                use_kernels=use_kernels,
             )
         return TrainState(new_params, opt_w_state, opt_d_state,
                           next_step), losses
@@ -389,40 +618,121 @@ class BucketOverflow(RuntimeError):
         self.bucket = bucket
 
 
-def make_batch_sort(field_size: int, unique_bucket: int | None = None,
-                    minimal: bool = False):
+def prep_groups(model, tiny_vocab: int = 2048) -> dict | None:
+    """The id groups host prep should sort for a model: its
+    ``table_groups`` minus tiny groups, whose sort metadata the step
+    never reads.  None for single-group models (prep uses the bare
+    ``ids`` contract); possibly an empty dict otherwise."""
+    groups = getattr(model, "table_groups", None)
+    if groups is None or ("_default" in groups and len(groups) == 1):
+        return None
+    specs = model.table_specs
+    return {g: info for g, info in groups.items()
+            if _id_bound(specs, info["tables"]) > tiny_vocab}
+
+
+def _np_sort_meta(ids):
+    """-> (sorted_ids, perm, inv, uq [n], uidx, uidx_sorted, n_unique)."""
+    n = ids.size
+    perm = np.argsort(ids, kind="stable").astype(np.int32)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(n, dtype=np.int32)
+    sorted_ids = ids[perm]
+    newv = np.empty(n, bool)
+    newv[:1] = True
+    np.not_equal(sorted_ids[1:], sorted_ids[:-1], out=newv[1:])
+    uidx_sorted = np.cumsum(newv, dtype=np.int32) - 1
+    uq = np.full(n, SENTINEL, np.int32)
+    u = sorted_ids[newv]
+    uq[: u.size] = u
+    return sorted_ids, perm, inv, uq, uidx_sorted[inv], uidx_sorted, int(u.size)
+
+
+def make_batch_sort(field_size: int, unique_bucket=None, minimal: bool = False,
+                    groups: dict | None = None,
+                    kept_budget: dict | None = None):
     """Host-side batch prep (numpy): attach ``perm``, ``uq_ids``,
     ``uidx``, ``uidx_sorted`` (and ``sorted_ids``/``inv`` unless
     ``minimal``) so the step skips its device sort.  Port of the numpy
-    path of the reference's ``make_batch_sort`` for one id group; raises
-    :class:`BucketOverflow` when a batch has more distinct ids than
-    ``unique_bucket``."""
+    path of the reference's ``make_batch_sort``.
+
+    ``unique_bucket``: the step's static bucket (an int, or ``{group:
+    int}``); a batch with more distinct ids raises
+    :class:`BucketOverflow`.  ``groups``: a model's ``table_groups`` (or
+    :func:`prep_groups` of it): prep runs per id group over its batch
+    keys side by side and emits ``{group}:``-prefixed keys (bare keys for
+    ``_default``).  ``kept_budget``: ``{group: int}``; a group that
+    declares ``mask_keys`` then has its sorted stream compacted to the
+    masked-in positions, padded to this static length: pad slots point
+    at position 0 with segment ``n_unique``, which holds a sentinel id
+    (raises :class:`BucketOverflow` when the batch keeps more positions
+    than the budget, or when ``n_unique >= unique_bucket``).  An id
+    occurring only at masked positions is then not touched."""
     del field_size  # kept for the reference's signature
 
-    def prep(batch: dict) -> dict:
-        ids = np.asarray(batch["ids"]).reshape(-1)
+    def group_items(batch):
+        if groups is None:
+            yield "", np.asarray(batch["ids"]).reshape(-1), unique_bucket, None, None
+            return
+        for g, info in groups.items():
+            keys = info["keys"] if isinstance(info, dict) else tuple(info)
+            parts = [np.asarray(batch[k]) for k in keys]
+            B = parts[0].shape[0]
+            ids_g = np.concatenate([p.reshape(B, -1) for p in parts], axis=1)
+            bucket = (unique_bucket.get(g) if isinstance(unique_bucket, dict)
+                      else unique_bucket)
+            budget = (kept_budget or {}).get(g)
+            mask_keys = info.get("mask_keys") if isinstance(info, dict) else None
+            mask = None
+            if budget is not None and mask_keys:
+                mask = np.concatenate(
+                    [np.asarray(batch[k]).reshape(B, -1) for k in mask_keys],
+                    axis=1).reshape(-1)
+            pref = "" if g == "_default" else f"{g}:"
+            yield pref, ids_g.reshape(-1), bucket, mask, budget
+
+    def prep_one(out, pref, ids, bucket, mask, budget):
         n = ids.size
-        perm = np.argsort(ids, kind="stable").astype(np.int32)
-        inv = np.empty_like(perm)
-        inv[perm] = np.arange(n, dtype=np.int32)
-        sorted_ids = ids[perm]
-        newv = np.empty(n, bool)
-        newv[0] = True
-        np.not_equal(sorted_ids[1:], sorted_ids[:-1], out=newv[1:])
-        uidx_sorted = np.cumsum(newv, dtype=np.int32) - 1
-        uq = np.full(n, SENTINEL, np.int32)
-        u = sorted_ids[newv]
-        uq[: u.size] = u
-        if unique_bucket is not None and u.size > unique_bucket:
-            raise BucketOverflow(int(u.size), unique_bucket)
-        out = dict(batch)
+        if mask is not None:
+            # sort only the masked-in positions (the others carry exactly
+            # zero gradient)
+            pos = np.flatnonzero(mask > 0).astype(np.int32)
+            nk = pos.size
+            if nk > budget:
+                raise BucketOverflow(nk, budget)
+            _s, perm_k, _i, uq_k, uidx_k, uidx_sorted_k, nu = _np_sort_meta(
+                ids[pos])
+            if bucket is not None and nu >= bucket:
+                # >=: the pad slots' segment needs index nu
+                raise BucketOverflow(nu + 1, bucket)
+            perm = np.zeros(budget, np.int32)  # pads: position 0 ...
+            perm[:nk] = pos[perm_k]
+            uidx_sorted = np.full(budget, nu, np.int32)  # ... segment nu
+            uidx_sorted[:nk] = uidx_sorted_k
+            uq = np.full(n, SENTINEL, np.int32)
+            uq[:nk] = uq_k
+            uidx = np.zeros(n, np.int32)
+            uidx[pos] = uidx_k
+            out[pref + "perm"] = perm
+            out[pref + "uq_ids"] = uq
+            out[pref + "uidx"] = uidx
+            out[pref + "uidx_sorted"] = uidx_sorted
+            return
+        sorted_ids, perm, inv, uq, uidx, uidx_sorted, nu = _np_sort_meta(ids)
+        if bucket is not None and nu > bucket:
+            raise BucketOverflow(nu, bucket)
         if not minimal:
-            out["sorted_ids"] = sorted_ids
-            out["inv"] = inv
-        out["perm"] = perm
-        out["uq_ids"] = uq
-        out["uidx"] = uidx_sorted[inv]
-        out["uidx_sorted"] = uidx_sorted
+            out[pref + "sorted_ids"] = sorted_ids
+            out[pref + "inv"] = inv
+        out[pref + "perm"] = perm
+        out[pref + "uq_ids"] = uq
+        out[pref + "uidx"] = uidx
+        out[pref + "uidx_sorted"] = uidx_sorted
+
+    def prep(batch: dict) -> dict:
+        out = dict(batch)
+        for item in group_items(batch):
+            prep_one(out, *item)
         return out
 
     return prep

@@ -9,7 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from mindrec_tpu_torch.ops.kernels.segsum import segsum_sorted, segsum_sorted_plain
+from mindrec_tpu_torch.ops import kernels
+from mindrec_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
+from mindrec_tpu_torch.ops.kernels.segsum import (
+    segsum_sorted, segsum_sorted_plain, segsum_unsorted, segsum_unsorted_plain,
+)
+from mindrec_tpu_torch.ops.kernels.update_cols import (
+    adam_cols, adam_cols_plain, ftrl_cols, ftrl_cols_plain, make_aug_grads,
+)
 from mindrec_tpu_torch.ops.kernels.update_rows import (
     adam_rows, adam_rows_plain, ftrl_rows, ftrl_rows_plain,
 )
@@ -81,3 +88,80 @@ def test_kernels_match_plain_on_card(cuda_device):
     ftrl_rows_plain(*b, *idx[:2], gs, dim=dim, pack=pack, present=idx[2])
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+
+
+def _col_slots(rng, fold, vc, n_uq, n_sent):
+    ids = np.sort(rng.choice(vc * fold, size=n_uq, replace=False))
+    ids = np.concatenate([ids, np.full(n_sent, SENT)]).astype(np.int32)
+    return ids // fold, ids % fold
+
+
+@pytest.mark.cuda
+def test_feature_major_kernels_match_plain_on_card(cuda_device):
+    """gather_rows, segsum_unsorted, adam_cols and ftrl_cols against their
+    plain versions: gather exact; the unsorted sum within float32
+    reordering (the plain version adds with atomics); the updates equal
+    to rounding (same float32 operations in the same order)."""
+    rng = np.random.default_rng(1)
+    dev = cuda_device
+    kernels.reset_launches()
+    # gather: dp 128 at lane 0, a folded dp 8 at lane 128; sentinels
+    vc = 4096
+    for dp, fold, off in ((128, 1, 0), (8, 8, 128)):
+        cols, _ = _col_slots(rng, fold, vc, n_uq=1500, n_sent=548)
+        table = _t(rng.normal(size=(dp, vc)).astype(np.float32)).to(dev)
+        base = _t(rng.normal(size=(cols.size, 256)).astype(np.float32)).to(dev)
+        c = _t(cols).to(dev)
+        got = gather_rows(table, c, base.clone(), off)
+        want = gather_rows_plain(table, c, base.clone(), off)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # unsorted segment-sum: hot ids, -1 and out-of-range ids
+    seg = rng.integers(-1, 2100, size=70_000).astype(np.int32)
+    seg[:30_000] = rng.integers(0, 16, size=30_000)
+    s = _t(seg).to(dev)
+    g = _t(rng.normal(size=(seg.size, 72)).astype(np.float32)).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        got = segsum_unsorted(g.to(dt), s, 2048)
+        want = segsum_unsorted_plain(g.to(dt), s, 2048)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+        again = segsum_unsorted(g.to(dt), s, 2048)
+        assert torch.equal(got, again)  # deterministic
+    ref = torch.bincount(s[(s >= 0) & (s < 2048)].long(), minlength=2048)
+    for lanes in (1, 8):  # the step's presence input, and every lane of 8
+        ones = torch.ones((seg.size, lanes), dtype=torch.bfloat16, device=dev)
+        counts = segsum_unsorted(ones, s, 2048)
+        torch.testing.assert_close(counts, ref.float()[None].expand(lanes, -1),
+                                   rtol=0, atol=0)
+    # column updates, fold 1 (bf16 and f32 moments) and fold 8
+    lr = torch.tensor(1e-3, device=dev)
+    for fold, dim, dp in ((1, 64, 64), (8, 1, 8)):
+        cols, sub = _col_slots(rng, fold, vc, n_uq=2000, n_sent=48)
+        gr = (rng.normal(size=(dp, cols.size)) * 10.0).astype(np.float32)
+        if fold > 1:
+            gr *= np.arange(dp)[:, None] // dim == sub[None, :]
+        gr[:, ::5] = 0.0
+        aug = make_aug_grads(_t(gr), _t(sub) if fold > 1 else None)
+        aug[dp:, 3::7] = 0.0  # zeroed touch rows: no update
+        aug, c = aug.contiguous().to(dev), _t(cols).to(dev)
+        base = [_t(rng.normal(size=(dp, vc)).astype(np.float32) * sc).to(dev)
+                for sc in (1e-2, 1e-3, 1e-3)]
+        base[2] = base[2].abs()
+        for sd in (torch.float32, torch.bfloat16):
+            a = [base[0].clone(), base[1].to(sd), base[2].to(sd)]
+            b = [x.clone() for x in a]
+            adam_cols(*a, c, aug, lr, dim=dim, fold=fold, eps=1e-6,
+                      loss_scale=1000.0)
+            adam_cols_plain(*b, c, aug, lr, dim=dim, fold=fold, eps=1e-6,
+                            loss_scale=1000.0)
+            for x, y in zip(a, b):
+                torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+        a = [base[0].clone(), base[2] + 0.1, base[1].clone()]
+        b = [x.clone() for x in a]
+        kw = dict(dim=dim, fold=fold, l1=5e-4, l2=5e-4, loss_scale=1000.0)
+        ftrl_cols(*a, c, aug, **kw)
+        ftrl_cols_plain(*b, c, aug, **kw)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    torch.cuda.synchronize()
+    assert all(kernels.LAUNCHES[k] > 0 for k in (
+        "gather_rows", "segsum_unsorted", "adam_cols", "ftrl_cols"))

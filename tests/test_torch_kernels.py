@@ -14,13 +14,22 @@ import torch
 
 from mindrec_tpu.ops import embedding as jemb
 from mindrec_tpu.ops.pallas import stream_update
-from mindrec_tpu.ops.pallas.stream_segsum import streamed_segsum
+from mindrec_tpu.ops.pallas.stream_gather import streamed_gather_rows
+from mindrec_tpu.ops.pallas.stream_segsum import (
+    streamed_segsum, streamed_segsum_unsorted,
+)
 from mindrec_tpu.ops.pallas.stream_update_rows import (
     streamed_adam_rows, streamed_ftrl_rows,
 )
 from mindrec_tpu_torch.ops import embedding as temb
 from mindrec_tpu_torch.ops import kernels
-from mindrec_tpu_torch.ops.kernels.segsum import segsum_sorted, segsum_sorted_plain
+from mindrec_tpu_torch.ops.kernels.gather import gather_rows
+from mindrec_tpu_torch.ops.kernels.segsum import (
+    segsum_sorted, segsum_sorted_plain, segsum_unsorted,
+)
+from mindrec_tpu_torch.ops.kernels.update_cols import (
+    adam_cols, ftrl_cols, make_aug_grads,
+)
 from mindrec_tpu_torch.ops.kernels.update_rows import adam_rows, ftrl_rows
 
 SENT = 2**31 - 2
@@ -223,8 +232,9 @@ def test_wrappers_take_plain_only_on_cpu():
     uidx = torch.tensor([0, 0, 1, 2], dtype=torch.int32)
     np.testing.assert_array_equal(segsum_sorted(g, uidx, 4).numpy(),
                                   segsum_sorted_plain(g, uidx, 4).numpy())
-    assert kernels.LAUNCHES == {"segsum_sorted": 0, "adam_rows": 0,
-                                "ftrl_rows": 0}
+    assert kernels.LAUNCHES == dict.fromkeys(
+        ("segsum_sorted", "adam_rows", "ftrl_rows", "segsum_unsorted",
+         "adam_cols", "ftrl_cols", "gather_rows"), 0)
     with pytest.raises(ValueError, match="segsum_sorted"):
         segsum_sorted(g.to("meta"), uidx.to("meta"), 4)
     t = torch.zeros((8, 128), device="meta")
@@ -280,3 +290,257 @@ def test_bench_recipe_storage_shapes():
     wide = temb.EmbeddingTableSpec(5_860_000, 1, sparse=True)
     assert (deep.pack, deep.storage_shape) == (8, (733184, 128))
     assert (wide.pack, wide.storage_shape) == (128, (47104, 128))
+
+
+# ---------------------------------------------------------------------------
+# the feature-major kernels: gather_rows, segsum_unsorted, adam/ftrl_cols
+# ---------------------------------------------------------------------------
+
+VC = 1024  # storage columns of the test tables (4 tiles of 256)
+
+
+def test_gather_rows_matches_pallas():
+    """Sorted columns with duplicates (a folded table's ids // 8) and
+    sentinels, written at a nonzero lane offset into a buffer whose other
+    lanes and sentinel rows must keep their content."""
+    rng = np.random.default_rng(21)
+    dp, width, off = 16, 128, 40
+    ids = np.sort(rng.choice(VC * 8, size=430, replace=False))
+    cols = np.concatenate([ids // 8, np.full(82, SENT // 8)]).astype(np.int32)
+    assert (np.diff(cols[:430]) == 0).any()  # duplicate columns
+    table = rng.normal(size=(dp, VC)).astype(np.float32)
+    base = rng.normal(size=(cols.size, width)).astype(np.float32)
+    ref = streamed_gather_rows(
+        jnp.asarray(table), jnp.asarray(cols), jnp.asarray(base),
+        lane_offset=off, tile=256, chunk=256, matmul_dtype=jnp.float32,
+        interpret=True,
+    )
+    buf = _t(base)
+    out = gather_rows(_t(table), _t(cols), buf, lane_offset=off)
+    assert out is buf  # in place
+    # the reference places values with a one-hot f32 dot (see the Adam
+    # rows test: reduced internal precision on some hosts)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=0)
+    np.testing.assert_array_equal(out.numpy()[430:], base[430:])
+    np.testing.assert_array_equal(out.numpy()[:, :off], base[:, :off])
+    np.testing.assert_array_equal(out.numpy()[:430, off:off + dp],
+                                  table[:, cols[:430]].T)
+
+
+@pytest.mark.parametrize("dtype,n_out", [("float32", 512), ("bfloat16", 2048)])
+def test_segsum_unsorted_matches_pallas(dtype, n_out):
+    """Ids in any order, with -1 pads and ids at or past n_out (which add
+    nothing), against streamed_segsum_unsorted."""
+    rng = np.random.default_rng(n_out)
+    n = 3000
+    seg = rng.integers(-1, n_out + 40, size=n).astype(np.int32)
+    seg[:400] = 7  # one hot id
+    g32 = rng.normal(size=(n, 24)).astype(np.float32)
+    g_j = jnp.asarray(g32).astype(getattr(jnp, dtype))
+    ref = streamed_segsum_unsorted(g_j, jnp.asarray(seg), n_out,
+                                   matmul_dtype=jnp.float32, interpret=True)
+    out = segsum_unsorted(_t(g32).to(getattr(torch, dtype)), _t(seg), n_out)
+    assert out.shape == (24, n_out) and out.dtype == torch.float32
+    # f32 sums over the same terms in another order (bf16 inputs are
+    # exact in f32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-4)
+
+
+def _col_slots(rng, fold, n_uq, n_sent, dups=0):
+    """Sorted storage columns of distinct ids (folded tables share a
+    column between neighbouring ids), ``dups`` repeated slots, sentinel
+    pads; and each slot's fold sub-row."""
+    ids = np.sort(rng.choice(VC * fold, size=n_uq, replace=False))
+    if dups:
+        ids = np.sort(np.concatenate([ids, rng.choice(ids, dups)]))
+    ids = np.concatenate([ids, np.full(n_sent, SENT)]).astype(np.int32)
+    return ids // fold, ids % fold
+
+
+def _aug(rng, dp, dim, fold, sub, scale=10.0):
+    """[Dp+8, U] touch-augmented gradients as the step builds them: folded
+    slots masked to their sublane; every fifth slot a zero gradient;
+    every seventh slot's touch rows zeroed (an absent tiny-group id) with
+    a gradient that must not apply."""
+    n = sub.size
+    g = (rng.normal(size=(dp, n)) * scale).astype(np.float32)
+    if fold > 1:
+        g *= (np.arange(dp)[:, None] // dim == sub[None, :])
+    g[:, ::5] = 0.0
+    aug = make_aug_grads(_t(g), _t(sub) if fold > 1 else None).numpy().copy()
+    aug[dp:, 3::7] = 0.0
+    return aug
+
+
+@pytest.mark.parametrize("fold,dim,dp,state_dtype", [
+    (1, 12, 16, "float32"),   # padded sublanes 12..15, duplicated slots
+    (1, 64, 64, "bfloat16"),
+    (8, 1, 8, "float32"),     # folded wide table: duplicate columns
+])
+def test_adam_cols_matches_pallas(fold, dim, dp, state_dtype):
+    rng = np.random.default_rng(fold * 100 + dim)
+    cols, sub = _col_slots(rng, fold, n_uq=600, n_sent=44,
+                           dups=20 if fold == 1 else 0)
+    aug = _aug(rng, dp, dim, fold, sub)
+    table = (rng.normal(size=(dp, VC)) * 0.01).astype(np.float32)
+    m = (rng.normal(size=(dp, VC)) * 1e-3).astype(np.float32)
+    v = np.abs(rng.normal(size=(dp, VC)) * 1e-6).astype(np.float32)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-6, loss_scale=1000.0)
+    lr_t = 1e-3 * np.sqrt(1 - 0.999**2) / (1 - 0.9**2)
+    sd_j = getattr(jnp, state_dtype)
+    ref = stream_update.streamed_adam_cols(
+        jnp.asarray(table), jnp.asarray(m).astype(sd_j),
+        jnp.asarray(v).astype(sd_j), jnp.asarray(cols), jnp.asarray(aug),
+        jnp.float32(lr_t), dim=dim, fold=fold, tile=256, chunk=256,
+        matmul_dtype=jnp.float32, interpret=True, **hyper,
+    )
+    sd_t = getattr(torch, state_dtype)
+    t_t, m_t, v_t = _t(table), _t(m).to(sd_t), _t(v).to(sd_t)
+    out = adam_cols(t_t, m_t, v_t, _t(cols), _t(aug),
+                    torch.tensor(lr_t, dtype=torch.float32), dim=dim,
+                    fold=fold, **hyper)
+    assert out[0] is t_t and out[2] is v_t  # in place
+    # tolerances as the rows test: the reference's one-hot f32 dot; a
+    # bf16 moment may round to its neighbour
+    for got, want in zip(out, ref):
+        rtol = 2.0**-7 if got.dtype == torch.bfloat16 else 2e-5
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=rtol, atol=1e-8)
+
+
+@pytest.mark.parametrize("fold,dim,dp", [(8, 1, 8), (1, 16, 16)])
+def test_ftrl_cols_matches_pallas(fold, dim, dp):
+    rng = np.random.default_rng(fold + 7)
+    cols, sub = _col_slots(rng, fold, n_uq=700, n_sent=68)
+    aug = _aug(rng, dp, dim, fold, sub)
+    table = (rng.normal(size=(dp, VC)) * 0.01).astype(np.float32)
+    accum = (0.1 + np.abs(rng.normal(size=(dp, VC)))).astype(np.float32)
+    linear = (rng.normal(size=(dp, VC)) * 0.1).astype(np.float32)
+    hyper = dict(learning_rate=5e-2, l1=5e-4, l2=5e-4, loss_scale=1000.0)
+    ref = stream_update.streamed_ftrl_cols(
+        jnp.asarray(table), jnp.asarray(accum), jnp.asarray(linear),
+        jnp.asarray(cols), jnp.asarray(aug), dim=dim, fold=fold, tile=256,
+        chunk=256, matmul_dtype=jnp.float32, interpret=True, **hyper,
+    )
+    out = ftrl_cols(_t(table), _t(accum), _t(linear), _t(cols), _t(aug),
+                    dim=dim, fold=fold, **hyper)
+    for got, want in zip(out, ref):
+        # as the rows test: G from the reference's one-hot f32 dot, carried
+        # through the cancellation in (sign*l1 - lin')
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("kind,fold", [("adam", 1), ("adam", 8),
+                                       ("ftrl", 1), ("ftrl", 8)])
+def test_col_updates_touch_rules(kind, fold):
+    """Lazy-update semantics, element by element: exactly the sublanes
+    gated by a nonzero touch row change (zero-gradient slots too);
+    sentinel columns, zeroed touch rows, untouched columns and a folded
+    column's other sublanes keep every value."""
+    rng = np.random.default_rng(31 + fold)
+    dim, dp = (1, 8) if fold > 1 else (16, 16)
+    cols, sub = _col_slots(rng, fold, n_uq=300, n_sent=12)
+    aug = _aug(rng, dp, dim, fold, sub)
+    table = _t(rng.normal(size=(dp, VC)).astype(np.float32) * 1e-2)
+    # |s1| bounded away from 0, so a zero-gradient Adam step still moves
+    # every touched weight by more than its rounding
+    s1 = _t((rng.choice([-1.0, 1.0], size=(dp, VC))
+             * rng.uniform(0.5, 1.5, size=(dp, VC))).astype(np.float32) * 1e-2)
+    s2 = _t(1.0 + np.abs(rng.normal(size=(dp, VC))).astype(np.float32))
+    before = [x.clone() for x in (table, s1, s2)]
+    if kind == "adam":  # m = s1, v = s2
+        adam_cols(table, s1, s2, _t(cols), _t(aug), torch.tensor(1e-3),
+                  dim=dim, fold=fold)
+    else:  # accum = s2 (> 0), linear = s1
+        ftrl_cols(table, s2, s1, _t(cols), _t(aug), dim=dim, fold=fold)
+    expect = np.zeros((dp, VC), bool)
+    for u, c in enumerate(cols):
+        if c >= VC:
+            continue
+        if fold == 1:
+            expect[:, c] |= aug[dp, u] > 0
+        else:
+            expect[:fold, c] |= aug[dp:dp + fold, u] > 0
+    for new, old in zip((table, s1, s2), before):
+        changed = (new != old).numpy()
+        assert not (changed & ~expect).any(), "an untouched element changed"
+    assert (table != before[0]).numpy()[expect].all()
+    live = cols < VC
+    assert ((aug[:dp, live] == 0).all(axis=0) & (aug[dp:, live] > 0).any(axis=0)).any()
+    assert ((aug[dp:, live] == 0).all(axis=0) & (aug[:dp, live] != 0).any(axis=0)).any()
+
+
+def test_make_aug_grads_matches_reference():
+    rng = np.random.default_rng(3)
+    g = rng.normal(size=(8, 50)).astype(np.float32)
+    sub = rng.integers(0, 8, size=50).astype(np.int32)
+    for s in (None, sub):
+        want = stream_update.make_aug_grads(
+            jnp.asarray(g), None if s is None else jnp.asarray(s))
+        got = make_aug_grads(_t(g), None if s is None else _t(s))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_new_wrappers_take_plain_only_on_cpu():
+    """The four feature-major kernels: CPU tensors count no launch; meta
+    tensors (a device without kernels) raise rather than fall back."""
+    kernels.reset_launches()
+    t = torch.zeros((8, 64))
+    cols = torch.tensor([0, 0, 3, SENT // 8], dtype=torch.int32)
+    gather_rows(t, cols, torch.zeros((4, 128)), 8)
+    segsum_unsorted(torch.ones((4, 2)), cols, 16)
+    aug = torch.ones((16, 4))
+    adam_cols(t, t.clone(), t.clone(), cols, aug, torch.tensor(1e-3), dim=1,
+              fold=8)
+    ftrl_cols(t, t + 1.0, t.clone(), cols, aug, dim=1, fold=8)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    m = torch.zeros((8, 64), device="meta")
+    mc = cols.to("meta")
+    with pytest.raises(ValueError, match="gather_rows"):
+        gather_rows(m, mc, torch.zeros((4, 128), device="meta"), 8)
+    with pytest.raises(ValueError, match="segsum_unsorted"):
+        segsum_unsorted(torch.ones((4, 2), device="meta"), mc, 16)
+    with pytest.raises(ValueError, match="adam_cols"):
+        adam_cols(m, m, m, mc, aug.to("meta"), torch.zeros((), device="meta"),
+                  dim=1, fold=8)
+    with pytest.raises(ValueError, match="ftrl_cols"):
+        ftrl_cols(m, m, m, mc, aug.to("meta"), dim=1, fold=8)
+
+
+@pytest.mark.parametrize("emb_dim", [1, 12, 64, 128])
+def test_feature_major_storage_and_lookup_match(emb_dim):
+    """Feature-major specs (fold 8 at emb_dim 1, sublane padding at 12):
+    storage bytes, from_storage and lookup equal the reference's."""
+    kw = dict(vocab_size=3000, emb_dim=emb_dim, sparse=True,
+              layout="feature_major")
+    js, ts = jemb.EmbeddingTableSpec(**kw), temb.EmbeddingTableSpec(**kw)
+    for attr in ("padded_vocab", "fold", "padded_dim", "storage_shape",
+                 "feature_major", "row_packed"):
+        assert getattr(ts, attr) == getattr(js, attr), attr
+    rng = np.random.default_rng(emb_dim)
+    logical = rng.normal(size=(js.padded_vocab, emb_dim)).astype(np.float32)
+    st_j = np.asarray(jemb.to_storage(js, jnp.asarray(logical)))
+    st_t = temb.to_storage(ts, _t(logical)).numpy()
+    assert st_t.shape == st_j.shape and st_t.tobytes() == st_j.tobytes()
+    np.testing.assert_array_equal(temb.from_storage(ts, _t(st_t)).numpy(),
+                                  jemb.from_storage(js, st_j))
+    ids = rng.integers(0, 3001, size=(7, 5)).astype(np.int32)
+    want = np.asarray(jemb.EmbeddingLookup(js)(jnp.asarray(st_j), jnp.asarray(ids)))
+    got = temb.lookup(ts, _t(st_t), _t(ids)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_multitable_recipe_storage_shapes():
+    """The multitable recipe's feature-major tables: emb128 [128, 655360],
+    w128 [8, 81920] (fold 8), the indicator pair [64, 8192] / [8, 1024]."""
+    def spec(v, d):
+        return temb.EmbeddingTableSpec(v, d, sparse=True, layout="feature_major")
+    assert spec(650000, 128).storage_shape == (128, 655360)
+    assert spec(650000, 1).storage_shape == (8, 81920)
+    assert spec(16, 64).storage_shape == (64, 8192)
+    assert spec(16, 1).storage_shape == (8, 1024)
+    assert spec(20900, 64).storage_shape == (64, 24576)

@@ -26,7 +26,7 @@ from mindrec_tpu.train import step as jstep
 from mindrec_tpu_torch import convert
 from mindrec_tpu_torch.data import criteo, pipeline
 from mindrec_tpu_torch.data.criteo import SyntheticCriteo, to_device
-from mindrec_tpu_torch.models import wide_deep
+from mindrec_tpu_torch.models import multitable, wide_deep
 from mindrec_tpu_torch.train import optim
 from mindrec_tpu_torch.train.step import (
     BucketOverflow, make_batch_sort, make_eval_step, make_train_step,
@@ -203,14 +203,20 @@ def test_check_overflow_keeps_state():
 
 
 @pytest.mark.parametrize("change,ctor_kw", [
-    ({"table_layout": "feature_major"}, {}),
+    ({"deep_table_slice_mode": "table_column_slice"}, {}),
     ({"deep_table_slice_mode": "table_row_slice"}, {}),
     ({"sparse": False}, {}),
-    ({"vocab_size": 500}, {}),  # tiny-vocab group
+    ({"multitable": True, "sparse": False}, {}),  # the dense multitable step
     ({}, {"row_layout": False}),
 ])
 def test_unported_branches_raise(change, ctor_kw):
-    model = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(**{**KW, **change}))
+    change = dict(change)
+    if change.pop("multitable", False):
+        model = multitable.MultiTableWideDeepModel(
+            multitable.MultiTableConfig(**change))
+    else:
+        model = wide_deep.WideDeepModel(
+            wide_deep.WideDeepConfig(**{**KW, **change}))
     with pytest.raises(NotImplementedError):
         make_train_step(model, optim.ftrl(), optim.adam(), **ctor_kw)
 
