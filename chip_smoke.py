@@ -41,10 +41,39 @@ Phases (any failure exits non-zero):
    loss must be finite;
 7. take 3 steps of a small multitable model (two tiny and two sorted id
    groups) with the kernels and 3 with the plain versions from one state
-   and compare losses, the eight tables and their optimizer state.
+   and compare losses, the eight tables and their optimizer state;
+8. the feature-major path's kernels against their plain versions at the
+   DeepFM recipe's feature-major shapes (fm [80, 188416], linear
+   [8, 23552] fold 8, N = 624,000 positions, 88 feature rows) and at the
+   W&D recipe's ([16, 5.86M], [8, 733k] fold 8, 24 feature rows):
+   the column gather (exact), the column Adam as the DeepFM steps launch
+   it (bf16 m/v over the sentinel-padded N slots, fold 1 and fold 8), the
+   column-major segment-sum (against a float64 sum), and the fused
+   LazyAdam / FTRL update + next-batch
+   gather (state to rounding, rows exact), each timed beside its plain
+   version, a single PyTorch call where one exists, and for the fused
+   kernels the separate update and gather kernels;
+9. the fused pump at the W&D shapes: batch k's update fused with batch
+   k+1's gather over 4 batches, rows and state held against
+   ``adam_cols`` / ``ftrl_cols`` followed by ``gather_cols`` from the
+   same state, the launch counters set to 0 just before and read just
+   after;
+10. drive the DeepFM recipe (batch 16000 x 39, vocab 184,965, emb 80, MLP
+    1024/512/256/128 bf16, one Adam lr 5e-4 eps 5e-8 with bf16 m/v, loss
+    scale 1024, host-prepared metadata) with feature-major tables and
+    ``row_layout=False``: 3 warm-up and 10 timed steps, the counters set
+    to 0 just before the timed steps; the column gather must have
+    launched twice, the column-major segment-sum once and the column
+    Adam twice per step; the same model with ``row_layout=True`` and the
+    131,072 bucket is timed beside it, in turns; then 3 steps of a small
+    DeepFM on this path with the kernels against 3 with the plain
+    versions;
+11. drive DeepFM and DCN at their bench recipes on the default path
+    (row_packed tables, ``row_layout=True``, bucket 131,072): 3 warm-up
+    and 10 timed steps each.
 
 ``--profile`` adds the device time by kernel over 5 more steps of
-phases 3 and 6.  It prints a ``{"kernels": [...]}`` JSON line before the
+phases 3, 6 and 10.  It prints a ``{"kernels": [...]}`` JSON line before the
 last line and ends with ``{"ok": true, "device": {...}}``.
 """
 
@@ -62,15 +91,24 @@ import torch
 from mindrec_tpu_torch.data.criteo import SyntheticCriteo, to_device
 from mindrec_tpu_torch.data.outbrain import SyntheticOutbrain
 from mindrec_tpu_torch.data.pipeline import AdaptiveBucket, round_bucket
+from mindrec_tpu_torch.models.dcn import DCNConfig, DCNModel
+from mindrec_tpu_torch.models.deepfm import DeepFMConfig, DeepFMModel
 from mindrec_tpu_torch.models.multitable import (
     MULTI_FIELDS, MultiTableConfig, MultiTableWideDeepModel,
 )
 from mindrec_tpu_torch.models.wide_deep import WideDeepConfig, WideDeepModel
 from mindrec_tpu_torch.ops import kernels
 from mindrec_tpu_torch.ops.kernels import _build
-from mindrec_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
+from mindrec_tpu_torch.ops.kernels.fused import (
+    fused_adam_gather, fused_adam_gather_plain, fused_ftrl_gather,
+    fused_ftrl_gather_plain,
+)
+from mindrec_tpu_torch.ops.kernels.gather import (
+    gather_cols, gather_cols_plain, gather_rows, gather_rows_plain,
+)
 from mindrec_tpu_torch.ops.kernels.segsum import (
-    segsum_sorted, segsum_sorted_plain, segsum_unsorted, segsum_unsorted_plain,
+    segsum_cols, segsum_cols_plain, segsum_sorted, segsum_sorted_plain,
+    segsum_unsorted, segsum_unsorted_plain,
 )
 from mindrec_tpu_torch.ops.kernels.update_cols import (
     adam_cols, adam_cols_plain, ftrl_cols, ftrl_cols_plain, make_aug_grads,
@@ -95,6 +133,10 @@ REPLACES = {
     "adam_cols": "mindrec_tpu/ops/pallas/stream_update.py:380",
     "ftrl_cols": "mindrec_tpu/ops/pallas/stream_update.py:463",
     "gather_rows": "mindrec_tpu/ops/pallas/stream_gather.py:257",
+    "segsum_cols": "mindrec_tpu/ops/pallas/stream_segsum.py:222",
+    "gather_cols": "mindrec_tpu/ops/pallas/stream_gather.py:311",
+    "fused_adam_gather": "mindrec_tpu/ops/pallas/stream_fused.py:308",
+    "fused_ftrl_gather": "mindrec_tpu/ops/pallas/stream_fused.py:308",
 }
 SOURCES = {
     "segsum_sorted": "mindrec_tpu_torch/csrc/segsum.cu",
@@ -104,11 +146,21 @@ SOURCES = {
     "adam_cols": "mindrec_tpu_torch/csrc/update_cols.cu",
     "ftrl_cols": "mindrec_tpu_torch/csrc/update_cols.cu",
     "gather_rows": "mindrec_tpu_torch/csrc/gather_rows.cu",
+    "segsum_cols": "mindrec_tpu_torch/csrc/segsum.cu",
+    "gather_cols": "mindrec_tpu_torch/csrc/gather_cols.cu",
+    "fused_adam_gather": "mindrec_tpu_torch/csrc/fused_cols.cu",
+    "fused_ftrl_gather": "mindrec_tpu_torch/csrc/fused_cols.cu",
 }
-# launches per step of each kernel on the W&D and the multitable path
+# launches per step of each kernel on each driven path
 WD_PER_STEP = {"segsum_sorted": 1, "adam_rows": 1, "ftrl_rows": 1}
 MT_PER_STEP = {"gather_rows": 8, "segsum_unsorted": 2, "adam_cols": 4,
                "ftrl_cols": 4, "segsum_sorted": 3}
+FM_COL_PER_STEP = {"gather_cols": 2, "segsum_cols": 1, "adam_cols": 2}
+FM_ROW_PER_STEP = {"gather_rows": 2, "segsum_sorted": 1, "adam_cols": 2}
+FM_PACKED_PER_STEP = {"segsum_sorted": 1, "adam_rows": 2}
+DCN_PER_STEP = {"segsum_sorted": 1, "adam_rows": 1}
+FM_VOCAB, DCN_VOCAB, FM_BUCKET = 184_965, 200_000, 131_072  # bench.py
+PUMP_BATCHES = 4
 
 
 def log(*a):
@@ -240,7 +292,8 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
     # same float32 operations, no contraction: equal to rounding
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
-    t_b, by = bound(bucket * (8 + dim * 4) + valid * dim * 2 * (4 + 2 + 2),
+    # ids of every slot; gradient and state of the live slots only
+    t_b, by = bound(bucket * 8 + valid * dim * (4 + 2 * (4 + 2 + 2)),
                     valid * dim * 12)
     res["adam_rows"] = dict(
         max_abs_err=err, max_rel_err=rel,
@@ -266,7 +319,7 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
     err, rel = max_errs(zip(a, b))
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
-    t_b, by = bound(bucket * (8 + dim * 4) + valid * dim * 2 * 12,
+    t_b, by = bound(bucket * 8 + valid * dim * (4 + 2 * 12),
                     valid * dim * 16)
     res["ftrl_rows"] = dict(
         max_abs_err=err, max_rel_err=rel,
@@ -381,7 +434,7 @@ def timed_steps(tag, step, state, batches, batch_size, per_step,
     return out
 
 
-def kernel_vs_plain(tag, dev, model, opts, batches) -> None:
+def kernel_vs_plain(tag, dev, model, opts, batches, **step_kw) -> None:
     """Steps with the kernels and with the plain versions from one state,
     one per batch: losses, every table and its optimizer state compared.
     Only the segment sums differ (the plain versions add with atomics), by
@@ -389,8 +442,8 @@ def kernel_vs_plain(tag, dev, model, opts, batches) -> None:
     opt_w, opt_d = opts
     sa = init_train_state(model, 1, opt_w, opt_d, device=dev)
     sb = init_train_state(model, 1, opt_w, opt_d, device=dev)
-    fa = make_train_step(model, opt_w, opt_d)
-    fb = make_train_step(model, opt_w, opt_d, use_kernels=False)
+    fa = make_train_step(model, opt_w, opt_d, **step_kw)
+    fb = make_train_step(model, opt_w, opt_d, use_kernels=False, **step_kw)
     for batch in batches:
         sa, (_, la) = fa(sa, batch)
         sb, (_, lb) = fb(sb, batch)
@@ -555,32 +608,9 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
         del g
 
     # -- LazyAdam on emb128 [128, 655360], f32 m/v ----------------------
-    dp = 128
-    shape = model.specs["emb128"].storage_shape
-    base = [rnd(shape, 0.01), rnd(shape, 1e-3), rnd(shape, 1e-6).abs()]
-    aug = make_aug_grads(rnd((dp, ub), 10.0), None).contiguous()
-    lr_t = torch.tensor(1e-3, device=dev)
-    hyper = dict(dim=dp, fold=1, eps=1e-6, loss_scale=1000.0)
-    a = [x.clone() for x in base]
-    b = [x.clone() for x in base]
-    del base
-    adam_cols(*a, uq, aug, lr_t, **hyper)
-    adam_cols_plain(*b, uq, aug, lr_t, **hyper)
-    err, rel = max_errs(zip(a, b))
-    for x, y in zip(a, b):  # same float32 operations: equal to rounding
-        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
-    sectors = int(torch.unique(torch.div(live, 8, rounding_mode="floor")).numel())
-    io = ub * 4 + (dp + 8) * ub * 4
-    t_b, by = bound(io + valid * dp * 3 * 4 * 2, valid * dp * 12)
-    res["adam_cols"] = dict(
-        max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: adam_cols(*a, uq, aug, lr_t, **hyper), 20),
-        plain_ms=cuda_ms(lambda: adam_cols_plain(*b, uq, aug, lr_t, **hyper), 5),
-        bound_ms=t_b, bound_by=by, library_ms=None,
-        sector_bound_ms=bound(io + sectors * dp * 3 * 2 * 32, 0)[0],
-    )
-    log("[kernel] adam_cols (emb128, f32 m/v)", json.dumps(res["adam_cols"]))
-    del a, b, aug
+    res["adam_cols"] = check_adam_cols(
+        "emb128, f32 m/v", dev, gen, model.specs["emb128"].storage_shape, 1,
+        uq, None, torch.float32, eps=1e-6, loss_scale=1000.0)
 
     # -- FTRL on w128 [8, 81920], fold 8 ------------------------------
     shape = model.specs["w128"].storage_shape
@@ -598,7 +628,7 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
     err, rel = max_errs(zip(a, b))
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
-    io = ub * 4 + 16 * ub * 4
+    io = ub * 4 + 16 * valid * 4  # a sentinel slot's gradient is not read
     wsec = int(torch.unique(torch.div(live, 64, rounding_mode="floor")).numel())
     t_b, by = bound(io + valid * 3 * 4 * 2, valid * 16)
     res["ftrl_cols"] = dict(
@@ -640,6 +670,425 @@ def phase_mt_kernel_vs_plain_step(dev) -> None:
     data = SyntheticOutbrain(cfg, 3, seed=11)
     kernel_vs_plain("multitable", dev, MultiTableWideDeepModel(cfg), opts,
                     [to_device(data.get_batch(i), dev) for i in range(3)])
+
+
+def check_adam_cols(tag, dev, gen, shape, fold, cols, sub, state_dtype, *,
+                    eps, loss_scale) -> dict:
+    """adam_cols against its plain version on clones of one random state
+    (the same float32 operations: equal to rounding), timed beside it.
+    ``cols`` [n] sorted storage columns, sentinel-padded; ``sub`` their
+    fold sub-rows or None.  Bound: every slot's column id, the gradient and
+    touch rows of the live slots (a sentinel slot returns before it reads
+    them) and each touched element's weight and moments, read and
+    written."""
+    dp, vc = shape
+    n = cols.numel()
+
+    def rnd(scale):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    state = [rnd(0.01), rnd(1e-3).to(state_dtype),
+             rnd(1e-6).abs().to(state_dtype)]
+    aug = slot_grads(dev, gen, dp, fold, cols, sub)
+    lr_t = torch.tensor(1e-3, device=dev)
+    hyper = dict(dim=1 if fold > 1 else dp, fold=fold, eps=eps,
+                 loss_scale=loss_scale)
+    a, b = [x.clone() for x in state], [x.clone() for x in state]
+    del state
+    adam_cols(*a, cols, aug, lr_t, **hyper)
+    adam_cols_plain(*b, cols, aug, lr_t, **hyper)
+    err, rel = max_errs(zip(a, b))
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    live = cols[(cols >= 0) & (cols < vc)]
+    n_live = int(live.numel())
+    distinct = torch.unique(live)
+    touched = int(distinct.numel()) * dp if fold == 1 else n_live
+    el_b = a[0].element_size() + 2 * a[1].element_size()
+    io = n * 4 + (dp + 8) * n_live * 4
+    t_b, by = bound(io + touched * el_b * 2, touched * 12)
+    # whole 32-byte sectors of each array's touched columns, in and out
+    sec_bytes = sum(
+        int(torch.unique(torch.div(distinct, 32 // x.element_size(),
+                                   rounding_mode="floor")).numel()) * dp * 32 * 2
+        for x in a)
+    out = dict(
+        max_abs_err=err, max_rel_err=rel,
+        ms=cuda_ms(lambda: adam_cols(*a, cols, aug, lr_t, **hyper), 20),
+        plain_ms=cuda_ms(lambda: adam_cols_plain(*b, cols, aug, lr_t, **hyper), 5),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        sector_bound_ms=bound(io + sec_bytes, 0)[0],
+        slots=n, live_slots=n_live,
+    )
+    log(f"[kernel] adam_cols ({tag} [{dp}, {vc}] fold {fold}, n {n})",
+        json.dumps(out))
+    return out
+
+
+def padded_cols(uq_ids, fold, dev):
+    """Sorted storage columns and fold sub-rows of a batch's unique ids at
+    their full length (sentinel-padded), as the feature-major path builds
+    them."""
+    uq = torch.from_numpy(np.ascontiguousarray(uq_ids)).to(dev)
+    cols = torch.div(uq, fold, rounding_mode="floor") if fold > 1 else uq
+    return cols.contiguous(), (torch.remainder(uq, fold) if fold > 1 else None)
+
+
+def check_gather_cols(tag, dev, gen, shape, cols, dtype=torch.float32) -> dict:
+    """gather_cols against its plain version (exact), timed beside it and
+    beside ``index_select`` over the columns clamped into the table."""
+    dp, vc = shape
+    table = (0.01 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    got, want = gather_cols(table, cols), gather_cols_plain(table, cols)
+    err, rel = max_errs([(got, want)])
+    if not torch.equal(got, want):
+        fail(f"gather_cols ({tag}) disagrees: max err {err}")
+    del got, want
+    n = cols.numel()
+    live = cols[(cols >= 0) & (cols < vc)]
+    distinct = int(torch.unique(live).numel())
+    t_b, by = bound(n * 4 + distinct * dp * table.element_size() + dp * n * 4, 0)
+    clamped = cols.clamp(0, vc - 1).long()
+    out = dict(
+        max_abs_err=err, max_rel_err=rel,
+        ms=cuda_ms(lambda: gather_cols(table, cols), 20),
+        plain_ms=cuda_ms(lambda: gather_cols_plain(table, cols), 5),
+        bound_ms=t_b, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.index_select(table, 1, clamped), 10),
+        live=int(live.numel()), distinct=distinct,
+    )
+    log(f"[kernel] gather_cols ({tag} [{dp}, {vc}] -> [{dp}, {n}])",
+        json.dumps(out))
+    return out
+
+
+def check_segsum_cols(tag, dev, gen, d, uidx) -> dict:
+    """segsum_cols on a [d, N] bf16 gradient against a float64 sum and its
+    plain version, timed beside ``index_add_`` along dim 1 in float32."""
+    n = uidx.numel()
+    g = torch.randn((d, n), generator=gen, device=dev).to(torch.bfloat16)
+    got = segsum_cols(g, uidx, n)
+    err, rel = check_segsum(f"segsum_cols ({tag})", got,
+                            segsum_cols_plain(g, uidx, n), g.T, uidx, n)
+    if not torch.equal(segsum_cols(g, uidx, n), got):
+        fail(f"segsum_cols ({tag}) is not deterministic")
+    last = int(uidx[-1])
+    if bool((got[:, last + 1:] != 0).any()):
+        fail(f"segsum_cols ({tag}) left its tail unwritten")
+    del got
+    t_b, by = bound(n * d * 2 + n * 4 + d * n * 4, n * d)
+    lib_out = torch.zeros((d, n), device=dev)
+    gf, ui_long = g.float(), uidx.long()
+    out = dict(
+        max_abs_err=err, max_rel_err=rel,
+        ms=cuda_ms(lambda: segsum_cols(g, uidx, n), 20),
+        plain_ms=cuda_ms(lambda: segsum_cols_plain(g, uidx, n), 5),
+        bound_ms=t_b, bound_by=by,
+        library_ms=cuda_ms(lambda: lib_out.index_add_(1, ui_long, gf), 10),
+        segments=last + 1,
+    )
+    log(f"[kernel] segsum_cols ({tag} [{d}, {n}] bf16 -> [{d}, {n}])",
+        json.dumps(out))
+    return out
+
+
+def slot_grads(dev, gen, dp, fold, cols, sub):
+    """Touch-augmented random gradients [dp + 8, n] of one batch's slots,
+    folded slots masked to their sublane as the step builds them."""
+    g = 10.0 * torch.randn((dp, cols.numel()), generator=gen, device=dev)
+    if fold > 1:
+        g = g * (torch.arange(dp, device=dev)[:, None] == sub[None, :])
+    return make_aug_grads(g, sub).contiguous()
+
+
+def fused_case(dev, gen, kind, shape, fold, state_dtype):
+    """State and hyper-parameters of a fused update at a table shape:
+    (state list, hyper, lr_t or None)."""
+    def rnd(scale):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    dim = 1 if fold > 1 else shape[0]
+    if kind == "adam":
+        state = [rnd(0.01), rnd(1e-3).to(state_dtype),
+                 rnd(1e-6).abs().to(state_dtype)]
+        hyper = dict(dim=dim, fold=fold, eps=5e-8, loss_scale=1024.0)
+        return state, hyper, torch.tensor(1e-3, device=dev)
+    state = [rnd(0.01), 0.1 + torch.rand(shape, generator=gen, device=dev),
+             rnd(0.1)]
+    hyper = dict(dim=dim, fold=fold, learning_rate=5e-2, l1=1e-8, l2=1e-8,
+                 loss_scale=1024.0)
+    return state, hyper, None
+
+
+def fused_calls(kind, lr_t):
+    """(fused kernel, its plain version, separate update kernel) with one
+    call signature: f(state, cols, aug[, next_cols], **hyper)."""
+    if kind == "adam":
+        return (
+            lambda st, c, a, nx, **h: fused_adam_gather(*st, c, a, lr_t, nx, **h),
+            lambda st, c, a, nx, **h: fused_adam_gather_plain(*st, c, a, lr_t,
+                                                              nx, **h),
+            lambda st, c, a, **h: adam_cols(*st, c, a, lr_t, **h),
+        )
+    return (
+        lambda st, c, a, nx, **h: fused_ftrl_gather(*st, c, a, nx, **h),
+        lambda st, c, a, nx, **h: fused_ftrl_gather_plain(*st, c, a, nx, **h),
+        lambda st, c, a, **h: ftrl_cols(*st, c, a, **h),
+    )
+
+
+def check_fused(tag, dev, gen, kind, shape, fold, ids_u, ids_g,
+                state_dtype=torch.bfloat16) -> dict:
+    """One fused update + gather against its plain version (state to
+    rounding: the same float32 operations; rows exact from the updated
+    table), timed beside the plain version and beside the separate update
+    and gather kernels run one after the other."""
+    name = f"fused_{kind}_gather"
+    dp, vc = shape
+    cols_u, sub_u = padded_cols(ids_u, fold, dev)
+    cols_g, _ = padded_cols(ids_g, fold, dev)
+    state, hyper, lr_t = fused_case(dev, gen, kind, shape, fold, state_dtype)
+    aug = slot_grads(dev, gen, dp, fold, cols_u, sub_u)
+    fused, plain, update = fused_calls(kind, lr_t)
+    a, b = [x.clone() for x in state], [x.clone() for x in state]
+    rows_a = fused(a, cols_u, aug, cols_g, **hyper)[3]
+    rows_b = plain(b, cols_u, aug, cols_g, **hyper)[3]
+    err, rel = max_errs([*zip(a, b), (rows_a, rows_b)])
+    for x, y in [*zip(a, b), (rows_a, rows_b)]:
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    if not torch.equal(rows_a, gather_cols(a[0], cols_g)):
+        fail(f"{name} ({tag}): rows are not the updated table's columns")
+    del rows_a, rows_b, b
+    live_u = cols_u[(cols_u >= 0) & (cols_u < vc)]
+    live_g = cols_g[(cols_g >= 0) & (cols_g < vc)]
+    upd_cols, next_cols = torch.unique(live_u), torch.unique(live_g)
+    shared = int(torch.isin(next_cols, upd_cols).sum())
+    touched = int(upd_cols.numel()) * dp if fold == 1 else int(live_u.numel())
+    w_b = state[0].element_size()
+    st_b = state[1].element_size() + state[2].element_size()
+    n_u, n_g = cols_u.numel(), cols_g.numel()
+    # a sentinel slot returns before it reads its gradient: live slots only
+    nbytes = (n_u * 4 + (dp + 8) * int(live_u.numel()) * 4
+              + touched * (w_b + st_b) * 2
+              + n_g * 4 + dp * n_g * 4
+              + (int(next_cols.numel()) - shared) * dp * w_b)
+    t_b, by = bound(nbytes, touched * 16)
+    c = [x.clone() for x in state]
+
+    def separate():
+        update(c, cols_u, aug, **hyper)
+        gather_cols(c[0], cols_g)
+
+    out = dict(
+        max_abs_err=err, max_rel_err=rel,
+        ms=cuda_ms(lambda: fused(a, cols_u, aug, cols_g, **hyper), 20),
+        plain_ms=cuda_ms(lambda: plain(c, cols_u, aug, cols_g, **hyper), 3),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        separate_kernels_ms=cuda_ms(separate, 20),
+        live_update_slots=int(live_u.numel()), live_next=int(live_g.numel()),
+        shared_columns=shared,
+    )
+    log(f"[kernel] {name} ({tag} [{dp}, {vc}] fold {fold}, n_u {n_u}, "
+        f"n_g {n_g})", json.dumps(out))
+    return out
+
+
+def phase_col_kernels(dev, gen, fm_host, wd_host) -> dict:
+    """Kernels 4, 9, 10, 11 against their plain versions at the DeepFM
+    feature-major shapes (reported in the kernels line) and at the W&D
+    bench shapes.  ``fm_host`` / ``wd_host``: two host-prepared batches
+    each (unique ids at full length)."""
+    fm = DeepFMModel(DeepFMConfig(vocab_size=FM_VOCAB, sparse=True,
+                                  table_layout="feature_major"))
+    wd = WideDeepModel(WideDeepConfig(vocab_size=VOCAB, emb_dim=EMB,
+                                      sparse=True,
+                                      table_layout="feature_major"))
+    fm_v, fm_w = fm.v_spec.storage_shape, fm.w_spec.storage_shape
+    wd_d, wd_w = wd.deep_spec.storage_shape, wd.wide_spec.storage_shape
+    res = {}
+    uq0, uq1 = fm_host[0]["uq_ids"], fm_host[1]["uq_ids"]
+    res["gather_cols"] = check_gather_cols(
+        "DeepFM fm", dev, gen, fm_v, padded_cols(uq0, 1, dev)[0])
+    check_gather_cols("DeepFM linear", dev, gen, fm_w,
+                      padded_cols(uq0, 8, dev)[0])
+    check_gather_cols("W&D deep", dev, gen, wd_d,
+                      padded_cols(wd_host[0]["uq_ids"], 1, dev)[0])
+    check_gather_cols("W&D deep bf16", dev, gen, wd_d,
+                      padded_cols(wd_host[0]["uq_ids"], 1, dev)[0],
+                      dtype=torch.bfloat16)
+    # kernel 6 as the DeepFM steps launch it: bf16 m/v, N slots, 91% pads
+    for tag, shape, fold in (("DeepFM fm, bf16 m/v", fm_v, 1),
+                             ("DeepFM linear, bf16 m/v", fm_w, 8)):
+        check_adam_cols(tag, dev, gen, shape, fold, *padded_cols(uq0, fold, dev),
+                        torch.bfloat16, eps=5e-8, loss_scale=1024.0)
+    torch.cuda.empty_cache()
+    uidx = torch.from_numpy(fm_host[0]["uidx_sorted"]).to(dev)
+    res["segsum_cols"] = check_segsum_cols("DeepFM", dev, gen,
+                                           fm_v[0] + fm_w[0], uidx)
+    check_segsum_cols("W&D", dev, gen, wd_d[0] + wd_w[0],
+                      torch.from_numpy(wd_host[0]["uidx_sorted"]).to(dev))
+    torch.cuda.empty_cache()
+    w0, w1 = wd_host[0]["uq_ids"], wd_host[1]["uq_ids"]
+    res["fused_adam_gather"] = check_fused("W&D deep", dev, gen, "adam", wd_d,
+                                           1, w0, w1)
+    torch.cuda.empty_cache()
+    res["fused_ftrl_gather"] = check_fused("W&D wide", dev, gen, "ftrl", wd_w,
+                                           8, w0, w1)
+    check_fused("DeepFM fm", dev, gen, "adam", fm_v, 1, uq0, uq1)
+    check_fused("DeepFM linear", dev, gen, "adam", fm_w, 8, uq0, uq1)
+    check_fused("DeepFM linear", dev, gen, "ftrl", fm_w, 8, uq0, uq1)
+    torch.cuda.synchronize()
+    return res
+
+
+def phase_fused_pump(dev, gen, wd_host) -> dict:
+    """The fused pump at the W&D shapes: batch k's update fused with
+    batch k+1's gather.  Beside it the separate kernels (update, then
+    gather) run from the same state; the rows must be equal and the
+    states equal to rounding after every batch, and the first batch's rows
+    come from a plain gather as a pipeline would start.  Returns the
+    launch counts of the pump."""
+    wd = WideDeepModel(WideDeepConfig(vocab_size=VOCAB, emb_dim=EMB,
+                                      sparse=True,
+                                      table_layout="feature_major"))
+    pumps = []
+    for kind, spec, fold in (("adam", wd.deep_spec, 1),
+                             ("ftrl", wd.wide_spec, 8)):
+        cols = [padded_cols(hb["uq_ids"], fold, dev) for hb in wd_host]
+        state, hyper, lr_t = fused_case(dev, gen, kind, spec.storage_shape,
+                                        fold, torch.bfloat16)
+        augs = [slot_grads(dev, gen, spec.storage_shape[0], fold, c, sub)
+                for c, sub in cols[:-1]]
+        pumps.append((kind, cols, state, augs, hyper, lr_t))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fused_rows = []
+    for kind, cols, state, augs, hyper, lr_t in pumps:
+        fused, _plain, _update = fused_calls(kind, lr_t)
+        a = [x.clone() for x in state]
+        fused_rows.append((a, [fused(a, cols[k][0], augs[k], cols[k + 1][0],
+                                     **hyper)[3] for k in range(len(augs))]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k]
+                for k in ("fused_adam_gather", "fused_ftrl_gather")}
+    for (kind, cols, state, augs, hyper, lr_t), (a, rows) in zip(pumps,
+                                                                 fused_rows):
+        _fused, _plain, update = fused_calls(kind, lr_t)
+        b = [x.clone() for x in state]
+        for k in range(len(augs)):
+            update(b, cols[k][0], augs[k], **hyper)
+            if not torch.equal(rows[k], gather_cols(b[0], cols[k + 1][0])):
+                fail(f"fused {kind} pump: rows of batch {k + 1} differ from "
+                     f"gather-after-update")
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    log(f"[pump] {len(wd_host) - 1} fused updates + gathers per table "
+        f"(deep [16, Vc] LazyAdam bf16 m/v, wide [8, Vc/8] FTRL) in "
+        f"{dt * 1e3:.3f} ms: rows == gather-after-update, state == separate "
+        f"kernels; launches {json.dumps(launches)}")
+    for k, v in launches.items():
+        if v < len(wd_host) - 1:
+            fail(f"pump: {k} launched {v} times")
+    return launches
+
+
+def criteo_host_batches(vocab, steps, bucket=None):
+    """``steps`` host-prepared SyntheticCriteo batches at the bench
+    recipes' batch size; ``bucket`` trims the unique ids for the
+    row-layout path (the feature-major path takes them at full length)."""
+    data = SyntheticCriteo(BATCH, FIELDS, vocab, steps=steps, seed=0,
+                           fields="criteo")
+    prep = make_batch_sort(FIELDS, unique_bucket=bucket, minimal=True)
+    host = [prep(data.get_batch(s)) for s in range(steps)]
+    if bucket is not None:
+        for hb in host:
+            hb["uq_ids"] = hb["uq_ids"][:bucket]
+    return host
+
+
+def deepfm_recipe(layout):
+    """bench.py's DeepFM recipe: model and its one Adam (lr 5e-4, eps
+    5e-8, bf16 m/v, loss scale 1024)."""
+    cfg = DeepFMConfig(
+        batch_size=BATCH, field_size=FIELDS, vocab_size=FM_VOCAB, emb_dim=80,
+        deep_layer_dim=(1024, 512, 256, 128), use_mixed_precision=True,
+        sparse=True, loss_scale=1024.0, table_layout=layout,
+    )
+
+    def opt():
+        return optim.adam(learning_rate=5e-4, eps=5e-8, loss_scale=1024.0,
+                          state_dtype=torch.bfloat16)
+
+    return DeepFMModel(cfg), (opt(), opt())
+
+
+def phase_deepfm_colpath(dev, fm_host, profile=False) -> dict:
+    """The DeepFM recipe on feature-major tables: ``row_layout=False``
+    (the path of kernels 9, 4 and 6) and, in turns beside it,
+    ``row_layout=True`` with the 131,072 bucket."""
+    model, opts = deepfm_recipe("feature_major")
+    full = [to_device(hb, dev) for hb in fm_host]
+    trimmed = [{**b, "uq_ids": b["uq_ids"][:FM_BUCKET]} for b in full]
+
+    def run(tag, row_layout, per_step, prof=False):
+        state = init_train_state(model, 0, *opts, device=dev)
+        step = make_train_step(model, *opts, row_layout=row_layout)
+        return timed_steps(tag, step, state, full if not row_layout else trimmed,
+                           BATCH, per_step, profile=prof)
+
+    out = run("deepfm-col", False, FM_COL_PER_STEP, profile)
+    row = [run("deepfm-fm-row", True, FM_ROW_PER_STEP) for _ in range(2)]
+    col2 = run("deepfm-col", False, FM_COL_PER_STEP)
+    log(f"[compare] DeepFM feature-major, ms/step: row_layout=False "
+        f"{out['ms_per_step']:.3f}, {col2['ms_per_step']:.3f}; row_layout=True "
+        f"(bucket {FM_BUCKET}) {row[0]['ms_per_step']:.3f}, "
+        f"{row[1]['ms_per_step']:.3f}")
+    return out
+
+
+def phase_deepfm_kernel_vs_plain_step(dev) -> None:
+    """3 DeepFM steps on the feature-major path with the kernels and 3
+    with the plain versions from one state."""
+    cfg = DeepFMConfig(
+        batch_size=512, field_size=FIELDS, vocab_size=100_000, emb_dim=20,
+        deep_layer_dim=(256, 256), use_mixed_precision=True, sparse=True,
+        loss_scale=1024.0, table_layout="feature_major",
+    )
+    opts = tuple(optim.adam(learning_rate=5e-4, eps=5e-8, loss_scale=1024.0,
+                            state_dtype=torch.bfloat16) for _ in range(2))
+    data = SyntheticCriteo(512, FIELDS, 100_000, seed=11, fields="criteo")
+    kernel_vs_plain("DeepFM row_layout=False", dev, DeepFMModel(cfg), opts,
+                    [to_device(data.get_batch(i), dev) for i in range(3)],
+                    row_layout=False)
+
+
+def phase_default_paths(dev, fm_host) -> None:
+    """DeepFM and DCN at their bench recipes on the default row_packed
+    path (bucket 131,072)."""
+    model, opts = deepfm_recipe("auto")
+    batches = [to_device({**hb, "uq_ids": hb["uq_ids"][:FM_BUCKET]}, dev)
+               for hb in fm_host]
+    state = init_train_state(model, 0, *opts, device=dev)
+    timed_steps("deepfm-packed", make_train_step(model, *opts), state, batches,
+                BATCH, FM_PACKED_PER_STEP)
+    del state, batches
+    torch.cuda.empty_cache()
+    cfg = DCNConfig(
+        batch_size=BATCH, field_size=FIELDS, vocab_size=DCN_VOCAB, emb_dim=27,
+        deep_layer_dim=(1024, 1024), cross_layer_num=6,
+        use_mixed_precision=True, sparse=True, loss_scale=1024.0,
+    )
+    model = DCNModel(cfg)
+    opts = tuple(optim.adam(learning_rate=cfg.learning_rate,
+                            loss_scale=cfg.loss_scale,
+                            state_dtype=torch.bfloat16) for _ in range(2))
+    batches = [to_device(hb, dev)
+               for hb in criteo_host_batches(DCN_VOCAB, 4, bucket=FM_BUCKET)]
+    state = init_train_state(model, 0, *opts, device=dev)
+    timed_steps("dcn-packed", make_train_step(model, *opts), state, batches,
+                BATCH, DCN_PER_STEP)
 
 
 def main() -> int:
@@ -685,10 +1134,27 @@ def main() -> int:
     del host
     torch.cuda.empty_cache()
     phase_mt_kernel_vs_plain_step(dev)
+    torch.cuda.empty_cache()
+
+    fm_host = criteo_host_batches(FM_VOCAB, 4)
+    prep_full = make_batch_sort(FIELDS, minimal=True)
+    wd_host = [prep_full(data.get_batch(s)) for s in range(PUMP_BATCHES)]
+    res.update(phase_col_kernels(dev, gen, fm_host, wd_host))
+    torch.cuda.empty_cache()
+    pump = phase_fused_pump(dev, gen, wd_host)
+    del wd_host
+    torch.cuda.empty_cache()
+    fm_path = phase_deepfm_colpath(dev, fm_host, profile=args.profile)
+    torch.cuda.empty_cache()
+    phase_deepfm_kernel_vs_plain_step(dev)
+    phase_default_paths(dev, fm_host)
 
     launches = {**main_path["launches"],
                 **{k: mt_path["launches"][k] for k in MT_PER_STEP
-                   if k != "segsum_sorted"}}
+                   if k != "segsum_sorted"},
+                **{k: fm_path["launches"][k]
+                   for k in ("gather_cols", "segsum_cols")},
+                **pump}
     rows = [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": launches[k],

@@ -8,9 +8,12 @@ is a CUDA C++ kernel under ``csrc/`` (built at first use by
 PyTorch version that CPU tensors take.
 
 Ported so far: the sparse train step on one device
-(``train/step.py:make_train_step``) for one or several id groups of
-row_packed or feature-major tables, with the tiny-vocab path, and the
-Wide&Deep and multitable (Outbrain) Wide&Deep models.
+(``train/step.py:make_train_step``) in both streamed formulations
+(``row_layout=True`` for one or several id groups of row_packed or
+feature-major tables, with the tiny-vocab path; ``row_layout=False`` for
+a single group of feature-major tables), the Wide&Deep, DeepFM, DCN and
+multitable (Outbrain) Wide&Deep models, and a CUDA counterpart of every
+Pallas kernel of the reference.
 """
 
 __version__ = "0.1.0"

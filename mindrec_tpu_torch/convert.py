@@ -3,8 +3,10 @@
 The JAX package's ``TrainState`` (params, opt_w, opt_d, step; its rng
 key is not carried) converted to nested dicts of numpy arrays maps onto
 this port's :class:`~mindrec_tpu_torch.train.step.TrainState` leaf for
-leaf: the storage layouts and parameter keys are the same, and dtypes
-are kept (bf16 Adam moments stay bf16).  numpy has no bfloat16 of its
+leaf for every ported model (Wide&Deep, multitable, DeepFM, DCN; a model
+without wide parameters has an empty ``opt_w``): the storage layouts
+(row_packed and feature-major) and parameter keys are the same, and
+dtypes are kept (bf16 Adam moments stay bf16).  numpy has no bfloat16 of its
 own; bf16 arrays from JAX carry the ``ml_dtypes`` type named
 "bfloat16" and are moved as their 16-bit patterns.
 """

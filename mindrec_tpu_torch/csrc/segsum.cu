@@ -28,6 +28,25 @@
 // warps instead of one.  Bound: bytes - g is read once (N*D*2 bytes in
 // bf16), uidx once, out written once.
 //
+// Column-major sorted segment-sum (mr_segsum_cols, below): the same sum
+// for gradients that arrive as [D, N] and leave as [D, n_out], replacing
+// stream_segsum.py:streamed_segsum with row_major=False (the one-hot
+// matmul contracted over the position axis).  It exists so that the
+// feature-major step has no transpose around its sum.  Lanes run along
+// positions, so reads coalesce along N.  cols_chunk_sum: one warp per
+// chunk of kCChunk positions and kCRows feature rows walks the chunk 32
+// positions at a time; a segmented warp scan (__shfl_up_sync, joined where
+// the segment id kCRows rows share is equal) gives each lane its run's
+// prefix sum, the lane's run carries over from the 32 positions before,
+// and the lane at a run's end writes out[d, u] (runs of length 1, the
+// common case, make that a coalesced line).  A run that crosses a chunk
+// edge goes to partial[chunk][slot][d] (slot 0 for the chunk's first
+// segment, 1 for its last) and cols_span_sum adds the partials of a
+// crossing segment in chunk order (one thread per chunk and row, from the
+// chunk where the segment starts).  cols_fill_empty zeroes the columns
+// outside [uidx[0], uidx[n-1]].  Fixed order, no atomics: deterministic.
+// Bound: bytes - g read once, uidx once, out written once.
+//
 // Unsorted segment-sum (mr_segsum_unsorted, below): the same sum for
 // segment ids in any order with n_out <= 2048, into [D, n_out],
 // replacing stream_segsum.py:streamed_segsum_unsorted (one resident
@@ -329,7 +348,167 @@ __global__ void unsorted_reduce(const float* __restrict__ partial,
   out[i] = s;
 }
 
+constexpr int kCChunk = 256;  // positions per warp in cols_chunk_sum
+constexpr int kCRows = 4;     // feature rows per warp
+constexpr int kNoRun = INT32_MIN;      // no run is open
+constexpr int kPadId = INT32_MIN + 1;  // lane past the chunk's end
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+cols_chunk_sum(const T* __restrict__ g, const int* __restrict__ uidx,
+               int64_t n, int d, int n_out, float* __restrict__ out,
+               float* __restrict__ partial) {
+  const int64_t chunk =
+      (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t a = chunk * kCChunk;
+  if (a >= n) return;
+  const int64_t b = a + kCChunk < n ? a + kCChunk : n;
+  const int d0 = blockIdx.y * kCRows;
+  const int first_u = uidx[a];
+  // the chunk's first segment began in an earlier chunk
+  const bool before = a > 0 && uidx[a - 1] == first_u;
+  float carry[kCRows];
+#pragma unroll
+  for (int r = 0; r < kCRows; ++r) carry[r] = 0.f;
+  int carry_u = kNoRun;
+  for (int64_t i = a; i < b; i += 32) {
+    const int64_t pos = i + lane;
+    const bool valid = pos < b;
+    const int u = valid ? uidx[pos] : kPadId;
+    const bool end = valid && (pos + 1 >= n || uidx[pos + 1] != u);
+    bool join[5];
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      const int up = __shfl_up_sync(kFull, u, 1 << s);
+      join[s] = lane >= (1 << s) && up == u;
+    }
+    const bool cont = u == carry_u;
+    float val[kCRows];
+#pragma unroll
+    for (int r = 0; r < kCRows; ++r) {
+      const int dd = d0 + r;
+      float v = (valid && dd < d)
+                    ? mr::to_f(g[static_cast<int64_t>(dd) * n + pos])
+                    : 0.f;
+#pragma unroll
+      for (int s = 0; s < 5; ++s) {
+        const float t = __shfl_up_sync(kFull, v, 1 << s);
+        if (join[s]) v += t;
+      }
+      if (cont) v += carry[r];
+      val[r] = v;
+    }
+    if (end && u >= 0 && u < n_out) {
+      const bool whole = !(before && u == first_u);
+#pragma unroll
+      for (int r = 0; r < kCRows; ++r) {
+        const int dd = d0 + r;
+        if (dd >= d) continue;
+        if (whole)
+          out[static_cast<int64_t>(dd) * n_out + u] = val[r];
+        else
+          partial[chunk * 2 * d + dd] = val[r];
+      }
+    }
+    const bool last_end = __shfl_sync(kFull, end ? 1 : 0, 31) != 0;
+    const int last_u = __shfl_sync(kFull, u, 31);
+#pragma unroll
+    for (int r = 0; r < kCRows; ++r) {
+      const float t = __shfl_sync(kFull, val[r], 31);
+      carry[r] = last_end ? 0.f : t;
+    }
+    carry_u = last_end ? kNoRun : last_u;
+  }
+  if (carry_u >= 0 && carry_u < n_out) {  // the run open at the chunk's end
+    const int slot = carry_u == first_u ? 0 : 1;
+#pragma unroll
+    for (int r = 0; r < kCRows; ++r) {
+      if (lane == r && d0 + r < d)
+        partial[(chunk * 2 + slot) * d + d0 + r] = carry[r];
+    }
+  }
+}
+
+// Thread (chunk, row): if a segment starts in this chunk and crosses its
+// end, add its partials in chunk order and write its column.
+__global__ void cols_span_sum(const int* __restrict__ uidx, int64_t n, int d,
+                              int n_out, const float* __restrict__ partial,
+                              float* __restrict__ out) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int64_t chunk = t / d;
+  const int dd = static_cast<int>(t - chunk * d);
+  const int64_t a = chunk * kCChunk, b = a + kCChunk;
+  if (b >= n) return;  // the last chunk's runs end inside it
+  const int u = uidx[b - 1];
+  if (uidx[b] != u || u < 0 || u >= n_out) return;  // ends in this chunk
+  const bool is_first = uidx[a] == u;
+  if (is_first && a > 0 && uidx[a - 1] == u) return;  // began earlier
+  float s = partial[(chunk * 2 + (is_first ? 0 : 1)) * d + dd];
+  for (int64_t cc = chunk + 1;; ++cc) {
+    s += partial[cc * 2 * d + dd];
+    const int64_t e = (cc + 1) * kCChunk;
+    if (e >= n || uidx[e] != u) break;
+  }
+  out[static_cast<int64_t>(dd) * n_out + u] = s;
+}
+
+// Zero the columns of out [d, n_out] that no position holds: those below
+// uidx[0] and above uidx[n-1].
+__global__ void cols_fill_empty(const int* __restrict__ uidx, int64_t n, int d,
+                                int n_out, float* __restrict__ out) {
+  int lo = n_out, hi = n_out - 1;  // no positions: every column is empty
+  if (n > 0) {
+    lo = uidx[0];
+    hi = uidx[n - 1];
+    lo = lo < 0 ? 0 : (lo > n_out ? n_out : lo);
+    hi = hi < -1 ? -1 : (hi > n_out - 1 ? n_out - 1 : hi);
+  }
+  const int64_t col = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (col >= n_out || (col >= lo && col <= hi)) return;
+  for (int dd = 0; dd < d; ++dd) out[static_cast<int64_t>(dd) * n_out + col] = 0.f;
+}
+
+template <typename T>
+void launch_cols(const void* g, const int* uidx, int64_t n, int d, int n_out,
+                 float* partial, float* out, cudaStream_t st) {
+  const int64_t chunks = (n + kCChunk - 1) / kCChunk;
+  dim3 grid(mr::blocks_for(chunks * 32, kThreads),
+            static_cast<unsigned>((d + kCRows - 1) / kCRows));
+  cols_chunk_sum<T><<<grid, kThreads, 0, st>>>(static_cast<const T*>(g), uidx,
+                                               n, d, n_out, out, partial);
+  cols_span_sum<<<mr::blocks_for(chunks * d, kThreads), kThreads, 0, st>>>(
+      uidx, n, d, n_out, partial, out);
+}
+
 }  // namespace
+
+// Floats of mr_segsum_cols's partial scratch for n positions of d rows.
+extern "C" int64_t mr_segsum_cols_partial_len(int64_t n, int d) {
+  return (n + kCChunk - 1) / kCChunk * 2 * d;
+}
+
+// g: [d, n] bf16 (g_bf16 != 0) or f32, feature-major; uidx: [n] i32,
+// non-decreasing with unit steps; partial: [ceil(n / kCChunk), 2, d] f32
+// scratch (mr_segsum_cols_partial_len floats); out: [d, n_out] f32, every
+// column written.
+extern "C" int mr_segsum_cols(const void* g, int g_bf16, const int* uidx,
+                              int64_t n, int d, int n_out, float* partial,
+                              float* out, void* stream) {
+  if (d <= 0 || d > 65535 * kCRows || n_out < 0 || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_out == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n > 0) {
+    if (g_bf16)
+      launch_cols<__nv_bfloat16>(g, uidx, n, d, n_out, partial, out, st);
+    else
+      launch_cols<float>(g, uidx, n, d, n_out, partial, out, st);
+  }
+  cols_fill_empty<<<mr::blocks_for(n_out, kThreads), kThreads, 0, st>>>(
+      uidx, n, d, n_out, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // g: [n, d] bf16 (g_bf16 != 0) or f32; seg: [n] i32, any order; ids
 // outside [0, n_out) add nothing; n_part: position ranges (blocks along
@@ -372,9 +551,15 @@ extern "C" int mr_segsum_unsorted(const void* g, int g_bf16, const int* seg,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Floats of mr_segsum_sorted's partial scratch for n positions of d columns.
+extern "C" int64_t mr_segsum_sorted_partial_len(int64_t n, int d) {
+  return (n + kChunk - 1) / kChunk * 2 * d;
+}
+
 // g: [n, d] bf16 (g_bf16 != 0) or f32, row-major; uidx: [n] i32,
 // non-decreasing with unit steps; seg: [2 * n_out] i32 scratch; partial:
-// [ceil(n / kChunk), 2, d] f32 scratch; out: [n_out, d] f32.
+// [ceil(n / kChunk), 2, d] f32 scratch (mr_segsum_sorted_partial_len
+// floats); out: [n_out, d] f32.
 extern "C" int mr_segsum_sorted(const void* g, int g_bf16, const int* uidx,
                                 int64_t n, int d, int n_out, int* seg,
                                 float* partial, float* out, void* stream) {

@@ -32,60 +32,26 @@
 // the host.  Bound: bytes - cols and grads_aug read once, and each
 // touched element's weight and two state values read and written once.
 
-#include "common.cuh"
+#include "update_cols.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-// Sum of the run of equal columns that starts at slot u, for sublane p's
-// gradient row and the touch row that gates it.  Returns false when u
-// does not start a run or its column is outside the table.
-__device__ __forceinline__ bool run_sum(const int* __restrict__ cols,
-                                        const float* __restrict__ g, int n,
-                                        int64_t vc, int dp, int fold, int u,
-                                        int p, int* col, float* G,
-                                        float* touch) {
-  int c = cols[u];
-  if (c < 0 || c >= vc) return false;
-  if (u > 0 && cols[u - 1] == c) return false;
-  const float* gp = g + static_cast<int64_t>(p) * n;
-  const float* tp = g + static_cast<int64_t>(dp + (fold == 1 ? 0 : p)) * n;
-  float s = gp[u], t = tp[u];
-  for (int k = u + 1; k < n && cols[k] == c; ++k) {
-    s += gp[k];
-    t += tp[k];
-  }
-  *col = c;
-  *G = s;
-  *touch = t;
-  return true;
-}
 
 template <typename TW, typename TS>
 __global__ void adam_cols_kernel(TW* __restrict__ table, TS* __restrict__ m,
                                  TS* __restrict__ v, int64_t vc, int dp,
                                  const int* __restrict__ cols,
                                  const float* __restrict__ g, int n, int fold,
-                                 const float* __restrict__ lr_t_ptr, float b1,
-                                 float one_minus_b1, float b2,
-                                 float one_minus_b2, float eps,
-                                 float inv_scale) {
+                                 mr::AdamHyper h) {
   int u = blockIdx.x * kThreads + threadIdx.x;
   int p = blockIdx.y;
   if (u >= n) return;
   int c;
   float sum, touch;
-  if (!run_sum(cols, g, n, vc, dp, fold, u, p, &c, &sum, &touch)) return;
+  if (!mr::run_sum(cols, g, n, vc, dp, fold, u, p, &c, &sum, &touch)) return;
   if (!(touch > 0.f)) return;
-  int64_t idx = static_cast<int64_t>(p) * vc + c;
-  float G = sum * inv_scale;
-  float m_new = b1 * mr::to_f(m[idx]) + one_minus_b1 * G;
-  float v_new = b2 * mr::to_f(v[idx]) + one_minus_b2 * G * G;
-  float upd = *lr_t_ptr * m_new / (sqrtf(v_new) + eps);
-  table[idx] = mr::from_f<TW>(mr::to_f(table[idx]) - upd);
-  m[idx] = mr::from_f<TS>(m_new);
-  v[idx] = mr::from_f<TS>(v_new);
+  mr::adam_element(table, m, v, static_cast<int64_t>(p) * vc + c, sum, h);
 }
 
 template <typename TW>
@@ -94,49 +60,26 @@ __global__ void ftrl_cols_kernel(TW* __restrict__ table,
                                  float* __restrict__ linear, int64_t vc,
                                  int dp, const int* __restrict__ cols,
                                  const float* __restrict__ g, int n, int fold,
-                                 float lr, float l1, float two_l2,
-                                 float inv_scale) {
+                                 mr::FtrlHyper h) {
   int u = blockIdx.x * kThreads + threadIdx.x;
   int p = blockIdx.y;
   if (u >= n) return;
   int c;
   float sum, touch;
-  if (!run_sum(cols, g, n, vc, dp, fold, u, p, &c, &sum, &touch)) return;
+  if (!mr::run_sum(cols, g, n, vc, dp, fold, u, p, &c, &sum, &touch)) return;
   if (!(touch > 0.f)) return;
-  int64_t idx = static_cast<int64_t>(p) * vc + c;
-  float G = sum * inv_scale;
-  float w = mr::to_f(table[idx]);
-  float a_old = accum[idx];
-  float lin = linear[idx];
-  float a_new = a_old + G * G;
-  float sq_new = sqrtf(a_new);
-  float sigma = (sq_new - sqrtf(a_old)) / lr;
-  float lin_new = lin + G - sigma * w;
-  float quad = sq_new / lr + two_l2;
-  float w_new = 0.f;
-  if (fabsf(lin_new) > l1) {
-    float sgn = lin_new > 0.f ? 1.f : -1.f;
-    w_new = (sgn * l1 - lin_new) / quad;
-  }
-  table[idx] = mr::from_f<TW>(w_new);
-  accum[idx] = a_new;
-  linear[idx] = lin_new;
-}
-
-bool bad_shape(int64_t vc, int dp, int n, int fold) {
-  return vc < 0 || dp <= 0 || dp > 65535 || n < 0 ||
-         !(fold == 1 || (fold > 1 && fold <= 8 && dp <= fold));
+  mr::ftrl_element(table, accum, linear, static_cast<int64_t>(p) * vc + c, sum,
+                   h);
 }
 
 template <typename TW, typename TS>
 void launch_adam(void* table, void* m, void* v, int64_t vc, int dp,
                  const int* cols, const float* g, int n, int fold,
-                 const float* lr_t, float b1, float omb1, float b2,
-                 float omb2, float eps, float inv_scale, cudaStream_t st) {
+                 const mr::AdamHyper& h, cudaStream_t st) {
   dim3 grid(mr::blocks_for(n, kThreads), static_cast<unsigned>(dp));
   adam_cols_kernel<TW, TS><<<grid, kThreads, 0, st>>>(
       static_cast<TW*>(table), static_cast<TS*>(m), static_cast<TS*>(v), vc,
-      dp, cols, g, n, fold, lr_t, b1, omb1, b2, omb2, eps, inv_scale);
+      dp, cols, g, n, fold, h);
 }
 
 }  // namespace
@@ -150,26 +93,23 @@ extern "C" int mr_adam_cols(void* table, int table_bf16, void* m, void* v,
                             const float* lr_t, float b1, float one_minus_b1,
                             float b2, float one_minus_b2, float eps,
                             float inv_scale, void* stream) {
-  if (bad_shape(vc, dp, n, fold)) return static_cast<int>(cudaErrorInvalidValue);
+  if (mr::bad_cols_shape(vc, dp, n, fold))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (table_bf16 && state_bf16) {
-    launch_adam<__nv_bfloat16, __nv_bfloat16>(
-        table, m, v, vc, dp, cols, g, n, fold, lr_t, b1, one_minus_b1, b2,
-        one_minus_b2, eps, inv_scale, st);
-  } else if (table_bf16) {
-    launch_adam<__nv_bfloat16, float>(table, m, v, vc, dp, cols, g, n, fold,
-                                      lr_t, b1, one_minus_b1, b2,
-                                      one_minus_b2, eps, inv_scale, st);
-  } else if (state_bf16) {
-    launch_adam<float, __nv_bfloat16>(table, m, v, vc, dp, cols, g, n, fold,
-                                      lr_t, b1, one_minus_b1, b2,
-                                      one_minus_b2, eps, inv_scale, st);
-  } else {
-    launch_adam<float, float>(table, m, v, vc, dp, cols, g, n, fold, lr_t, b1,
-                              one_minus_b1, b2, one_minus_b2, eps, inv_scale,
-                              st);
-  }
+  const mr::AdamHyper h{lr_t, b1, one_minus_b1, b2, one_minus_b2, eps,
+                        inv_scale};
+  if (table_bf16 && state_bf16)
+    launch_adam<__nv_bfloat16, __nv_bfloat16>(table, m, v, vc, dp, cols, g, n,
+                                              fold, h, st);
+  else if (table_bf16)
+    launch_adam<__nv_bfloat16, float>(table, m, v, vc, dp, cols, g, n, fold, h,
+                                      st);
+  else if (state_bf16)
+    launch_adam<float, __nv_bfloat16>(table, m, v, vc, dp, cols, g, n, fold, h,
+                                      st);
+  else
+    launch_adam<float, float>(table, m, v, vc, dp, cols, g, n, fold, h, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -180,18 +120,19 @@ extern "C" int mr_ftrl_cols(void* table, int table_bf16, float* accum,
                             const int* cols, const float* g, int n, int fold,
                             float lr, float l1, float two_l2, float inv_scale,
                             void* stream) {
-  if (bad_shape(vc, dp, n, fold)) return static_cast<int>(cudaErrorInvalidValue);
+  if (mr::bad_cols_shape(vc, dp, n, fold))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid(mr::blocks_for(n, kThreads), static_cast<unsigned>(dp));
+  const mr::FtrlHyper h{lr, l1, two_l2, inv_scale};
   if (table_bf16) {
     ftrl_cols_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
         static_cast<__nv_bfloat16*>(table), accum, linear, vc, dp, cols, g, n,
-        fold, lr, l1, two_l2, inv_scale);
+        fold, h);
   } else {
     ftrl_cols_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<float*>(table), accum, linear, vc, dp, cols, g, n, fold, lr,
-        l1, two_l2, inv_scale);
+        static_cast<float*>(table), accum, linear, vc, dp, cols, g, n, fold, h);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,8 @@ import torch
 LAUNCHES = {
     "segsum_sorted": 0, "adam_rows": 0, "ftrl_rows": 0,
     "segsum_unsorted": 0, "adam_cols": 0, "ftrl_cols": 0, "gather_rows": 0,
+    "segsum_cols": 0, "gather_cols": 0, "fused_adam_gather": 0,
+    "fused_ftrl_gather": 0,
 }
 
 

@@ -119,15 +119,24 @@ def library() -> ctypes.CDLL:
 _bound: dict[str, object] = {}
 
 
-def kernel_fn(name: str, argtypes: list):
+def kernel_fn(name: str, argtypes: list, restype=ctypes.c_int):
     """ctypes entry point ``name`` with its argument types declared."""
     fn = _bound.get(name)
     if fn is None:
         fn = getattr(library(), name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _bound[name] = fn
     return fn
+
+
+def scratch_len(name: str, *sizes: int) -> int:
+    """Elements of a kernel's scratch buffer, asked of the library's
+    ``name(sizes...)`` so that the kernel's chunk sizes live in its source
+    alone.  ``sizes``: an int64 count, then ints."""
+    fn = kernel_fn(name, [ctypes.c_int64] + [ctypes.c_int] * (len(sizes) - 1),
+                   restype=ctypes.c_int64)
+    return int(fn(*sizes))
 
 
 def check(rc: int, name: str) -> None:

@@ -10,8 +10,11 @@ are in ``csrc/segsum.cu``; see its header for the designs and bounds):
 * :func:`segsum_unsorted` - ``streamed_segsum_unsorted``: the same sum
   for segment ids in any order, ``n_out <= 2048`` (the tiny-vocab path,
   whose segment ids are the raw ids).
+* :func:`segsum_cols` - ``streamed_segsum`` with ``row_major=False``:
+  the sorted sum for gradients that arrive column-major, ``[D, N]``, as
+  the feature-major step has them, so no transpose sits between the two.
 
-In both, segment ids outside ``[0, n_out)`` add nothing.
+In all three, segment ids outside ``[0, n_out)`` add nothing.
 """
 
 from __future__ import annotations
@@ -30,7 +33,6 @@ _ARGS = [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p,
 ]
-_CHUNK = 64  # positions per warp: kChunk in csrc/segsum.cu
 
 
 def segsum_sorted_plain(g: torch.Tensor, uidx_sorted: torch.Tensor,
@@ -65,8 +67,9 @@ def segsum_sorted(g: torch.Tensor, uidx_sorted: torch.Tensor,
     require_contiguous(_NAME, g=g, uidx_sorted=uidx_sorted)
     out = torch.empty((n_out, d), dtype=torch.float32, device=g.device)
     seg = torch.empty((2, n_out), dtype=torch.int32, device=g.device)
-    partial = torch.empty((-(-n // _CHUNK), 2, d), dtype=torch.float32,
-                          device=g.device)
+    partial = torch.empty(
+        _build.scratch_len("mr_segsum_sorted_partial_len", n, d),
+        dtype=torch.float32, device=g.device)
     fn = _build.kernel_fn("mr_segsum_sorted", _ARGS)
     rc = fn(g.data_ptr(), int(g.dtype == torch.bfloat16),
             uidx_sorted.data_ptr(), n, d, n_out, seg.data_ptr(),
@@ -122,4 +125,56 @@ def segsum_unsorted(g: torch.Tensor, seg_ids: torch.Tensor,
             _build.stream_of(g))
     _build.check(rc, _UNSORTED)
     LAUNCHES[_UNSORTED] += 1
+    return out
+
+
+_COLS = "segsum_cols"
+_COLS_ARGS = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p,
+]
+
+
+def segsum_cols_plain(g: torch.Tensor, uidx_sorted: torch.Tensor,
+                      n_out: int) -> torch.Tensor:
+    """Plain PyTorch version (``index_add_`` along dim 1 in float32)."""
+    keep = (uidx_sorted >= 0) & (uidx_sorted < n_out)
+    out = torch.zeros((g.shape[0], n_out), dtype=torch.float32,
+                      device=g.device)
+    return out.index_add_(1, uidx_sorted[keep].long(), g[:, keep].float())
+
+
+def segsum_cols(g: torch.Tensor, uidx_sorted: torch.Tensor,
+                n_out: int) -> torch.Tensor:
+    """``out[:, u] = sum(g[:, n] for uidx_sorted[n] == u)`` -> [D, n_out].
+
+    ``g``: [D, N] bfloat16 or float32; ``uidx_sorted``: [N] int32,
+    non-decreasing with unit steps.  Every column is written, zeros past
+    the last segment (the step passes ``n_out = N``, one slot per
+    position).  CPU tensors take :func:`segsum_cols_plain`; CUDA
+    tensors launch the kernel."""
+    require(g.dim() == 2 and uidx_sorted.shape == (g.shape[1],), _COLS,
+            f"g [D, N] and uidx_sorted [N] expected, got {tuple(g.shape)} "
+            f"and {tuple(uidx_sorted.shape)}")
+    if on_cpu(_COLS, g, uidx_sorted):
+        return segsum_cols_plain(g, uidx_sorted, n_out)
+    d, n = g.shape
+    require(g.dtype in (torch.bfloat16, torch.float32), _COLS,
+            f"g must be bfloat16 or float32, got {g.dtype}")
+    require(uidx_sorted.dtype == torch.int32, _COLS,
+            "uidx_sorted must be int32")
+    require(0 < d <= 65535 and n < 2**31 and 0 <= n_out < 2**31, _COLS,
+            "sizes out of range")
+    require_contiguous(_COLS, g=g, uidx_sorted=uidx_sorted)
+    out = torch.empty((d, n_out), dtype=torch.float32, device=g.device)
+    partial = torch.empty(
+        _build.scratch_len("mr_segsum_cols_partial_len", n, d),
+        dtype=torch.float32, device=g.device)
+    fn = _build.kernel_fn("mr_segsum_cols", _COLS_ARGS)
+    rc = fn(g.data_ptr(), int(g.dtype == torch.bfloat16),
+            uidx_sorted.data_ptr(), n, d, n_out, partial.data_ptr(),
+            out.data_ptr(), _build.stream_of(g))
+    _build.check(rc, _COLS)
+    LAUNCHES[_COLS] += 1
     return out

@@ -35,7 +35,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _ADAM_ARGS = [_P, _I, _P, _P, _I, _L, _I, _P, _P, _I, _I, _P,
               _F, _F, _F, _F, _F, _F, _P]
 _FTRL_ARGS = [_P, _I, _P, _P, _L, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P]
-_FLOATS = (torch.float32, torch.bfloat16)
+FLOATS = (torch.float32, torch.bfloat16)
 
 
 def make_aug_grads(grads_t: torch.Tensor, sub: torch.Tensor | None) -> torch.Tensor:
@@ -81,8 +81,8 @@ def _run_sums(cols: torch.Tensor, grads_aug: torch.Tensor, vc: int):
     return c[first], acc
 
 
-def _check(name, table, states, cols, grads_aug, dim, fold):
-    require(table.dim() == 2 and table.dtype in _FLOATS, name,
+def check_args(name, table, states, cols, grads_aug, dim, fold):
+    require(table.dim() == 2 and table.dtype in FLOATS, name,
             f"table [Dp, Vc] float expected, got {tuple(table.shape)} "
             f"{table.dtype}")
     dp, _vc = table.shape
@@ -146,8 +146,8 @@ def adam_cols(table, m, v, cols, grads_aug, lr_t, *, dim, fold=1, b1=0.9,
         return adam_cols_plain(table, m, v, cols, grads_aug, lr_t, dim=dim,
                                fold=fold, b1=b1, b2=b2, eps=eps,
                                loss_scale=loss_scale)
-    _check(name, table, {"m": m, "v": v}, cols, grads_aug, dim, fold)
-    require(m.dtype == v.dtype and m.dtype in _FLOATS, name,
+    check_args(name, table, {"m": m, "v": v}, cols, grads_aug, dim, fold)
+    require(m.dtype == v.dtype and m.dtype in FLOATS, name,
             f"m/v dtype {m.dtype}/{v.dtype}")
     require(lr_t.numel() == 1 and lr_t.dtype == torch.float32, name,
             "lr_t must be one float32")
@@ -173,8 +173,8 @@ def ftrl_cols(table, accum, linear, cols, grads_aug, *, dim, fold=1,
         return ftrl_cols_plain(table, accum, linear, cols, grads_aug, dim=dim,
                                fold=fold, learning_rate=learning_rate, l1=l1,
                                l2=l2, loss_scale=loss_scale)
-    _check(name, table, {"accum": accum, "linear": linear}, cols, grads_aug,
-           dim, fold)
+    check_args(name, table, {"accum": accum, "linear": linear}, cols,
+               grads_aug, dim, fold)
     require(accum.dtype == torch.float32 and linear.dtype == torch.float32,
             name, "accum and linear must be float32")
     dp, vc = table.shape

@@ -1,10 +1,13 @@
 """Sparse CTR train step (one device) and eval step.
 
-Port of the ``use_pallas and row_layout`` branch of
-``mindrec_tpu/train/step.py:make_train_step`` for unsharded tables in
-one or several id groups (the multitable model declares four), with its
-tail ``_finish_sparse``, ``_packed_table_update`` and
-``_streamed_table_update``.  One step, per id group, in order:
+Port of the two streamed (``use_pallas``) branches of
+``mindrec_tpu/train/step.py:make_train_step`` for unsharded tables, with
+their tail ``_finish_sparse``, ``_packed_table_update`` and
+``_streamed_table_update``.
+
+``row_layout=True`` (the default) serves one or several id groups (the
+multitable model declares four) and either storage layout.  One step,
+per id group, in order:
 
 1. sort metadata (``perm``, ``uq_ids``, ``uidx``, ``uidx_sorted``) from
    host prep (:func:`make_batch_sort`, ``{group}:``-prefixed keys for
@@ -28,13 +31,35 @@ tail ``_finish_sparse``, ``_packed_table_update`` and
    ``adam_cols`` / ``ftrl_cols`` from touch-augmented gradients
    (kernels); the dense parameters take their optimizer's dense update.
 
+``row_layout=False`` is the feature-major formulation for a single id
+group of feature-major tables; nothing in it is row-major until the
+expansion:
+
+1. sort metadata as above, the unique ids kept at their full length N
+   (one slot per position, sentinel-padded; no bucket);
+2. per table, ``gather_cols`` (kernel) reads the unique ids' columns
+   into ``[Dp, N]``; folded tables are masked to the owning sublane and
+   sublane padding is dropped in unique space, the tables are
+   concatenated along features to ``[sum_d, N]`` and cast to
+   ``matmul_dtype``;
+3. one gather of the transposed block expands it to batch order
+   ``[N, sum_d]``; the gradient is taken at the expanded rows, so the
+   expansion itself carries no gradient;
+4. the gradients move to sorted order (``g[perm]``), are transposed to
+   ``[sum_d, N]`` and summed per unique slot by ``segsum_cols`` (kernel);
+5. split per table, fold-masked and padded back to ``Dp`` sublanes, they
+   update the tables with ``adam_cols`` / ``ftrl_cols`` (kernels).
+
 The step updates the tables and their optimizer state **in place** and
 returns a new :class:`TrainState` that shares them: the state passed in
 must not be used again (the reference donates it).  With
 ``use_kernels=False`` the step calls the kernels' plain versions
 directly on any device (the reference for the kernels on the card).
-The dense step, ``row_layout=False``, sharded or host-resident tables and
-non-sparse table specs raise ``NotImplementedError``.
+The dense step, the generic path without the streamed kernels, sharded
+or host-resident tables and non-sparse table specs raise
+``NotImplementedError``; so does ``row_layout=False`` for a multi-group
+model or a row_packed table (the reference drops those to its generic
+path).
 """
 
 from __future__ import annotations
@@ -45,9 +70,12 @@ import numpy as np
 import torch
 
 from mindrec_tpu_torch.ops.embedding import packed_expand, packed_gather
-from mindrec_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
+from mindrec_tpu_torch.ops.kernels.gather import (
+    gather_cols, gather_cols_plain, gather_rows, gather_rows_plain,
+)
 from mindrec_tpu_torch.ops.kernels.segsum import (
-    segsum_sorted, segsum_sorted_plain, segsum_unsorted, segsum_unsorted_plain,
+    segsum_cols, segsum_cols_plain, segsum_sorted, segsum_sorted_plain,
+    segsum_unsorted, segsum_unsorted_plain,
 )
 from mindrec_tpu_torch.ops.kernels.update_cols import (
     AUG, adam_cols, adam_cols_plain, ftrl_cols, ftrl_cols_plain,
@@ -241,11 +269,23 @@ def _supported(model, sparse, row_layout):
     """Raise NotImplementedError for every branch this port lacks."""
     if not sparse:
         raise NotImplementedError("the dense train step is not ported yet")
-    if not row_layout:
+    groups = getattr(model, "table_groups", None)
+    if not row_layout and groups and (len(groups) > 1
+                                      or "_default" not in groups):
         raise NotImplementedError(
-            "row_layout=False (feature-major streaming) is not ported yet"
+            "row_layout=False handles single-id-group models; multi-group "
+            "models stream with row_layout=True (the reference's other "
+            "choice, its generic path, is not ported)"
         )
     for name, (_path, spec) in model.table_specs.items():
+        if not row_layout and spec.row_packed:
+            raise NotImplementedError(
+                f"table {name}: row_layout=False streams feature-major "
+                f"tables, but this one is row_packed (the default layout); "
+                f"build the model with table_layout='feature_major' (the "
+                f"reference drops to its generic path here, which is not "
+                f"ported)"
+            )
         if spec.slice_mode != "none" or spec.target != "device":
             raise NotImplementedError(
                 f"table {name}: sharded or host tables are not ported yet "
@@ -387,7 +427,12 @@ def make_train_step(
     the lazy updates.  ``matmul_dtype``: type of the expanded rows and of
     their gradients (bf16 in production, as the reference).
     ``check_overflow``: skip the update (but advance the step) when a
-    gradient is not finite; this reads one flag on the host each step."""
+    gradient is not finite; this reads one flag on the host each step.
+    ``row_layout=False``: the feature-major formulation (module
+    docstring) for a single id group of feature-major tables; it takes
+    the unique ids at their full length and ignores ``unique_bucket``
+    and ``tiny_vocab`` (both ``row_layout=True`` parameters, as in the
+    reference)."""
     cfg = model.config
     if sparse is None:
         sparse = bool(getattr(cfg, "sparse", False))
@@ -517,14 +562,11 @@ def make_train_step(
                 col_grads[name] = gcol
         return col_grads, touch_mask
 
-    def step(state: TrainState, batch):
-        params = state.params
-        gdata = forward_meta(params, batch)
-        rows_pos = {
-            g: gd["buf"].to(matmul_dtype)[gd["uidx_b"].long()]
-            .requires_grad_(True)
-            for g, gd in gdata.items()
-        }
+    def run_model(params, batch, rows_pos, rows_of):
+        """Forward and backward from the expanded rows ``rows_pos`` (leaf
+        tensors; ``rows_of`` cuts them into the model's per-table rows).
+        -> (dense gradients by key, gradients of ``rows_pos`` in its
+        order, (loss_w, loss_d))."""
         leaves = {}  # dense parameters, tracked for autograd
 
         def track(key, leaf):
@@ -535,29 +577,32 @@ def make_train_step(
 
         p_view = map_leaves(track, params)
         with torch.enable_grad():
-            rows = table_rows(gdata, rows_pos)
+            rows = rows_of(rows_pos)
             if hasattr(model, "apply_rows_batch"):
                 logits = model.apply_rows_batch(p_view, rows, batch)
             else:
                 logits = model.apply_rows(p_view, rows, batch["wts"])
             loss_w, loss_d = model.loss(p_view, logits, batch["label"])
-            inputs = [*leaves.values(), *rows_pos.values()]
+            inputs = [*leaves.values(), *rows_pos]
             grads = torch.autograd.grad(loss_d * sens, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(inputs, grads)]
-        dense_grads = dict(zip(leaves, grads[: len(leaves)]))
-        g_deltas = dict(zip(rows_pos, grads[len(leaves):]))
-        losses = (loss_w.detach(), loss_d.detach())
-        next_step = state.step + 1
+        return (dict(zip(leaves, grads[: len(leaves)])), grads[len(leaves):],
+                (loss_w.detach(), loss_d.detach()))
 
-        if check_overflow:
-            finite = torch.stack(
-                [torch.isfinite(g).all() for g in grads]
-            ).all()
-            if not bool(finite):  # keep params and state, advance step
-                return state._replace(step=next_step), losses
+    def overflowed(dense_grads, g_deltas) -> bool:
+        """check_overflow: True when a gradient is not finite (reads one
+        flag on the host)."""
+        if not check_overflow:
+            return False
+        finite = torch.stack([torch.isfinite(g).all()
+                              for g in (*dense_grads.values(), *g_deltas)])
+        return not bool(finite.all())
 
-        col_grads, touch_mask = backward_sums(gdata, g_deltas)
+    def finish(state, dense_grads, col_grads, cols, subs, touch_mask, losses):
+        """The shared tail: dense updates, then each table's lazy update
+        from its summed gradients (``_finish_sparse`` of the reference)."""
+        params = state.params
         opt_w_state, opt_d_state = dict(state.opt_w), dict(state.opt_d)
 
         def dense_update(key, leaf):
@@ -570,10 +615,6 @@ def make_train_step(
             return p2
 
         new_params = map_leaves(dense_update, params)
-        cols, subs = {}, {}
-        for gd in gdata.values():
-            cols.update(gd["cols"])
-            subs.update(gd["subs"])
         for key, (name, path, spec) in table_keys.items():
             wide = is_wide_key(key)
             states = opt_w_state if wide else opt_d_state
@@ -596,9 +637,91 @@ def make_train_step(
                 use_kernels=use_kernels,
             )
         return TrainState(new_params, opt_w_state, opt_d_state,
-                          next_step), losses
+                          state.step + 1), losses
 
-    return step
+    def step_rows(state: TrainState, batch):
+        gdata = forward_meta(state.params, batch)
+        rows_pos = [
+            gd["buf"].to(matmul_dtype)[gd["uidx_b"].long()]
+            .requires_grad_(True)
+            for gd in gdata.values()
+        ]
+        dense_grads, g_deltas, losses = run_model(
+            state.params, batch, rows_pos,
+            lambda rp: table_rows(gdata, dict(zip(gdata, rp))))
+        if overflowed(dense_grads, g_deltas):  # keep params and state
+            return state._replace(step=state.step + 1), losses
+        col_grads, touch_mask = backward_sums(gdata,
+                                              dict(zip(gdata, g_deltas)))
+        cols, subs = {}, {}
+        for gd in gdata.values():
+            cols.update(gd["cols"])
+            subs.update(gd["subs"])
+        return finish(state, dense_grads, col_grads, cols, subs, touch_mask,
+                      losses)
+
+    gather_c = gather_cols if use_kernels else gather_cols_plain
+    segsum_c = segsum_cols if use_kernels else segsum_cols_plain
+
+    def step_cols(state: TrainState, batch):
+        """The feature-major formulation (``row_layout=False``)."""
+        ids = batch["ids"]
+        flat = ids.reshape(-1).contiguous()
+        n_pos = flat.numel()
+        perm, uq, uidx_b, uidx_s, uq_len = _sort_meta(batch, flat)
+        if uq_len != n_pos:
+            raise ValueError(
+                f"row_layout=False takes uq_ids at their full length "
+                f"{n_pos} (one slot per position), got {uq_len}; trimming "
+                f"them to a bucket is a row_layout=True contract")
+        uq = uq.to(torch.int32)
+        parts, dims, cols, subs = [], {}, {}, {}
+        for name, (path, spec) in table_specs.items():
+            r = spec.fold
+            cols[name] = torch.div(uq, r, rounding_mode="floor") if r > 1 else uq
+            subs[name] = torch.remainder(uq, r) if r > 1 else None
+            rows_u = gather_c(_get(state.params, path), cols[name])  # [Dp, N]
+            if r > 1:  # keep the owning sublane only, in unique space
+                rows_u = rows_u * _fold_mask(rows_u.shape[0], spec.emb_dim,
+                                             subs[name], rows_u.dtype)
+            else:
+                rows_u = rows_u[: spec.emb_dim]  # drop sublane padding
+            parts.append(rows_u)
+            dims[name] = rows_u.shape[0]
+        big = (parts[0] if len(parts) == 1 else torch.cat(parts)).to(matmul_dtype)
+        # one gather expands every table to batch order; the gradient is
+        # taken at the expanded rows
+        rows_pos = big.T.contiguous()[uidx_b.long()].requires_grad_(True)
+
+        def rows_of(rp):
+            rows, off = {}, 0
+            for name, dn in dims.items():
+                rows[name] = rp[0][:, off: off + dn].reshape(*ids.shape[:2], dn)
+                off += dn
+            return rows
+
+        dense_grads, g_deltas, losses = run_model(state.params, batch,
+                                                  [rows_pos], rows_of)
+        if overflowed(dense_grads, g_deltas):  # keep params and state
+            return state._replace(step=state.step + 1), losses
+        g_sorted = g_deltas[0][perm.long()]  # [N, sum_d], sorted order
+        g_uq = segsum_c(g_sorted.T.contiguous(), uidx_s.to(torch.int32), n_pos)
+        col_grads, off = {}, 0
+        for name, (path, spec) in table_specs.items():
+            dn = dims[name]
+            g = g_uq[off: off + dn]
+            off += dn
+            if spec.fold > 1:
+                # the expanded rows are unmasked: zero the sublanes the
+                # fold mask zeroed in the forward
+                g = g * _fold_mask(dn, spec.emb_dim, subs[name], g.dtype)
+            dp_full = _get(state.params, path).shape[0]
+            if dn < dp_full:  # restore the sublane padding
+                g = torch.cat([g, g.new_zeros((dp_full - dn, n_pos))])
+            col_grads[name] = g
+        return finish(state, dense_grads, col_grads, cols, subs, {}, losses)
+
+    return step_rows if row_layout else step_cols
 
 
 # ---------------------------------------------------------------------------

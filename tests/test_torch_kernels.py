@@ -23,9 +23,9 @@ from mindrec_tpu.ops.pallas.stream_update_rows import (
 )
 from mindrec_tpu_torch.ops import embedding as temb
 from mindrec_tpu_torch.ops import kernels
-from mindrec_tpu_torch.ops.kernels.gather import gather_rows
+from mindrec_tpu_torch.ops.kernels.gather import gather_cols, gather_rows
 from mindrec_tpu_torch.ops.kernels.segsum import (
-    segsum_sorted, segsum_sorted_plain, segsum_unsorted,
+    segsum_cols, segsum_sorted, segsum_sorted_plain, segsum_unsorted,
 )
 from mindrec_tpu_torch.ops.kernels.update_cols import (
     adam_cols, ftrl_cols, make_aug_grads,
@@ -234,7 +234,8 @@ def test_wrappers_take_plain_only_on_cpu():
                                   segsum_sorted_plain(g, uidx, 4).numpy())
     assert kernels.LAUNCHES == dict.fromkeys(
         ("segsum_sorted", "adam_rows", "ftrl_rows", "segsum_unsorted",
-         "adam_cols", "ftrl_cols", "gather_rows"), 0)
+         "adam_cols", "ftrl_cols", "gather_rows", "segsum_cols",
+         "gather_cols", "fused_adam_gather", "fused_ftrl_gather"), 0)
     with pytest.raises(ValueError, match="segsum_sorted"):
         segsum_sorted(g.to("meta"), uidx.to("meta"), 4)
     t = torch.zeros((8, 128), device="meta")
@@ -544,3 +545,36 @@ def test_multitable_recipe_storage_shapes():
     assert spec(16, 64).storage_shape == (64, 8192)
     assert spec(16, 1).storage_shape == (8, 1024)
     assert spec(20900, 64).storage_shape == (64, 24576)
+
+
+# ---------------------------------------------------------------------------
+# the column-major twins against the row-major kernels' plain versions
+# (their parity with the Pallas kernels is in tests/test_torch_colpath.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segsum_cols_is_segsum_sorted_of_the_transpose(dtype):
+    """Kernels 1 and 4 compute one function on transposed inputs: same
+    segments, same float32 sums (up to their order), same zero tail."""
+    rng = np.random.default_rng(5)
+    uidx = _t(_uidx(rng, 900, 6))
+    g = _t(rng.normal(size=(900, 24)).astype(np.float32)).to(
+        getattr(torch, dtype))
+    rows = segsum_sorted(g, uidx, 1024)
+    cols = segsum_cols(g.T.contiguous(), uidx, 1024)
+    assert cols.shape == rows.shape == (24, 1024) and cols.is_contiguous()
+    torch.testing.assert_close(cols, rows, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("fold", [1, 8])
+def test_gather_cols_is_gather_rows_transposed(fold):
+    """Kernels 8 and 9 read the same columns; the column-major one writes
+    zeros where the row-major one keeps its (zeroed) buffer."""
+    rng = np.random.default_rng(6 + fold)
+    dp = 8 if fold > 1 else 16
+    cols, _sub = _col_slots(rng, fold, n_uq=300, n_sent=84)
+    table = _t(rng.normal(size=(dp, VC)).astype(np.float32))
+    rows = gather_rows(table, _t(cols), torch.zeros((cols.size, 128)), 0)
+    out = gather_cols(table, _t(cols))
+    np.testing.assert_array_equal(out.numpy(), rows.numpy()[:, :dp].T)

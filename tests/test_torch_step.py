@@ -207,7 +207,8 @@ def test_check_overflow_keeps_state():
     ({"deep_table_slice_mode": "table_row_slice"}, {}),
     ({"sparse": False}, {}),
     ({"multitable": True, "sparse": False}, {}),  # the dense multitable step
-    ({}, {"row_layout": False}),
+    ({}, {"row_layout": False}),  # row_packed tables on the column path
+    ({"multitable": True, "sparse": True}, {"row_layout": False}),  # groups
 ])
 def test_unported_branches_raise(change, ctor_kw):
     change = dict(change)
