@@ -31,14 +31,18 @@ Phases (any failure exits non-zero):
    gradient and its [1.7M, 1] presence counts, the sorted segment-sum of
    the emb128 group's [N, 256] and the multi group's [N, 128] gradients
    (segment sums held against a float64 sum), LazyAdam on emb128 with
-   f32 m/v and FTRL on the folded w128;
+   f32 m/v and FTRL on the folded w128; the unsorted segment-sum again at
+   D = 1, D = 13 (bf16), D = 20 and D = 128 (f32) with ids outside
+   [0, n_out) mixed in, against the float64 sum and the exact sum of
+   small integers;
 6. drive the multitable step at the recipe's full width (batch 131072,
    the eight feature-major tables at reference vocab and width, 5x1024
    bf16 MLP, FTRL + LazyAdam, host prep with multi-group compaction and
    x1.2 buckets): 3 warm-up and 10 timed steps, the launch counters set
    to 0 just before the timed steps and read just after; every kernel of
    the path must have launched its per-step count every step and every
-   loss must be finite;
+   loss must be finite; the same step with the plain versions is timed
+   beside it, in turns (the ``[compare]`` line);
 7. take 3 steps of a small multitable model (two tiny and two sorted id
    groups) with the kernels and 3 with the plain versions from one state
    and compare losses, the eight tables and their optimizer state;
@@ -71,6 +75,10 @@ Phases (any failure exits non-zero):
 11. drive DeepFM and DCN at their bench recipes on the default path
     (row_packed tables, ``row_layout=True``, bucket 131,072): 3 warm-up
     and 10 timed steps each.
+
+Every kernel and every library call is timed by replaying a CUDA graph
+of 10 calls (device time, no host work between the launches); the plain
+versions, which synchronise, by an eager loop.
 
 ``--profile`` adds the device time by kernel over 5 more steps of
 phases 3, 6 and 10.  It prints a ``{"kernels": [...]}`` JSON line before the
@@ -168,7 +176,9 @@ def log(*a):
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn()`` over ``iters`` back-to-back eager calls,
+    between two CUDA events.  Host work between the launches counts where
+    the device outruns it, so this times the plain versions only."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -179,6 +189,34 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 10, replays: int = 4) -> float:
+    """Device time of one ``fn()``: ``calls`` calls are captured once in a
+    CUDA graph and the graph is replayed, so no Python or launch overhead
+    of the host sits between the kernels (an eager loop is host-bound
+    below ~0.1 ms per call).  Times every kernel and every library call;
+    ``fn`` must not synchronise."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def max_errs(pairs) -> tuple[float, float]:
@@ -231,6 +269,32 @@ def check_segsum(name, got, plain, g, ids, n_out) -> tuple[float, float]:
     return err.max().item(), (err / plain.abs().clamp_min(1e-30)).max().item()
 
 
+def check_unsorted(dev, gen, seg, n_out, d, dtype):
+    """segsum_unsorted on a random [N, d] gradient of ``dtype``: within
+    the float32 tolerance of the float64 sum, deterministic, and equal
+    bit for bit to the exact sum of small integers (every float32 partial
+    sum of those is exact, whatever the order).  Returns the gradient and
+    the kernel's max abs and rel difference from the plain version."""
+    n = seg.numel()
+    tag = f"segsum_unsorted [{n}, {d}] {str(dtype).split('.')[-1]}"
+    g = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+    got = segsum_unsorted(g, seg, n_out)
+    err, rel = check_segsum(tag, got, segsum_unsorted_plain(g, seg, n_out),
+                            g, seg, n_out)
+    if not torch.equal(segsum_unsorted(g, seg, n_out), got):
+        fail(f"{tag} is not deterministic")
+    gi = torch.randint(-4, 5, (n, d), generator=gen, device=dev).to(dtype)
+    keep = (seg >= 0) & (seg < n_out)
+    exact = torch.zeros((n_out, d), dtype=torch.float64, device=dev)
+    exact = exact.index_add_(0, seg[keep].long(), gi[keep].double()).T.float()
+    if not torch.equal(segsum_unsorted(gi, seg, n_out), exact):
+        fail(f"{tag} differs from the exact sum of small integers")
+    log(f"[check] {tag}, {int(keep.sum())} of {n} ids in [0, {n_out}): "
+        f"float64 tolerance, deterministic, exact on integers; max abs "
+        f"diff from the plain version {err:.3e}")
+    return g, err, rel
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     path = _build.build()
@@ -258,10 +322,10 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
     t_b, by = bound(n * 128 * 2 + n * 4 + 128 * n_out * 4, n * 128)
     res["segsum_sorted"] = dict(
         max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: segsum_sorted(g, uidx, n_out), 20),
+        ms=graph_ms(lambda: segsum_sorted(g, uidx, n_out)),
         plain_ms=cuda_ms(lambda: segsum_sorted_plain(g, uidx, n_out), 5),
         bound_ms=t_b, bound_by=by,
-        library_ms=cuda_ms(lambda: lib_out.index_add_(0, ui_long, gf), 10),
+        library_ms=graph_ms(lambda: lib_out.index_add_(0, ui_long, gf)),
     )
     log("[kernel] segsum_sorted", json.dumps(res["segsum_sorted"]))
     del g, gf, lib_out
@@ -297,7 +361,7 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
                     valid * dim * 12)
     res["adam_rows"] = dict(
         max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: adam_rows(*a, rows, sub, gs, lr_t, **hyper), 20),
+        ms=graph_ms(lambda: adam_rows(*a, rows, sub, gs, lr_t, **hyper)),
         plain_ms=cuda_ms(lambda: adam_rows_plain(*b, rows, sub, gs, lr_t, **hyper), 5),
         bound_ms=t_b, bound_by=by, library_ms=None,
     )
@@ -323,7 +387,7 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
                     valid * dim * 16)
     res["ftrl_rows"] = dict(
         max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: ftrl_rows(*a, rows, sub, gs, **hyper), 20),
+        ms=graph_ms(lambda: ftrl_rows(*a, rows, sub, gs, **hyper)),
         plain_ms=cuda_ms(lambda: ftrl_rows_plain(*b, rows, sub, gs, **hyper), 5),
         bound_ms=t_b, bound_by=by, library_ms=None,
     )
@@ -537,12 +601,18 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
         fail(f"gather_rows disagrees: max err {err}")
     t_b, by = bound(ub * 4 + valid * 128 * 4 * 2, 0)
     live = uq[:valid].long()
+
+    def select_into_lanes():
+        # no single call computes it: the selected columns [128, valid]
+        # still have to be transposed into the row-major buffer's lanes
+        b[:valid, 0:128] = torch.index_select(t128, 1, live).T
+
     res["gather_rows"] = dict(
         max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: gather_rows(t128, uq, a, 0), 20),
+        ms=graph_ms(lambda: gather_rows(t128, uq, a, 0)),
         plain_ms=cuda_ms(lambda: gather_rows_plain(t128, uq, b, 0), 5),
-        bound_ms=t_b, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.index_select(t128, 1, live), 10),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+        select_transpose_ms=graph_ms(select_into_lanes),
     )
     log("[kernel] gather_rows (emb128 [128, 655360] -> [ub, 256] lanes 0..127)",
         json.dumps(res["gather_rows"]))
@@ -552,22 +622,19 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
     seg = torch.from_numpy(np.ascontiguousarray(
         host0["indicator_id"].reshape(-1))).to(dev)
     n, n_out = seg.numel(), 2048
-    g = torch.randn((n, 128), generator=gen, device=dev).to(torch.bfloat16)
-    got = segsum_unsorted(g, seg, n_out)
-    err, rel = check_segsum("segsum_unsorted", got,
-                            segsum_unsorted_plain(g, seg, n_out), g, seg, n_out)
-    if not torch.equal(segsum_unsorted(g, seg, n_out), got):
-        fail("segsum_unsorted is not deterministic")
-    del got
-    # small integers: every float32 partial sum is exact, so each of the
-    # 8 column blocks must equal the float64 sum bit for bit
-    gi = torch.randint(-4, 5, (n, 128), generator=gen, device=dev).float()
-    keep = (seg >= 0) & (seg < n_out)
-    exact = torch.zeros((n_out, 128), dtype=torch.float64, device=dev)
-    exact = exact.index_add_(0, seg[keep].long(), gi[keep].double()).T.float()
-    if not torch.equal(segsum_unsorted(gi, seg, n_out), exact):
-        fail("segsum_unsorted differs from the exact sum of float32 integers")
-    del gi, exact
+    g, err, rel = check_unsorted(dev, gen, seg, n_out, 128, torch.bfloat16)
+    # the same checks where the kernel's vector width, column groups and
+    # id filter change: D = 1, D not a multiple of 8, float32, and ids
+    # below 0, past n_out and spread over the whole range mixed in
+    seg_x = seg.clone()
+    seg_x[5::13] = torch.randint(0, n_out, seg_x[5::13].shape, generator=gen,
+                                 device=dev, dtype=torch.int32)
+    seg_x[::7] = -1
+    seg_x[3::11] = n_out + 5
+    for d_x, dt in ((1, torch.float32), (13, torch.bfloat16),
+                    (20, torch.float32), (128, torch.float32)):
+        check_unsorted(dev, gen, seg_x, n_out, d_x, dt)
+    del seg_x
     # presence counts, as the step takes them: ones [N, 1]
     ones = torch.ones((n, 1), dtype=torch.bfloat16, device=dev)
     counts = torch.bincount(seg.long(), minlength=n_out)[:n_out].float()
@@ -578,13 +645,13 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
     gf, seg_l = g.float(), seg.long()
     res["segsum_unsorted"] = dict(
         max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: segsum_unsorted(g, seg, n_out), 20),
+        ms=graph_ms(lambda: segsum_unsorted(g, seg, n_out)),
         plain_ms=cuda_ms(lambda: segsum_unsorted_plain(g, seg, n_out), 5),
         bound_ms=t_b, bound_by=by,
-        library_ms=cuda_ms(lambda: lib_out.index_add_(0, seg_l, gf), 10),
+        library_ms=graph_ms(lambda: lib_out.index_add_(0, seg_l, gf)),
     )
-    res["segsum_unsorted"]["presence_ms"] = cuda_ms(
-        lambda: segsum_unsorted(ones, seg, n_out), 20)
+    res["segsum_unsorted"]["presence_ms"] = graph_ms(
+        lambda: segsum_unsorted(ones, seg, n_out))
     log("[kernel] segsum_unsorted ([1.7M, 128] bf16 -> [128, 2048])",
         json.dumps(res["segsum_unsorted"]))
     del g, gf, lib_out, ones
@@ -599,13 +666,16 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
                                 segsum_sorted_plain(g, uidx, n_out), g, uidx,
                                 n_out)
         t_b, _by = bound(n * d * 2 + n * 4 + d * n_out * 4, n * d)
+        lib_out = torch.zeros((n_out, d), device=dev)
+        gf, ui_long = g.float(), uidx.long()
         log(f"[kernel] segsum_sorted ({grp} [{n}, {d}] bf16 -> [{d}, {n_out}])",
             json.dumps(dict(
                 max_abs_err=err, max_rel_err=rel,
-                ms=cuda_ms(lambda: segsum_sorted(g, uidx, n_out), 20),
+                ms=graph_ms(lambda: segsum_sorted(g, uidx, n_out)),
                 plain_ms=cuda_ms(lambda: segsum_sorted_plain(g, uidx, n_out), 5),
-                bound_ms=t_b)))
-        del g
+                bound_ms=t_b,
+                library_ms=graph_ms(lambda: lib_out.index_add_(0, ui_long, gf)))))
+        del g, gf, lib_out
 
     # -- LazyAdam on emb128 [128, 655360], f32 m/v ----------------------
     res["adam_cols"] = check_adam_cols(
@@ -633,7 +703,7 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
     t_b, by = bound(io + valid * 3 * 4 * 2, valid * 16)
     res["ftrl_cols"] = dict(
         max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: ftrl_cols(*a, cols_w, aug, **hyper), 20),
+        ms=graph_ms(lambda: ftrl_cols(*a, cols_w, aug, **hyper)),
         plain_ms=cuda_ms(lambda: ftrl_cols_plain(*b, cols_w, aug, **hyper), 5),
         bound_ms=t_b, bound_by=by, library_ms=None,
         sector_bound_ms=bound(io + wsec * 8 * 3 * 2 * 32, 0)[0],
@@ -650,8 +720,21 @@ def phase_mt_main_path(dev, model, opts, host, warmup=3, steps=10,
     state = init_train_state(model, 0, opt_w, opt_d, device=dev)
     batches = [to_device(hb, dev) for hb in host]
     step = make_train_step(model, opt_w, opt_d)
-    return timed_steps("mt-main", step, state, batches, MT_BATCH, MT_PER_STEP,
-                       warmup, steps, profile)
+    out = timed_steps("mt-main", step, state, batches, MT_BATCH, MT_PER_STEP,
+                      warmup, steps, profile)
+    del state
+    plain_step = make_train_step(model, opt_w, opt_d, use_kernels=False)
+
+    def run(tag, fn, per_step, n):
+        st = init_train_state(model, 0, opt_w, opt_d, device=dev)
+        return timed_steps(tag, fn, st, batches, MT_BATCH, per_step, 2, n)
+
+    plain = [run("mt-plain", plain_step, {}, 4) for _ in range(2)]
+    again = run("mt-main", step, MT_PER_STEP, steps)
+    log(f"[compare] multitable, ms/step: kernels {out['ms_per_step']:.3f}, "
+        f"{again['ms_per_step']:.3f}; plain versions "
+        f"{plain[0]['ms_per_step']:.3f}, {plain[1]['ms_per_step']:.3f}")
+    return out
 
 
 def phase_mt_kernel_vs_plain_step(dev) -> None:
@@ -680,7 +763,9 @@ def check_adam_cols(tag, dev, gen, shape, fold, cols, sub, state_dtype, *,
     fold sub-rows or None.  Bound: every slot's column id, the gradient and
     touch rows of the live slots (a sentinel slot returns before it reads
     them) and each touched element's weight and moments, read and
-    written."""
+    written.  ``whole_table_ms`` is a yardstick for dense batches: the
+    time of reading and writing the three arrays whole (``mul_(1.0)``),
+    what the sector bound comes to when every sector holds a live column."""
     dp, vc = shape
     n = cols.numel()
 
@@ -714,10 +799,11 @@ def check_adam_cols(tag, dev, gen, shape, fold, cols, sub, state_dtype, *,
         for x in a)
     out = dict(
         max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: adam_cols(*a, cols, aug, lr_t, **hyper), 20),
+        ms=graph_ms(lambda: adam_cols(*a, cols, aug, lr_t, **hyper)),
         plain_ms=cuda_ms(lambda: adam_cols_plain(*b, cols, aug, lr_t, **hyper), 5),
         bound_ms=t_b, bound_by=by, library_ms=None,
         sector_bound_ms=bound(io + sec_bytes, 0)[0],
+        whole_table_ms=graph_ms(lambda: [x.mul_(1.0) for x in b]),
         slots=n, live_slots=n_live,
     )
     log(f"[kernel] adam_cols ({tag} [{dp}, {vc}] fold {fold}, n {n})",
@@ -751,10 +837,10 @@ def check_gather_cols(tag, dev, gen, shape, cols, dtype=torch.float32) -> dict:
     clamped = cols.clamp(0, vc - 1).long()
     out = dict(
         max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: gather_cols(table, cols), 20),
+        ms=graph_ms(lambda: gather_cols(table, cols)),
         plain_ms=cuda_ms(lambda: gather_cols_plain(table, cols), 5),
         bound_ms=t_b, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.index_select(table, 1, clamped), 10),
+        library_ms=graph_ms(lambda: torch.index_select(table, 1, clamped)),
         live=int(live.numel()), distinct=distinct,
     )
     log(f"[kernel] gather_cols ({tag} [{dp}, {vc}] -> [{dp}, {n}])",
@@ -781,10 +867,10 @@ def check_segsum_cols(tag, dev, gen, d, uidx) -> dict:
     gf, ui_long = g.float(), uidx.long()
     out = dict(
         max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: segsum_cols(g, uidx, n), 20),
+        ms=graph_ms(lambda: segsum_cols(g, uidx, n)),
         plain_ms=cuda_ms(lambda: segsum_cols_plain(g, uidx, n), 5),
         bound_ms=t_b, bound_by=by,
-        library_ms=cuda_ms(lambda: lib_out.index_add_(1, ui_long, gf), 10),
+        library_ms=graph_ms(lambda: lib_out.index_add_(1, ui_long, gf)),
         segments=last + 1,
     )
     log(f"[kernel] segsum_cols ({tag} [{d}, {n}] bf16 -> [{d}, {n}])",
@@ -881,10 +967,10 @@ def check_fused(tag, dev, gen, kind, shape, fold, ids_u, ids_g,
 
     out = dict(
         max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: fused(a, cols_u, aug, cols_g, **hyper), 20),
+        ms=graph_ms(lambda: fused(a, cols_u, aug, cols_g, **hyper)),
         plain_ms=cuda_ms(lambda: plain(c, cols_u, aug, cols_g, **hyper), 3),
         bound_ms=t_b, bound_by=by, library_ms=None,
-        separate_kernels_ms=cuda_ms(separate, 20),
+        separate_kernels_ms=graph_ms(separate),
         live_update_slots=int(live_u.numel()), live_next=int(live_g.numel()),
         shared_columns=shared,
     )

@@ -51,18 +51,43 @@
 // segment ids in any order with n_out <= 2048, into [D, n_out],
 // replacing stream_segsum.py:streamed_segsum_unsorted (one resident
 // [D, n_out] VMEM block and a one-hot matmul per 1024-row chunk).  Its
-// trouble is contention: at the Outbrain recipe 1.7M positions fall on
-// 16 live ids, and [2048 x 128] f32 (1 MB) does not fit a block's shared
-// memory.  So each block privatises a 16-column slice of the sum over a
-// range of positions ([n_out, 16] f32 in shared memory), and a second
-// pass adds the blocks' partials in block order.  Inside a block no
-// atomics are used: half-warp o owns the segments s with s % 16 == o and
-// adds its positions in position order (lanes are the 16 columns), so
-// every sum is taken in a fixed order and the result is deterministic.
-// A block stages the segment ids of kUChunk positions in shared memory,
-// lists each owner's positions, then loads kUBatch rows at a time per
-// owner to keep loads in flight.  Bound: bytes - g read once, seg once,
-// out written once.
+// trouble on this card is contention: at the Outbrain recipe 1.7M
+// positions fall on 16 live ids, so neither atomics nor one accumulator
+// per id spread over the machine, and a float sum needs a fixed order to
+// be deterministic.  The design sorts the *positions*, not the rows: a
+// stable counting sort by id that touches only the 4-byte ids, then sums
+// whole rows in sorted order, so a hot id is cut into equal pieces like
+// any other.  Six small passes:
+//   1. unsorted_rank: a block takes kGRange consecutive positions, a warp
+//      a contiguous share of them, 32 at a time in order.
+//      __match_any_sync ranks a position among the lanes of its id, a
+//      per-warp counter array in shared memory ([warps, n_out] 16-bit)
+//      among the warp's earlier positions; a prefix over the warps makes
+//      it the rank inside the block (written as 16 bits) and leaves the
+//      block's histogram row hist[block, :].  No atomics.
+//   2. unsorted_block_scan: exclusive prefix of hist over the blocks, per
+//      id, and the id's total.
+//   3. unsorted_bases: one block scans the totals: base[s] (where id s
+//      starts in sorted order), its rank among the ids that occur, and
+//      the list of those ids.
+//   4. unsorted_place: perm[base[s] + hist[block, s] + rank] = position,
+//      one thread per position: a stable sort, so each id's positions are
+//      in position order.
+//   5. unsorted_chunk_sum: one warp per kUChunk consecutive sorted
+//      entries.  The lanes span the row with one vector load each (8
+//      bytes at D = 128 bf16, up to 16; streaming, a row is read once),
+//      kURows rows in flight, the next 32 entries of perm fetched before
+//      the current ones are summed.  A run's end is known from base, and
+//      each (chunk, id) piece is written to row chunk + rank(id) of a
+//      compact partial array (at most chunks + ids rows, each written by
+//      one warp).
+//   6. unsorted_combine: one block per id adds its pieces, which are
+//      consecutive partial rows: warp w takes rows w, w + warps, ... in
+//      order, the warps' sums are added in warp order, and column s of
+//      out is written (zeros for an id without positions).
+// Every sum has a fixed order: deterministic.  Bound: bytes - g read
+// once (N*D*2 in bf16), seg once, out written once; the sort moves about
+// 30 bytes per position beside a 256-byte row.
 
 #include "common.cuh"
 
@@ -251,101 +276,401 @@ void launch_sorted_cols(const void* g, const int* uidx, int64_t n, int d,
     launch_sorted<T, 8>(g, uidx, n, d, n_out, seg, partial, out, st);
 }
 
-constexpr int kUCols = 16;                 // columns per block
-constexpr int kUWarps = 8;
-constexpr int kUOwners = 2 * kUWarps;     // half-warps per block
-constexpr int kUThreads = 32 * kUWarps;
-constexpr int kUChunk = 1024;             // positions staged per round
-constexpr int kUBatch = 16;               // rows loaded at once per owner
-constexpr int kUStride = kUCols + 1;      // acc row stride (banks)
+constexpr int kGWarps = 8;                 // warps per ranking block
+constexpr int kGThreads = 32 * kGWarps;
+constexpr int kGItems = 16;                // positions per lane
+constexpr int kGRange = kGThreads * kGItems;  // positions per block
+constexpr int kMaxOut = 2048;              // ids (shared-memory counters)
+constexpr int kUChunk = 256;               // sorted entries per warp
+constexpr int kURows = 8;                  // rows loaded ahead per warp
+constexpr int kUWarps = 8;                 // warps per chunk_sum block
+constexpr int kBWarps = 16;                // warps per combine block
+constexpr int kBCols = 128;                // columns per combine round
 
-size_t unsorted_smem(int n_out) {
-  return sizeof(float) * static_cast<size_t>(n_out) * kUStride +
-         sizeof(int) * kUChunk + sizeof(uint16_t) * kUOwners * kUChunk;
+// Pass 1.  rank[pos]: how many earlier positions of pos's block hold the
+// same id; hist[block, s]: positions of id s in the block.
+__global__ void __launch_bounds__(kGThreads)
+unsorted_rank(const int* __restrict__ seg, int64_t n, int n_out,
+              unsigned short* __restrict__ rank, int* __restrict__ hist) {
+  __shared__ unsigned short cnt[kGWarps * kMaxOut];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < kGWarps * n_out; i += kGThreads) cnt[i] = 0;
+  __syncthreads();
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kGRange +
+                        warp * (32 * kGItems) + lane;
+  unsigned short* mine = cnt + warp * n_out;
+  int id[kGItems];
+  unsigned short rk[kGItems];
+#pragma unroll
+  for (int k = 0; k < kGItems; ++k) {
+    const int64_t pos = first + 32 * k;
+    const int s = pos < n ? seg[pos] : -1;
+    id[k] = (s >= 0 && s < n_out) ? s : -1;
+  }
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < kGItems; ++k) {
+    const int s = id[k];
+    const unsigned peers = __match_any_sync(kFull, s);
+    const int r = __popc(peers & below);
+    const int old = s >= 0 ? mine[s] : 0;
+    __syncwarp();
+    if (s >= 0 && r == 0)
+      mine[s] = static_cast<unsigned short>(old + __popc(peers));
+    __syncwarp();
+    rk[k] = static_cast<unsigned short>(old + r);
+  }
+  __syncthreads();
+  for (int s = tid; s < n_out; s += kGThreads) {
+    int run = 0;
+#pragma unroll
+    for (int w = 0; w < kGWarps; ++w) {
+      const int c = cnt[w * n_out + s];
+      cnt[w * n_out + s] = static_cast<unsigned short>(run);
+      run += c;
+    }
+    hist[static_cast<int64_t>(blockIdx.x) * n_out + s] = run;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kGItems; ++k) {
+    const int64_t pos = first + 32 * k;
+    if (pos < n)
+      rank[pos] = id[k] >= 0
+                      ? static_cast<unsigned short>(mine[id[k]] + rk[k])
+                      : static_cast<unsigned short>(0);
+  }
 }
 
-// Block (x, y): positions [x * per_block, ...) and columns
-// [16 y, 16 y + 16); writes its sums to partial[x][col][s].
-template <typename T>
-__global__ void __launch_bounds__(kUThreads)
-unsorted_partial(const T* __restrict__ g, const int* __restrict__ seg,
-                 int64_t n, int d, int n_out, int64_t per_block,
-                 float* __restrict__ partial) {
-  extern __shared__ float smem[];
-  float* acc = smem;                                       // [n_out][17]
-  int* sseg = reinterpret_cast<int*>(acc + static_cast<size_t>(n_out) * kUStride);
-  uint16_t* list = reinterpret_cast<uint16_t*>(sseg + kUChunk);  // [16][kUChunk]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hl = lane & 15;
-  const int owner = 2 * warp + (lane >> 4);
-  const int col = blockIdx.y * kUCols + hl;
-  const bool col_ok = col < d;
-  uint16_t* mylist = list + owner * kUChunk;
-  for (int i = tid; i < n_out * kUStride; i += kUThreads) acc[i] = 0.f;
-  const int64_t a = static_cast<int64_t>(blockIdx.x) * per_block;
-  const int64_t b = a + per_block < n ? a + per_block : n;
-  for (int64_t c0 = a; c0 < b; c0 += kUChunk) {
-    const int len = static_cast<int>(b - c0 < kUChunk ? b - c0 : kUChunk);
-    __syncthreads();  // the previous round's lists are consumed
-    for (int i = tid; i < kUChunk; i += kUThreads) {
-      int s = i < len ? seg[c0 + i] : -1;
-      sseg[i] = (s >= 0 && s < n_out) ? s : -1;
-    }
-    __syncthreads();
-    // list the positions of both owners of this warp, in order
-    int cnt0 = 0, cnt1 = 0;
-    const unsigned below = (1u << lane) - 1u;
-    for (int base = 0; base < len; base += 32) {
-      int s = sseg[base + lane];
-      int o = s >= 0 ? s % kUOwners : -1;
-      unsigned m0 = __ballot_sync(0xffffffffu, o == 2 * warp);
-      unsigned m1 = __ballot_sync(0xffffffffu, o == 2 * warp + 1);
-      if (o == 2 * warp)
-        list[(2 * warp) * kUChunk + cnt0 + __popc(m0 & below)] =
-            static_cast<uint16_t>(base + lane);
-      if (o == 2 * warp + 1)
-        list[(2 * warp + 1) * kUChunk + cnt1 + __popc(m1 & below)] =
-            static_cast<uint16_t>(base + lane);
-      cnt0 += __popc(m0);
-      cnt1 += __popc(m1);
-    }
-    __syncwarp();
-    const int cnt = (lane >> 4) ? cnt1 : cnt0;
-    for (int k0 = 0; k0 < cnt; k0 += kUBatch) {
-      float v[kUBatch];
+// Pass 2.  hist[b, s] <- sum of hist[b', s] over b' < b; total[s] the
+// sum over every block.  Block: 32 ids (lanes) x 8 shares of the blocks.
+__global__ void __launch_bounds__(256)
+unsorted_block_scan(int* __restrict__ hist, int n_blocks, int n_out,
+                    int* __restrict__ total) {
+  __shared__ int share[8][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s = blockIdx.x * 32 + lane;
+  const bool ok = s < n_out;
+  const int per = (n_blocks + 7) / 8;
+  const int b0 = warp * per < n_blocks ? warp * per : n_blocks;
+  const int b1 = b0 + per < n_blocks ? b0 + per : n_blocks;
+  int sum = 0;
+  if (ok)
+    for (int b = b0; b < b1; ++b) sum += hist[static_cast<int64_t>(b) * n_out + s];
+  share[warp][lane] = sum;
+  __syncthreads();
+  int off = 0;
+  for (int w = 0; w < warp; ++w) off += share[w][lane];
+  if (!ok) return;
+  for (int b = b0; b < b1; ++b) {
+    int* h = hist + static_cast<int64_t>(b) * n_out + s;
+    const int c = *h;
+    *h = off;
+    off += c;
+  }
+  if (warp == 7) total[s] = off;
+}
+
+// Pass 3 (one block of 1024 threads, two ids each).  base[s]: sorted
+// index where id s starts (base[n_out]: positions kept); rankp[s]: ids
+// below s that occur; plist[j]: the j-th id that occurs.
+__global__ void __launch_bounds__(1024)
+unsorted_bases(const int* __restrict__ total, int n_out, int* __restrict__ base,
+               int* __restrict__ rankp, int* __restrict__ plist) {
+  __shared__ int wsum[2][32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int c0 = 2 * t < n_out ? total[2 * t] : 0;
+  const int c1 = 2 * t + 1 < n_out ? total[2 * t + 1] : 0;
+  const int p0 = c0 > 0, p1 = c1 > 0;
+  int cs = c0 + c1, ps = p0 + p1;  // inclusive scans over the threads
 #pragma unroll
-      for (int k = 0; k < kUBatch; ++k) {
-        v[k] = 0.f;
-        if (k0 + k < cnt && col_ok)
-          v[k] = mr::to_f(g[(c0 + mylist[k0 + k]) * d + col]);
+  for (int o = 1; o < 32; o <<= 1) {
+    const int a = __shfl_up_sync(kFull, cs, o);
+    const int b = __shfl_up_sync(kFull, ps, o);
+    if (lane >= o) {
+      cs += a;
+      ps += b;
+    }
+  }
+  if (lane == 31) {
+    wsum[0][warp] = cs;
+    wsum[1][warp] = ps;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int a = wsum[0][lane], b = wsum[1][lane];
+    int ia = a, ib = b;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(kFull, ia, o);
+      const int y = __shfl_up_sync(kFull, ib, o);
+      if (lane >= o) {
+        ia += x;
+        ib += y;
+      }
+    }
+    wsum[0][lane] = ia - a;  // exclusive over the warps
+    wsum[1][lane] = ib - b;
+  }
+  __syncthreads();
+  const int ec = cs - (c0 + c1) + wsum[0][warp];  // exclusive, this thread
+  const int ep = ps - (p0 + p1) + wsum[1][warp];
+  if (t == 0) base[0] = 0;
+  if (2 * t < n_out) {
+    base[2 * t + 1] = ec + c0;
+    rankp[2 * t] = ep;
+    if (p0) plist[ep] = 2 * t;
+  }
+  if (2 * t + 1 < n_out) {
+    base[2 * t + 2] = ec + c0 + c1;
+    rankp[2 * t + 1] = ep + p0;
+    if (p1) plist[ep + p0] = 2 * t + 1;
+  }
+}
+
+// Pass 4.  perm[sorted index] = position: ids ascending, positions
+// ascending inside an id.
+__global__ void unsorted_place(const int* __restrict__ seg, int64_t n,
+                               int n_out,
+                               const unsigned short* __restrict__ rank,
+                               const int* __restrict__ hist,
+                               const int* __restrict__ base,
+                               int* __restrict__ perm) {
+  const int64_t pos = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (pos >= n) return;
+  const int s = seg[pos];
+  if (s < 0 || s >= n_out) return;
+  perm[base[s] + hist[pos / kGRange * n_out + s] + rank[pos]] =
+      static_cast<int>(pos);
+}
+
+template <int B> struct Raw;
+template <> struct Raw<2> { using type = unsigned short; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// The 32-bit words of one load (a 2-byte load fills the low half).
+__device__ __forceinline__ void words(unsigned short r, unsigned (&w)[4]) {
+  w[0] = r;
+}
+__device__ __forceinline__ void words(unsigned int r, unsigned (&w)[4]) {
+  w[0] = r;
+}
+__device__ __forceinline__ void words(uint2 r, unsigned (&w)[4]) {
+  w[0] = r.x;
+  w[1] = r.y;
+}
+__device__ __forceinline__ void words(uint4 r, unsigned (&w)[4]) {
+  w[0] = r.x;
+  w[1] = r.y;
+  w[2] = r.z;
+  w[3] = r.w;
+}
+
+// Element k of a load of T values, as float32.
+template <typename T>
+__device__ __forceinline__ float element(const unsigned (&w)[4], int k);
+template <>
+__device__ __forceinline__ float element<float>(const unsigned (&w)[4], int k) {
+  return __uint_as_float(w[k]);
+}
+template <>
+__device__ __forceinline__ float element<__nv_bfloat16>(const unsigned (&w)[4],
+                                                        int k) {
+  return __uint_as_float((k & 1) ? (w[k >> 1] & 0xffff0000u) : (w[k >> 1] << 16));
+}
+
+// Row chunk + j of partial <- acc (this lane's E columns from col).
+template <int E>
+__device__ __forceinline__ void put_piece(const float (&acc)[E],
+                                          float* __restrict__ partial,
+                                          int64_t row, int d, int col) {
+  float* dst = partial + row * d + col;
+#pragma unroll
+  for (int k = 0; k < E; ++k) dst[k] = acc[k];
+}
+
+// One lane's load of a row.  A load of 8 bytes or more means the row
+// fills whole cache lines that nobody reads again: streaming.  Narrow
+// rows (the [N, 1] presence counts) share their sectors with their
+// neighbours in position order: cached.
+template <typename R>
+__device__ __forceinline__ R load_row(const R* p) {
+  if constexpr (sizeof(R) >= 8)
+    return __ldcs(p);
+  else
+    return __ldg(p);
+}
+
+// Pass 5.  Warp = chunk of kUChunk sorted entries; lane = E consecutive
+// columns (one load of E * sizeof(T) bytes) of column group blockIdx.y.
+template <typename T, int E>
+__global__ void __launch_bounds__(32 * kUWarps)
+unsorted_chunk_sum(const T* __restrict__ g, int d, int n_out,
+                   const int* __restrict__ perm, const int* __restrict__ base,
+                   const int* __restrict__ rankp, const int* __restrict__ plist,
+                   float* __restrict__ partial) {
+  using R = typename Raw<sizeof(T) * E>::type;
+  const int lane = threadIdx.x & 31;
+  const int64_t chunk =
+      blockIdx.x * static_cast<int64_t>(kUWarps) + (threadIdx.x >> 5);
+  const int64_t a = chunk * kUChunk;
+  const int64_t kept = base[n_out];
+  if (a >= kept) return;
+  const int len = static_cast<int>(kept - a < kUChunk ? kept - a : kUChunk);
+  const int col = (blockIdx.y * 32 + lane) * E;
+  const bool active = col < d;  // d is a multiple of E
+  int next_p = lane < len ? perm[a + lane] : 0;
+  // the id that holds sorted entry a: the last s with base[s] <= a
+  int lo = 0, hi = n_out;  // base[lo] <= a < base[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (base[mid] <= a)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  int j = rankp[lo];               // rank of the current id
+  int64_t end = base[lo + 1] - a;  // its run ends here, chunk-local
+  float acc[E];
+#pragma unroll
+  for (int k = 0; k < E; ++k) acc[k] = 0.f;
+  for (int b0 = 0; b0 < len; b0 += 32) {
+    const int my_p = next_p;
+    if (b0 + 32 < len)
+      next_p = b0 + 32 + lane < len ? perm[a + b0 + 32 + lane] : 0;
+#pragma unroll
+    for (int r0 = 0; r0 < 32; r0 += kURows) {
+      if (b0 + r0 >= len) break;  // the same for every lane
+      R v[kURows];
+#pragma unroll
+      for (int r = 0; r < kURows; ++r) {
+        const int64_t p = __shfl_sync(kFull, my_p, r0 + r);
+        if (active && b0 + r0 + r < len)
+          v[r] = load_row(reinterpret_cast<const R*>(g + p * d + col));
       }
 #pragma unroll
-      for (int k = 0; k < kUBatch; ++k) {
-        if (k0 + k < cnt) {
-          int s = sseg[mylist[k0 + k]];
-          acc[s * kUStride + hl] += v[k];
+      for (int r = 0; r < kURows; ++r) {
+        const int i = b0 + r0 + r;
+        if (i >= len) break;  // the same for every lane
+        if (i == end) {       // the next id that occurs starts here
+          if (active) put_piece<E>(acc, partial, chunk + j, d, col);
+#pragma unroll
+          for (int k = 0; k < E; ++k) acc[k] = 0.f;
+          ++j;
+          end = base[plist[j] + 1] - a;
+        }
+        if (active) {
+          unsigned w[4];
+          words(v[r], w);
+#pragma unroll
+          for (int k = 0; k < E; ++k) acc[k] += element<T>(w, k);
         }
       }
     }
   }
-  __syncthreads();
-  float* out = partial + static_cast<int64_t>(blockIdx.x) * d * n_out;
-  for (int i = tid; i < kUCols * n_out; i += kUThreads) {
-    int c = i / n_out, s = i - c * n_out;
-    int cc = blockIdx.y * kUCols + c;
-    if (cc < d) out[static_cast<int64_t>(cc) * n_out + s] = acc[s * kUStride + c];
+  if (active) put_piece<E>(acc, partial, chunk + j, d, col);
+}
+
+// Pass 6.  Block s: out[:, s] = sum of id s's pieces, rows
+// first chunk + rank .. last chunk + rank of partial, in a fixed order.
+__global__ void __launch_bounds__(32 * kBWarps)
+unsorted_combine(const float* __restrict__ partial, int d, int n_out,
+                 const int* __restrict__ base, const int* __restrict__ rankp,
+                 float* __restrict__ out) {
+  __shared__ float red[kBWarps][kBCols];
+  const int s = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t a = base[s], e = base[s + 1];
+  int64_t row0 = 0, rows = 0;
+  if (e > a) {
+    row0 = a / kUChunk + rankp[s];
+    rows = (e - 1) / kUChunk - a / kUChunk + 1;
+  }
+  for (int c0 = 0; c0 < d; c0 += kBCols) {
+    float acc[kBCols / 32];
+#pragma unroll
+    for (int k = 0; k < kBCols / 32; ++k) acc[k] = 0.f;
+    for (int64_t r = warp; r < rows; r += 4 * kBWarps) {
+      float v[4][kBCols / 32];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int64_t rr = r + q * kBWarps;
+#pragma unroll
+        for (int k = 0; k < kBCols / 32; ++k) {
+          const int c = c0 + lane + 32 * k;
+          v[q][k] = (rr < rows && c < d) ? partial[(row0 + rr) * d + c] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int k = 0; k < kBCols / 32; ++k) acc[k] += v[q][k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBCols / 32; ++k) red[warp][lane + 32 * k] = acc[k];
+    __syncthreads();
+    for (int c = threadIdx.x; c < kBCols && c0 + c < d; c += 32 * kBWarps) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kBWarps; ++w) sum += red[w][c];
+      out[static_cast<int64_t>(c0 + c) * n_out + s] = sum;
+    }
+    __syncthreads();
   }
 }
 
-// out[c][s] = sum over blocks x, in order, of partial[x][c][s]
-__global__ void unsorted_reduce(const float* __restrict__ partial,
-                                int n_part, int64_t cells,
-                                float* __restrict__ out) {
-  int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= cells) return;
-  float s = 0.f;
-  for (int x = 0; x < n_part; ++x) s += partial[x * cells + i];
-  out[i] = s;
+// Ints of the sort's scratch: rank (16 bits each), hist, total, base,
+// rankp, plist, perm.
+struct UnsortedScratch {
+  int64_t blocks, rank, hist, total, base, rankp, plist, perm, len;
+  UnsortedScratch(int64_t n, int n_out) {
+    blocks = (n + kGRange - 1) / kGRange;
+    rank = 0;
+    hist = rank + (n + 1) / 2;
+    total = hist + blocks * n_out;
+    base = total + n_out;
+    rankp = base + n_out + 1;
+    plist = rankp + n_out;
+    perm = plist + n_out + 1;  // one past the last id that occurs is read
+    len = perm + n;
+  }
+};
+
+template <typename T, int E>
+void launch_unsorted_sum(const void* g, int64_t n, int d, int n_out,
+                         const int* scratch, const UnsortedScratch& o,
+                         float* partial, cudaStream_t st) {
+  dim3 grid(mr::blocks_for((n + kUChunk - 1) / kUChunk, kUWarps),
+            static_cast<unsigned>((d + 32 * E - 1) / (32 * E)));
+  unsorted_chunk_sum<T, E><<<grid, 32 * kUWarps, 0, st>>>(
+      static_cast<const T*>(g), d, n_out, scratch + o.perm, scratch + o.base,
+      scratch + o.rankp, scratch + o.plist, partial);
+}
+
+// The widest load (E elements, at most 16 bytes) that keeps every row
+// aligned and, where the row allows, every lane busy.
+template <typename T>
+void launch_unsorted_vec(const void* g, int64_t n, int d, int n_out,
+                         const int* scratch, const UnsortedScratch& o,
+                         float* partial, cudaStream_t st) {
+  constexpr int kMaxE = 16 / static_cast<int>(sizeof(T));
+  int e = kMaxE;
+  while (e > 1 && (d % e != 0 || 32 * e > d ||
+                   reinterpret_cast<uintptr_t>(g) % (e * sizeof(T)) != 0))
+    e /= 2;
+  if (e == 8) {
+    if constexpr (kMaxE >= 8)
+      launch_unsorted_sum<T, 8>(g, n, d, n_out, scratch, o, partial, st);
+  } else if (e == 4) {
+    launch_unsorted_sum<T, 4>(g, n, d, n_out, scratch, o, partial, st);
+  } else if (e == 2) {
+    launch_unsorted_sum<T, 2>(g, n, d, n_out, scratch, o, partial, st);
+  } else {
+    launch_unsorted_sum<T, 1>(g, n, d, n_out, scratch, o, partial, st);
+  }
 }
 
 constexpr int kCChunk = 256;  // positions per warp in cols_chunk_sum
@@ -510,44 +835,50 @@ extern "C" int mr_segsum_cols(const void* g, int g_bf16, const int* uidx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Ints of mr_segsum_unsorted's scratch for n positions and n_out ids.
+extern "C" int64_t mr_segsum_unsorted_scratch_len(int64_t n, int n_out) {
+  return UnsortedScratch(n, n_out).len;
+}
+
+// Floats of mr_segsum_unsorted's partial: a row of d per (chunk, id) piece.
+extern "C" int64_t mr_segsum_unsorted_partial_len(int64_t n, int d, int n_out) {
+  return ((n + kUChunk - 1) / kUChunk + n_out) * d;
+}
+
 // g: [n, d] bf16 (g_bf16 != 0) or f32; seg: [n] i32, any order; ids
-// outside [0, n_out) add nothing; n_part: position ranges (blocks along
-// x); partial: [n_part, d, n_out] f32 scratch; out: [d, n_out] f32.
+// outside [0, n_out) add nothing; scratch: i32, partial: f32 (the two
+// lengths above); out: [d, n_out] f32, every column written.
 extern "C" int mr_segsum_unsorted(const void* g, int g_bf16, const int* seg,
-                                  int64_t n, int d, int n_out, int n_part,
+                                  int64_t n, int d, int n_out, int* scratch,
                                   float* partial, float* out, void* stream) {
-  if (d <= 0 || n_out < 0 || n_out > 2048 || n < 0 || n_part < 1)
+  if (d <= 0 || n_out < 0 || n_out > kMaxOut || n < 0 || n > INT32_MAX ||
+      (d + 31) / 32 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_out == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int64_t per_block = (n + n_part - 1) / n_part;
-  per_block = (per_block + kUChunk - 1) / kUChunk * kUChunk;
-  if (per_block == 0) per_block = kUChunk;
-  size_t smem = unsorted_smem(n_out);
-  dim3 grid(static_cast<unsigned>(n_part),
-            static_cast<unsigned>((d + kUCols - 1) / kUCols));
-  cudaError_t err;
-  if (g_bf16) {
-    err = cudaFuncSetAttribute(unsorted_partial<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    unsorted_partial<__nv_bfloat16><<<grid, kUThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(g), seg, n, d, n_out, per_block,
-        partial);
-  } else {
-    err = cudaFuncSetAttribute(unsorted_partial<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    unsorted_partial<float><<<grid, kUThreads, smem, st>>>(
-        static_cast<const float*>(g), seg, n, d, n_out, per_block, partial);
-  }
-  err = cudaGetLastError();
+  if (n == 0)
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, sizeof(float) * static_cast<size_t>(d) * n_out, st));
+  const UnsortedScratch o(n, n_out);
+  unsigned short* rank = reinterpret_cast<unsigned short*>(scratch + o.rank);
+  int* hist = scratch + o.hist;
+  unsorted_rank<<<static_cast<unsigned>(o.blocks), kGThreads, 0, st>>>(
+      seg, n, n_out, rank, hist);
+  unsorted_block_scan<<<(n_out + 31) / 32, 256, 0, st>>>(
+      hist, static_cast<int>(o.blocks), n_out, scratch + o.total);
+  unsorted_bases<<<1, 1024, 0, st>>>(scratch + o.total, n_out,
+                                     scratch + o.base, scratch + o.rankp,
+                                     scratch + o.plist);
+  unsorted_place<<<mr::blocks_for(n, kThreads), kThreads, 0, st>>>(
+      seg, n, n_out, rank, hist, scratch + o.base, scratch + o.perm);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  int64_t cells = static_cast<int64_t>(d) * n_out;
-  unsorted_reduce<<<mr::blocks_for(cells, 256), 256, 0, st>>>(partial, n_part,
-                                                               cells, out);
+  if (g_bf16)
+    launch_unsorted_vec<__nv_bfloat16>(g, n, d, n_out, scratch, o, partial, st);
+  else
+    launch_unsorted_vec<float>(g, n, d, n_out, scratch, o, partial, st);
+  unsorted_combine<<<n_out, 32 * kBWarps, 0, st>>>(
+      partial, d, n_out, scratch + o.base, scratch + o.rankp, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,10 +15,26 @@
 // slots per column) are contiguous because cols is sorted.  The slot
 // that starts a run of equal columns sums the run's gradients and touch
 // rows in slot order and updates the column once, so no two threads
-// write one element and no compaction or host sync is needed.  Thread
-// (u, p) handles slot u and sublane p; a warp's lanes take consecutive
-// slots of one sublane, so the gradient rows are read coalesced and the
-// sorted columns of one table row share sectors.
+// write one element and no compaction or host sync is needed.
+//
+// What bounds it is sectors: every touched element of the weight and its
+// two state arrays is a 32-byte sector of its own, read and written,
+// unless neighbouring sorted columns share it; the arithmetic is nothing
+// beside that.  So the design keeps many such loads in flight and wastes
+// no thread: thread (u, y) takes slot u for the kSub sublanes from
+// kSub * y.  It reads the column, its neighbours (the run test) and its
+// kSub gradient values together (one wait for memory), then starts its
+// 3 * kSub loads of weight and state before any arithmetic, and stores
+// under the touch gate.  A warp's lanes are consecutive slots, so the
+// gradient rows are read coalesced and the sorted columns of one table
+// row share sectors.  More sublanes per thread cost registers and so
+// warps in flight: on the card 1, 2 and 4 are within 2% of each other at
+// the large tables and 8 and 16 are slower; 2 loses least over the
+// shapes of the driven paths.  cols is sorted, so the
+// sentinel pads are its tail: at most kMaxBlocksX blocks stride over the
+// slots 256 at a time and stop at the first round that starts on a
+// sentinel, so the pads (91% of the slots in the DeepFM steps) cost each
+// block one load and no blocks of their own.
 //
 // Touch (exact, as stream_update.py:_expand_touch): fold 1 - touch row 0
 // gates every sublane; fold 8 (dim 1) - touch row p gates sublane p.
@@ -36,48 +52,109 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // slots per block and round
+constexpr int kSub = 2;        // sublanes per thread
+constexpr int kMaxBlocksX = 1024;  // blocks along the slots; they stride
+
+// A block takes the slots [b, b + 256) for b = 256 blockIdx.x and on in
+// strides of the grid.  True while round b has work: it starts inside
+// the slots and its first column is not past the table (cols is sorted,
+// so every later round's is).
+__device__ __forceinline__ bool live_round(const int* __restrict__ cols, int n,
+                                           int64_t vc, int64_t b) {
+  return b < n && cols[b] < vc;
+}
 
 template <typename TW, typename TS>
-__global__ void adam_cols_kernel(TW* __restrict__ table, TS* __restrict__ m,
-                                 TS* __restrict__ v, int64_t vc, int dp,
-                                 const int* __restrict__ cols,
-                                 const float* __restrict__ g, int n, int fold,
-                                 mr::AdamHyper h) {
-  int u = blockIdx.x * kThreads + threadIdx.x;
-  int p = blockIdx.y;
-  if (u >= n) return;
-  int c;
-  float sum, touch;
-  if (!mr::run_sum(cols, g, n, vc, dp, fold, u, p, &c, &sum, &touch)) return;
-  if (!(touch > 0.f)) return;
-  mr::adam_element(table, m, v, static_cast<int64_t>(p) * vc + c, sum, h);
+__global__ void __launch_bounds__(kThreads)
+adam_cols_kernel(TW* __restrict__ table, TS* __restrict__ m,
+                 TS* __restrict__ v, int64_t vc, int dp,
+                 const int* __restrict__ cols, const float* __restrict__ g,
+                 int n, int fold, mr::AdamHyper h) {
+  const int p0 = blockIdx.y * kSub;
+  const float lr_t = *h.lr_t;
+  for (int64_t b = blockIdx.x * kThreads; live_round(cols, n, vc, b);
+       b += gridDim.x * kThreads) {
+    const int u = static_cast<int>(b) + threadIdx.x;
+    if (u >= n) continue;
+    int c;
+    float sum[kSub], touch[kSub];
+    if (!mr::run_sums<kSub>(cols, g, n, vc, dp, fold, u, p0, &c, sum, touch))
+      continue;
+    float w[kSub], mo[kSub], vo[kSub];
+#pragma unroll
+    for (int r = 0; r < kSub; ++r) {
+      const int64_t idx = static_cast<int64_t>(p0 + r) * vc + c;
+      if (p0 + r < dp) {
+        w[r] = mr::to_f(table[idx]);
+        mo[r] = mr::to_f(m[idx]);
+        vo[r] = mr::to_f(v[idx]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kSub; ++r) {
+      if (p0 + r < dp && touch[r] > 0.f) {
+        const int64_t idx = static_cast<int64_t>(p0 + r) * vc + c;
+        float w2, m2, v2;
+        mr::adam_step(w[r], mo[r], vo[r], sum[r], h, lr_t, &w2, &m2, &v2);
+        table[idx] = mr::from_f<TW>(w2);
+        m[idx] = mr::from_f<TS>(m2);
+        v[idx] = mr::from_f<TS>(v2);
+      }
+    }
+  }
 }
 
 template <typename TW>
-__global__ void ftrl_cols_kernel(TW* __restrict__ table,
-                                 float* __restrict__ accum,
-                                 float* __restrict__ linear, int64_t vc,
-                                 int dp, const int* __restrict__ cols,
-                                 const float* __restrict__ g, int n, int fold,
-                                 mr::FtrlHyper h) {
-  int u = blockIdx.x * kThreads + threadIdx.x;
-  int p = blockIdx.y;
-  if (u >= n) return;
-  int c;
-  float sum, touch;
-  if (!mr::run_sum(cols, g, n, vc, dp, fold, u, p, &c, &sum, &touch)) return;
-  if (!(touch > 0.f)) return;
-  mr::ftrl_element(table, accum, linear, static_cast<int64_t>(p) * vc + c, sum,
-                   h);
+__global__ void __launch_bounds__(kThreads)
+ftrl_cols_kernel(TW* __restrict__ table, float* __restrict__ accum,
+                 float* __restrict__ linear, int64_t vc, int dp,
+                 const int* __restrict__ cols, const float* __restrict__ g,
+                 int n, int fold, mr::FtrlHyper h) {
+  const int p0 = blockIdx.y * kSub;
+  for (int64_t b = blockIdx.x * kThreads; live_round(cols, n, vc, b);
+       b += gridDim.x * kThreads) {
+    const int u = static_cast<int>(b) + threadIdx.x;
+    if (u >= n) continue;
+    int c;
+    float sum[kSub], touch[kSub];
+    if (!mr::run_sums<kSub>(cols, g, n, vc, dp, fold, u, p0, &c, sum, touch))
+      continue;
+    float w[kSub], ao[kSub], lo[kSub];
+#pragma unroll
+    for (int r = 0; r < kSub; ++r) {
+      const int64_t idx = static_cast<int64_t>(p0 + r) * vc + c;
+      if (p0 + r < dp) {
+        w[r] = mr::to_f(table[idx]);
+        ao[r] = accum[idx];
+        lo[r] = linear[idx];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kSub; ++r) {
+      if (p0 + r < dp && touch[r] > 0.f) {
+        const int64_t idx = static_cast<int64_t>(p0 + r) * vc + c;
+        float w2, a2, l2;
+        mr::ftrl_step(w[r], ao[r], lo[r], sum[r], h, &w2, &a2, &l2);
+        table[idx] = mr::from_f<TW>(w2);
+        accum[idx] = a2;
+        linear[idx] = l2;
+      }
+    }
+  }
+}
+
+inline dim3 cols_grid(int n, int dp) {
+  const unsigned bx = mr::blocks_for(n, kThreads);
+  return dim3(bx < kMaxBlocksX ? bx : kMaxBlocksX,
+              static_cast<unsigned>((dp + kSub - 1) / kSub));
 }
 
 template <typename TW, typename TS>
 void launch_adam(void* table, void* m, void* v, int64_t vc, int dp,
                  const int* cols, const float* g, int n, int fold,
                  const mr::AdamHyper& h, cudaStream_t st) {
-  dim3 grid(mr::blocks_for(n, kThreads), static_cast<unsigned>(dp));
-  adam_cols_kernel<TW, TS><<<grid, kThreads, 0, st>>>(
+  adam_cols_kernel<TW, TS><<<cols_grid(n, dp), kThreads, 0, st>>>(
       static_cast<TW*>(table), static_cast<TS*>(m), static_cast<TS*>(v), vc,
       dp, cols, g, n, fold, h);
 }
@@ -124,7 +201,7 @@ extern "C" int mr_ftrl_cols(void* table, int table_bf16, float* accum,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(mr::blocks_for(n, kThreads), static_cast<unsigned>(dp));
+  const dim3 grid = cols_grid(n, dp);
   const mr::FtrlHyper h{lr, l1, two_l2, inv_scale};
   if (table_bf16) {
     ftrl_cols_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(

@@ -82,10 +82,9 @@ def segsum_sorted(g: torch.Tensor, uidx_sorted: torch.Tensor,
 _UNSORTED = "segsum_unsorted"
 _UNSORTED_ARGS = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p,
 ]
-_UCOLS, _UCHUNK = 16, 1024  # kUCols, kUChunk in csrc/segsum.cu
 
 
 def segsum_unsorted_plain(g: torch.Tensor, seg_ids: torch.Tensor,
@@ -111,18 +110,19 @@ def segsum_unsorted(g: torch.Tensor, seg_ids: torch.Tensor,
     require(g.dtype in (torch.bfloat16, torch.float32), _UNSORTED,
             f"g must be bfloat16 or float32, got {g.dtype}")
     require(seg_ids.dtype == torch.int32, _UNSORTED, "seg_ids must be int32")
-    require(d > 0 and n < 2**31, _UNSORTED, "sizes out of range")
+    require(0 < d <= 32 * 65535 and n < 2**31, _UNSORTED, "sizes out of range")
     require_contiguous(_UNSORTED, g=g, seg_ids=seg_ids)
-    # position ranges: about two waves of blocks over the 132 SMs
-    col_blocks = -(-d // _UCOLS)
-    n_part = max(1, min(-(-264 // col_blocks), -(-n // _UCHUNK)))
     out = torch.empty((d, n_out), dtype=torch.float32, device=g.device)
-    partial = torch.empty((n_part, d, n_out), dtype=torch.float32,
-                          device=g.device)
+    scratch = torch.empty(
+        _build.scratch_len("mr_segsum_unsorted_scratch_len", n, n_out),
+        dtype=torch.int32, device=g.device)
+    partial = torch.empty(
+        _build.scratch_len("mr_segsum_unsorted_partial_len", n, d, n_out),
+        dtype=torch.float32, device=g.device)
     fn = _build.kernel_fn("mr_segsum_unsorted", _UNSORTED_ARGS)
     rc = fn(g.data_ptr(), int(g.dtype == torch.bfloat16), seg_ids.data_ptr(),
-            n, d, n_out, n_part, partial.data_ptr(), out.data_ptr(),
-            _build.stream_of(g))
+            n, d, n_out, scratch.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), _build.stream_of(g))
     _build.check(rc, _UNSORTED)
     LAUNCHES[_UNSORTED] += 1
     return out

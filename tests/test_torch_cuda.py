@@ -2,7 +2,12 @@
 card.  Needs an NVIDIA GPU (sm_90a) and nvcc; skips without a card.
 Imports no JAX, so it runs where only the port is installed::
 
-    python -m pytest tests/test_torch_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+The edge-case lists of ``segsum_unsorted`` and ``adam_cols`` (and the
+functions that make their numpy inputs) live here;
+``tests/test_torch_edge_cases.py`` runs the same lists on the CPU, plain
+version against the JAX kernel.
 """
 
 import numpy as np
@@ -67,12 +72,19 @@ def test_kernels_match_plain_on_card(cuda_device):
     rng = np.random.default_rng(0)
     uidx = _uidx(rng, 5000, 7)
     uidx[:700] = 0  # one hot id spanning many 64-row chunks
+    _, uidx = np.unique(uidx, return_inverse=True)  # unit steps (contract)
+    uidx = uidx.astype(np.int32)
     g = _t(rng.normal(size=(5000, 128)).astype(np.float32)).to(cuda_device)
     u = _t(uidx).to(cuda_device)
     for dt in (torch.float32, torch.bfloat16):
         got = segsum_sorted(g.to(dt), u, 4096)
         want = segsum_sorted_plain(g.to(dt), u, 4096)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        # the plain version adds the hot id's 700 rows with atomics in an
+        # order that changes from run to run: both sides are held to the
+        # float32 tolerance of a float64 sum
+        ref, tol = segsum_float64(g.to(dt).float().cpu().numpy(), uidx, 4096)
+        for x in (got, want):
+            assert (np.abs(x.cpu().numpy() - ref) <= tol).all()
     pack, dim = 8, 16
     rows, sub, present, n = _slots(rng, pack, n_uq=500, n_sent=9)
     gs = _t(_grads(rng, n, dim)).to(cuda_device)
@@ -252,3 +264,160 @@ def test_column_path_kernels_match_plain_on_card(cuda_device):
     assert all(kernels.LAUNCHES[k] > 0 for k in (
         "gather_cols", "segsum_cols", "fused_adam_gather",
         "fused_ftrl_gather"))
+
+
+# ---------------------------------------------------------------------------
+# shared edge cases: segsum_unsorted and adam_cols
+# ---------------------------------------------------------------------------
+
+# (case id, N, D, n_out, id pattern)
+SEGSUM_UNSORTED_CASES = [
+    ("counts-d1-hot16", 9001, 1, 16, "hot"),
+    ("d5-spread-2048", 4999, 5, 2048, "outside"),
+    ("d128-hot16", 9001, 128, 16, "hot"),
+    ("d128-spread-2048", 5003, 128, 2048, "outside"),
+    ("d5-one-id", 4999, 5, 16, "one"),
+    ("d128-one-id-2048", 9001, 128, 2048, "one"),
+    ("d5-outside-16", 4999, 5, 16, "outside"),
+]
+SEGSUM_IDS = [c[0] for c in SEGSUM_UNSORTED_CASES]
+
+
+def segsum_unsorted_case(n, d, n_out, pattern):
+    """(g [N, D] float32 of bf16-exact values, seg [N] int32).  N is a
+    multiple of no chunk size; ``hot``: every id of the range, unequal
+    counts; ``one``: every position on one id; ``outside``: ids from
+    below 0 to past ``n_out`` mixed in."""
+    rng = np.random.default_rng(n * 131 + d * 7 + n_out)
+    if pattern == "one":
+        seg = np.full(n, n_out - 3)
+    elif pattern == "hot":
+        seg = np.minimum(rng.geometric(0.25, size=n) - 1, n_out - 1)
+    else:
+        seg = rng.integers(-n_out // 8 - 2, n_out + n_out // 8 + 2, size=n)
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    g = _t(g).to(torch.bfloat16).float().numpy()  # exact in both types
+    return g, seg.astype(np.int32)
+
+
+def segsum_float64(g, seg, n_out):
+    """(float64 sum [D, n_out], tolerance of a float32 sum in any order:
+    8 * 2**-24 * sqrt(n_s) * sqrt(sum g**2) per cell)."""
+    keep = (seg >= 0) & (seg < n_out)
+    ref = np.zeros((n_out, g.shape[1]))
+    sq = np.zeros_like(ref)
+    np.add.at(ref, seg[keep], g[keep].astype(np.float64))
+    np.add.at(sq, seg[keep], g[keep].astype(np.float64) ** 2)
+    cnt = np.bincount(seg[keep], minlength=n_out)[:n_out]
+    return ref.T, (8.0 * 2.0**-24 * np.sqrt(cnt)[:, None] * np.sqrt(sq)).T
+
+
+ADAM_COLS_VC = 1024
+ADAM_COLS_CASES = ["long-run", "run-across-255-256", "all-sentinel",
+                   "sentinels-from-mid-block", "n-below-32"]
+
+
+def adam_cols_case(kind, fold):
+    """Numpy inputs of one column update on a [dp, 1024] table: sorted
+    sentinel-padded ``cols``, touch-augmented ``aug`` [dp + 8, n] of
+    bf16-exact values (every fifth slot a zero gradient, every seventh
+    slot's touch rows zeroed),
+    ``table``, ``m``, ``v`` float32, and ``dim``."""
+    rng = np.random.default_rng(len(kind) * 10 + fold)
+    dim, dp = (1, 8) if fold > 1 else (16, 16)
+    space = ADAM_COLS_VC * fold
+
+    def distinct(lo, hi, k):
+        return np.sort(rng.choice(np.arange(lo, hi), size=k, replace=False))
+
+    def run(col, k):  # k slots of one storage column
+        return col * fold + np.arange(k) % fold
+
+    if kind == "long-run":  # 300 slots of one column, longer than a block
+        ids = np.sort(np.concatenate([distinct(0, space, 150), run(500, 300)]))
+        n_sent = 30
+    elif kind == "run-across-255-256":  # slots 250..260 share a column
+        ids = np.concatenate([distinct(0, 600 * fold, 250), run(600, 11),
+                              distinct(601 * fold, space, 100)])
+        n_sent = 23
+    elif kind == "all-sentinel":
+        ids, n_sent = np.zeros(0, np.int64), 300
+    elif kind == "sentinels-from-mid-block":  # live 0..399, pads 400..699
+        ids, n_sent = distinct(0, space, 400), 300
+    else:  # n-below-32
+        ids, n_sent = distinct(0, space, 17), 3
+    ids = np.concatenate([ids, np.full(n_sent, SENT)]).astype(np.int32)
+    cols, sub = ids // fold, ids % fold
+    n = cols.size
+    g = (rng.normal(size=(dp, n)) * 10.0).astype(np.float32)
+    # bf16-exact gradients: the reference places them with a one-hot dot,
+    # which XLA's CPU backend may run at reduced internal precision (down
+    # to bf16 products on some hosts, under load); 0/1 times such a value
+    # is exact at any precision
+    g = _t(g).to(torch.bfloat16).float().numpy()
+    if fold > 1:
+        g *= np.arange(dp)[:, None] // dim == sub[None, :]
+    g[:, ::5] = 0.0
+    aug = make_aug_grads(_t(g), _t(sub) if fold > 1 else None).numpy().copy()
+    aug[dp:, 3::7] = 0.0
+    shape = (dp, ADAM_COLS_VC)
+    return dict(
+        cols=cols, aug=aug, dim=dim,
+        table=(rng.normal(size=shape) * 0.01).astype(np.float32),
+        m=(rng.normal(size=shape) * 1e-3).astype(np.float32),
+        v=np.abs(rng.normal(size=shape) * 1e-6).astype(np.float32),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SEGSUM_UNSORTED_CASES, ids=SEGSUM_IDS)
+def test_segsum_unsorted_edge_cases_on_card(cuda_device, case, dtype):
+    """Kernel and plain version within the float32 tolerance of a float64
+    sum; the kernel deterministic, and exact on small integers."""
+    _id, n, d, n_out, pattern = case
+    g, seg = segsum_unsorted_case(n, d, n_out, pattern)
+    ref, tol = segsum_float64(g, seg, n_out)
+    gt = _t(g).to(getattr(torch, dtype)).to(cuda_device)
+    st = _t(seg).to(cuda_device)
+    got = segsum_unsorted(gt, st, n_out)
+    assert got.shape == (d, n_out) and got.dtype == torch.float32
+    assert torch.equal(got, segsum_unsorted(gt, st, n_out))
+    for x in (got, segsum_unsorted_plain(gt, st, n_out)):
+        assert (np.abs(x.cpu().numpy() - ref) <= tol).all()
+    gi = np.round(g * 3.0)  # |values| < 20: every float32 partial is exact
+    exact, _ = segsum_float64(gi, seg, n_out)
+    got = segsum_unsorted(_t(gi).to(getattr(torch, dtype)).to(cuda_device), st,
+                          n_out)
+    np.testing.assert_array_equal(got.cpu().numpy(), exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fold", [1, 8])
+@pytest.mark.parametrize("kind", ADAM_COLS_CASES)
+def test_adam_cols_edge_cases_on_card(cuda_device, kind, fold, state_dtype):
+    """Kernel against plain version: the same float32 operations in the
+    same order, so equal to rounding (rtol 1e-6)."""
+    c = adam_cols_case(kind, fold)
+    sd = getattr(torch, state_dtype)
+    dev = cuda_device
+    a = [_t(c["table"]).to(dev), _t(c["m"]).to(sd).to(dev),
+         _t(c["v"]).to(sd).to(dev)]
+    b = [x.clone() for x in a]
+    cols, aug = _t(c["cols"]).to(dev), _t(c["aug"]).to(dev)
+    lr = torch.tensor(1e-3, device=dev)
+    kw = dict(dim=c["dim"], fold=fold, eps=1e-6, loss_scale=1000.0)
+    adam_cols(*a, cols, aug, lr, **kw)
+    adam_cols_plain(*b, cols, aug, lr, **kw)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    if state_dtype == "float32":  # FTRL shares the thread layout
+        a = [_t(c["table"]).to(dev), _t(c["v"] + 0.1).to(dev),
+             _t(c["m"]).to(dev)]
+        b = [x.clone() for x in a]
+        kw = dict(dim=c["dim"], fold=fold, l1=5e-4, l2=5e-4, loss_scale=1000.0)
+        ftrl_cols(*a, cols, aug, **kw)
+        ftrl_cols_plain(*b, cols, aug, **kw)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
