@@ -15,6 +15,7 @@ Phases (any failure exits non-zero):
    batch's ``uidx_sorted``, LazyAdam on the full deep table with bf16
    m/v, FTRL on the full wide table), and time kernel, plain version and,
    where one exists, a single PyTorch call computing the same function;
+   then both updates again on bf16 tables (the bf16-table bench extra);
 3. drive the train step at the recipe's full width (batch 16000 x 39,
    vocab 5.86M, emb 16, 7x1024 bf16 MLP, FTRL + LazyAdam with bf16 m/v,
    host-prepared batches, the x1.2 unique bucket): 3 warm-up and 10 timed
@@ -26,7 +27,9 @@ Phases (any failure exits non-zero):
    state;
 5. the multitable (Outbrain) recipe's kernels against their plain
    versions on a real synthetic batch after host prep: the gather of the
-   emb128 group's feature-major tables into its [ub, 256] buffer, the
+   emb128 group's feature-major tables into its [ub, 256] buffer (timed
+   beside its sector bound and the time of reading the table whole and
+   writing the valid lanes; the folded w128 launch timed too), the
    unsorted segment-sum of the indicator group's [1.7M, 128] bf16
    gradient and its [1.7M, 1] presence counts, the sorted segment-sum of
    the emb128 group's [N, 256] and the multi group's [N, 128] gradients
@@ -52,7 +55,10 @@ Phases (any failure exits non-zero):
    W&D recipe's ([16, 5.86M], [8, 733k] fold 8, 24 feature rows):
    the column gather (exact), the column Adam as the DeepFM steps launch
    it (bf16 m/v over the sentinel-padded N slots, fold 1 and fold 8), the
-   column-major segment-sum (against a float64 sum), and the fused
+   column-major segment-sum on the transposed view of a contiguous
+   [N, D] gradient, as the step passes it (against a float64 sum, at
+   these shapes and at edge shapes: D 1, 5, 24, 88, hot ids over several
+   tiles, runs ending at tile edges, segments past n_out), and the fused
    LazyAdam / FTRL update + next-batch
    gather (state to rounding, rows exact), each timed beside its plain
    version, a single PyTorch call where one exists, and for the fused
@@ -392,6 +398,41 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
         bound_ms=t_b, bound_by=by, library_ms=None,
     )
     log("[kernel] ftrl_rows", json.dumps(res["ftrl_rows"]))
+    del table, accum, linear, a, b
+
+    # -- both again on bf16 tables (the bf16-table bench extra): the
+    #    kernels' bf16-table branches against their plain versions
+    bf16 = torch.bfloat16
+    pack, dim, n_rows = 8, EMB, 733184
+    rows, sub, _ = slots(pack, n_rows)
+    state = [(0.01 * torch.randn((n_rows, 128), generator=gen, device=dev)).to(bf16),
+             (1e-3 * torch.randn((n_rows, 128), generator=gen, device=dev)).to(bf16),
+             (1e-6 * torch.rand((n_rows, 128), generator=gen, device=dev)).to(bf16)]
+    gs = 10.0 * torch.randn((bucket, dim), generator=gen, device=dev)
+    hyper = dict(dim=dim, pack=pack, loss_scale=1024.0)
+    a, b = [x.clone() for x in state], [x.clone() for x in state]
+    adam_rows(*a, rows, sub, gs, lr_t, **hyper)
+    adam_rows_plain(*b, rows, sub, gs, lr_t, **hyper)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    adam_ms = graph_ms(lambda: adam_rows(*a, rows, sub, gs, lr_t, **hyper))
+    del state, a, b
+    pack, dim, n_rows = 128, 1, 47104
+    rows, sub, _ = slots(pack, n_rows)
+    state = [(0.01 * torch.randn((n_rows, 128), generator=gen, device=dev)).to(bf16),
+             1.0 + torch.rand((n_rows, 128), generator=gen, device=dev),
+             0.1 * torch.randn((n_rows, 128), generator=gen, device=dev)]
+    gs = 10.0 * torch.randn((bucket, dim), generator=gen, device=dev)
+    hyper = dict(dim=dim, pack=pack, loss_scale=1024.0)
+    a, b = [x.clone() for x in state], [x.clone() for x in state]
+    ftrl_rows(*a, rows, sub, gs, **hyper)
+    ftrl_rows_plain(*b, rows, sub, gs, **hyper)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    ftrl_ms = graph_ms(lambda: ftrl_rows(*a, rows, sub, gs, **hyper))
+    log(f"[check] adam_rows (bf16 table and m/v) and ftrl_rows (bf16 table) "
+        f"== plain versions at the W&D shapes; ms {adam_ms:.4f}, "
+        f"{ftrl_ms:.4f}")
     torch.cuda.synchronize()
     return res
 
@@ -601,22 +642,40 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
         fail(f"gather_rows disagrees: max err {err}")
     t_b, by = bound(ub * 4 + valid * 128 * 4 * 2, 0)
     live = uq[:valid].long()
+    # every 32-byte sector (8 columns of a row) that holds a live column
+    sectors = int(torch.unique(torch.div(live, 8, rounding_mode="floor")).numel())
+    col_max = torch.empty(t128.shape[1], device=dev)
 
     def select_into_lanes():
         # no single call computes it: the selected columns [128, valid]
         # still have to be transposed into the row-major buffer's lanes
         b[:valid, 0:128] = torch.index_select(t128, 1, live).T
 
+    def whole_table():
+        # the yardstick: read the table whole, write the valid lanes
+        torch.amax(t128, 0, out=col_max)
+        b[:valid, 0:128].fill_(0.0)
+
     res["gather_rows"] = dict(
         max_abs_err=err, max_rel_err=rel,
         ms=graph_ms(lambda: gather_rows(t128, uq, a, 0)),
         plain_ms=cuda_ms(lambda: gather_rows_plain(t128, uq, b, 0), 5),
         bound_ms=t_b, bound_by=by, library_ms=None,
+        sector_bound_ms=bound(ub * 4 + sectors * 128 * 32 + valid * 128 * 4,
+                              0)[0],
+        whole_table_ms=graph_ms(whole_table),
         select_transpose_ms=graph_ms(select_into_lanes),
+        live_slots=valid, live_sectors_per_row=sectors,
     )
     log("[kernel] gather_rows (emb128 [128, 655360] -> [ub, 256] lanes 0..127)",
         json.dumps(res["gather_rows"]))
-    del t128, tw, a, b
+    live_w = torch.unique(cols_w[:valid])
+    w128 = dict(ms=graph_ms(lambda: gather_rows(tw, cols_w, a, 128)),
+                bound_ms=bound(ub * 4 + int(live_w.numel()) * 8 * 4
+                               + valid * 8 * 4, 0)[0])
+    log("[kernel] gather_rows (w128 [8, 81920] fold 8 -> lanes 128..135)",
+        json.dumps(w128))
+    del t128, tw, a, b, col_max
 
     # -- unsorted segsum: the indicator group's [1.7M, 128] bf16 grads --
     seg = torch.from_numpy(np.ascontiguousarray(
@@ -848,34 +907,85 @@ def check_gather_cols(tag, dev, gen, shape, cols, dtype=torch.float32) -> dict:
     return out
 
 
-def check_segsum_cols(tag, dev, gen, d, uidx) -> dict:
-    """segsum_cols on a [d, N] bf16 gradient against a float64 sum and its
-    plain version, timed beside ``index_add_`` along dim 1 in float32."""
+def check_segsum_cols(tag, dev, gen, d, uidx, n_out=None,
+                      dtype=torch.bfloat16, timed=True) -> dict:
+    """segsum_cols on the transposed view of a contiguous [N, d] gradient
+    (the step's layout) against a float64 sum and its plain version:
+    deterministic, every column past the last segment zero; timed beside
+    ``index_add_`` along dim 1 in float32 on the same view.  ``n_out``
+    defaults to N, as the step passes it."""
     n = uidx.numel()
-    g = torch.randn((d, n), generator=gen, device=dev).to(torch.bfloat16)
-    got = segsum_cols(g, uidx, n)
+    n_out = n if n_out is None else n_out
+    rows = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+    g = rows.T
+    got = segsum_cols(g, uidx, n_out)
     err, rel = check_segsum(f"segsum_cols ({tag})", got,
-                            segsum_cols_plain(g, uidx, n), g.T, uidx, n)
-    if not torch.equal(segsum_cols(g, uidx, n), got):
+                            segsum_cols_plain(g, uidx, n_out), rows, uidx,
+                            n_out)
+    if not torch.equal(segsum_cols(g, uidx, n_out), got):
         fail(f"segsum_cols ({tag}) is not deterministic")
     last = int(uidx[-1])
     if bool((got[:, last + 1:] != 0).any()):
         fail(f"segsum_cols ({tag}) left its tail unwritten")
     del got
-    t_b, by = bound(n * d * 2 + n * 4 + d * n * 4, n * d)
-    lib_out = torch.zeros((d, n), device=dev)
-    gf, ui_long = g.float(), uidx.long()
+    if not timed:
+        return dict(max_abs_err=err, max_rel_err=rel)
+    t_b, by = bound(n * d * rows.element_size() + n * 4 + d * n_out * 4, n * d)
+    lib_out = torch.zeros((d, n_out), device=dev)
+    gf, ui_long = g.float(), uidx.long()  # gf keeps the view's strides
+    tail = lib_out[:, last + 1:]
     out = dict(
         max_abs_err=err, max_rel_err=rel,
-        ms=graph_ms(lambda: segsum_cols(g, uidx, n)),
-        plain_ms=cuda_ms(lambda: segsum_cols_plain(g, uidx, n), 5),
+        ms=graph_ms(lambda: segsum_cols(g, uidx, n_out)),
+        plain_ms=cuda_ms(lambda: segsum_cols_plain(g, uidx, n_out), 5),
         bound_ms=t_b, bound_by=by,
         library_ms=graph_ms(lambda: lib_out.index_add_(1, ui_long, gf)),
         segments=last + 1,
+        # yardstick: PyTorch's fill of the same zero columns alone
+        zero_tail_ms=graph_ms(lambda: tail.zero_()),
     )
-    log(f"[kernel] segsum_cols ({tag} [{d}, {n}] bf16 -> [{d}, {n}])",
-        json.dumps(out))
+    log(f"[kernel] segsum_cols ({tag} [{d}, {n}] {str(dtype)[6:]} as the "
+        f"view of [{n}, {d}] -> [{d}, {n_out}])", json.dumps(out))
     return out
+
+
+def edge_uidx(n, pattern, gen, dev):
+    """Sorted segment ids with unit steps for the edge shapes: ``hot`` 45%
+    of the positions on the first id (several tiles), then runs of 1-9;
+    ``distinct`` one position each; ``edges`` runs of 32-160 positions in
+    steps of 32, so runs end on tile edges; ``mixed`` runs of 1-9 with a
+    run of 1500."""
+    if pattern == "distinct":
+        runs = torch.ones(n, dtype=torch.long, device=dev)
+    elif pattern == "edges":
+        runs = 32 * torch.randint(1, 6, (n // 32,), generator=gen, device=dev)
+    else:
+        runs = torch.randint(1, 10, (n,), generator=gen, device=dev)
+        runs[0 if pattern == "hot" else n // 15] = (
+            int(0.45 * n) if pattern == "hot" else 1500)
+    ids = torch.arange(runs.numel(), device=dev)
+    return torch.repeat_interleave(ids, runs)[:n].to(torch.int32).contiguous()
+
+
+# (N, D, n_out, run pattern): D 1, 5, 24, 88; N a multiple of no tile
+# size; a hot id over several tiles, all positions distinct, runs ending
+# at tile edges, segments past n_out (700), an empty tail
+SEGSUM_COLS_EDGES = [(9001, 1, 9001, "hot"), (4999, 5, 4999, "distinct"),
+                     (6001, 24, 6144, "edges"), (5003, 88, 5003, "mixed"),
+                     (5003, 88, 700, "mixed"), (3001, 24, 4096, "hot")]
+
+
+def check_segsum_cols_edges(dev, gen) -> None:
+    """segsum_cols at the edge shapes, bf16 and float32, held as at the
+    step's shapes."""
+    for n, d, n_out, pattern in SEGSUM_COLS_EDGES:
+        uidx = edge_uidx(n, pattern, gen, dev)
+        for dt in (torch.float32, torch.bfloat16):
+            check_segsum_cols(f"{pattern}, n_out {n_out}", dev, gen, d, uidx,
+                              n_out, dt, timed=False)
+    log(f"[check] segsum_cols at {len(SEGSUM_COLS_EDGES)} edge shapes x "
+        f"(f32, bf16): float64 tolerance, plain version, deterministic, "
+        f"zero tail")
 
 
 def slot_grads(dev, gen, dp, fold, cols, sub):
@@ -1013,6 +1123,7 @@ def phase_col_kernels(dev, gen, fm_host, wd_host) -> dict:
                                            fm_v[0] + fm_w[0], uidx)
     check_segsum_cols("W&D", dev, gen, wd_d[0] + wd_w[0],
                       torch.from_numpy(wd_host[0]["uidx_sorted"]).to(dev))
+    check_segsum_cols_edges(dev, gen)
     torch.cuda.empty_cache()
     w0, w1 = wd_host[0]["uq_ids"], wd_host[1]["uq_ids"]
     res["fused_adam_gather"] = check_fused("W&D deep", dev, gen, "adam", wd_d,

@@ -29,24 +29,38 @@
 // bf16), uidx once, out written once.
 //
 // Column-major sorted segment-sum (mr_segsum_cols, below): the same sum
-// for gradients that arrive as [D, N] and leave as [D, n_out], replacing
-// stream_segsum.py:streamed_segsum with row_major=False (the one-hot
-// matmul contracted over the position axis).  It exists so that the
-// feature-major step has no transpose around its sum.  Lanes run along
-// positions, so reads coalesce along N.  cols_chunk_sum: one warp per
-// chunk of kCChunk positions and kCRows feature rows walks the chunk 32
-// positions at a time; a segmented warp scan (__shfl_up_sync, joined where
-// the segment id kCRows rows share is equal) gives each lane its run's
-// prefix sum, the lane's run carries over from the 32 positions before,
-// and the lane at a run's end writes out[d, u] (runs of length 1, the
-// common case, make that a coalesced line).  A run that crosses a chunk
-// edge goes to partial[chunk][slot][d] (slot 0 for the chunk's first
-// segment, 1 for its last) and cols_span_sum adds the partials of a
-// crossing segment in chunk order (one thread per chunk and row, from the
-// chunk where the segment starts).  cols_fill_empty zeroes the columns
-// outside [uidx[0], uidx[n-1]].  Fixed order, no atomics: deterministic.
-// Bound: bytes - g read once, uidx once, out written once.
-//
+// for the logical [D, N] gradient of stream_segsum.py:streamed_segsum with
+// row_major=False (the one-hot matmul contracted over the position axis),
+// into [D, n_out] with every column written.  The feature-major step holds
+// its sorted gradients as a contiguous [N, D] array and passes the
+// transposed view (strides (1, D)), so the kernel reads row-major memory
+// and no transpose copy sits in front of it.  Bound: bytes - g read once
+// (N*D*2 in bf16), uidx once, out written once; at the DeepFM shape 91% of
+// out's columns lie past the last segment, so most of the bytes are the
+// zero tail, and the design keeps every byte on a streaming path:
+//   1. cols_tile_sum: a block takes a tile of P consecutive positions (P
+//      from D and the element size, so that three blocks fit an SM, which
+//      the registers are held to).  The tile's rows are one contiguous
+//      span of P*D elements: its 16-byte chunks are loaded into registers
+//      (element loads at unaligned ends) and, while those are in flight,
+//      the block writes its share of the zero columns (below uidx[0] and
+//      above uidx[n-1]) with 16-byte stores; then the chunks go to shared
+//      memory.  Each warp walks P/8 positions in order, lanes across the
+//      D columns, and sums each run in float32: a run that ends inside the
+//      warp's positions goes to an output tile [D][P + 1] in shared
+//      memory, the warp's first and last runs to per-warp slots, which one
+//      thread per column adds in warp order.  The tile's segments leave as
+//      rows out[d, u0:u1] of consecutive floats (the transpose happens in
+//      shared memory).  A run that crosses the tile's start or end goes to
+//      partial[tile][0] or [1] instead;
+//   2. cols_span_sum: a block per tile whose last segment starts in it and
+//      crosses its end.  Warp 0 counts the tiles the segment covers (32 at
+//      a time, by ballot); thread (stripe, column) adds every
+//      stripes-th partial row and the stripes are added in order, so a hot
+//      id of thousands of positions is spread over the block, not walked
+//      by one thread.
+// Fixed order, no atomics: deterministic.
+
 // Unsorted segment-sum (mr_segsum_unsorted, below): the same sum for
 // segment ids in any order with n_out <= 2048, into [D, n_out],
 // replacing stream_segsum.py:streamed_segsum_unsorted (one resident
@@ -673,166 +687,361 @@ void launch_unsorted_vec(const void* g, int64_t n, int d, int n_out,
   }
 }
 
-constexpr int kCChunk = 256;  // positions per warp in cols_chunk_sum
-constexpr int kCRows = 4;     // feature rows per warp
-constexpr int kNoRun = INT32_MIN;      // no run is open
-constexpr int kPadId = INT32_MIN + 1;  // lane past the chunk's end
+constexpr int kCWarps = 8;  // warps per block, both passes
+constexpr int kCThreads = 32 * kCWarps;
+constexpr int kCMaxTile = 512;  // positions per tile, at most
+constexpr int kCMaxD = 256;     // feature rows
+constexpr int kCAhead = 4;      // rows read ahead per warp
+constexpr int kCLoads = 8;      // 16-byte loads in flight per thread
+constexpr int kCMinBlocks = 3;  // blocks per SM the registers must allow
+constexpr size_t kCSmem = 74 * 1024;  // per block: three blocks per SM
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cols_chunk_sum(const T* __restrict__ g, const int* __restrict__ uidx,
-               int64_t n, int d, int n_out, float* __restrict__ out,
-               float* __restrict__ partial) {
-  const int64_t chunk =
-      (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t a = chunk * kCChunk;
-  if (a >= n) return;
-  const int64_t b = a + kCChunk < n ? a + kCChunk : n;
-  const int d0 = blockIdx.y * kCRows;
-  const int first_u = uidx[a];
-  // the chunk's first segment began in an earlier chunk
-  const bool before = a > 0 && uidx[a - 1] == first_u;
-  float carry[kCRows];
-#pragma unroll
-  for (int r = 0; r < kCRows; ++r) carry[r] = 0.f;
-  int carry_u = kNoRun;
-  for (int64_t i = a; i < b; i += 32) {
-    const int64_t pos = i + lane;
-    const bool valid = pos < b;
-    const int u = valid ? uidx[pos] : kPadId;
-    const bool end = valid && (pos + 1 >= n || uidx[pos + 1] != u);
-    bool join[5];
-#pragma unroll
-    for (int s = 0; s < 5; ++s) {
-      const int up = __shfl_up_sync(kFull, u, 1 << s);
-      join[s] = lane >= (1 << s) && up == u;
-    }
-    const bool cont = u == carry_u;
-    float val[kCRows];
-#pragma unroll
-    for (int r = 0; r < kCRows; ++r) {
-      const int dd = d0 + r;
-      float v = (valid && dd < d)
-                    ? mr::to_f(g[static_cast<int64_t>(dd) * n + pos])
-                    : 0.f;
-#pragma unroll
-      for (int s = 0; s < 5; ++s) {
-        const float t = __shfl_up_sync(kFull, v, 1 << s);
-        if (join[s]) v += t;
+__host__ __device__ inline size_t up16(size_t x) {
+  return (x + 15) & ~static_cast<size_t>(15);
+}
+
+// Bytes of the g tile's shared memory: p rows of d elements and up to 15
+// bytes of lead room, so that the 16-byte chunks of g keep their alignment.
+__host__ __device__ inline size_t cols_gtile_bytes(int p, int d, int elem) {
+  return up16(static_cast<size_t>(p) * d * elem + 16);
+}
+
+// Shared memory of cols_tile_sum for tiles of p positions: the ids, the
+// g tile, the output tile [d][p + 1] and the warps' edge sums [warps][2][d].
+inline size_t cols_smem(int p, int d, int elem) {
+  return up16(sizeof(int) * p) + cols_gtile_bytes(p, d, elem) +
+         sizeof(float) * (static_cast<size_t>(d) * (p + 1) + 2 * kCWarps * d);
+}
+
+// Positions per tile: the largest multiple of 32 up to kCMaxTile whose
+// block fits kCSmem (32 when none does: d > 112 in float32).
+inline int cols_tile(int d, int elem) {
+  for (int p = kCMaxTile; p > 32; p -= 32)
+    if (cols_smem(p, d, elem) <= kCSmem) return p;
+  return 32;
+}
+
+// Zero columns [a, b) of every row of out [d, n_out]: share `part` of
+// `parts` of the rows' 16-byte slots.  A row's slots past its aligned
+// float4s are one more, whose thread zeroes the unaligned ends.
+__device__ void zero_cols(float* __restrict__ out, int d, int n_out, int a,
+                          int b, int part, int parts) {
+  if (a >= b) return;
+  const int64_t per_row = (b - a) / 4 + 1;
+  const int64_t total = per_row * d;
+  const int64_t s0 = total * part / parts, s1 = total * (part + 1) / parts;
+  for (int64_t row = s0 / per_row; row * per_row < s1; ++row) {
+    float* r = out + row * n_out;
+    const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(r + a) >> 2) & 3);
+    const int a4 = a + ((4 - mis) & 3);  // the first 16-byte aligned column
+    const int nv = b - a4 >= 4 ? (b - a4) / 4 : 0;
+    const int64_t k0 = s0 > row * per_row ? s0 - row * per_row : 0;
+    const int64_t k1 = s1 - row * per_row < per_row ? s1 - row * per_row : per_row;
+    for (int64_t k = k0 + threadIdx.x; k < k1; k += blockDim.x) {
+      if (k < nv) {
+        reinterpret_cast<float4*>(r + a4)[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else if (k == nv) {
+        for (int c = a; c < (a4 < b ? a4 : b); ++c) r[c] = 0.f;
+        for (int c = a4 + 4 * nv > a ? a4 + 4 * nv : a; c < b; ++c) r[c] = 0.f;
       }
-      if (cont) v += carry[r];
-      val[r] = v;
-    }
-    if (end && u >= 0 && u < n_out) {
-      const bool whole = !(before && u == first_u);
-#pragma unroll
-      for (int r = 0; r < kCRows; ++r) {
-        const int dd = d0 + r;
-        if (dd >= d) continue;
-        if (whole)
-          out[static_cast<int64_t>(dd) * n_out + u] = val[r];
-        else
-          partial[chunk * 2 * d + dd] = val[r];
-      }
-    }
-    const bool last_end = __shfl_sync(kFull, end ? 1 : 0, 31) != 0;
-    const int last_u = __shfl_sync(kFull, u, 31);
-#pragma unroll
-    for (int r = 0; r < kCRows; ++r) {
-      const float t = __shfl_sync(kFull, val[r], 31);
-      carry[r] = last_end ? 0.f : t;
-    }
-    carry_u = last_end ? kNoRun : last_u;
-  }
-  if (carry_u >= 0 && carry_u < n_out) {  // the run open at the chunk's end
-    const int slot = carry_u == first_u ? 0 : 1;
-#pragma unroll
-    for (int r = 0; r < kCRows; ++r) {
-      if (lane == r && d0 + r < d)
-        partial[(chunk * 2 + slot) * d + d0 + r] = carry[r];
     }
   }
 }
 
-// Thread (chunk, row): if a segment starts in this chunk and crosses its
-// end, add its partials in chunk order and write its column.
-__global__ void cols_span_sum(const int* __restrict__ uidx, int64_t n, int d,
-                              int n_out, const float* __restrict__ partial,
-                              float* __restrict__ out) {
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  const int64_t chunk = t / d;
-  const int dd = static_cast<int>(t - chunk * d);
-  const int64_t a = chunk * kCChunk, b = a + kCChunk;
-  if (b >= n) return;  // the last chunk's runs end inside it
+// Pass 1.  Block = tile of tile_len positions (blocks past the last tile
+// write zero columns only); see the header.
+template <typename T, int CPL>
+__global__ void __launch_bounds__(kCThreads, kCMinBlocks)
+cols_tile_sum(const T* __restrict__ g, const int* __restrict__ uidx,
+              int64_t n, int d, int n_out, int tile_len,
+              float* __restrict__ out, float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int P = tile_len, ostride = P + 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int* sid = reinterpret_cast<int*>(smem);
+  unsigned char* gtile = smem + up16(sizeof(int) * P);
+  float* otile =
+      reinterpret_cast<float*>(gtile + cols_gtile_bytes(P, d, sizeof(T)));
+  float* wsum = otile + static_cast<size_t>(d) * ostride;
+
+  const int64_t tile = blockIdx.x, p0 = tile * P;
+  const int len = p0 < n ? static_cast<int>(n - p0 < P ? n - p0 : P) : 0;
+  // the tile's span of g, [g0, g1), and its 16-byte chunks [v0, v1)
+  const uintptr_t g0 = reinterpret_cast<uintptr_t>(g) + p0 * d * sizeof(T);
+  const uintptr_t g1 = g0 + static_cast<uintptr_t>(len) * d * sizeof(T);
+  const uintptr_t base = g0 & ~static_cast<uintptr_t>(15);
+  const uintptr_t v0 = (g0 + 15) & ~static_cast<uintptr_t>(15);
+  const uintptr_t v1 = g1 & ~static_cast<uintptr_t>(15);
+  const int nvec = v1 > v0 ? static_cast<int>((v1 - v0) / 16) : 0;
+  const uint4* src = reinterpret_cast<const uint4*>(v0);
+  uint4* dst = reinterpret_cast<uint4*>(gtile + (v0 - base));
+  uint4 r[kCLoads];
+#pragma unroll
+  for (int q = 0; q < kCLoads; ++q) {
+    const int k = q * kCThreads + tid;
+    if (k < nvec) r[q] = __ldcs(src + k);
+  }
+  {  // while the loads are in flight: this block's share of the zero columns
+    int lo = n_out, hi = n_out - 1;  // no positions: every column is empty
+    if (n > 0) {
+      lo = uidx[0];
+      hi = uidx[n - 1];
+      lo = lo < 0 ? 0 : (lo > n_out ? n_out : lo);
+      hi = hi < -1 ? -1 : (hi > n_out - 1 ? n_out - 1 : hi);
+    }
+    zero_cols(out, d, n_out, 0, lo, blockIdx.x, gridDim.x);
+    zero_cols(out, d, n_out, hi + 1, n_out, blockIdx.x, gridDim.x);
+  }
+  if (len == 0) return;
+#pragma unroll
+  for (int q = 0; q < kCLoads; ++q) {
+    const int k = q * kCThreads + tid;
+    if (k < nvec) dst[k] = r[q];
+  }
+  for (int k0 = kCLoads * kCThreads; k0 < nvec; k0 += kCLoads * kCThreads) {
+#pragma unroll
+    for (int q = 0; q < kCLoads; ++q) {
+      const int k = k0 + q * kCThreads + tid;
+      if (k < nvec) r[q] = __ldcs(src + k);
+    }
+#pragma unroll
+    for (int q = 0; q < kCLoads; ++q) {
+      const int k = k0 + q * kCThreads + tid;
+      if (k < nvec) dst[k] = r[q];
+    }
+  }
+  // the elements before the first chunk and after the last one
+  const T* gs = reinterpret_cast<const T*>(g0);
+  T* gt = reinterpret_cast<T*>(gtile + (g0 - base));
+  const uintptr_t h1 = v0 < g1 ? v0 : g1;
+  const int head = static_cast<int>((h1 - g0) / sizeof(T));
+  const int tail = static_cast<int>(((v1 > h1 ? v1 : h1) - g0) / sizeof(T));
+  for (int i = tid; i < head; i += kCThreads) gt[i] = gs[i];
+  for (int i = tail + tid; i < len * d; i += kCThreads) gt[i] = gs[i];
+  for (int i = tid; i < len; i += kCThreads) sid[i] = uidx[p0 + i];
+  __syncthreads();
+
+  const int u_first = sid[0], u_last = sid[len - 1];
+  const bool before = p0 > 0 && uidx[p0 - 1] == u_first;
+  const bool after = p0 + len < n && uidx[p0 + len] == u_last;
+  // each warp: its positions in order, lanes across the columns; a run
+  // that ends inside them -> otile, its first and last runs -> wsum
+  const int per = P / kCWarps;
+  const int q0 = warp * per, q1 = q0 + per < len ? q0 + per : len;
+  if (q0 < q1) {
+    float acc[CPL];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
+    int cur = sid[q0];
+    bool first = true;
+    for (int i0 = q0; i0 < q1; i0 += kCAhead) {
+      float v[kCAhead][CPL];
+#pragma unroll
+      for (int a = 0; a < kCAhead; ++a) {
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) {
+          const int c = lane + 32 * k;
+          v[a][k] = (i0 + a < q1 && c < d) ? mr::to_f(gt[(i0 + a) * d + c]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kCAhead; ++a) {
+        if (i0 + a >= q1) break;  // the same for every lane
+        const int u = sid[i0 + a];
+        if (u != cur) {
+          const int j = cur - u_first;
+#pragma unroll
+          for (int k = 0; k < CPL; ++k) {
+            const int c = lane + 32 * k;
+            if (c < d) {
+              if (first)
+                wsum[warp * 2 * d + c] = acc[k];
+              else if (j < P)  // always, with unit steps
+                otile[c * ostride + j] = acc[k];
+            }
+            acc[k] = 0.f;
+          }
+          cur = u;
+          first = false;
+        }
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) acc[k] += v[a][k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const int c = lane + 32 * k;
+      if (c < d) wsum[(warp * 2 + (first ? 0 : 1)) * d + c] = acc[k];
+    }
+  }
+  __syncthreads();
+  // one thread per column: the warps' edge sums in warp order
+  for (int c = tid; c < d; c += kCThreads) {
+    auto emit = [&](int u, float x) {
+      if (u < 0 || u >= n_out) return;
+      if (u == u_first && before)
+        partial[tile * 2 * d + c] = x;
+      else if (u == u_last && after)
+        partial[(tile * 2 + 1) * d + c] = x;
+      else if (u - u_first < P)
+        otile[c * ostride + (u - u_first)] = x;
+    };
+    int cur = sid[0];
+    float s = 0.f;
+    for (int w = 0; w < kCWarps && w * per < len; ++w) {
+      const int a = w * per, e = (a + per < len ? a + per : len) - 1;
+      const int fu = sid[a], lu = sid[e];
+      const float f = wsum[w * 2 * d + c];
+      if (w > 0 && fu == cur) {
+        s += f;
+      } else {
+        if (w > 0) emit(cur, s);
+        cur = fu;
+        s = f;
+      }
+      if (lu != fu) {
+        emit(cur, s);
+        cur = lu;
+        s = wsum[(w * 2 + 1) * d + c];
+      }
+    }
+    emit(cur, s);
+  }
+  __syncthreads();
+  // the segments that lie wholly in the tile: a row of floats per column
+  int64_t j_lo = before ? 1 : 0;
+  int64_t j_hi = static_cast<int64_t>(u_last) - u_first + (after ? 0 : 1);
+  if (j_lo < -static_cast<int64_t>(u_first)) j_lo = -static_cast<int64_t>(u_first);
+  if (j_hi > static_cast<int64_t>(n_out) - u_first) j_hi = static_cast<int64_t>(n_out) - u_first;
+  if (j_hi > P) j_hi = P;
+  const int cnt = j_hi > j_lo ? static_cast<int>(j_hi - j_lo) : 0;
+  for (int e = tid; e < cnt * d; e += kCThreads) {
+    const int c = e / cnt, j = static_cast<int>(j_lo) + e - c * cnt;
+    out[static_cast<int64_t>(c) * n_out + u_first + j] = otile[c * ostride + j];
+  }
+}
+
+// Pass 2.  Block = tile: if the tile's last segment starts in it and
+// crosses its end, warp 0 counts the tiles the segment covers (32 at a
+// time, by ballot); then thread (stripe, column) adds the partial rows
+// stripe, stripe + stripes, ... (slot 1 of the first tile, slot 0 of each
+// later one) and the stripes are added in order: a hot id's rows are
+// spread over the block, in a fixed order.
+__global__ void __launch_bounds__(kCThreads)
+cols_span_sum(const int* __restrict__ uidx, int64_t n, int d, int n_out,
+              int tile_len, const float* __restrict__ partial,
+              float* __restrict__ out) {
+  __shared__ int rows_s;
+  __shared__ float red[kCThreads];
+  const int P = tile_len;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t tile = blockIdx.x, a = tile * P, b = a + P;
+  if (b >= n) return;  // the last tile's runs end inside it
   const int u = uidx[b - 1];
-  if (uidx[b] != u || u < 0 || u >= n_out) return;  // ends in this chunk
-  const bool is_first = uidx[a] == u;
-  if (is_first && a > 0 && uidx[a - 1] == u) return;  // began earlier
-  float s = partial[(chunk * 2 + (is_first ? 0 : 1)) * d + dd];
-  for (int64_t cc = chunk + 1;; ++cc) {
-    s += partial[cc * 2 * d + dd];
-    const int64_t e = (cc + 1) * kCChunk;
-    if (e >= n || uidx[e] != u) break;
+  if (uidx[b] != u || u < 0 || u >= n_out) return;        // ends in the tile
+  if (a > 0 && uidx[a] == u && uidx[a - 1] == u) return;  // began earlier
+  if (warp == 0) {
+    const int64_t tiles = (n + P - 1) / P;
+    int rows = 1;
+    for (int64_t t0 = tile + 1;; t0 += 32) {
+      const int64_t tt = t0 + lane;
+      const unsigned in = __ballot_sync(kFull, tt < tiles && uidx[tt * P] == u);
+      if (in != kFull) {
+        rows += __ffs(~in) - 1;
+        break;
+      }
+      rows += 32;
+    }
+    if (lane == 0) rows_s = rows;
   }
-  out[static_cast<int64_t>(dd) * n_out + u] = s;
+  __syncthreads();
+  const int rows = rows_s;
+  const int stripes = kCThreads / d;  // d <= kCThreads
+  const int stripe = threadIdx.x / d, c = threadIdx.x - stripe * d;
+  if (stripe < stripes) {
+    float s = 0.f;
+#pragma unroll 4
+    for (int r = stripe; r < rows; r += stripes)
+      s += partial[((tile + r) * 2 + (r == 0 ? 1 : 0)) * d + c];
+    red[threadIdx.x] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < d) {
+    float s = 0.f;
+    for (int k = 0; k < stripes; ++k) s += red[k * d + threadIdx.x];
+    out[static_cast<int64_t>(threadIdx.x) * n_out + u] = s;
+  }
 }
 
-// Zero the columns of out [d, n_out] that no position holds: those below
-// uidx[0] and above uidx[n-1].
-__global__ void cols_fill_empty(const int* __restrict__ uidx, int64_t n, int d,
-                                int n_out, float* __restrict__ out) {
-  int lo = n_out, hi = n_out - 1;  // no positions: every column is empty
-  if (n > 0) {
-    lo = uidx[0];
-    hi = uidx[n - 1];
-    lo = lo < 0 ? 0 : (lo > n_out ? n_out : lo);
-    hi = hi < -1 ? -1 : (hi > n_out - 1 ? n_out - 1 : hi);
+template <typename T, int CPL>
+cudaError_t launch_cols(const void* g, const int* uidx, int64_t n, int d,
+                        int n_out, float* partial, float* out,
+                        cudaStream_t st) {
+  static int sms = 0;  // 0: the attributes below are not set yet
+  if (sms == 0) {      // shared memory above 48 KB is opted into once
+    int dev = 0;
+    const size_t most = cols_smem(32, kCMaxD, 4);  // the largest block
+    cudaError_t err = cudaFuncSetAttribute(
+        cols_tile_sum<T, CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(most > kCSmem ? most : kCSmem));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(cols_tile_sum<T, CPL>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
   }
-  const int64_t col = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (col >= n_out || (col >= lo && col <= hi)) return;
-  for (int dd = 0; dd < d; ++dd) out[static_cast<int64_t>(dd) * n_out + col] = 0.f;
+  const int p = cols_tile(d, sizeof(T));
+  const int64_t tiles = (n + p - 1) / p;
+  // at least two blocks per SM share the zero columns
+  const int64_t blocks = tiles > 2 * sms ? tiles : 2 * sms;
+  cols_tile_sum<T, CPL><<<static_cast<unsigned>(blocks), kCThreads,
+                          cols_smem(p, d, sizeof(T)), st>>>(
+      static_cast<const T*>(g), uidx, n, d, n_out, p, out, partial);
+  if (tiles > 1)
+    cols_span_sum<<<static_cast<unsigned>(tiles - 1), kCThreads, 0, st>>>(
+        uidx, n, d, n_out, p, partial, out);
+  return cudaGetLastError();
 }
 
 template <typename T>
-void launch_cols(const void* g, const int* uidx, int64_t n, int d, int n_out,
-                 float* partial, float* out, cudaStream_t st) {
-  const int64_t chunks = (n + kCChunk - 1) / kCChunk;
-  dim3 grid(mr::blocks_for(chunks * 32, kThreads),
-            static_cast<unsigned>((d + kCRows - 1) / kCRows));
-  cols_chunk_sum<T><<<grid, kThreads, 0, st>>>(static_cast<const T*>(g), uidx,
-                                               n, d, n_out, out, partial);
-  cols_span_sum<<<mr::blocks_for(chunks * d, kThreads), kThreads, 0, st>>>(
-      uidx, n, d, n_out, partial, out);
+cudaError_t launch_cols_d(const void* g, const int* uidx, int64_t n, int d,
+                          int n_out, float* partial, float* out,
+                          cudaStream_t st) {
+  if (d <= 32) return launch_cols<T, 1>(g, uidx, n, d, n_out, partial, out, st);
+  if (d <= 64) return launch_cols<T, 2>(g, uidx, n, d, n_out, partial, out, st);
+  if (d <= 96) return launch_cols<T, 3>(g, uidx, n, d, n_out, partial, out, st);
+  if (d <= 128) return launch_cols<T, 4>(g, uidx, n, d, n_out, partial, out, st);
+  return launch_cols<T, 8>(g, uidx, n, d, n_out, partial, out, st);
 }
 
 }  // namespace
 
-// Floats of mr_segsum_cols's partial scratch for n positions of d rows.
-extern "C" int64_t mr_segsum_cols_partial_len(int64_t n, int d) {
-  return (n + kCChunk - 1) / kCChunk * 2 * d;
+// Floats of mr_segsum_cols's partial scratch for n positions of d rows
+// of bf16 (g_bf16 != 0) or f32: two rows of d per tile.
+extern "C" int64_t mr_segsum_cols_partial_len(int64_t n, int d, int g_bf16) {
+  if (d <= 0 || d > kCMaxD) return 0;
+  const int p = cols_tile(d, g_bf16 ? 2 : 4);
+  return (n + p - 1) / p * 2 * d;
 }
 
-// g: [d, n] bf16 (g_bf16 != 0) or f32, feature-major; uidx: [n] i32,
-// non-decreasing with unit steps; partial: [ceil(n / kCChunk), 2, d] f32
-// scratch (mr_segsum_cols_partial_len floats); out: [d, n_out] f32, every
-// column written.
+// g: the [d, n] gradient as a contiguous row-major [n, d] array (the
+// transposed view's memory), bf16 (g_bf16 != 0) or f32; uidx: [n] i32,
+// non-decreasing with unit steps; partial: f32 scratch
+// (mr_segsum_cols_partial_len floats); out: [d, n_out] f32, every column
+// written.
 extern "C" int mr_segsum_cols(const void* g, int g_bf16, const int* uidx,
                               int64_t n, int d, int n_out, float* partial,
                               float* out, void* stream) {
-  if (d <= 0 || d > 65535 * kCRows || n_out < 0 || n < 0)
+  if (d <= 0 || d > kCMaxD || n_out < 0 || n < 0 || n > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_out == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    if (g_bf16)
-      launch_cols<__nv_bfloat16>(g, uidx, n, d, n_out, partial, out, st);
-    else
-      launch_cols<float>(g, uidx, n, d, n_out, partial, out, st);
-  }
-  cols_fill_empty<<<mr::blocks_for(n_out, kThreads), kThreads, 0, st>>>(
-      uidx, n, d, n_out, out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      g_bf16 ? launch_cols_d<__nv_bfloat16>(g, uidx, n, d, n_out, partial, out, st)
+             : launch_cols_d<float>(g, uidx, n, d, n_out, partial, out, st));
 }
 
 // Ints of mr_segsum_unsorted's scratch for n positions and n_out ids.

@@ -11,8 +11,10 @@ are in ``csrc/segsum.cu``; see its header for the designs and bounds):
   for segment ids in any order, ``n_out <= 2048`` (the tiny-vocab path,
   whose segment ids are the raw ids).
 * :func:`segsum_cols` - ``streamed_segsum`` with ``row_major=False``:
-  the sorted sum for gradients that arrive column-major, ``[D, N]``, as
-  the feature-major step has them, so no transpose sits between the two.
+  the sorted sum of a logical ``[D, N]`` gradient into ``[D, n_out]``.
+  The kernel takes the transposed view of a contiguous ``[N, D]`` array
+  (the feature-major step's sorted gradients), so no transpose copy sits
+  in front of it.
 
 In all three, segment ids outside ``[0, n_out)`` add nothing.
 """
@@ -138,7 +140,8 @@ _COLS_ARGS = [
 
 def segsum_cols_plain(g: torch.Tensor, uidx_sorted: torch.Tensor,
                       n_out: int) -> torch.Tensor:
-    """Plain PyTorch version (``index_add_`` along dim 1 in float32)."""
+    """Plain PyTorch version (``index_add_`` along dim 1 in float32), for
+    ``g`` in any layout."""
     keep = (uidx_sorted >= 0) & (uidx_sorted < n_out)
     out = torch.zeros((g.shape[0], n_out), dtype=torch.float32,
                       device=g.device)
@@ -149,14 +152,20 @@ def segsum_cols(g: torch.Tensor, uidx_sorted: torch.Tensor,
                 n_out: int) -> torch.Tensor:
     """``out[:, u] = sum(g[:, n] for uidx_sorted[n] == u)`` -> [D, n_out].
 
-    ``g``: [D, N] bfloat16 or float32; ``uidx_sorted``: [N] int32,
-    non-decreasing with unit steps.  Every column is written, zeros past
-    the last segment (the step passes ``n_out = N``, one slot per
-    position).  CPU tensors take :func:`segsum_cols_plain`; CUDA
-    tensors launch the kernel."""
+    ``g``: [D, N] bfloat16 or float32 (D <= 256); ``uidx_sorted``: [N]
+    int32, non-decreasing with unit steps.  Every column is written, zeros
+    past the last segment (the step passes ``n_out = N``, one slot per
+    position).  CPU tensors take :func:`segsum_cols_plain`, in any layout;
+    on any other device ``g`` must be the transposed view of a contiguous
+    [N, D] array (strides ``(1, D)``), whose rows the kernel streams, and
+    a [D, N]-contiguous ``g`` raises rather than being copied."""
     require(g.dim() == 2 and uidx_sorted.shape == (g.shape[1],), _COLS,
             f"g [D, N] and uidx_sorted [N] expected, got {tuple(g.shape)} "
             f"and {tuple(uidx_sorted.shape)}")
+    if g.device.type != "cpu":
+        require(g.T.is_contiguous(), _COLS,
+                f"g must be the transposed view of a contiguous [N, D] "
+                f"(strides (1, D)), got strides {g.stride()}")
     if on_cpu(_COLS, g, uidx_sorted):
         return segsum_cols_plain(g, uidx_sorted, n_out)
     d, n = g.shape
@@ -164,17 +173,17 @@ def segsum_cols(g: torch.Tensor, uidx_sorted: torch.Tensor,
             f"g must be bfloat16 or float32, got {g.dtype}")
     require(uidx_sorted.dtype == torch.int32, _COLS,
             "uidx_sorted must be int32")
-    require(0 < d <= 65535 and n < 2**31 and 0 <= n_out < 2**31, _COLS,
-            "sizes out of range")
-    require_contiguous(_COLS, g=g, uidx_sorted=uidx_sorted)
+    require(0 < d <= 256 and n < 2**31 and 0 <= n_out < 2**31, _COLS,
+            f"D must be in [1, 256] and sizes must fit int32, got D {d}")
+    require_contiguous(_COLS, uidx_sorted=uidx_sorted)
+    bf16 = int(g.dtype == torch.bfloat16)
     out = torch.empty((d, n_out), dtype=torch.float32, device=g.device)
     partial = torch.empty(
-        _build.scratch_len("mr_segsum_cols_partial_len", n, d),
+        _build.scratch_len("mr_segsum_cols_partial_len", n, d, bf16),
         dtype=torch.float32, device=g.device)
     fn = _build.kernel_fn("mr_segsum_cols", _COLS_ARGS)
-    rc = fn(g.data_ptr(), int(g.dtype == torch.bfloat16),
-            uidx_sorted.data_ptr(), n, d, n_out, partial.data_ptr(),
-            out.data_ptr(), _build.stream_of(g))
+    rc = fn(g.data_ptr(), bf16, uidx_sorted.data_ptr(), n, d, n_out,
+            partial.data_ptr(), out.data_ptr(), _build.stream_of(g))
     _build.check(rc, _COLS)
     LAUNCHES[_COLS] += 1
     return out

@@ -45,8 +45,9 @@ expansion:
 3. one gather of the transposed block expands it to batch order
    ``[N, sum_d]``; the gradient is taken at the expanded rows, so the
    expansion itself carries no gradient;
-4. the gradients move to sorted order (``g[perm]``), are transposed to
-   ``[sum_d, N]`` and summed per unique slot by ``segsum_cols`` (kernel);
+4. the gradients move to sorted order (``g[perm]``) and are summed per
+   unique slot by ``segsum_cols`` (kernel), which takes their transposed
+   view ``[sum_d, N]`` and reads the row-major memory itself;
 5. split per table, fold-masked and padded back to ``Dp`` sublanes, they
    update the tables with ``adam_cols`` / ``ftrl_cols`` (kernels).
 
@@ -705,7 +706,8 @@ def make_train_step(
         if overflowed(dense_grads, g_deltas):  # keep params and state
             return state._replace(step=state.step + 1), losses
         g_sorted = g_deltas[0][perm.long()]  # [N, sum_d], sorted order
-        g_uq = segsum_c(g_sorted.T.contiguous(), uidx_s.to(torch.int32), n_pos)
+        # the kernel reads the [sum_d, N] view's row-major memory: no copy
+        g_uq = segsum_c(g_sorted.T, uidx_s.to(torch.int32), n_pos)
         col_grads, off = {}, 0
         for name, (path, spec) in table_specs.items():
             dn = dims[name]

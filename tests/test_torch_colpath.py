@@ -297,6 +297,23 @@ def test_colpath_wrappers_take_plain_only_on_cpu():
         fused_ftrl_gather(m, m, m, mc, aug.to("meta"), mc, dim=1, fold=8)
 
 
+def test_segsum_cols_takes_only_the_row_major_view_off_the_cpu():
+    """Off the CPU ``segsum_cols`` streams the rows of a contiguous
+    [N, D]: a [D, N]-contiguous ``g`` raises, naming the layout, instead of
+    being copied; the transposed view passes the layout check (and a meta
+    tensor then raises for its device).  On the CPU any layout is summed."""
+    uidx = torch.tensor([0, 0, 1, 2], dtype=torch.int32)
+    rows = torch.arange(12, dtype=torch.float32).reshape(4, 3)  # [N, D]
+    with pytest.raises(ValueError, match=r"segsum_cols: g must be the "
+                       r"transposed view of a contiguous \[N, D\]"):
+        segsum_cols(rows.T.contiguous().to("meta"), uidx.to("meta"), 4)
+    with pytest.raises(ValueError, match="CPU or one CUDA device"):
+        segsum_cols(rows.to("meta").T, uidx.to("meta"), 4)
+    want = [[3.0, 6.0, 9.0, 0.0], [5.0, 7.0, 10.0, 0.0], [7.0, 8.0, 11.0, 0.0]]
+    for g in (rows.T, rows.T.contiguous()):
+        np.testing.assert_array_equal(segsum_cols(g, uidx, 4).numpy(), want)
+
+
 # ---------------------------------------------------------------------------
 # the row_layout=False step
 # ---------------------------------------------------------------------------

@@ -4,10 +4,10 @@ Imports no JAX, so it runs where only the port is installed::
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-The edge-case lists of ``segsum_unsorted`` and ``adam_cols`` (and the
-functions that make their numpy inputs) live here;
-``tests/test_torch_edge_cases.py`` runs the same lists on the CPU, plain
-version against the JAX kernel.
+The edge-case lists of ``segsum_unsorted``, ``segsum_cols`` and
+``adam_cols`` (and the functions that make their numpy inputs) live
+here; ``tests/test_torch_edge_cases.py`` runs the same lists on the CPU,
+plain version against the JAX kernel.
 """
 
 import numpy as np
@@ -190,8 +190,9 @@ def test_feature_major_kernels_match_plain_on_card(cuda_device):
 def test_column_path_kernels_match_plain_on_card(cuda_device):
     """gather_cols, segsum_cols and the fused update + gather kernels
     against their plain versions: the gathers exact; the segment-sum
-    within float32 reordering (a scan inside the kernel, atomics in the
-    plain version) and deterministic; the fused updates equal to rounding
+    (given the step's layout, the transposed view of a contiguous [N, D])
+    within float32 reordering (sums in tile order in the kernel, atomics
+    in the plain version) and deterministic; the fused updates equal to rounding
     (same float32 operations in the same order) with rows that are
     exactly the updated table's columns."""
     rng = np.random.default_rng(2)
@@ -207,8 +208,8 @@ def test_column_path_kernels_match_plain_on_card(cuda_device):
         c = _t(cols).to(dev)
         torch.testing.assert_close(gather_cols(table, c),
                                    gather_cols_plain(table, c), rtol=0, atol=0)
-    # column-major segment-sum: a hot id over many 256-position chunks,
-    # runs that end exactly at chunk edges, a ragged last chunk, a tail
+    # column-major segment-sum: a hot id over many tiles, runs that end
+    # at multiples of 256 positions, a ragged last tile, a tail
     uidx = _uidx(rng, 5003, 7)
     uidx[:700] = 0
     uidx[700:1024] = 1   # ends at a chunk edge
@@ -217,13 +218,14 @@ def test_column_path_kernels_match_plain_on_card(cuda_device):
     uidx = np.maximum.accumulate(uidx)
     _, uidx = np.unique(uidx, return_inverse=True)  # unit steps
     u = _t(uidx.astype(np.int32)).to(dev)
-    g = _t(rng.normal(size=(27, uidx.size)).astype(np.float32)).to(dev)
+    # the step's layout: the transposed view of a contiguous [N, 27]
+    g = _t(rng.normal(size=(uidx.size, 27)).astype(np.float32)).to(dev)
     for dt in (torch.float32, torch.bfloat16):
         for n_out in (5003, 5632, 1000):
-            got = segsum_cols(g.to(dt), u, n_out)
-            want = segsum_cols_plain(g.to(dt), u, n_out)
+            got = segsum_cols(g.to(dt).T, u, n_out)
+            want = segsum_cols_plain(g.to(dt).T, u, n_out)
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
-            assert torch.equal(got, segsum_cols(g.to(dt), u, n_out))
+            assert torch.equal(got, segsum_cols(g.to(dt).T, u, n_out))
     # fused update + gather: fold 1 and 8, both optimizers, sentinel pads,
     # column ranges with only gradients, only next ids, and neither
     lr = torch.tensor(1e-3, device=dev)
@@ -267,7 +269,7 @@ def test_column_path_kernels_match_plain_on_card(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# shared edge cases: segsum_unsorted and adam_cols
+# shared edge cases: segsum_unsorted, segsum_cols and adam_cols
 # ---------------------------------------------------------------------------
 
 # (case id, N, D, n_out, id pattern)
@@ -310,6 +312,44 @@ def segsum_float64(g, seg, n_out):
     np.add.at(sq, seg[keep], g[keep].astype(np.float64) ** 2)
     cnt = np.bincount(seg[keep], minlength=n_out)[:n_out]
     return ref.T, (8.0 * 2.0**-24 * np.sqrt(cnt)[:, None] * np.sqrt(sq)).T
+
+
+# (case id, N, D, n_out, run pattern); N is a multiple of no tile size
+SEGSUM_COLS_CASES = [
+    ("d1-hot", 9001, 1, 9001, "hot"),  # one id over several tiles
+    ("d5-distinct", 4999, 5, 4999, "distinct"),
+    ("d24-edges", 6001, 24, 6144, "edges"),  # runs that end at tile edges
+    ("d88-mixed", 5003, 88, 5003, "mixed"),
+    ("d88-past-n-out", 5003, 88, 700, "mixed"),  # segments past n_out
+    ("d24-hot-tail", 3001, 24, 4096, "hot"),  # an empty tail
+]
+SEGSUM_COLS_IDS = [c[0] for c in SEGSUM_COLS_CASES]
+
+
+def segsum_cols_case(n, d, pattern):
+    """(g [N, D] float32, uidx_sorted [N] int32, non-decreasing with unit
+    steps).  The values are multiples of 1/8 below 64 in magnitude: exact
+    in bf16, and every float32 partial sum of them is exact, so any order
+    of summation gives the float64 sum.  Runs: ``distinct`` one position
+    each; ``hot`` 45% of the positions on the first id, then 1-9 each;
+    ``mixed`` 1-9 each with a run of 1500 a third of the way in; ``edges``
+    32 positions each over the first half, then multiples of 32 up to 160,
+    so every run ends on a multiple of 32 (a tile size is one)."""
+    rng = np.random.default_rng(n * 7 + d)
+    if pattern == "distinct":
+        runs = np.ones(n, np.int64)
+    elif pattern == "edges":
+        runs = np.concatenate([np.full(n // 64, 32),
+                               32 * rng.integers(1, 6, size=n // 32)])
+    else:
+        runs = rng.integers(1, 10, size=n)
+        if pattern == "hot":
+            runs[0] = int(0.45 * n)
+        else:
+            runs = np.concatenate([runs[:n // 15], [1500], runs[n // 15:]])
+    uidx = np.repeat(np.arange(runs.size), runs)[:n].astype(np.int32)
+    g = np.clip(np.round(rng.normal(size=(n, d)) * 8.0), -511, 511) / 8.0
+    return g.astype(np.float32), uidx
 
 
 ADAM_COLS_VC = 1024
@@ -390,6 +430,36 @@ def test_segsum_unsorted_edge_cases_on_card(cuda_device, case, dtype):
     got = segsum_unsorted(_t(gi).to(getattr(torch, dtype)).to(cuda_device), st,
                           n_out)
     np.testing.assert_array_equal(got.cpu().numpy(), exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SEGSUM_COLS_CASES, ids=SEGSUM_COLS_IDS)
+def test_segsum_cols_edge_cases_on_card(cuda_device, case, dtype):
+    """``g`` as the transposed view of a contiguous [N, D] (the step's
+    layout).  On the case's values, whose float32 sums are exact, kernel
+    and plain version equal the float64 sum; on normal values both are
+    within the float32 tolerance of the float64 sum, the kernel is
+    deterministic and its columns past the last segment are zero."""
+    _id, n, d, n_out, pattern = case
+    g, uidx = segsum_cols_case(n, d, pattern)
+    dt = getattr(torch, dtype)
+    u = _t(uidx).to(cuda_device)
+    exact, _ = segsum_float64(g, uidx, n_out)
+    rows = _t(g).to(dt).to(cuda_device)
+    got = segsum_cols(rows.T, u, n_out)
+    assert got.shape == (d, n_out) and got.dtype == torch.float32
+    for x in (got, segsum_cols_plain(rows.T, u, n_out)):
+        np.testing.assert_array_equal(x.cpu().numpy(), exact)
+    rng = np.random.default_rng(n + d)
+    rows = _t(rng.normal(size=(n, d)).astype(np.float32)).to(dt)
+    ref, tol = segsum_float64(rows.float().numpy(), uidx, n_out)
+    rows = rows.to(cuda_device)
+    got = segsum_cols(rows.T, u, n_out)
+    assert torch.equal(got, segsum_cols(rows.T, u, n_out))
+    for x in (got, segsum_cols_plain(rows.T, u, n_out)):
+        assert (np.abs(x.cpu().numpy() - ref) <= tol).all()
+    assert not got[:, int(uidx[-1]) + 1:].any()
 
 
 @pytest.mark.cuda

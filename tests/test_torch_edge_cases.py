@@ -1,4 +1,5 @@
-"""Edge cases of ``segsum_unsorted`` and ``adam_cols`` on the CPU: the
+"""Edge cases of ``segsum_unsorted``, ``segsum_cols`` and ``adam_cols``
+on the CPU: the
 port's plain versions (which the wrappers take for CPU tensors) against
 the JAX package's Pallas kernels in interpret mode, on the same numpy
 inputs.  The case lists are shared with ``tests/test_torch_cuda.py``,
@@ -11,12 +12,15 @@ import pytest
 import torch
 
 from mindrec_tpu.ops.pallas import stream_update
-from mindrec_tpu.ops.pallas.stream_segsum import streamed_segsum_unsorted
-from mindrec_tpu_torch.ops.kernels.segsum import segsum_unsorted
+from mindrec_tpu.ops.pallas.stream_segsum import (
+    streamed_segsum, streamed_segsum_unsorted,
+)
+from mindrec_tpu_torch.ops.kernels.segsum import segsum_cols, segsum_unsorted
 from mindrec_tpu_torch.ops.kernels.update_cols import adam_cols
 from test_torch_cuda import (
-    ADAM_COLS_CASES, SEGSUM_IDS, SEGSUM_UNSORTED_CASES, adam_cols_case,
-    segsum_float64, segsum_unsorted_case,
+    ADAM_COLS_CASES, SEGSUM_COLS_CASES, SEGSUM_COLS_IDS, SEGSUM_IDS,
+    SEGSUM_UNSORTED_CASES, adam_cols_case, segsum_cols_case, segsum_float64,
+    segsum_unsorted_case,
 )
 
 
@@ -47,6 +51,35 @@ def test_segsum_unsorted_edge_cases_match_pallas(case, dtype):
         jnp.asarray(g).astype(getattr(jnp, dtype)), jnp.asarray(seg), n_out,
         matmul_dtype=md, interpret=True)
     assert (np.abs(np.asarray(ref) - out.numpy()) <= 2 * tol + 1e-5 * mass).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SEGSUM_COLS_CASES, ids=SEGSUM_COLS_IDS)
+def test_segsum_cols_edge_cases_match_pallas(case, dtype):
+    """The port takes ``g`` as the transposed view of a contiguous [N, D]
+    (as the step passes it); the reference takes the same values as a
+    float32 [D, N] array with ``matmul_dtype`` float32 (bfloat16 inputs
+    are compared in float32: the TPU kernel rounds to its
+    ``matmul_dtype``).  rtol / atol 1e-5; the case's values make every
+    float32 sum exact.  The reference takes no segment at or past its
+    ``n_out`` (a multiple of its 512-column blocks) and never writes the
+    blocks past the last segment's, so it runs at ``n_out`` rounded up
+    past the last segment and is compared up to that block and to the
+    port's ``n_out``; the port's columns past the last segment are zero."""
+    _id, n, d, n_out, pattern = case
+    g, uidx = segsum_cols_case(n, d, pattern)
+    last = int(uidx[-1])
+    n_ref = -(-max(n_out, last + 1) // 512) * 512
+    ref = np.asarray(streamed_segsum(
+        jnp.asarray(g.T), jnp.asarray(uidx), n_out=n_ref,
+        matmul_dtype=jnp.float32, interpret=True))
+    rows = _t(g).to(getattr(torch, dtype))
+    out = segsum_cols(rows.T, _t(uidx), n_out)
+    assert out.shape == (d, n_out) and out.dtype == torch.float32
+    seen = min(n_out, (last // 512 + 1) * 512)
+    np.testing.assert_allclose(out.numpy()[:, :seen], ref[:, :seen],
+                               rtol=1e-5, atol=1e-5)
+    assert not out.numpy()[:, last + 1:].any()
 
 
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])

@@ -309,6 +309,32 @@ def test_plain_step_equals_kernel_step_multitable_on_cpu():
         np.testing.assert_array_equal(x, y)
 
 
+def test_multitable_check_overflow_matches_jax():
+    """``check_overflow=True`` on the multi-group step, an ``inf`` in
+    ``continue_val`` at step 2: both packages skip that update and advance
+    the step, and after three steps every leaf agrees within 1e-7 (two
+    float32 updates, as in the float32 parity test)."""
+    jm, js, jo, tm, ts, to = _setup()
+    j_fn = jstep.make_train_step(jm, *jo, jit=True, donate=False,
+                                 use_pallas=True, row_layout=True,
+                                 matmul_dtype=jnp.float32,
+                                 check_overflow=True)
+    t_fn = make_train_step(tm, *to, matmul_dtype=torch.float32,
+                           check_overflow=True)
+    for i, b in enumerate(_batches(3, seed=4)):
+        if i == 1:
+            b["continue_val"][0, 0] = np.inf
+            before = convert.state_to_jax(ts)
+        js, _ = j_fn(js, b)
+        ts, _ = t_fn(ts, to_device(b, "cpu"))
+        if i == 1:
+            after = convert.state_to_jax(ts)
+            for (k, x), (_, y) in zip(_leaves(before[:3]), _leaves(after[:3])):
+                np.testing.assert_array_equal(x, y, err_msg=k)
+    assert int(ts.step) == int(js.step) == 3
+    _compare(js, ts, rtol=0, atol=1e-7)
+
+
 def test_config_dataclass_matches_reference():
     """The port's config has the reference's fields and defaults, and its
     tables are feature-major (the reference's default layout)."""

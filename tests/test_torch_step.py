@@ -146,6 +146,33 @@ def test_step_matches_jax_mixed_precision():
                    "'wide/table']['accum']", "'wide/table']['linear']"])
 
 
+def test_step_matches_jax_bf16_tables():
+    """The reference's bf16-table bench extra (``table_dtype="bfloat16"``)
+    at float32 precision, three steps: both sides round the same float32
+    update into the bf16 tables, so the tables are equal bit for bit; the
+    losses agree within 1 ulp and every other leaf within 1e-8."""
+    jm, js, jo, tm, ts, to = _setup(mixed=False, table_dtype="bfloat16")
+    assert ts.params["deep"]["table"].dtype == torch.bfloat16
+    j_fn = jstep.make_train_step(jm, *jo, jit=True, donate=False,
+                                 use_pallas=True, matmul_dtype=jnp.float32)
+    t_fn = make_train_step(tm, *to, matmul_dtype=torch.float32)
+    data = SyntheticCriteo(64, 4, 4000, seed=3)
+    for i in range(3):
+        b = data.get_batch(i)
+        js, (jlw, jld) = j_fn(js, b)
+        ts, (tlw, tld) = t_fn(ts, to_device(b, "cpu"))
+        for t, j in ((tlw, jlw), (tld, jld)):
+            np.testing.assert_array_max_ulp(np.float32(float(t)),
+                                            np.float32(float(j)), maxulp=1)
+    assert int(ts.step) == 3
+    _compare(js, ts, rtol=0, atol=0, only=["['table']"])
+    ref = _leaves(jax.tree.map(np.asarray, (js.params, js.opt_w, js.opt_d)))
+    got = _leaves(convert.state_to_jax(ts)[:3])
+    for (k, a), (_, b) in zip(ref, got):
+        if "['table']" not in k:
+            np.testing.assert_allclose(b, a, rtol=0, atol=1e-8, err_msg=k)
+
+
 def test_step_matches_jax_sgd_tables():
     """SGD on both tables (a scatter-add of the lane-expanded update; no
     kernel) gives the reference's result."""

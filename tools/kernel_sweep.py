@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time ``adam_cols`` or ``segsum_unsorted`` at the recipes' shapes with the
-kernels' constants changed, on one GPU.
+"""Time ``adam_cols``, ``segsum_unsorted`` or ``segsum_cols`` at the
+recipes' shapes with the kernels' constants changed, on one GPU.
 
 Run from the repository root::
 
     python3 tools/kernel_sweep.py cols base sub4:'kSub = 2;=>kSub = 4;'
     python3 tools/kernel_sweep.py seg base c512:'kUChunk = 256;=>kUChunk = 512;'
+    python3 tools/kernel_sweep.py colsum base l4:'kCLoads = 8;=>kCLoads = 4;'
 
 Each variant ``name[:old=>new[;;old=>new...]]`` is a copy of the package
 under the git-ignored ``_cmp/sweep_<name>/`` with the plain-text
@@ -15,7 +16,9 @@ of its own by ``chip_smoke.py``'s functions: ``cols`` - ``check_adam_cols``
 multitable emb128, both DeepFM and both W&D feature-major shapes;
 ``seg`` - ``segsum_unsorted`` at the indicator group's [N, 128] bf16 and
 [N, 1] shapes, with the device time of each of its passes
-(``torch.profiler``).  Compare variants only within one run.
+(``torch.profiler``); ``colsum`` - ``segsum_cols`` at the DeepFM [88, N]
+and W&D [24, N] feature-major shapes (bf16, as the view of [N, D]), with
+the device time of each pass.  Compare variants only within one run.
 """
 
 from __future__ import annotations
@@ -41,6 +44,35 @@ def measure(what: str) -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     cs._build.library()
+
+    def passes(tag, call):
+        cs.log(f"[sweep] {tag}: {cs.graph_ms(call):.4f} ms")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+                cs.log(f"[sweep] {us / 10:9.2f} us  {e.key[:90]}")
+
+    if what == "colsum":
+        data = cs.SyntheticCriteo(cs.BATCH, cs.FIELDS, cs.VOCAB, steps=1,
+                                  seed=0, fields="criteo")
+        for tag, d, host in (
+                ("DeepFM", 88, cs.criteo_host_batches(cs.FM_VOCAB, 1)[0]),
+                ("W&D", 24, cs.make_batch_sort(cs.FIELDS, minimal=True)(
+                    data.get_batch(0)))):
+            uidx = torch.from_numpy(host["uidx_sorted"]).to(dev)
+            n = uidx.numel()
+            rows = torch.randn((n, d), generator=gen,
+                               device=dev).to(torch.bfloat16)
+            cs.check_segsum_cols(tag, dev, gen, d, uidx)  # checked, timed
+            passes(f"segsum_cols {tag} [{d}, {n}] bf16",
+                   lambda: cs.segsum_cols(rows.T, uidx, n))
+        return
     model, _opts, host, buckets = cs.mt_setup(steps=1)
     if what == "cols":
         ub = buckets["emb128"]
@@ -75,29 +107,15 @@ def measure(what: str) -> None:
     for d in (128, 1):
         g = torch.randn((seg.numel(), d), generator=gen,
                         device=dev).to(torch.bfloat16)
-
-        def call():
-            return cs.segsum_unsorted(g, seg, 2048)
-
-        cs.log(f"[sweep] segsum_unsorted [{seg.numel()}, {d}] bf16: "
-               f"{cs.graph_ms(call):.4f} ms")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                call()
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                us = getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0))
-                cs.log(f"[sweep] {us / 10:9.2f} us  {e.key[:90]}")
+        passes(f"segsum_unsorted [{seg.numel()}, {d}] bf16",
+               lambda: cs.segsum_unsorted(g, seg, 2048))
 
 
 def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--measure":
         measure(sys.argv[2])
         return 0
-    if len(sys.argv) < 3 or sys.argv[1] not in ("cols", "seg"):
+    if len(sys.argv) < 3 or sys.argv[1] not in ("cols", "seg", "colsum"):
         print(__doc__, file=sys.stderr)
         return 2
     for variant in sys.argv[2:]:
