@@ -11,10 +11,11 @@ Phases (any failure exits non-zero):
 1. print the card's name and power limit, build the CUDA kernels from
    ``mindrec_tpu_torch/csrc`` and print the build time;
 2. hold each kernel against its plain PyTorch version on the card at the
-   benchmark recipe's shapes (the segment-sum on a real synthetic Criteo
-   batch's ``uidx_sorted``, LazyAdam on the full deep table with bf16
-   m/v, FTRL on the full wide table), and time kernel, plain version and,
-   where one exists, a single PyTorch call computing the same function;
+   benchmark recipe's shapes (the segment-sum of batch-order gradients
+   through a real synthetic Criteo batch's ``perm`` and ``uidx_sorted``,
+   LazyAdam on the full deep table with bf16 m/v, FTRL on the full wide
+   table), and time kernel, plain version and, where one exists, a
+   single PyTorch call computing the same function;
    then both updates again on bf16 tables (the bf16-table bench extra);
 3. drive the train step at the recipe's full width (batch 16000 x 39,
    vocab 5.86M, emb 16, 7x1024 bf16 MLP, FTRL + LazyAdam with bf16 m/v,
@@ -32,8 +33,14 @@ Phases (any failure exits non-zero):
    writing the valid lanes; the folded w128 launch timed too), the
    unsorted segment-sum of the indicator group's [1.7M, 128] bf16
    gradient and its [1.7M, 1] presence counts, the sorted segment-sum of
-   the emb128 group's [N, 256] and the multi group's [N, 128] gradients
-   (segment sums held against a float64 sum), LazyAdam on emb128 with
+   the emb128 group's [N, 256], the emb64_single group's and the
+   compacted multi group's [N, 128] batch-order gradients through their
+   ``perm`` (timed beside the ``g[perm]`` gather it replaces; segment sums
+   held against a float64 sum) and at the edge cases of
+   ``tests/test_torch_cuda.py`` (no positions, a hot id
+   over 105 chunks, all distinct, ids below 0 and past n_out, D 1, 13,
+   128, 256, identity, reversed, random and compacted ``perm``, bf16 and
+   float32), LazyAdam on emb128 with
    f32 m/v and FTRL on the folded w128; the unsorted segment-sum again at
    D = 1, D = 13 (bf16), D = 20 and D = 128 (f32) with ids outside
    [0, n_out) mixed in, against the float64 sum and the exact sum of
@@ -98,6 +105,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -252,25 +260,35 @@ def check_segsum(name, got, plain, g, ids, n_out) -> tuple[float, float]:
     rounding errors add like a random walk, ~0.4 of that unit when summed
     in one sequence); the tolerance is 8 units, which a wrong sum (zeros,
     a wrong column block, a lost partial) exceeds by orders of magnitude.
+    The random walk needs rounding errors of either sign: a segment of
+    many equal terms (the compacted multi group's pads all read row 0)
+    rounds the same way at every add of a long sequential sum, which the
+    plain version's atomics take.  So the plain version is held to the
+    larger of that and the worst case of a sequential float32 sum,
+    n_s * 2**-24 * sum |g|; the kernel, whose sums run over chunks of at
+    most 256 terms and then over their partials, to the random walk.
     Returns the max abs and rel difference of the kernel from the plain
     version."""
     keep = (ids >= 0) & (ids < n_out)
     idx, g64 = ids[keep].long(), g[keep].double()
     ref = torch.zeros((n_out, g.shape[1]), dtype=torch.float64, device=g.device)
     sq = torch.zeros_like(ref)
+    mass = torch.zeros_like(ref)
     ref = ref.index_add_(0, idx, g64).T
     sq = sq.index_add_(0, idx, g64 * g64).T
+    mass = mass.index_add_(0, idx, g64.abs()).T
     cnt = torch.bincount(idx, minlength=n_out)[:n_out].double()
     tol = 8.0 * 2.0**-24 * cnt.sqrt()[None, :] * sq.sqrt()
-    del g64, sq
-    for who, x in (("kernel", got), ("plain version", plain)):
+    tol_seq = torch.maximum(tol, 2.0**-24 * cnt[None, :] * mass)
+    del g64, sq, mass
+    for who, x, t in (("kernel", got, tol), ("plain version", plain, tol_seq)):
         err = (x.double() - ref).abs()
-        if not bool((err <= tol).all()):
-            worst = int(torch.argmax(err - tol))
+        if not bool((err <= t).all()):
+            worst = int(torch.argmax(err - t))
             fail(f"{name} ({who}) disagrees with a float64 sum: max err "
                  f"{err.max().item()}, worst cell err "
                  f"{err.flatten()[worst].item()} > tol "
-                 f"{tol.flatten()[worst].item()}")
+                 f"{t.flatten()[worst].item()}")
     err = (got - plain).abs()
     return err.max().item(), (err / plain.abs().clamp_min(1e-30)).max().item()
 
@@ -301,6 +319,94 @@ def check_unsorted(dev, gen, seg, n_out, d, dtype):
     return g, err, rel
 
 
+def sorted_cases(dev, wd=None, mt=None) -> list:
+    """The sorted segment-sums as the steps call them, each a case
+    ``(tag, uidx_sorted, perm, rows of g, D, n_out)`` on ``dev``: ``wd``
+    = (host batch, bucket) of the W&D recipe gives its [N, 128] sum,
+    ``mt`` = (host batch, buckets) of the multitable recipe those of its
+    emb128 [N, 256], emb64_single and multi [N, 128] groups."""
+    spec = [] if wd is None else [("W&D", "", 128, *wd)]
+    if mt is not None:
+        host, buckets = mt
+        spec += [(grp, f"{grp}:", d, host, buckets[grp]) for grp, d in
+                 (("emb128", 256), ("emb64_single", 128), ("multi", 128))]
+    return [(tag, torch.from_numpy(h[f"{k}uidx_sorted"]).to(dev),
+             torch.from_numpy(h[f"{k}perm"]).to(dev), h[f"{k}uidx"].size, d,
+             n_out) for tag, k, d, h, n_out in spec]
+
+
+def check_sorted(dev, gen, case, dtype=torch.bfloat16, timed=True) -> dict:
+    """segsum_sorted on random [rows, d] batch-order gradients read
+    through ``perm``, as the step passes them (``case`` as
+    :func:`sorted_cases` gives it), against a float64 sum of ``g[perm]``
+    and its plain version (the gather, then ``index_add_``);
+    deterministic.  Timed beside the plain version, the ``g[perm.long()]``
+    gather the step ran in front of the sum before it took ``perm`` (the
+    cast included), and ``index_add_`` of the rows ``perm`` reads, in
+    batch order, at their segment: one PyTorch call of the same sum, save
+    that a row ``perm`` repeats (the compacted stream's pads repeat row
+    0) is added once.
+    Bound: each row of ``g`` that ``perm`` reads once (the pads' row 0
+    once), ``perm`` and ``uidx`` once, ``out`` once."""
+    tag, uidx, perm, rows, d, n_out = case
+    g = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+    got = segsum_sorted(g, uidx, n_out, perm=perm)
+    g_sorted = g[perm.long()]
+    err, rel = check_segsum(f"segsum_sorted ({tag})", got,
+                            segsum_sorted_plain(g, uidx, n_out, perm),
+                            g_sorted, uidx, n_out)
+    if not torch.equal(segsum_sorted(g, uidx, n_out, perm=perm), got):
+        fail(f"segsum_sorted ({tag}) is not deterministic")
+    del got, g_sorted
+    runs = torch.unique_consecutive(uidx, return_counts=True)[1]
+    n = uidx.numel()
+    out = dict(max_abs_err=err, max_rel_err=rel, positions=n, rows=rows,
+               perm_dtype=str(perm.dtype)[6:], segments=int(runs.numel()),
+               longest_run=int(runs.max()) if n else 0)
+    if not timed:
+        return out
+    p = perm.long()
+    read = torch.unique(p)  # the rows the sum reads, in batch order
+    t_b, by = bound(read.numel() * d * g.element_size()
+                    + n * perm.element_size() + n * 4 + d * n_out * 4, n * d)
+    seg = torch.empty(rows, dtype=torch.long, device=dev)
+    seg[p] = uidx.long()
+    seg = seg[read]
+    keep = (seg >= 0) & (seg < n_out)
+    g_lib, seg = g[read[keep]].float(), seg[keep]
+    lib_out = torch.zeros((n_out, d), device=dev)
+    out.update(
+        rows_read=int(read.numel()),
+        ms=graph_ms(lambda: segsum_sorted(g, uidx, n_out, perm=perm)),
+        plain_ms=cuda_ms(lambda: segsum_sorted_plain(g, uidx, n_out, perm), 5),
+        bound_ms=t_b, bound_by=by,
+        library_ms=graph_ms(lambda: lib_out.index_add_(0, seg, g_lib)),
+        gather_ms=graph_ms(lambda: g[perm.long()]),
+    )
+    log(f"[kernel] segsum_sorted ({tag} [{rows}, {d}] {str(dtype)[6:]} "
+        f"through perm [{n}] -> [{d}, {n_out}])", json.dumps(out))
+    return out
+
+
+def check_sorted_edges(dev, gen) -> None:
+    """segsum_sorted at the edge cases of ``tests/test_torch_cuda.py``
+    (no positions; a hot id over more than 100 chunks of 256; all
+    distinct; ids below 0 and past n_out; D 1, 13, 128, 256; identity,
+    reversed, random and compacted ``perm``), bf16 and float32, held as
+    at the step's shapes."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import SEGSUM_SORTED_CASES, segsum_sorted_case
+
+    for case_id, n, d, n_out, pattern, shift, kind in SEGSUM_SORTED_CASES:
+        g, uidx, perm = segsum_sorted_case(n, d, pattern, shift, kind)
+        case = (case_id, torch.from_numpy(uidx).to(dev),
+                torch.from_numpy(perm).to(dev), g.shape[0], d, n_out)
+        for dt in (torch.float32, torch.bfloat16):
+            check_sorted(dev, gen, case, dt, timed=False)
+    log(f"[check] segsum_sorted at {len(SEGSUM_SORTED_CASES)} edge cases x "
+        f"(f32, bf16): float64 tolerance, plain version, deterministic")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     path = _build.build()
@@ -311,30 +417,27 @@ def phase_build() -> None:
     _build.library()
 
 
+def wd_setup():
+    """The W&D bench recipe's data: 8 SyntheticCriteo batches, the x1.2
+    unique bucket sized from them, and batch 0 host-prepared."""
+    data = SyntheticCriteo(BATCH, FIELDS, VOCAB, steps=8, seed=0,
+                           fields="criteo")
+    bucket = AdaptiveBucket.from_sample(
+        [data.get_batch(s) for s in range(len(data))]).bucket
+    host0 = make_batch_sort(FIELDS)(data.get_batch(0))
+    log(f"[data] bucket {bucket}, batch 0 has "
+        f"{int(host0['uidx_sorted'][-1]) + 1} distinct ids")
+    return data, bucket, host0
+
+
 def phase_kernels(dev, gen, host_batch, bucket) -> dict:
     """Each kernel against its plain version at the recipe's shapes."""
     res = {}
-    uidx = torch.from_numpy(host_batch["uidx_sorted"]).to(dev)
-    n = uidx.numel()
-    n_out = bucket
 
-    # -- segsum: g [N, 128] bf16, the step's per-position gradients ------
-    g = torch.randn((n, 128), generator=gen, device=dev).to(torch.bfloat16)
-    err, rel = check_segsum("segsum_sorted", segsum_sorted(g, uidx, n_out),
-                            segsum_sorted_plain(g, uidx, n_out), g, uidx, n_out)
-    ui_long = uidx.long()
-    lib_out = torch.zeros((n_out, 128), device=dev)
-    gf = g.float()
-    t_b, by = bound(n * 128 * 2 + n * 4 + 128 * n_out * 4, n * 128)
-    res["segsum_sorted"] = dict(
-        max_abs_err=err, max_rel_err=rel,
-        ms=graph_ms(lambda: segsum_sorted(g, uidx, n_out)),
-        plain_ms=cuda_ms(lambda: segsum_sorted_plain(g, uidx, n_out), 5),
-        bound_ms=t_b, bound_by=by,
-        library_ms=graph_ms(lambda: lib_out.index_add_(0, ui_long, gf)),
-    )
-    log("[kernel] segsum_sorted", json.dumps(res["segsum_sorted"]))
-    del g, gf, lib_out
+    # -- segsum: g [N, 128] bf16, the step's per-position gradients in
+    #    batch order, read through the batch's perm -----------------------
+    res["segsum_sorted"] = check_sorted(
+        dev, gen, sorted_cases(dev, wd=(host_batch, bucket))[0])
 
     # -- the unique slots of this batch, padded to the bucket -----------
     uq = torch.from_numpy(host_batch["uq_ids"][:bucket]).to(dev)
@@ -715,26 +818,11 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
         json.dumps(res["segsum_unsorted"]))
     del g, gf, lib_out, ones
 
-    # -- sorted segsum at the two sorted groups' widest shapes ----------
-    for grp, d in (("emb128", 256), ("multi", 128)):
-        uidx = torch.from_numpy(host0[f"{grp}:uidx_sorted"]).to(dev)
-        n, n_out = uidx.numel(), buckets[grp]
-        g = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
-        err, rel = check_segsum(f"segsum_sorted ({grp})",
-                                segsum_sorted(g, uidx, n_out),
-                                segsum_sorted_plain(g, uidx, n_out), g, uidx,
-                                n_out)
-        t_b, _by = bound(n * d * 2 + n * 4 + d * n_out * 4, n * d)
-        lib_out = torch.zeros((n_out, d), device=dev)
-        gf, ui_long = g.float(), uidx.long()
-        log(f"[kernel] segsum_sorted ({grp} [{n}, {d}] bf16 -> [{d}, {n_out}])",
-            json.dumps(dict(
-                max_abs_err=err, max_rel_err=rel,
-                ms=graph_ms(lambda: segsum_sorted(g, uidx, n_out)),
-                plain_ms=cuda_ms(lambda: segsum_sorted_plain(g, uidx, n_out), 5),
-                bound_ms=t_b,
-                library_ms=graph_ms(lambda: lib_out.index_add_(0, ui_long, gf)))))
-        del g, gf, lib_out
+    # -- sorted segsum of the three sorted groups, through their perm ----
+    for case in sorted_cases(dev, mt=(host0, buckets)):
+        check_sorted(dev, gen, case)
+    check_sorted_edges(dev, gen)
+    torch.cuda.empty_cache()
 
     # -- LazyAdam on emb128 [128, 655360], f32 m/v ----------------------
     res["adam_cols"] = check_adam_cols(
@@ -1309,13 +1397,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     phase_build()
 
-    data = SyntheticCriteo(BATCH, FIELDS, VOCAB, steps=8, seed=0,
-                           fields="criteo")
-    bucket = AdaptiveBucket.from_sample(
-        [data.get_batch(s) for s in range(len(data))]).bucket
-    host0 = make_batch_sort(FIELDS)(data.get_batch(0))
-    log(f"[data] bucket {bucket}, batch 0 has "
-        f"{int(host0['uidx_sorted'][-1]) + 1} distinct ids")
+    data, bucket, host0 = wd_setup()
     gen = torch.Generator(device=dev).manual_seed(0)
     res = phase_kernels(dev, gen, host0, bucket)
     torch.cuda.empty_cache()

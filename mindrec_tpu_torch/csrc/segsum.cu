@@ -1,32 +1,47 @@
-// Sorted segment-sum: out[u, c] = sum of g[n, c] over positions n with
-// uidx_sorted[n] == u, summed in float32 and stored row-major [n_out, D]
-// (the wrapper hands the callers its transpose, the reference's
-// [D, n_out] layout, which they copy anyway).
+// Sorted segment-sum (mr_segsum_sorted, at the end of the namespace):
+// out[u, c] = sum of g[perm[i], c] over sorted positions i with
+// uidx_sorted[i] == u (perm the identity when it is not given), summed in
+// float32 and stored row-major [n_out, D] (the wrapper hands the callers
+// its transpose, the reference's [D, n_out] layout).
 //
 // Replaces mindrec_tpu/ops/pallas/stream_segsum.py:streamed_segsum
-// (row_major=True), which built a one-hot [W, C] matrix per 256-row
-// chunk and summed on the TPU's matrix unit to avoid scatters.  Here the
-// sort already groups each segment into a contiguous run of rows, so no
-// one-hot and no atomics are needed.  Four passes:
-//   1. segment_bounds: one thread per position marks where each run
-//      starts and ends (seg[0:n_out] / seg[n_out:2*n_out]);
-//   2. chunk_sum: one warp per chunk of kChunk consecutive positions,
-//      lanes across the D columns, walks its rows in order.  The chunk's
-//      segment ids sit in two registers per lane (read by shuffles) and
-//      rows are loaded kRows at a time ahead of the sums, so a warp keeps
-//      several loads in flight.  A segment that lies wholly inside the
-//      chunk is written as row u of out (one coalesced row); the part of
-//      a segment that crosses a chunk edge goes to partial[chunk][slot]
-//      (slot 0 for the chunk's first segment, 1 for its last);
-//   3. span_sum: one warp per chunk; the segment that starts in the chunk
-//      and crosses its end adds its partials in chunk order;
-//   4. fill_empty: zeroes the rows of the ids in [0, n_out) outside
-//      [uidx[0], uidx[n-1]]; uidx is monotone with unit steps (the
-//      contract), so no other row is empty.
-// Every sum is taken in a fixed order, so the result is deterministic.
-// Hot ids (thousands of positions after the sort) are split over many
-// warps instead of one.  Bound: bytes - g is read once (N*D*2 bytes in
-// bf16), uidx once, out written once.
+// (row_major=True), which built a one-hot [W, C] matrix per 256-row chunk
+// of the already sorted rows and summed on the TPU's matrix unit; the
+// reference's step gathers g[perm] in front of it.  Here the kernel reads
+// the batch-order rows through perm itself, so the gather (a read and a
+// write of every row) is gone.  Bound: bytes - g read once (N*D*2 in
+// bf16), perm, uidx once, out written once; at the multitable recipe's
+// multi group 3.1M rows of 256 bytes, ~0.25 ms at 3.35 TB/s.  On emb128
+// nearly every run is one row, on the multi group runs average ~116 rows
+// and the compacted stream's pad run is ~150k rows, so the design has to
+// be fast for both.  Two passes:
+//   1. sorted_chunk_sum: a team of lanes (as many as 16-byte loads span a
+//      row: 16 at D = 128 bf16, 32 at D = 256; a lane takes up to 8
+//      loads per row for wider f32 rows) walks a chunk of kSChunk sorted
+//      positions.  Rows are fetched with 16-byte vector loads straight
+//      into registers, kSRows rows in flight per team; the next kSRows
+//      perm entries and ids load while the current rows are summed.  At
+//      D = 128 bf16 a warp keeps 4 KB in flight, and with ~20 warps per SM
+//      that is ~80 KB per SM, past the ~25 KB that 3.35 TB/s over ~1 us of
+//      latency needs, so registers (no cp.async, no shared memory) hold
+//      the loads.  Whether a run is whole or crosses the chunk's edge is
+//      read from the chunk's own ids and its two neighbours, uidx[a-1] and
+//      uidx[b]: a whole run goes to row u of out as one coalesced row, the
+//      chunk's first run (if it began earlier) to partial[chunk][0], its
+//      last (if it goes on) to partial[chunk][1].  No pass finds segment
+//      bounds and nothing is memset: every thread also writes its share of
+//      the zero rows (ids in [0, n_out) below uidx[0] or above uidx[n-1];
+//      unit steps leave no other row empty) with 16-byte stores while its
+//      first rows are in flight.
+//   2. sorted_span_sum: a block per kSWarps chunks; a warp finds whether a
+//      run starts in its chunk and goes on (ballot over the next chunks'
+//      first ids counts the partial rows).  A short run (at most
+//      kSWarpRows partials, nearly all) is added by that warp alone with
+//      every row in flight; a longer one by the whole block, thread (row
+//      stripe, 4 columns) taking every stripes-th row with kSLoads loads
+//      in flight and the stripes added in order: a hot run is spread over
+//      the block, not walked by a warp.
+// Every sum is taken in a fixed order: deterministic, no atomics.
 //
 // Column-major sorted segment-sum (mr_segsum_cols, below): the same sum
 // for the logical [D, N] gradient of stream_segsum.py:streamed_segsum with
@@ -109,186 +124,6 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
-constexpr int kChunk = 64;  // positions per warp in chunk_sum
-constexpr int kRows = 8;    // rows loaded ahead per warp
-constexpr int kSpans = 4;   // partials loaded ahead per warp in span_sum
-
-__global__ void segment_bounds(const int* __restrict__ uidx, int64_t n,
-                               int n_out, int* __restrict__ seg_start,
-                               int* __restrict__ seg_end) {
-  int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  int u = uidx[i];
-  if (u < 0 || u >= n_out) return;
-  if (i == 0 || uidx[i - 1] != u) seg_start[u] = static_cast<int>(i);
-  if (i == n - 1 || uidx[i + 1] != u) seg_end[u] = static_cast<int>(i + 1);
-}
-
-// Write a finished run's sums: to row u of out when the whole segment
-// lies in [a, b), else to the chunk's partial slot.
-template <int CPL>
-__device__ __forceinline__ void flush(const float (&acc)[CPL], int lane,
-                                      int d, int u, int n_out, int64_t a,
-                                      int64_t b, bool first,
-                                      const int* seg_start, const int* seg_end,
-                                      float* out, float* partial_row) {
-  if (u < 0 || u >= n_out) return;
-  bool whole = seg_start[u] >= a && seg_end[u] <= b;
-  float* dst = whole ? out + static_cast<int64_t>(u) * d
-                     : partial_row + (first ? 0 : d);
-#pragma unroll
-  for (int k = 0; k < CPL; ++k) {
-    int c = lane + 32 * k;
-    if (c < d) dst[c] = acc[k];
-  }
-}
-
-template <typename T, int CPL>
-__global__ void __launch_bounds__(kThreads)
-chunk_sum(const T* __restrict__ g, const int* __restrict__ uidx, int64_t n,
-          int d, const int* __restrict__ seg_start,
-          const int* __restrict__ seg_end, int n_out, float* __restrict__ out,
-          float* __restrict__ partial) {
-  const int64_t chunk =
-      (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t a = chunk * kChunk;
-  if (a >= n) return;
-  const int len = static_cast<int>(n - a < kChunk ? n - a : kChunk);
-  const int u_lo = lane < len ? uidx[a + lane] : 0;
-  const int u_hi = 32 + lane < len ? uidx[a + 32 + lane] : 0;
-  float* prow = partial + chunk * 2 * d;
-  float acc[CPL];
-#pragma unroll
-  for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
-  int cur = __shfl_sync(kFull, u_lo, 0);
-  bool first = true;
-  for (int i0 = 0; i0 < len; i0 += kRows) {
-    float v[kRows][CPL];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const T* row = g + (a + i0 + r) * d;
-#pragma unroll
-      for (int k = 0; k < CPL; ++k) {
-        int c = lane + 32 * k;
-        v[r][k] = (i0 + r < len && c < d) ? mr::to_f(row[c]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      if (i >= len) break;  // the same for every lane
-      const int u = __shfl_sync(kFull, i < 32 ? u_lo : u_hi, i & 31);
-      if (u != cur) {
-        flush<CPL>(acc, lane, d, cur, n_out, a, a + len, first, seg_start,
-                   seg_end, out, prow);
-#pragma unroll
-        for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
-        cur = u;
-        first = false;
-      }
-#pragma unroll
-      for (int k = 0; k < CPL; ++k) acc[k] += v[r][k];
-    }
-  }
-  flush<CPL>(acc, lane, d, cur, n_out, a, a + len, first, seg_start, seg_end,
-             out, prow);
-}
-
-template <int CPL>
-__global__ void __launch_bounds__(kThreads)
-span_sum(const int* __restrict__ uidx, int64_t n, int d,
-         const int* __restrict__ seg_start, const int* __restrict__ seg_end,
-         int n_out, const float* __restrict__ partial,
-         float* __restrict__ out) {
-  const int64_t chunk =
-      (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t a = chunk * kChunk;
-  if (a >= n) return;
-  const int64_t b = a + kChunk < n ? a + kChunk : n;
-  const int u = uidx[b - 1];  // the chunk's last segment
-  if (u < 0 || u >= n_out) return;
-  const int64_t s = seg_start[u], e = seg_end[u];
-  if (s < a || e <= b) return;  // another chunk's, or written whole
-  const int64_t c1 = (e - 1) / kChunk;
-  float acc[CPL];
-#pragma unroll
-  for (int k = 0; k < CPL; ++k) acc[k] = 0.f;
-  for (int64_t c0 = chunk; c0 <= c1; c0 += kSpans) {
-    float v[kSpans][CPL];
-#pragma unroll
-    for (int j = 0; j < kSpans; ++j) {
-      const int64_t cc = c0 + j;
-      // slot 0 when u is chunk cc's first segment, else slot 1
-      const float* p = nullptr;
-      if (cc <= c1)
-        p = partial + (cc * 2 + (uidx[cc * kChunk] == u ? 0 : 1)) * d;
-#pragma unroll
-      for (int k = 0; k < CPL; ++k) {
-        int c = lane + 32 * k;
-        v[j][k] = (p != nullptr && c < d) ? p[c] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kSpans; ++j) {
-#pragma unroll
-      for (int k = 0; k < CPL; ++k) acc[k] += v[j][k];
-    }
-  }
-  float* dst = out + static_cast<int64_t>(u) * d;
-#pragma unroll
-  for (int k = 0; k < CPL; ++k) {
-    int c = lane + 32 * k;
-    if (c < d) dst[c] = acc[k];
-  }
-}
-
-// Zero the rows of out for ids in [0, n_out) that no position holds:
-// those below uidx[0] and above uidx[n-1].
-__global__ void fill_empty(const int* __restrict__ uidx, int64_t n, int d,
-                           int n_out, float* __restrict__ out) {
-  int lo = n_out, hi = n_out - 1;  // no positions: every row is empty
-  if (n > 0) {
-    lo = uidx[0];
-    hi = uidx[n - 1];
-    lo = lo < 0 ? 0 : (lo > n_out ? n_out : lo);
-    hi = hi < -1 ? -1 : (hi > n_out - 1 ? n_out - 1 : hi);
-  }
-  const int64_t head = static_cast<int64_t>(lo) * d;
-  const int64_t total = head + static_cast<int64_t>(n_out - 1 - hi) * d;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       t < total; t += stride)
-    out[t < head ? t : static_cast<int64_t>(hi + 1) * d + (t - head)] = 0.f;
-}
-
-template <typename T, int CPL>
-void launch_sorted(const void* g, const int* uidx, int64_t n, int d,
-                   int n_out, int* seg, float* partial, float* out,
-                   cudaStream_t st) {
-  int64_t chunks = (n + kChunk - 1) / kChunk;
-  unsigned blocks = mr::blocks_for(chunks * 32, kThreads);
-  chunk_sum<T, CPL><<<blocks, kThreads, 0, st>>>(
-      static_cast<const T*>(g), uidx, n, d, seg, seg + n_out, n_out, out,
-      partial);
-  span_sum<CPL><<<blocks, kThreads, 0, st>>>(uidx, n, d, seg, seg + n_out,
-                                              n_out, partial, out);
-}
-
-template <typename T>
-void launch_sorted_cols(const void* g, const int* uidx, int64_t n, int d,
-                        int n_out, int* seg, float* partial, float* out,
-                        cudaStream_t st) {
-  if (d <= 32)
-    launch_sorted<T, 1>(g, uidx, n, d, n_out, seg, partial, out, st);
-  else if (d <= 64)
-    launch_sorted<T, 2>(g, uidx, n, d, n_out, seg, partial, out, st);
-  else if (d <= 128)
-    launch_sorted<T, 4>(g, uidx, n, d, n_out, seg, partial, out, st);
-  else
-    launch_sorted<T, 8>(g, uidx, n, d, n_out, seg, partial, out, st);
-}
 
 constexpr int kGWarps = 8;                 // warps per ranking block
 constexpr int kGThreads = 32 * kGWarps;
@@ -1017,6 +852,375 @@ cudaError_t launch_cols_d(const void* g, const int* uidx, int64_t n, int d,
   return launch_cols<T, 8>(g, uidx, n, d, n_out, partial, out, st);
 }
 
+constexpr int kSChunk = 256;    // positions per team in sorted_chunk_sum
+constexpr int kSRows = 8;       // rows in flight per team
+constexpr int kSThreads = 256;  // threads per block, both passes
+constexpr int kSWarps = kSThreads / 32;
+constexpr int kSLoads = 8;      // partial rows in flight per thread, span pass
+constexpr int kSWarpRows = 8;   // runs of at most this many partials: a warp
+constexpr int kSMinBlocks = 2;  // blocks per SM the registers must allow
+
+// Row of g that sorted position i reads: perm[i] (int32 or int64), or i
+// when there is no perm; g has fewer than 2**31 rows.
+__device__ __forceinline__ int row_of(const int* __restrict__ p32,
+                                          const long long* __restrict__ p64,
+                                          int64_t i) {
+  if (p64 != nullptr) return static_cast<int>(p64[i]);
+  if (p32 != nullptr) return p32[i];
+  return static_cast<int>(i);
+}
+
+// Zero floats [0, len) of p, shared by `parts` threads (this one is
+// `part`): 16-byte stores between the unaligned ends.
+__device__ void zero_floats(float* __restrict__ p, int64_t len, int64_t part,
+                            int64_t parts) {
+  if (len <= 0) return;
+  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+  const int64_t head = ((4 - mis) & 3) < len ? ((4 - mis) & 3) : len;
+  const int64_t nv = (len - head) / 4, rest = len - head - 4 * nv;
+  float4* v = reinterpret_cast<float4*>(p + head);
+  for (int64_t k = part; k < nv; k += parts)
+    v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (part < head) p[part] = 0.f;
+  if (part < rest) p[head + 4 * nv + part] = 0.f;
+}
+
+// E consecutive floats of acc to dst, in 16-byte stores where E allows.
+template <int E>
+__device__ __forceinline__ void store_vec(float* __restrict__ dst,
+                                          const float (&acc)[E]) {
+  if constexpr (E % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < E; k += 4)
+      *reinterpret_cast<float4*>(dst + k) =
+          make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+  } else if constexpr (E == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(acc[0], acc[1]);
+  } else {
+    dst[0] = acc[0];
+  }
+}
+
+// Pass 1.  A team of team_w lanes takes a chunk of kSChunk consecutive
+// sorted positions; lane tl holds vectors tl, tl + team_w, ... (K of
+// them) of E elements of a row.  Rows are fetched through perm kSRows at a
+// time, and the next kSRows rows and ids are fetched while the current
+// rows are summed.  A run is flushed when its id changes: to
+// partial[chunk][0] when it is the chunk's first run and began before the
+// chunk, to partial[chunk][1] when it is the last run and goes on past the
+// chunk, else to row u of out.  Every thread of the grid also writes its
+// share of the zero rows of out (ids in [0, n_out) below uidx[0] or above
+// uidx[n-1]) while its first rows are in flight.
+template <typename T, int E, int K>
+__global__ void __launch_bounds__(kSThreads, kSMinBlocks)
+sorted_chunk_sum(const T* __restrict__ g, const int* __restrict__ perm32,
+                 const long long* __restrict__ perm64,
+                 const int* __restrict__ uidx, int64_t n, int d, int n_out,
+                 int team_w, float* __restrict__ out,
+                 float* __restrict__ partial) {
+  using R = typename Raw<sizeof(T) * E>::type;
+  const int64_t gtid =
+      blockIdx.x * static_cast<int64_t>(kSThreads) + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int64_t team = (gtid >> 5) * (32 / team_w) + lane / team_w;
+  const int tl = lane & (team_w - 1);
+  const int nv = d / E;  // vectors per row
+  const int64_t a = team * kSChunk;
+  const int len =
+      a < n ? static_cast<int>(n - a < kSChunk ? n - a : kSChunk) : 0;
+
+  int p[kSRows];
+  int u[kSRows];
+  R v[kSRows][K];
+  auto fetch = [&](int i0, int(&pp)[kSRows], int(&uu)[kSRows]) {
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) {
+      if (i0 + r < len) {
+        pp[r] = row_of(perm32, perm64, a + i0 + r);
+        uu[r] = uidx[a + i0 + r];
+      }
+    }
+  };
+  auto load_rows = [&](int i0) {
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) {
+      const R* row =
+          reinterpret_cast<const R*>(g + static_cast<int64_t>(p[r]) * d);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = tl + team_w * k;
+        if (i0 + r < len && j < nv) v[r][k] = __ldg(row + j);
+      }
+    }
+  };
+  if (len > 0) {
+    fetch(0, p, u);
+    load_rows(0);
+  }
+  {  // while the rows are in flight: this thread's share of the zero rows
+    int lo = n_out, hi = n_out - 1;  // no positions: every row is empty
+    if (n > 0) {
+      lo = uidx[0];
+      hi = uidx[n - 1];
+      lo = lo < 0 ? 0 : (lo > n_out ? n_out : lo);
+      hi = hi < -1 ? -1 : (hi > n_out - 1 ? n_out - 1 : hi);
+    }
+    const int64_t parts = static_cast<int64_t>(gridDim.x) * kSThreads;
+    zero_floats(out, static_cast<int64_t>(lo) * d, gtid, parts);
+    zero_floats(out + static_cast<int64_t>(hi + 1) * d,
+                static_cast<int64_t>(n_out - 1 - hi) * d, gtid, parts);
+  }
+  if (len == 0) return;
+
+  // does the first run begin before the chunk, does the last go on past it
+  const int u_first = uidx[a], u_last = uidx[a + len - 1];
+  const bool cross_start = a > 0 && uidx[a - 1] == u_first;
+  const bool cross_end = a + len < n && uidx[a + len] == u_last;
+  float acc[K][E];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[k][e] = 0.f;
+  int cur = u_first;
+  bool first = true;
+  auto flush = [&](bool last) {
+    if (cur < 0 || cur >= n_out) return;
+    float* dst;
+    if (first && cross_start)
+      dst = partial + (team * 2) * d;
+    else if (last && cross_end)
+      dst = partial + (team * 2 + 1) * d;
+    else
+      dst = out + static_cast<int64_t>(cur) * d;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = tl + team_w * k;
+      if (j < nv) store_vec<E>(dst + j * E, acc[k]);
+    }
+  };
+  for (int i0 = 0;; i0 += kSRows) {
+    int pn[kSRows], un[kSRows];
+    const bool more = i0 + kSRows < len;
+    if (more) fetch(i0 + kSRows, pn, un);
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) {
+      if (i0 + r >= len) break;  // the same for every lane of the team
+      if (u[r] != cur) {
+        flush(false);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[k][e] = 0.f;
+        cur = u[r];
+        first = false;
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (tl + team_w * k < nv) {
+          unsigned w[4];
+          words(v[r][k], w);
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[k][e] += element<T>(w, e);
+        }
+      }
+    }
+    if (!more) break;
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) {
+      p[r] = pn[r];
+      u[r] = un[r];
+    }
+    load_rows(i0 + kSRows);
+  }
+  flush(true);
+}
+
+// V floats at src (16-byte aligned when V == 4).
+template <int V>
+__device__ __forceinline__ void load_floats(const float* src, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(src);
+    x[0] = f.x;
+    x[1] = f.y;
+    x[2] = f.z;
+    x[3] = f.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) x[k] = src[k];
+  }
+}
+
+// Pass 2.  Warp w of block b checks chunk b * kSWarps + w: does a run
+// start in it and go on past its end?  If so, it counts the chunks the run
+// covers (32 at a time, by ballot); the run's partial rows are slot 1 of
+// the first chunk and slot 0 of each later one.  A run of at most
+// kSWarpRows rows (nearly all of them) is added by the warp alone, every
+// row in flight at once, lanes across vectors of V columns.  Then, for
+// each longer run of the block in turn, the whole block adds it: thread
+// (stripe, vector) adds rows stripe, stripe + stripes, ..., kSLoads in
+// flight, and the stripes are added in order into row u of out.  A hot
+// id's partials are spread over the block; every order is fixed.
+template <int V>
+__global__ void __launch_bounds__(kSThreads)
+sorted_span_sum(const int* __restrict__ uidx, int64_t n, int d, int n_out,
+                const float* __restrict__ partial, float* __restrict__ out) {
+  __shared__ int rows_s[kSWarps];
+  __shared__ float red[kSThreads * V];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cols_v = d / V;  // V divides d
+  const int64_t chunks = (n + kSChunk - 1) / kSChunk;
+  const int64_t c = blockIdx.x * static_cast<int64_t>(kSWarps) + warp;
+  // partial row r of the run that starts in chunk c0
+  auto row = [&](int64_t c0, int r) {
+    return partial + ((c0 + r) * 2 + (r == 0 ? 1 : 0)) * d;
+  };
+  int rows = 0;
+  if (c < chunks - 1) {  // the last chunk's runs end inside it
+    const int64_t a = c * kSChunk, b = a + kSChunk;
+    const int u = uidx[b - 1];
+    const bool owns = uidx[b] == u && u >= 0 && u < n_out &&
+                      !(a > 0 && uidx[a] == u && uidx[a - 1] == u);
+    if (owns) {  // the same for every lane
+      rows = 1;
+      for (int64_t t0 = c + 1;; t0 += 32) {
+        const int64_t tt = t0 + lane;
+        const unsigned in =
+            __ballot_sync(kFull, tt < chunks && uidx[tt * kSChunk] == u);
+        if (in != kFull) {
+          rows += __ffs(~in) - 1;
+          break;
+        }
+        rows += 32;
+      }
+    }
+    if (rows > 0 && rows <= kSWarpRows) {
+      for (int j = lane; j < cols_v; j += 32) {
+        float x[kSWarpRows][V];
+#pragma unroll
+        for (int r = 0; r < kSWarpRows; ++r)
+          if (r < rows) load_floats<V>(row(c, r) + j * V, x[r]);
+        float t[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) t[k] = 0.f;
+#pragma unroll
+        for (int r = 0; r < kSWarpRows; ++r)
+          if (r < rows)
+#pragma unroll
+            for (int k = 0; k < V; ++k) t[k] += x[r][k];
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          out[static_cast<int64_t>(u) * d + j * V + k] = t[k];
+      }
+      rows = 0;
+    }
+  }
+  if (lane == 0) rows_s[warp] = rows;
+  __syncthreads();
+  const int stripes = kSThreads / cols_v;
+  const int stripe = threadIdx.x / cols_v;
+  const int cv = threadIdx.x - stripe * cols_v;
+  for (int w = 0; w < kSWarps; ++w) {
+    const int nrows = rows_s[w];  // the same for the whole block
+    if (nrows == 0) continue;
+    const int64_t cw = blockIdx.x * static_cast<int64_t>(kSWarps) + w;
+    const int u = uidx[(cw + 1) * kSChunk - 1];
+    if (stripe < stripes) {
+      float s[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) s[k] = 0.f;
+      int r = stripe;
+      for (; r + (kSLoads - 1) * stripes < nrows; r += kSLoads * stripes) {
+        float x[kSLoads][V];
+#pragma unroll
+        for (int q = 0; q < kSLoads; ++q)
+          load_floats<V>(row(cw, r + q * stripes) + cv * V, x[q]);
+#pragma unroll
+        for (int q = 0; q < kSLoads; ++q)
+#pragma unroll
+          for (int k = 0; k < V; ++k) s[k] += x[q][k];
+      }
+      for (; r < nrows; r += stripes) {
+        float x[V];
+        load_floats<V>(row(cw, r) + cv * V, x);
+#pragma unroll
+        for (int k = 0; k < V; ++k) s[k] += x[k];
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) red[stripe * d + cv * V + k] = s[k];
+    }
+    __syncthreads();
+    for (int col = threadIdx.x; col < d; col += kSThreads) {
+      float t = 0.f;
+      for (int k = 0; k < stripes; ++k) t += red[k * d + col];
+      out[static_cast<int64_t>(u) * d + col] = t;
+    }
+    __syncthreads();
+  }
+}
+
+// K loads of E elements per lane: a row of at most 256 elements needs
+// E * K <= 8, so no other instance is built.
+template <typename T, int E, int K>
+void launch_chunk_sum(dim3 grid, const void* g, const int* p32,
+                      const long long* p64, const int* uidx, int64_t n, int d,
+                      int n_out, int team_w, float* partial, float* out,
+                      cudaStream_t st) {
+  if constexpr (E * K <= 8)
+    sorted_chunk_sum<T, E, K><<<grid, kSThreads, 0, st>>>(
+        static_cast<const T*>(g), p32, p64, uidx, n, d, n_out, team_w, out,
+        partial);
+}
+
+template <typename T, int E>
+void launch_sorted_k(const void* g, const int* p32, const long long* p64,
+                     const int* uidx, int64_t n, int d, int n_out,
+                     float* partial, float* out, cudaStream_t st) {
+  const int nv = d / E;
+  int team_w = 1;  // the least power of two of lanes that spans a row
+  while (team_w < nv && team_w < 32) team_w *= 2;
+  const int per = (nv + 31) / 32;  // vectors per lane: E * per <= 8
+  const int64_t chunks = (n + kSChunk - 1) / kSChunk;
+  const int64_t teams_per_block = kSThreads / team_w;
+  int64_t blocks = (chunks + teams_per_block - 1) / teams_per_block;
+  if (blocks < 2 * 132) blocks = 2 * 132;  // threads enough for the zero rows
+  const dim3 grid(static_cast<unsigned>(blocks));
+  if (per <= 1)
+    launch_chunk_sum<T, E, 1>(grid, g, p32, p64, uidx, n, d, n_out, team_w,
+                              partial, out, st);
+  else if (per <= 2)
+    launch_chunk_sum<T, E, 2>(grid, g, p32, p64, uidx, n, d, n_out, team_w,
+                              partial, out, st);
+  else if (per <= 4)
+    launch_chunk_sum<T, E, 4>(grid, g, p32, p64, uidx, n, d, n_out, team_w,
+                              partial, out, st);
+  else
+    launch_chunk_sum<T, E, 8>(grid, g, p32, p64, uidx, n, d, n_out, team_w,
+                              partial, out, st);
+}
+
+// The widest load (E elements, at most 16 bytes) that keeps every row
+// aligned.
+template <typename T>
+void launch_sorted(const void* g, const int* p32, const long long* p64,
+                   const int* uidx, int64_t n, int d, int n_out,
+                   float* partial, float* out, cudaStream_t st) {
+  constexpr int kMaxE = 16 / static_cast<int>(sizeof(T));
+  int e = kMaxE;
+  while (e > 1 && (d % e != 0 ||
+                   reinterpret_cast<uintptr_t>(g) % (e * sizeof(T)) != 0))
+    e /= 2;
+  if (e == 8) {
+    if constexpr (kMaxE >= 8)
+      launch_sorted_k<T, 8>(g, p32, p64, uidx, n, d, n_out, partial, out, st);
+  } else if (e == 4) {
+    launch_sorted_k<T, 4>(g, p32, p64, uidx, n, d, n_out, partial, out, st);
+  } else if (e == 2) {
+    launch_sorted_k<T, 2>(g, p32, p64, uidx, n, d, n_out, partial, out, st);
+  } else {
+    launch_sorted_k<T, 1>(g, p32, p64, uidx, n, d, n_out, partial, out, st);
+  }
+}
+
 }  // namespace
 
 // Floats of mr_segsum_cols's partial scratch for n positions of d rows
@@ -1091,34 +1295,44 @@ extern "C" int mr_segsum_unsorted(const void* g, int g_bf16, const int* seg,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Floats of mr_segsum_sorted's partial scratch for n positions of d columns.
+// Floats of mr_segsum_sorted's partial scratch for n positions of d
+// columns: two rows of d per chunk.
 extern "C" int64_t mr_segsum_sorted_partial_len(int64_t n, int d) {
-  return (n + kChunk - 1) / kChunk * 2 * d;
+  return (n + kSChunk - 1) / kSChunk * 2 * d;
 }
 
-// g: [n, d] bf16 (g_bf16 != 0) or f32, row-major; uidx: [n] i32,
-// non-decreasing with unit steps; seg: [2 * n_out] i32 scratch; partial:
-// [ceil(n / kChunk), 2, d] f32 scratch (mr_segsum_sorted_partial_len
-// floats); out: [n_out, d] f32.
-extern "C" int mr_segsum_sorted(const void* g, int g_bf16, const int* uidx,
-                                int64_t n, int d, int n_out, int* seg,
-                                float* partial, float* out, void* stream) {
-  if (d <= 0 || d > 256 || n_out < 0 || n < 0)
+// g: [rows, d] bf16 (g_bf16 != 0) or f32, row-major; perm: [n] sorted
+// position -> row of g, int32 (perm_bytes 4) or int64 (8), or none
+// (perm_bytes 0: position i reads row i); uidx: [n] i32, non-decreasing
+// with unit steps; partial: f32 scratch (mr_segsum_sorted_partial_len
+// floats); out: [n_out, d] f32, every row written.
+extern "C" int mr_segsum_sorted(const void* g, int g_bf16, const void* perm,
+                                int perm_bytes, const int* uidx, int64_t n,
+                                int d, int n_out, float* partial, float* out,
+                                void* stream) {
+  if (d <= 0 || d > 256 || n_out < 0 || n < 0 || n > INT32_MAX ||
+      (perm_bytes != 0 && perm_bytes != 4 && perm_bytes != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_out == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      cudaMemsetAsync(seg, 0, sizeof(int) * 2 * static_cast<size_t>(n_out), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    segment_bounds<<<mr::blocks_for(n, kThreads), kThreads, 0, st>>>(
-        uidx, n, n_out, seg, seg + n_out);
-    if (g_bf16)
-      launch_sorted_cols<__nv_bfloat16>(g, uidx, n, d, n_out, seg, partial,
-                                        out, st);
-    else
-      launch_sorted_cols<float>(g, uidx, n, d, n_out, seg, partial, out, st);
-  }
-  fill_empty<<<2 * 132, kThreads, 0, st>>>(uidx, n, d, n_out, out);
+  const int* p32 = perm_bytes == 4 ? static_cast<const int*>(perm) : nullptr;
+  const long long* p64 =
+      perm_bytes == 8 ? static_cast<const long long*>(perm) : nullptr;
+  if (g_bf16)
+    launch_sorted<__nv_bfloat16>(g, p32, p64, uidx, n, d, n_out, partial, out,
+                                 st);
+  else
+    launch_sorted<float>(g, p32, p64, uidx, n, d, n_out, partial, out, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n <= kSChunk) return static_cast<int>(err);
+  const int64_t chunks = (n + kSChunk - 1) / kSChunk;
+  const unsigned blocks =
+      static_cast<unsigned>((chunks - 1 + kSWarps - 1) / kSWarps);
+  if (d % 4 == 0)
+    sorted_span_sum<4><<<blocks, kSThreads, 0, st>>>(uidx, n, d, n_out,
+                                                     partial, out);
+  else
+    sorted_span_sum<1><<<blocks, kSThreads, 0, st>>>(uidx, n, d, n_out,
+                                                     partial, out);
   return static_cast<int>(cudaGetLastError());
 }

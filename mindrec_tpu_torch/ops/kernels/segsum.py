@@ -3,10 +3,12 @@
 Counterparts of ``mindrec_tpu/ops/pallas/stream_segsum.py`` (the kernels
 are in ``csrc/segsum.cu``; see its header for the designs and bounds):
 
-* :func:`segsum_sorted` - ``streamed_segsum`` with ``row_major=True``.
+* :func:`segsum_sorted` - ``streamed_segsum`` with ``row_major=True``,
+  and the ``g[perm]`` gather the reference's step runs in front of it.
   ``uidx_sorted`` is non-decreasing with unit steps; the result is
-  ``[D, n_out]`` float32 with column ``u`` the sum of rows ``n`` of ``g``
-  where ``uidx_sorted[n] == u``; columns past the last segment are zero.
+  ``[D, n_out]`` float32 with column ``u`` the sum of rows ``perm[i]`` of
+  the batch-order ``g`` where ``uidx_sorted[i] == u``; columns past the
+  last segment are zero.
 * :func:`segsum_unsorted` - ``streamed_segsum_unsorted``: the same sum
   for segment ids in any order, ``n_out <= 2048`` (the tiny-vocab path,
   whose segment ids are the raw ids).
@@ -31,15 +33,18 @@ from mindrec_tpu_torch.ops.kernels import (
 
 _NAME = "segsum_sorted"
 _ARGS = [
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 ]
 
 
 def segsum_sorted_plain(g: torch.Tensor, uidx_sorted: torch.Tensor,
-                        n_out: int) -> torch.Tensor:
-    """Plain PyTorch version (``index_add_`` in float32)."""
+                        n_out: int, perm: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """Plain PyTorch version (``g[perm]``, then ``index_add_`` in float32)."""
+    if perm is not None:
+        g = g[perm.long()]
     keep = (uidx_sorted >= 0) & (uidx_sorted < n_out)
     out = torch.zeros((n_out, g.shape[1]), dtype=torch.float32,
                       device=g.device)
@@ -47,35 +52,55 @@ def segsum_sorted_plain(g: torch.Tensor, uidx_sorted: torch.Tensor,
     return out.T.contiguous()
 
 
-def segsum_sorted(g: torch.Tensor, uidx_sorted: torch.Tensor,
-                  n_out: int) -> torch.Tensor:
-    """``out[:, u] = sum(g[n, :] for uidx_sorted[n] == u)`` -> [D, n_out].
+def segsum_sorted(g: torch.Tensor, uidx_sorted: torch.Tensor, n_out: int,
+                  perm: torch.Tensor | None = None) -> torch.Tensor:
+    """``out[:, u] = sum(g[perm[i], :] for uidx_sorted[i] == u)`` -> [D, n_out].
 
-    ``g``: [N, D] bfloat16 or float32 (D <= 256); ``uidx_sorted``: [N]
-    int32.  CPU tensors take :func:`segsum_sorted_plain`; CUDA tensors
-    launch the kernel, whose result is the transposed view of a
-    row-major [n_out, D] array."""
-    require(g.dim() == 2 and uidx_sorted.shape == (g.shape[0],), _NAME,
-            f"g [N, D] and uidx_sorted [N] expected, got {tuple(g.shape)} "
+    ``g``: [R, D] bfloat16 or float32 (D <= 256), the rows in batch
+    order; ``perm``: [N] int32 or int64, sorted position -> row of ``g``
+    (values in [0, R); N may be less than R), or None for the identity
+    (then R == N); ``uidx_sorted``: [N] int32.  CPU tensors take
+    :func:`segsum_sorted_plain`; CUDA tensors launch the kernel, which
+    reads the rows through ``perm`` (no gather in front of it) and returns
+    the transposed view of a row-major [n_out, D] array.  The values of
+    ``perm`` are not checked on the card (that would synchronise): one
+    outside [0, R) reads out of bounds, where the plain version raises.
+    The step's ``perm`` is in range by construction."""
+    require(g.dim() == 2 and uidx_sorted.dim() == 1, _NAME,
+            f"g [R, D] and uidx_sorted [N] expected, got {tuple(g.shape)} "
             f"and {tuple(uidx_sorted.shape)}")
-    if on_cpu(_NAME, g, uidx_sorted):
-        return segsum_sorted_plain(g, uidx_sorted, n_out)
-    n, d = g.shape
+    n = uidx_sorted.shape[0]
+    if perm is None:
+        require(g.shape[0] == n, _NAME,
+                f"without perm, g must have one row per position: "
+                f"{g.shape[0]} rows for {n} positions")
+    else:
+        require(perm.shape == (n,), _NAME,
+                f"perm [{n}] expected, got {tuple(perm.shape)}")
+        require(perm.dtype in (torch.int32, torch.int64), _NAME,
+                f"perm must be int32 or int64, got {perm.dtype}")
+    tensors = (g, uidx_sorted) if perm is None else (g, uidx_sorted, perm)
+    if on_cpu(_NAME, *tensors):
+        return segsum_sorted_plain(g, uidx_sorted, n_out, perm)
+    d = g.shape[1]
     require(g.dtype in (torch.bfloat16, torch.float32), _NAME,
             f"g must be bfloat16 or float32, got {g.dtype}")
     require(uidx_sorted.dtype == torch.int32, _NAME, "uidx_sorted must be int32")
     require(0 < d <= 256, _NAME, f"D must be in [1, 256], got {d}")
-    require(n < 2**31 and 0 <= n_out < 2**31, _NAME, "sizes must fit int32")
-    require_contiguous(_NAME, g=g, uidx_sorted=uidx_sorted)
+    require(max(n, g.shape[0]) < 2**31 and 0 <= n_out < 2**31, _NAME,
+            "sizes must fit int32")
+    require_contiguous(_NAME, g=g, uidx_sorted=uidx_sorted,
+                       **({} if perm is None else {"perm": perm}))
     out = torch.empty((n_out, d), dtype=torch.float32, device=g.device)
-    seg = torch.empty((2, n_out), dtype=torch.int32, device=g.device)
     partial = torch.empty(
         _build.scratch_len("mr_segsum_sorted_partial_len", n, d),
         dtype=torch.float32, device=g.device)
     fn = _build.kernel_fn("mr_segsum_sorted", _ARGS)
     rc = fn(g.data_ptr(), int(g.dtype == torch.bfloat16),
-            uidx_sorted.data_ptr(), n, d, n_out, seg.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), _build.stream_of(g))
+            None if perm is None else perm.data_ptr(),
+            0 if perm is None else perm.element_size(),
+            uidx_sorted.data_ptr(), n, d, n_out, partial.data_ptr(),
+            out.data_ptr(), _build.stream_of(g))
     _build.check(rc, _NAME)
     LAUNCHES[_NAME] += 1
     return out.T  # the kernel writes coalesced [n_out, D] rows

@@ -22,9 +22,9 @@ per id group, in order:
 3. the buffer expands to batch order (``buf[uidx]``, in ``matmul_dtype``)
    and the model runs forward and backward from it (folded wide tables
    masked to the owning sublane);
-4. the per-position gradients are summed per unique slot: moved to
-   sorted order (``g[perm]``) and summed by ``segsum_sorted`` (kernel),
-   or, in a tiny group, summed by raw id with ``segsum_unsorted``
+4. the per-position gradients are summed per unique slot by
+   ``segsum_sorted`` (kernel), which reads them in batch order through
+   ``perm``, or, in a tiny group, by raw id with ``segsum_unsorted``
    (kernel), whose presence counts gate the lazy updates;
 5. the tables update only the touched rows: row_packed tables with
    ``adam_rows`` / ``ftrl_rows``, feature-major tables with
@@ -551,8 +551,10 @@ def make_train_step(
                 for name in lay.tables:
                     touch_mask[name] = present
             else:
-                g_uq_all = segsum(gpos[gd["perm"].long()],
-                                  gd["uidx_s"].to(torch.int32), gd["ub"])
+                # the sum reads the batch-order rows through perm: no
+                # gather in front of it
+                g_uq_all = segsum(gpos, gd["uidx_s"].to(torch.int32), gd["ub"],
+                                  perm=gd["perm"])
             for name in lay.tables:
                 spec = table_specs[name][1]
                 o, dpf = lay.offs[name], lay.lanes[name]

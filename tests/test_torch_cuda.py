@@ -4,10 +4,11 @@ Imports no JAX, so it runs where only the port is installed::
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-The edge-case lists of ``segsum_unsorted``, ``segsum_cols`` and
-``adam_cols`` (and the functions that make their numpy inputs) live
-here; ``tests/test_torch_edge_cases.py`` runs the same lists on the CPU,
-plain version against the JAX kernel.
+The edge-case lists of ``segsum_unsorted``, ``segsum_cols``,
+``segsum_sorted`` and ``adam_cols`` (and the functions that make their
+numpy inputs) live here; ``tests/test_torch_edge_cases.py`` and
+``tests/test_torch_segsum_perm.py`` run the same lists on the CPU, plain
+version against the JAX kernel or the float64 sum.
 """
 
 import numpy as np
@@ -71,7 +72,7 @@ def cuda_device():
 def test_kernels_match_plain_on_card(cuda_device):
     rng = np.random.default_rng(0)
     uidx = _uidx(rng, 5000, 7)
-    uidx[:700] = 0  # one hot id spanning many 64-row chunks
+    uidx[:700] = 0  # one hot id spanning several 256-row chunks
     _, uidx = np.unique(uidx, return_inverse=True)  # unit steps (contract)
     uidx = uidx.astype(np.int32)
     g = _t(rng.normal(size=(5000, 128)).astype(np.float32)).to(cuda_device)
@@ -352,6 +353,44 @@ def segsum_cols_case(n, d, pattern):
     return g.astype(np.float32), uidx
 
 
+# (case id, N, D, n_out, run pattern, id shift, perm kind); the patterns
+# are segsum_cols_case's, N a multiple of no chunk size
+SEGSUM_SORTED_CASES = [
+    ("empty", 0, 128, 1000, "distinct", 0, "identity"),
+    ("d1-hot-105-chunks", 60001, 1, 60001, "hot", 0, "random"),
+    ("d13-distinct-reversed", 5003, 13, 5003, "distinct", 0, "reversed"),
+    ("d256-mixed-compacted", 9001, 256, 9001, "mixed", 0, "compacted"),
+    ("d128-outside-random", 5003, 128, 700, "mixed", -5, "random"),
+    ("d128-edges-identity", 6001, 128, 6144, "edges", 0, "identity"),
+    ("d256-distinct-random", 4999, 256, 5120, "distinct", 0, "random"),
+]
+SEGSUM_SORTED_IDS = [c[0] for c in SEGSUM_SORTED_CASES]
+
+
+def segsum_sorted_case(n, d, pattern, shift, kind):
+    """(g [R, D] float32 in batch order, uidx_sorted [N] int32, perm [N])
+    with ``g[perm]`` the sorted rows of :func:`segsum_cols_case` (whose
+    float32 sums are exact) and ids shifted by ``shift`` (below 0 when
+    negative).  ``perm``: ``identity`` (int64), ``reversed`` and
+    ``random`` (int32), ``compacted`` (int64: N of R = N + N // 3 + 1
+    rows, in random order, the other rows never read)."""
+    g_sorted, uidx = segsum_cols_case(n, d, pattern)
+    rng = np.random.default_rng(n * 11 + d)
+    rows = n + n // 3 + 1 if kind == "compacted" else n
+    if kind == "identity":
+        perm = np.arange(n, dtype=np.int64)
+    elif kind == "reversed":
+        perm = np.arange(n - 1, -1, -1, dtype=np.int32)
+    elif kind == "random":
+        perm = rng.permutation(n).astype(np.int32)
+    else:
+        perm = rng.permutation(rows)[:n].astype(np.int64)
+    g = (np.clip(np.round(rng.normal(size=(rows, d)) * 8.0), -511, 511)
+         / 8.0).astype(np.float32)
+    g[perm] = g_sorted
+    return g, (uidx + shift).astype(np.int32), perm
+
+
 ADAM_COLS_VC = 1024
 ADAM_COLS_CASES = ["long-run", "run-across-255-256", "all-sentinel",
                    "sentinels-from-mid-block", "n-below-32"]
@@ -491,3 +530,34 @@ def test_adam_cols_edge_cases_on_card(cuda_device, kind, fold, state_dtype):
         ftrl_cols_plain(*b, cols, aug, **kw)
         for x, y in zip(a, b):
             torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SEGSUM_SORTED_CASES, ids=SEGSUM_SORTED_IDS)
+def test_segsum_sorted_edge_cases_on_card(cuda_device, case, dtype):
+    """``g`` in batch order, read through ``perm`` as the step passes it.
+    On the case's values, whose float32 sums are exact, kernel and plain
+    version equal the float64 sum; on normal values both are within the
+    float32 tolerance of the float64 sum, the kernel is deterministic and
+    its columns past the last segment are zero."""
+    _id, n, d, n_out, pattern, shift, kind = case
+    g, uidx, perm = segsum_sorted_case(n, d, pattern, shift, kind)
+    dt = getattr(torch, dtype)
+    u, p = _t(uidx).to(cuda_device), _t(perm).to(cuda_device)
+    exact, _ = segsum_float64(g[perm], uidx, n_out)
+    rows = _t(g).to(dt).to(cuda_device)
+    got = segsum_sorted(rows, u, n_out, perm=p)
+    assert got.shape == (d, n_out) and got.dtype == torch.float32
+    for x in (got, segsum_sorted_plain(rows, u, n_out, p)):
+        np.testing.assert_array_equal(x.cpu().numpy(), exact)
+    rng = np.random.default_rng(n + d)
+    rows = _t(rng.normal(size=g.shape).astype(np.float32)).to(dt)
+    ref, tol = segsum_float64(rows.float().numpy()[perm], uidx, n_out)
+    rows = rows.to(cuda_device)
+    got = segsum_sorted(rows, u, n_out, perm=p)
+    assert torch.equal(got, segsum_sorted(rows, u, n_out, perm=p))
+    for x in (got, segsum_sorted_plain(rows, u, n_out, p)):
+        assert (np.abs(x.cpu().numpy() - ref) <= tol).all()
+    if n:
+        assert not got[:, max(int(uidx[-1]) + 1, 0):].any()

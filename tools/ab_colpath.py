@@ -1,25 +1,40 @@
 #!/usr/bin/env python3
-"""Time the column path of two trees of this repository in turns, in one
-run on one GPU: ``segsum_cols`` at the DeepFM and W&D feature-major shapes
-and the DeepFM recipe's ``row_layout=False`` step.
+"""Time the column path or the sorted-sum path of two trees of this
+repository in turns, in one run on one GPU.
 
-    python3 tools/ab_colpath.py OLD_TREE NEW_TREE [--turns 2] [--steps 20]
+    python3 tools/ab_colpath.py OLD_TREE NEW_TREE [--what colpath|sorted]
+                                [--turns 2] [--steps 20]
 
 A tree is a checkout of the repository, e.g. a parent commit unpacked
 with ``git archive`` under the git-ignored ``_cmp/``.  The trees run one
 process each, in turns (OLD, NEW, NEW, OLD for two turns).  A process
 imports its tree's ``chip_smoke.py`` and package, builds that tree's
-kernels, times ``segsum_cols`` with the tree's own ``check_segsum_cols``
-(each tree's kernel takes the layout its step gives it), then runs 3
-warm-up and ``--steps`` timed steps (three times, keeping the least
-ms/step) of the DeepFM recipe with
-``table_layout="feature_major"`` and ``row_layout=False`` (phase 10 of
-``chip_smoke.py``) and 5 more under ``torch.profiler`` for the device
-time per step (the sum of its kernels' times: the step is bound by the
-host's launches, whose time varies between processes), and prints one
-JSON line.  The card's name and power limit come first, a ``[compare]``
-line per measure last.
+kernels and prints one JSON line; the card's name and power limit come
+first, a ``[compare]`` line per measure last.
+
+``--what colpath`` (the default): ``segsum_cols`` timed with the tree's
+own ``check_segsum_cols`` at the DeepFM and W&D feature-major shapes
+(each tree's kernel takes the layout its step gives it), then 3 warm-up
+and ``--steps`` timed steps (three times, keeping the least ms/step) of
+the DeepFM recipe with ``table_layout="feature_major"`` and
+``row_layout=False`` (phase 10 of ``chip_smoke.py``) and 5 more under
+``torch.profiler`` for the device time per step (the sum of its kernels'
+times: the step is bound by the host's launches, whose time varies
+between processes).
+
+``--what sorted``: the sorted segment-sum as each tree's step runs it, on
+random bf16 batch-order gradients at the W&D ``[624000, 128]`` and the
+multitable emb128 ``[393216, 256]``, emb64_single and multi ``[N, 128]``
+shapes with host-prepared ``perm`` and ``uidx_sorted``: ``segsum_sorted(g,
+uidx, n_out, perm=perm)`` where the tree's wrapper takes ``perm``, else
+the gather ``g[perm.long()]`` and ``segsum_sorted`` of the sorted rows
+(device time of the whole, by CUDA-graph replay); then the multitable
+recipe's step (phase 6 of ``chip_smoke.py``) from a fresh state, 3
+warm-up and ``--steps`` timed steps (ms/step and the last loss) and 5
+steps under ``torch.profiler`` from another fresh state (device time per
+step).
 """
+
 
 from __future__ import annotations
 
@@ -74,15 +89,73 @@ def one(tree: str, steps: int) -> None:
     print("AB " + json.dumps(res), flush=True)
 
 
+def one_sorted(tree: str, steps: int) -> None:
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import importlib.util
+    import inspect
+
+    import torch
+
+    import chip_smoke as cs
+    from mindrec_tpu_torch.data.criteo import to_device
+    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+
+    # the data and the cases come from the chip_smoke.py beside this tool,
+    # so that both trees (also one older than its sorted_cases) get the
+    # same shapes; the kernels and the step are the tree's
+    spec = importlib.util.spec_from_file_location(
+        "smoke_cases", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    dev = torch.device("cuda", 0)
+    cs.phase_build()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    takes_perm = "perm" in inspect.signature(cs.segsum_sorted).parameters
+    model, (opt_w, opt_d), host, buckets = here.mt_setup()
+    _data, bucket, wd_host = here.wd_setup()
+    res = {"tree": tree, "takes_perm": takes_perm}
+    for tag, u, p, rows, d, n_out in here.sorted_cases(
+            dev, wd=(wd_host, bucket), mt=(host[0], buckets)):
+        g = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+        if takes_perm:
+            res[f"sorted_{tag}_ms"] = cs.graph_ms(
+                lambda: cs.segsum_sorted(g, u, n_out, perm=p))
+        else:
+            res[f"sorted_{tag}_ms"] = cs.graph_ms(
+                lambda: cs.segsum_sorted(g[p.long()], u, n_out))
+        del g
+    torch.cuda.empty_cache()
+    batches = [to_device(hb, dev) for hb in host]
+    step = make_train_step(model, opt_w, opt_d)
+    state = init_train_state(model, 0, opt_w, opt_d, device=dev)
+    out = cs.timed_steps("mt-main", step, state, batches, cs.MT_BATCH,
+                         cs.MT_PER_STEP, warmup=3, steps=steps)
+    res["mt_ms_per_step"] = out["ms_per_step"]
+    res["last_loss"] = out["last_loss"]
+    state = init_train_state(model, 0, opt_w, opt_d, device=dev)
+    res["mt_device_ms_per_step"] = cs.profile_steps(step, state, batches)
+    print("AB " + json.dumps(res), flush=True)
+
+
+KEYS = {
+    "colpath": ("segsum_cols_DeepFM_ms", "segsum_cols_W&D_ms",
+                "deepfm_col_ms_per_step", "deepfm_col_device_ms_per_step"),
+    "sorted": ("sorted_W&D_ms", "sorted_emb128_ms", "sorted_emb64_single_ms",
+               "sorted_multi_ms", "mt_ms_per_step", "mt_device_ms_per_step",
+               "last_loss"),
+}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*")
+    ap.add_argument("--what", choices=sorted(KEYS), default="colpath")
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        one(args.one, args.steps)
+        (one if args.what == "colpath" else one_sorted)(args.one, args.steps)
         return 0
     if len(args.trees) != 2:
         ap.error("give two trees: OLD NEW")
@@ -95,7 +168,7 @@ def main() -> int:
         for tree in (args.trees if t % 2 == 0 else args.trees[::-1]):
             p = subprocess.run(
                 [sys.executable, __file__, "--one", tree, "--steps",
-                 str(args.steps)],
+                 str(args.steps), "--what", args.what],
                 capture_output=True, text=True, timeout=900)
             sys.stdout.write(p.stdout)
             sys.stderr.write(p.stderr[-4000:])
@@ -104,9 +177,8 @@ def main() -> int:
                 return 1
             line = [x for x in p.stdout.splitlines() if x.startswith("AB ")][-1]
             runs.append(json.loads(line[3:]))
-    for key in ("segsum_cols_DeepFM_ms", "segsum_cols_W&D_ms",
-                "deepfm_col_ms_per_step", "deepfm_col_device_ms_per_step"):
-        cols = [f"{tree}: " + ", ".join(f"{r[key]:.4f}" for r in runs
+    for key in KEYS[args.what]:
+        cols = [f"{tree}: " + ", ".join(f"{r[key]!r}" for r in runs
                                          if r["tree"] == tree)
                 for tree in args.trees]
         print(f"[compare] {key} in turns: " + "; ".join(cols), flush=True)

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Time ``adam_cols``, ``segsum_unsorted`` or ``segsum_cols`` at the
-recipes' shapes with the kernels' constants changed, on one GPU.
+"""Time ``adam_cols``, ``segsum_unsorted``, ``segsum_cols`` or
+``segsum_sorted`` at the recipes' shapes with the kernels' constants
+changed, on one GPU.
 
 Run from the repository root::
 
     python3 tools/kernel_sweep.py cols base sub4:'kSub = 2;=>kSub = 4;'
     python3 tools/kernel_sweep.py seg base c512:'kUChunk = 256;=>kUChunk = 512;'
     python3 tools/kernel_sweep.py colsum base l4:'kCLoads = 8;=>kCLoads = 4;'
+    python3 tools/kernel_sweep.py sorted base r16:'kSRows = 8;=>kSRows = 16;'
 
 Each variant ``name[:old=>new[;;old=>new...]]`` is a copy of the package
 under the git-ignored ``_cmp/sweep_<name>/`` with the plain-text
@@ -18,7 +20,11 @@ multitable emb128, both DeepFM and both W&D feature-major shapes;
 [N, 1] shapes, with the device time of each of its passes
 (``torch.profiler``); ``colsum`` - ``segsum_cols`` at the DeepFM [88, N]
 and W&D [24, N] feature-major shapes (bf16, as the view of [N, D]), with
-the device time of each pass.  Compare variants only within one run.
+the device time of each pass; ``sorted`` - ``segsum_sorted`` through
+``perm`` at the W&D [N, 128] and the multitable emb128 [N, 256],
+emb64_single and multi [N, 128] shapes (bf16, batch-order rows, with
+``chip_smoke.check_sorted``), with the device time of each pass.
+Compare variants only within one run.
 """
 
 from __future__ import annotations
@@ -74,6 +80,19 @@ def measure(what: str) -> None:
                    lambda: cs.segsum_cols(rows.T, uidx, n))
         return
     model, _opts, host, buckets = cs.mt_setup(steps=1)
+    if what == "sorted":
+        _data, bucket, wd_host = cs.wd_setup()
+        for case in cs.sorted_cases(dev, wd=(wd_host, bucket),
+                                    mt=(host[0], buckets)):
+            tag, u, p, rows, d, n_out = case
+            cs.check_sorted(dev, gen, case)  # checked, timed
+            g = torch.randn((rows, d), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            passes(f"segsum_sorted {tag} [{rows}, {d}] bf16 -> [{d}, {n_out}]",
+                   lambda: cs.segsum_sorted(g, u, n_out, perm=p))
+            del g
+            torch.cuda.empty_cache()
+        return
     if what == "cols":
         ub = buckets["emb128"]
         uq = torch.from_numpy(host[0]["emb128:uq_ids"][:ub]).to(dev)
@@ -115,7 +134,8 @@ def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--measure":
         measure(sys.argv[2])
         return 0
-    if len(sys.argv) < 3 or sys.argv[1] not in ("cols", "seg", "colsum"):
+    if len(sys.argv) < 3 or sys.argv[1] not in ("cols", "seg", "colsum",
+                                                   "sorted"):
         print(__doc__, file=sys.stderr)
         return 2
     for variant in sys.argv[2:]:
