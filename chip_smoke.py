@@ -28,9 +28,13 @@ Phases (any failure exits non-zero):
    state;
 5. the multitable (Outbrain) recipe's kernels against their plain
    versions on a real synthetic batch after host prep: the gather of the
-   emb128 group's feature-major tables into its [ub, 256] buffer (timed
-   beside its sector bound and the time of reading the table whole and
-   writing the valid lanes; the folded w128 launch timed too), the
+   emb128 table into its group's [ub, 256] buffer (timed beside its
+   sector bound and the time of reading the table whole and writing the
+   valid lanes), then the gather of each of the eight feature-major
+   tables and FTRL on each of the four folded wide tables at the
+   launch shapes the step gives them (``[launch]`` lines: time, bound,
+   sector bound, ms lost over 10 steps; a tiny group's touch rows gated
+   by its presence), the
    unsorted segment-sum of the indicator group's [1.7M, 128] bf16
    gradient and its [1.7M, 1] presence counts, the sorted segment-sum of
    the emb128 group's [N, 256], the emb64_single group's and the
@@ -41,7 +45,7 @@ Phases (any failure exits non-zero):
    over 105 chunks, all distinct, ids below 0 and past n_out, D 1, 13,
    128, 256, identity, reversed, random and compacted ``perm``, bf16 and
    float32), LazyAdam on emb128 with
-   f32 m/v and FTRL on the folded w128; the unsorted segment-sum again at
+   f32 m/v; the unsorted segment-sum again at
    D = 1, D = 13 (bf16), D = 20 and D = 128 (f32) with ids outside
    [0, n_out) mixed in, against the float64 sum and the exact sum of
    small integers;
@@ -60,7 +64,9 @@ Phases (any failure exits non-zero):
    DeepFM recipe's feature-major shapes (fm [80, 188416], linear
    [8, 23552] fold 8, N = 624,000 positions, 88 feature rows) and at the
    W&D recipe's ([16, 5.86M], [8, 733k] fold 8, 24 feature rows):
-   the column gather (exact), the column Adam as the DeepFM steps launch
+   the column gather (exact), the row gather as the DeepFM
+   ``row_layout=True`` step launches it (fm and the folded linear table,
+   bucket 131,072), the column Adam as the DeepFM steps launch
    it (bf16 m/v over the sentinel-padded N slots, fold 1 and fold 8), the
    column-major segment-sum on the transposed view of a contiguous
    [N, D] gradient, as the step passes it (against a float64 sum, at
@@ -101,6 +107,7 @@ last line and ends with ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -140,7 +147,8 @@ from mindrec_tpu_torch.ops.kernels.update_rows import (
 )
 from mindrec_tpu_torch.train import optim
 from mindrec_tpu_torch.train.step import (
-    SENTINEL, init_train_state, make_batch_sort, make_train_step, prep_groups,
+    SENTINEL, _group_layouts, init_train_state, make_batch_sort,
+    make_train_step, prep_groups,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -507,7 +515,7 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
     #    kernels' bf16-table branches against their plain versions
     bf16 = torch.bfloat16
     pack, dim, n_rows = 8, EMB, 733184
-    rows, sub, _ = slots(pack, n_rows)
+    rows, sub, valid = slots(pack, n_rows)
     state = [(0.01 * torch.randn((n_rows, 128), generator=gen, device=dev)).to(bf16),
              (1e-3 * torch.randn((n_rows, 128), generator=gen, device=dev)).to(bf16),
              (1e-6 * torch.rand((n_rows, 128), generator=gen, device=dev)).to(bf16)]
@@ -519,9 +527,12 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
     adam_ms = graph_ms(lambda: adam_rows(*a, rows, sub, gs, lr_t, **hyper))
+    # as row 2's bound, with 2-byte weight and moments
+    adam_b = bound(bucket * 8 + valid * dim * (4 + 2 * (2 + 2 + 2)),
+                   valid * dim * 12)[0]
     del state, a, b
     pack, dim, n_rows = 128, 1, 47104
-    rows, sub, _ = slots(pack, n_rows)
+    rows, sub, valid = slots(pack, n_rows)
     state = [(0.01 * torch.randn((n_rows, 128), generator=gen, device=dev)).to(bf16),
              1.0 + torch.rand((n_rows, 128), generator=gen, device=dev),
              0.1 * torch.randn((n_rows, 128), generator=gen, device=dev)]
@@ -533,9 +544,12 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
     ftrl_ms = graph_ms(lambda: ftrl_rows(*a, rows, sub, gs, **hyper))
+    ftrl_b = bound(bucket * 8 + valid * dim * (4 + 2 * (2 + 4 + 4)),
+                   valid * dim * 16)[0]
     log(f"[check] adam_rows (bf16 table and m/v) and ftrl_rows (bf16 table) "
-        f"== plain versions at the W&D shapes; ms {adam_ms:.4f}, "
-        f"{ftrl_ms:.4f}")
+        f"== plain versions at the W&D shapes", json.dumps(dict(
+            adam_ms=adam_ms, adam_bound_ms=adam_b, ftrl_ms=ftrl_ms,
+            ftrl_bound_ms=ftrl_b)))
     torch.cuda.synchronize()
     return res
 
@@ -720,7 +734,8 @@ def mt_setup(batch=MT_BATCH, steps=2):
 
 def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
     """Kernels 5-8 against their plain versions at the multitable
-    recipe's shapes, on host batch 0's ids."""
+    recipe's shapes, on host batch 0's ids; ``gather_rows`` and
+    ``ftrl_cols`` at every launch shape of the step."""
     res = {}
     ub = buckets["emb128"]
     uq = torch.from_numpy(host0["emb128:uq_ids"][:ub]).to(dev)
@@ -731,22 +746,18 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
     def rnd(shape, scale):
         return scale * torch.randn(shape, generator=gen, device=dev)
 
-    # -- gather: emb128 into lanes 0..127, w128 (fold 8) into 128..135 --
+    # -- gather: emb128 into lanes 0..127 of the [ub, 256] buffer, held
+    #    against the yardsticks; every launch shape of the step follows ---
     t128 = rnd(model.specs["emb128"].storage_shape, 0.01)
-    tw = rnd(model.specs["w128"].storage_shape, 0.01)
-    cols_w = torch.div(uq, 8, rounding_mode="floor")
     a = torch.zeros((ub, 256), device=dev)
     b = torch.zeros((ub, 256), device=dev)
-    for fn, buf in ((gather_rows, a), (gather_rows_plain, b)):
-        fn(t128, uq, buf, 0)
-        fn(tw, cols_w, buf, 128)
+    gather_rows(t128, uq, a, 0)
+    gather_rows_plain(t128, uq, b, 0)
     err, rel = max_errs([(a, b)])
     if err != 0.0:
         fail(f"gather_rows disagrees: max err {err}")
-    t_b, by = bound(ub * 4 + valid * 128 * 4 * 2, 0)
+    t_b, by, sec_b = gather_rows_bounds(t128, uq, 0, 256)
     live = uq[:valid].long()
-    # every 32-byte sector (8 columns of a row) that holds a live column
-    sectors = int(torch.unique(torch.div(live, 8, rounding_mode="floor")).numel())
     col_max = torch.empty(t128.shape[1], device=dev)
 
     def select_into_lanes():
@@ -763,22 +774,18 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
         max_abs_err=err, max_rel_err=rel,
         ms=graph_ms(lambda: gather_rows(t128, uq, a, 0)),
         plain_ms=cuda_ms(lambda: gather_rows_plain(t128, uq, b, 0), 5),
-        bound_ms=t_b, bound_by=by, library_ms=None,
-        sector_bound_ms=bound(ub * 4 + sectors * 128 * 32 + valid * 128 * 4,
-                              0)[0],
+        bound_ms=t_b, bound_by=by, library_ms=None, sector_bound_ms=sec_b,
         whole_table_ms=graph_ms(whole_table),
         select_transpose_ms=graph_ms(select_into_lanes),
-        live_slots=valid, live_sectors_per_row=sectors,
+        live_slots=valid,
     )
     log("[kernel] gather_rows (emb128 [128, 655360] -> [ub, 256] lanes 0..127)",
         json.dumps(res["gather_rows"]))
-    live_w = torch.unique(cols_w[:valid])
-    w128 = dict(ms=graph_ms(lambda: gather_rows(tw, cols_w, a, 128)),
-                bound_ms=bound(ub * 4 + int(live_w.numel()) * 8 * 4
-                               + valid * 8 * 4, 0)[0])
-    log("[kernel] gather_rows (w128 [8, 81920] fold 8 -> lanes 128..135)",
-        json.dumps(w128))
-    del t128, tw, a, b, col_max
+    del t128, a, b, col_max
+    launches = table_launches(dev, model, host0)
+    for case in launches:
+        check_gather_launch(dev, gen, "multitable", case)
+    torch.cuda.empty_cache()
 
     # -- unsorted segsum: the indicator group's [1.7M, 128] bf16 grads --
     seg = torch.from_numpy(np.ascontiguousarray(
@@ -814,6 +821,9 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
     )
     res["segsum_unsorted"]["presence_ms"] = graph_ms(
         lambda: segsum_unsorted(ones, seg, n_out))
+    # the ones and ids read once, the [1, n_out] counts written once
+    res["segsum_unsorted"]["presence_bound_ms"] = bound(
+        n * 2 + n * 4 + n_out * 4, n)[0]
     log("[kernel] segsum_unsorted ([1.7M, 128] bf16 -> [128, 2048])",
         json.dumps(res["segsum_unsorted"]))
     del g, gf, lib_out, ones
@@ -829,33 +839,13 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
         "emb128, f32 m/v", dev, gen, model.specs["emb128"].storage_shape, 1,
         uq, None, torch.float32, eps=1e-6, loss_scale=1000.0)
 
-    # -- FTRL on w128 [8, 81920], fold 8 ------------------------------
-    shape = model.specs["w128"].storage_shape
-    sub = torch.remainder(uq, 8)
-    gw = rnd((8, ub), 10.0) * (torch.arange(8, device=dev)[:, None] == sub[None, :])
-    aug = make_aug_grads(gw, sub).contiguous()
-    base = [rnd(shape, 0.01), 0.1 + torch.rand(shape, generator=gen, device=dev),
-            rnd(shape, 0.1)]
-    a = [x.clone() for x in base]
-    b = [x.clone() for x in base]
-    hyper = dict(dim=1, fold=8, learning_rate=5e-2, l1=5e-4, l2=5e-4,
-                 loss_scale=1000.0)
-    ftrl_cols(*a, cols_w, aug, **hyper)
-    ftrl_cols_plain(*b, cols_w, aug, **hyper)
-    err, rel = max_errs(zip(a, b))
-    for x, y in zip(a, b):
-        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
-    io = ub * 4 + 16 * valid * 4  # a sentinel slot's gradient is not read
-    wsec = int(torch.unique(torch.div(live, 64, rounding_mode="floor")).numel())
-    t_b, by = bound(io + valid * 3 * 4 * 2, valid * 16)
-    res["ftrl_cols"] = dict(
-        max_abs_err=err, max_rel_err=rel,
-        ms=graph_ms(lambda: ftrl_cols(*a, cols_w, aug, **hyper)),
-        plain_ms=cuda_ms(lambda: ftrl_cols_plain(*b, cols_w, aug, **hyper), 5),
-        bound_ms=t_b, bound_by=by, library_ms=None,
-        sector_bound_ms=bound(io + wsec * 8 * 3 * 2 * 32, 0)[0],
-    )
-    log("[kernel] ftrl_cols (w128, fold 8)", json.dumps(res["ftrl_cols"]))
+    # -- FTRL on the four folded wide tables, as the step launches it ----
+    for case in launches:
+        if case["fold"] > 1:
+            out = check_ftrl_launch(dev, gen, "multitable", case,
+                                    plain=case["name"] == "w128")
+            if case["name"] == "w128":
+                res["ftrl_cols"] = out
     torch.cuda.synchronize()
     return res
 
@@ -900,6 +890,168 @@ def phase_mt_kernel_vs_plain_step(dev) -> None:
     data = SyntheticOutbrain(cfg, 3, seed=11)
     kernel_vs_plain("multitable", dev, MultiTableWideDeepModel(cfg), opts,
                     [to_device(data.get_batch(i), dev) for i in range(3)])
+
+
+def table_launches(dev, model, host, tiny_vocab=2048) -> list:
+    """The gather and update launches of a row-layout step's feature-major
+    tables, from one host-prepared batch, as ``train/step.py`` builds
+    them: per table its name, group, storage shape, fold, the sorted
+    storage columns (the group's unique ids, sentinel-padded to the bucket
+    that the batch's ``uq_ids`` length rounds to, // fold; a tiny group's
+    whole id space), their fold sub-rows (or None), the table's lane offset
+    and the buffer's width, and for a tiny group the presence gate [1, ub]
+    of the batch's ids, which multiplies the touch rows."""
+    groups = getattr(model, "table_groups", None) or {
+        "_default": {"keys": ("ids",), "tables": tuple(model.table_specs)}}
+    out = []
+    for g, lay in _group_layouts(model.table_specs, groups, tiny_vocab).items():
+        gate = None
+        if lay.tiny:
+            ub = lay.id_bound
+            uq = torch.arange(ub, dtype=torch.int32, device=dev)
+            flat = np.concatenate([np.asarray(host[k]).reshape(-1)
+                                   for k in lay.keys])
+            seen = np.bincount(flat, minlength=ub)[:ub] > 0
+            gate = torch.from_numpy(seen.astype(np.float32)).to(dev)[None]
+        else:
+            ids = host["uq_ids" if g == "_default" else f"{g}:uq_ids"]
+            ub = round_bucket(ids.size)
+            uq = torch.full((ub,), SENTINEL, dtype=torch.int32, device=dev)
+            uq[:ids.size] = torch.from_numpy(np.ascontiguousarray(ids)).to(dev)
+        for name in lay.tables:
+            spec = model.table_specs[name][1]
+            if spec.row_packed:
+                continue
+            fold = spec.fold
+            out.append(dict(
+                name=name, group=g, shape=spec.storage_shape, fold=fold,
+                cols=torch.div(uq, fold, rounding_mode="floor").contiguous(),
+                sub=torch.remainder(uq, fold) if fold > 1 else None,
+                off=lay.offs[name], width=lay.width, gate=gate))
+    return out
+
+
+def live_cols(cols, vc):
+    return cols[(cols >= 0) & (cols < vc)]
+
+
+def sectors(cols, elt) -> int:
+    """32-byte sectors of a table row that hold one of ``cols``."""
+    return int(torch.unique(torch.div(cols, 32 // elt,
+                                      rounding_mode="floor")).numel())
+
+
+def gather_rows_bounds(table, cols, off, width):
+    """(bound ms, its kind, sector bound ms) of ``gather_rows``: every
+    slot's column (4 B), each distinct live column's dp values and the dp
+    lanes of each live slot written once; the sector bound moves whole
+    32-byte sectors: those of each table row that hold a live column, and
+    the sectors that each live slot's lanes [off, off + dp) touch."""
+    dp, vc = table.shape
+    live = live_cols(cols, vc)
+    elt, n, valid = table.element_size(), cols.numel(), live.numel()
+    t_b, by = bound(n * 4 + int(torch.unique(live).numel()) * dp * elt
+                    + valid * dp * 4, 0)
+    first = off * 4 // 32 if width * 4 % 32 == 0 else 0
+    row_sec = -(-((off + dp) * 4) // 32) - first if width * 4 % 32 == 0 \
+        else -(-(dp * 4) // 32)
+    sec = bound(n * 4 + sectors(live, elt) * dp * 32 + valid * row_sec * 32,
+                0)[0]
+    return t_b, by, sec
+
+
+def check_gather_launch(dev, gen, path, case, per_10=10) -> dict:
+    """gather_rows at one launch shape of a step (``case`` as
+    :func:`table_launches` gives it) on a random float32 table and buffer:
+    equal to its plain version, timed beside its bound and sector bound;
+    ``ms_lost`` = ``per_10`` launches (per 10 steps) x (ms - bound)."""
+    dp, vc = case["shape"]
+    cols, off, width = case["cols"], case["off"], case["width"]
+    table = 0.01 * torch.randn((dp, vc), generator=gen, device=dev)
+    a = torch.randn((cols.numel(), width), generator=gen, device=dev)
+    b = a.clone()
+    gather_rows(table, cols, a, off)
+    gather_rows_plain(table, cols, b, off)
+    if not torch.equal(a, b):
+        fail(f"gather_rows ({path} {case['name']}) disagrees with its plain "
+             f"version")
+    t_b, _by, sec = gather_rows_bounds(table, cols, off, width)
+    ms = graph_ms(lambda: gather_rows(table, cols, a, off))
+    lanes = a[:, off:off + dp]
+    out = dict(ms=ms, bound_ms=t_b, sector_bound_ms=sec, launches=per_10,
+               ms_lost=per_10 * (ms - t_b), slots=cols.numel(),
+               live_slots=int(live_cols(cols, vc).numel()),
+               # yardstick: PyTorch's fill of the same lanes of every slot,
+               # the writes alone
+               lanes_fill_ms=graph_ms(lambda: lanes.fill_(0.0)))
+    log(f"[launch] gather_rows ({path} {case['name']} [{dp}, {vc}] fold "
+        f"{case['fold']} -> lanes {off}..{off + dp - 1} of "
+        f"[{cols.numel()}, {width}])", json.dumps(out))
+    return out
+
+
+def ftrl_cols_bounds(table, cols, fold):
+    """(bound ms, its kind, sector bound ms) of ``ftrl_cols``: every slot's
+    column, the gradient and touch rows of the live slots (a sentinel
+    slot's are not needed), and each touched element's weight and two
+    state values read and written once (fold > 1: one element per live
+    slot; fold 1: the dp sublanes of each distinct column); the sector
+    bound moves whole 32-byte sectors of the three arrays' touched
+    columns over all dp rows."""
+    dp, vc = table.shape
+    live = live_cols(cols, vc)
+    valid = int(live.numel())
+    touched = valid if fold > 1 else int(torch.unique(live).numel()) * dp
+    io = cols.numel() * 4 + (dp + 8) * valid * 4
+    t_b, by = bound(io + touched * (table.element_size() + 8) * 2,
+                    touched * 16)
+    sec = sum(sectors(live, e) for e in (table.element_size(), 4, 4))
+    return t_b, by, bound(io + sec * dp * 32 * 2, 0)[0]
+
+
+def check_ftrl_launch(dev, gen, path, case, per_10=10, plain=False) -> dict:
+    """ftrl_cols at one launch shape of a step (``case`` as
+    :func:`table_launches` gives it; a tiny group's touch rows gated by
+    its presence) on random state: held to its plain version within rtol
+    1e-6 (the same float32 operations in the same order, sums in slot
+    order; ``bit_equal`` says whether it is exact), timed beside its
+    bounds; ``plain`` also times the plain version."""
+    dp, vc = case["shape"]
+    cols, fold = case["cols"], case["fold"]
+    aug = slot_grads(dev, gen, dp, fold, cols, case["sub"])
+    if case["gate"] is not None:  # absent ids of a tiny group: no touch
+        aug[dp:] *= case["gate"]
+    shape = (dp, vc)
+    base = [0.01 * torch.randn(shape, generator=gen, device=dev),
+            0.1 + torch.rand(shape, generator=gen, device=dev),
+            0.1 * torch.randn(shape, generator=gen, device=dev)]
+    a = [x.clone() for x in base]
+    b = [x.clone() for x in base]
+    hyper = dict(dim=1 if fold > 1 else dp, fold=fold, learning_rate=5e-2,
+                 l1=5e-4, l2=5e-4, loss_scale=1000.0)
+    ftrl_cols(*a, cols, aug, **hyper)
+    ftrl_cols_plain(*b, cols, aug, **hyper)
+    err, rel = max_errs(zip(a, b))
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    bit_equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    # fingerprint of the updated state: two trees' kernels, fed the same
+    # inputs, agree bit for bit when their digests do
+    digest = hashlib.sha256(b"".join(x.cpu().numpy().tobytes()
+                                     for x in a)).hexdigest()[:16]
+    t_b, by, sec = ftrl_cols_bounds(a[0], cols, fold)
+    ms = graph_ms(lambda: ftrl_cols(*a, cols, aug, **hyper))
+    out = dict(
+        max_abs_err=err, max_rel_err=rel, bit_equal=bit_equal, digest=digest,
+        ms=ms, bound_ms=t_b, bound_by=by, library_ms=None,
+        sector_bound_ms=sec, launches=per_10, ms_lost=per_10 * (ms - t_b),
+        slots=cols.numel(), live_slots=int(live_cols(cols, vc).numel()))
+    if plain:
+        out["plain_ms"] = cuda_ms(
+            lambda: ftrl_cols_plain(*b, cols, aug, **hyper), 5)
+    log(f"[launch] ftrl_cols ({path} {case['name']} [{dp}, {vc}] fold {fold}, "
+        f"n {cols.numel()})", json.dumps(out))
+    return out
 
 
 def check_adam_cols(tag, dev, gen, shape, fold, cols, sub, state_dtype, *,
@@ -1205,6 +1357,11 @@ def phase_col_kernels(dev, gen, fm_host, wd_host) -> dict:
                              ("DeepFM linear, bf16 m/v", fm_w, 8)):
         check_adam_cols(tag, dev, gen, shape, fold, *padded_cols(uq0, fold, dev),
                         torch.bfloat16, eps=5e-8, loss_scale=1024.0)
+    # gather_rows as the DeepFM row_layout=True step launches it (the
+    # feature-major fm and folded linear tables, bucket 131,072)
+    fm_rows = {**fm_host[0], "uq_ids": fm_host[0]["uq_ids"][:FM_BUCKET]}
+    for case in table_launches(dev, fm, fm_rows):
+        check_gather_launch(dev, gen, "DeepFM row_layout=True", case)
     torch.cuda.empty_cache()
     uidx = torch.from_numpy(fm_host[0]["uidx_sorted"]).to(dev)
     res["segsum_cols"] = check_segsum_cols("DeepFM", dev, gen,

@@ -561,3 +561,171 @@ def test_segsum_sorted_edge_cases_on_card(cuda_device, case, dtype):
         assert (np.abs(x.cpu().numpy() - ref) <= tol).all()
     if n:
         assert not got[:, max(int(uidx[-1]) + 1, 0):].any()
+
+
+# ---------------------------------------------------------------------------
+# shared edge cases: gather_rows and ftrl_cols
+# ---------------------------------------------------------------------------
+
+# (case id, dp, fold, lane offset, buffer width, N, column pattern); the
+# narrow path takes dp <= 8, the wide one the rest; N is a multiple of
+# no block size
+GATHER_ROWS_CASES = [
+    ("d1-fold8-off3", 1, 8, 3, 16, 1001, "tail"),
+    ("d3-width130-off5", 3, 1, 5, 130, 777, "tail"),
+    ("d8-fold8-off128", 8, 8, 128, 256, 2000, "tail"),
+    ("d8-fold8-off130", 8, 8, 130, 256, 1537, "tail"),  # unaligned lanes
+    ("d8-tiny-arange", 8, 8, 64, 128, 2048, "tiny"),
+    ("d13-off0", 13, 1, 0, 128, 1003, "tail"),
+    ("d64-all-sentinel", 64, 1, 0, 128, 700, "all-sentinel"),
+    ("d64-off64", 64, 1, 64, 128, 3001, "tail"),
+    ("d80-off8", 80, 1, 8, 128, 2049, "tail"),
+    ("d128-off2", 128, 1, 2, 256, 999, "tail"),  # unaligned lanes
+    ("d128-off0", 128, 1, 0, 256, 4097, "tail"),
+    ("d256-dense", 256, 1, 0, 256, 1500, "dense"),
+]
+GATHER_ROWS_IDS = [c[0] for c in GATHER_ROWS_CASES]
+
+
+def gather_rows_case(dp, fold, width, n, pattern):
+    """(table [dp, vc] float32 of bf16-exact values, cols [N] int32
+    sorted, buffer [N, width] float32).  vc is a multiple of 128.
+    ``tail``: two columns below 0, then the columns of distinct sorted ids
+    (// fold: folded tables repeat columns), then a sentinel tail;
+    ``tiny``: the tiny group's arange(N) // fold over a table of N // 16
+    columns, so the upper half of the columns lies past it; ``dense``:
+    sorted columns drawn with repeats, no sentinel; ``all-sentinel``."""
+    rng = np.random.default_rng(dp * 1000 + n + fold)
+    vc = -(-max(2 * n // fold, 256) // 128) * 128
+    if pattern == "tiny":
+        vc = n // fold // 2
+        cols = np.arange(n) // fold
+    elif pattern == "dense":
+        cols = np.sort(rng.integers(0, vc, size=n))
+    elif pattern == "all-sentinel":
+        cols = np.full(n, SENT // fold)
+    else:
+        live = int(0.75 * n)
+        ids = np.sort(rng.choice(vc * fold, size=live, replace=False))
+        cols = np.concatenate([[-1, -1], ids[: live - 2] // fold,
+                               np.full(n - live, SENT // fold)])
+    table = _t(rng.normal(size=(dp, vc)).astype(np.float32))
+    table = table.to(torch.bfloat16).float().numpy()
+    buf = rng.normal(size=(n, width)).astype(np.float32)
+    return table, cols.astype(np.int32), buf
+
+
+# (case id, fold, dp, N, kind); N is a multiple of no block size
+FTRL_COLS_CASES = [
+    ("fold8-step", 8, 8, 3001, "step"),
+    ("fold8-runs-at-edges", 8, 8, 1030, "edges"),
+    ("fold8-long-runs", 8, 8, 700, "long"),
+    ("fold8-run-to-end", 8, 8, 1001, "end-run"),
+    ("fold8-all-sentinel", 8, 8, 300, "all-sentinel"),
+    ("fold8-tiny-gate", 8, 8, 2048, "gate"),
+    ("fold8-non-owner-grads", 8, 8, 1500, "non-owner"),
+    ("fold1-d13", 1, 13, 777, "step"),
+]
+FTRL_COLS_IDS = [c[0] for c in FTRL_COLS_CASES]
+FTRL_COLS_VC = 4096
+# runs (first slot, length) joined by each kind: across a warp's edge
+# (slot 32), a block's (256) and a run longer than a warp and a block
+_FTRL_JOINS = {
+    "edges": [(28, 8), (60, 5), (252, 8), (510, 5), (766, 4)],
+    "long": [(17, 40), (96, 33), (200, 300)],
+    "end-run": [(990, 11)],
+}
+
+
+def ftrl_cols_case(kind, fold, dp, n):
+    """Numpy inputs of one column FTRL update on a [dp, 4096] table:
+    sorted ``cols`` (runs of equal columns; ``step`` and ``non-owner``
+    runs of 1-8 slots, 80% live, then a sentinel tail; ``edges``,
+    ``long`` and ``end-run`` distinct columns joined into the runs of
+    ``_FTRL_JOINS``, the last ending at slot N - 1 with no tail; ``gate``
+    the tiny group's arange(N) // fold, with the touch rows of every
+    third column's slots zeroed, as a presence gate does; ``all-sentinel``),
+    ``aug`` [dp + 8, N] (gradients multiples of 1/8 below 32 in magnitude,
+    so every float32 sum of them is exact in any order; at fold > 1
+    masked to the slot's sublane except for ``non-owner``; every seventh
+    slot's touch rows zeroed), ``table``, ``accum``, ``linear`` float32
+    and ``dim``."""
+    rng = np.random.default_rng(len(kind) * 100 + fold * 10 + dp)
+    if kind == "all-sentinel":
+        cols = np.full(n, SENT // fold)
+    elif kind == "gate":
+        cols = np.arange(n) // fold
+    elif kind in _FTRL_JOINS:
+        start = np.ones(n, bool)
+        for first, length in _FTRL_JOINS[kind]:
+            start[first + 1: first + length] = False
+        col_of = np.sort(rng.choice(FTRL_COLS_VC, size=int(start.sum()),
+                                    replace=False))
+        cols = col_of[np.cumsum(start) - 1]
+        if kind != "end-run":
+            cols[int(0.9 * n):] = SENT // fold
+    else:
+        live = int(0.8 * n)
+        runs = rng.integers(1, 9, size=live)
+        col_of = np.sort(rng.choice(FTRL_COLS_VC, size=live, replace=False))
+        cols = np.concatenate([np.repeat(col_of, runs)[:live],
+                               np.full(n - live, SENT // fold)])
+    # a slot's sublane: its place in its run, as distinct ids of a column
+    first = np.r_[0, np.flatnonzero(np.diff(cols)) + 1]
+    sub = (np.arange(n) - np.repeat(first, np.diff(np.r_[first, n]))) % fold
+    g = np.clip(np.round(rng.normal(size=(dp, n)) * 40.0), -255, 255) / 8.0
+    if fold > 1 and kind != "non-owner":
+        g *= np.arange(dp)[:, None] == sub[None, :]
+    g = g.astype(np.float32)
+    g[:, ::5] = 0.0
+    aug = make_aug_grads(_t(g), _t(sub) if fold > 1 else None).numpy().copy()
+    aug[dp:, 3::7] = 0.0
+    if kind == "gate":
+        aug[dp:, (cols % 3) == 1] = 0.0
+    shape = (dp, FTRL_COLS_VC)
+    return dict(
+        cols=cols.astype(np.int32), aug=aug, dim=1 if fold > 1 else dp,
+        table=(rng.normal(size=shape) * 0.01).astype(np.float32),
+        accum=(0.1 + rng.uniform(size=shape)).astype(np.float32),
+        linear=(rng.normal(size=shape) * 0.1).astype(np.float32),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GATHER_ROWS_CASES, ids=GATHER_ROWS_IDS)
+def test_gather_rows_edge_cases_on_card(cuda_device, case, dtype):
+    """Kernel equal to its plain version: an exact copy of the live
+    columns into their lanes, every other element of the buffer kept."""
+    _id, dp, fold, off, width, n, pattern = case
+    table, cols, buf = gather_rows_case(dp, fold, width, n, pattern)
+    tt = _t(table).to(getattr(torch, dtype)).to(cuda_device)
+    c = _t(cols).to(cuda_device)
+    got = gather_rows(tt, c, _t(buf).to(cuda_device), off)
+    want = gather_rows_plain(tt, c, _t(buf).to(cuda_device), off)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FTRL_COLS_CASES, ids=FTRL_COLS_IDS)
+def test_ftrl_cols_edge_cases_on_card(cuda_device, case, dtype):
+    """Kernel against plain version: the same float32 operations in the
+    same order, run sums in slot order, so equal to rounding (rtol 1e-6,
+    the tolerance of the other update kernels); untouched elements keep
+    their values."""
+    _id, fold, dp, n, kind = case
+    c = ftrl_cols_case(kind, fold, dp, n)
+    dev = cuda_device
+    a = [_t(c["table"]).to(getattr(torch, dtype)).to(dev),
+         _t(c["accum"]).to(dev), _t(c["linear"]).to(dev)]
+    b = [x.clone() for x in a]
+    before = [x.clone() for x in a]
+    cols, aug = _t(c["cols"]).to(dev), _t(c["aug"]).to(dev)
+    kw = dict(dim=c["dim"], fold=fold, l1=5e-4, l2=5e-4, loss_scale=1000.0)
+    ftrl_cols(*a, cols, aug, **kw)
+    ftrl_cols_plain(*b, cols, aug, **kw)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    changed = any(not torch.equal(x, y) for x, y in zip(a, before))
+    assert changed == (kind != "all-sentinel")

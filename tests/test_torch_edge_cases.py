@@ -1,5 +1,5 @@
-"""Edge cases of ``segsum_unsorted``, ``segsum_cols`` and ``adam_cols``
-on the CPU: the
+"""Edge cases of ``segsum_unsorted``, ``segsum_cols``, ``adam_cols``,
+``gather_rows`` and ``ftrl_cols`` on the CPU: the
 port's plain versions (which the wrappers take for CPU tensors) against
 the JAX package's Pallas kernels in interpret mode, on the same numpy
 inputs.  The case lists are shared with ``tests/test_torch_cuda.py``,
@@ -12,15 +12,18 @@ import pytest
 import torch
 
 from mindrec_tpu.ops.pallas import stream_update
+from mindrec_tpu.ops.pallas.stream_gather import streamed_gather_rows
 from mindrec_tpu.ops.pallas.stream_segsum import (
     streamed_segsum, streamed_segsum_unsorted,
 )
+from mindrec_tpu_torch.ops.kernels.gather import gather_rows
 from mindrec_tpu_torch.ops.kernels.segsum import segsum_cols, segsum_unsorted
-from mindrec_tpu_torch.ops.kernels.update_cols import adam_cols
+from mindrec_tpu_torch.ops.kernels.update_cols import adam_cols, ftrl_cols
 from test_torch_cuda import (
-    ADAM_COLS_CASES, SEGSUM_COLS_CASES, SEGSUM_COLS_IDS, SEGSUM_IDS,
-    SEGSUM_UNSORTED_CASES, adam_cols_case, segsum_cols_case, segsum_float64,
-    segsum_unsorted_case,
+    ADAM_COLS_CASES, FTRL_COLS_CASES, FTRL_COLS_IDS, GATHER_ROWS_CASES,
+    GATHER_ROWS_IDS, SEGSUM_COLS_CASES, SEGSUM_COLS_IDS, SEGSUM_IDS,
+    SEGSUM_UNSORTED_CASES, adam_cols_case, ftrl_cols_case, gather_rows_case,
+    segsum_cols_case, segsum_float64, segsum_unsorted_case,
 )
 
 
@@ -106,6 +109,66 @@ def test_adam_cols_edge_cases_match_pallas(kind, fold, state_dtype):
     out = adam_cols(*state, _t(c["cols"]), _t(c["aug"]),
                     torch.tensor(lr_t, dtype=torch.float32), dim=c["dim"],
                     fold=fold, **hyper)
+    for got, want in zip(out, ref):
+        rtol = 2.0**-7 if got.dtype == torch.bfloat16 else 2e-5
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=rtol,
+                                   atol=1e-8)
+    changed = any(not torch.equal(x, y) for x, y in zip(out, before))
+    assert changed == (kind != "all-sentinel")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GATHER_ROWS_CASES, ids=GATHER_ROWS_IDS)
+def test_gather_rows_edge_cases_match_pallas(case, dtype):
+    """The port (its plain version, which a CPU tensor takes) equals the
+    reference exactly: the table's values are exact in bf16, so the
+    reference's one-hot product (``matmul_dtype`` float32) copies them
+    at any precision its dot runs at.  The reference takes its slots in
+    whole chunks of 128: its columns and buffer are padded with
+    sentinel slots, which keep the buffer, and compared over the N
+    slots.  Every element outside the live slots' lanes keeps the
+    buffer's value."""
+    _id, dp, fold, off, width, n, pattern = case
+    table, cols, buf = gather_rows_case(dp, fold, width, n, pattern)
+    pad = -n % 128
+    ref = np.asarray(streamed_gather_rows(
+        jnp.asarray(table).astype(getattr(jnp, dtype)),
+        jnp.asarray(np.concatenate([cols, np.full(pad, 2**31 - 2, np.int32)])),
+        jnp.asarray(np.concatenate([buf, np.zeros((pad, width), np.float32)])),
+        lane_offset=off, tile=128, chunk=128, matmul_dtype=jnp.float32,
+        interpret=True))[:n]
+    out = gather_rows(_t(table).to(getattr(torch, dtype)), _t(cols),
+                      _t(buf), off)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    live = (cols >= 0) & (cols < table.shape[1])
+    keep = np.ones_like(buf, bool)
+    keep[live, off:off + dp] = False
+    np.testing.assert_array_equal(out.numpy()[keep], buf[keep])
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FTRL_COLS_CASES, ids=FTRL_COLS_IDS)
+def test_ftrl_cols_edge_cases_match_pallas(case, table_dtype):
+    """The reference runs with ``matmul_dtype`` float32 on gradients whose
+    float32 sums are exact in any order (so its one-hot sums equal the
+    port's slot-order sums at any precision its dot runs at); the FTRL
+    arithmetic is the same elementwise float32, held at rtol 2e-5 (as
+    the ``adam_cols`` cases); a bfloat16 weight may round to its
+    neighbour, one ulp = 2**-7.  Untouched elements keep their values."""
+    _id, fold, dp, n, kind = case
+    c = ftrl_cols_case(kind, fold, dp, n)
+    hyper = dict(dim=c["dim"], fold=fold, learning_rate=5e-2, l1=5e-4,
+                 l2=5e-4, loss_scale=1000.0)
+    tj, tt = getattr(jnp, table_dtype), getattr(torch, table_dtype)
+    ref = stream_update.streamed_ftrl_cols(
+        jnp.asarray(c["table"]).astype(tj), jnp.asarray(c["accum"]),
+        jnp.asarray(c["linear"]), jnp.asarray(c["cols"]),
+        jnp.asarray(c["aug"]), tile=256, chunk=256,
+        matmul_dtype=jnp.float32, interpret=True, **hyper)
+    state = [_t(c["table"]).to(tt), _t(c["accum"]), _t(c["linear"])]
+    before = [x.clone() for x in state]
+    out = ftrl_cols(*state, _t(c["cols"]), _t(c["aug"]), **hyper)
     for got, want in zip(out, ref):
         rtol = 2.0**-7 if got.dtype == torch.bfloat16 else 2e-5
         np.testing.assert_allclose(got.float().numpy(),

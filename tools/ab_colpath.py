@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the column path or the sorted-sum path of two trees of this
-repository in turns, in one run on one GPU.
+"""Time the column path, the sorted-sum path or the column gather and
+updates of two trees of this repository in turns, in one run on one GPU.
 
-    python3 tools/ab_colpath.py OLD_TREE NEW_TREE [--what colpath|sorted]
-                                [--turns 2] [--steps 20]
+    python3 tools/ab_colpath.py OLD_TREE NEW_TREE
+        [--what colpath|sorted|cols_update] [--turns 2] [--steps 20]
 
 A tree is a checkout of the repository, e.g. a parent commit unpacked
 with ``git archive`` under the git-ignored ``_cmp/``.  The trees run one
@@ -33,6 +33,15 @@ recipe's step (phase 6 of ``chip_smoke.py``) from a fresh state, 3
 warm-up and ``--steps`` timed steps (ms/step and the last loss) and 5
 steps under ``torch.profiler`` from another fresh state (device time per
 step).
+
+``--what cols_update``: ``gather_rows`` at every launch shape of the
+multitable step (the 4 deep tables and the 4 folded wide tables, from
+host batch 0's ids) and of the DeepFM ``row_layout=True`` step (fm and
+the folded linear table), ``ftrl_cols`` at the 4 folded wide tables,
+``adam_cols`` at its ``chip_smoke.py`` shapes (multitable emb128 with
+float32 m/v, DeepFM fm and linear with bf16 m/v), each checked against
+its plain version and timed by CUDA-graph replay; then the multitable
+step as under ``--what sorted``.
 """
 
 
@@ -89,29 +98,58 @@ def one(tree: str, steps: int) -> None:
     print("AB " + json.dumps(res), flush=True)
 
 
-def one_sorted(tree: str, steps: int) -> None:
+def tree_modules(tree: str):
+    """(the tree's chip_smoke, the chip_smoke.py beside this tool, device,
+    generator), the tree's kernels built.  The data and the cases come
+    from the chip_smoke.py beside this tool, so that both trees (also one
+    older than its helpers) get the same shapes; its functions call the
+    kernels and the step of the tree, whose package is imported first."""
     sys.path.insert(0, str(Path(tree).resolve()))
     import importlib.util
-    import inspect
 
     import torch
 
     import chip_smoke as cs
-    from mindrec_tpu_torch.data.criteo import to_device
-    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
 
-    # the data and the cases come from the chip_smoke.py beside this tool,
-    # so that both trees (also one older than its sorted_cases) get the
-    # same shapes; the kernels and the step are the tree's
     spec = importlib.util.spec_from_file_location(
         "smoke_cases", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     here = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(here)
     dev = torch.device("cuda", 0)
     cs.phase_build()
-    gen = torch.Generator(device=dev).manual_seed(0)
+    return cs, here, dev, torch.Generator(device=dev).manual_seed(0)
+
+
+def mt_step(cs, res, model, opts, host, steps) -> None:
+    """The tree's multitable step from a fresh state: 3 warm-up and
+    ``steps`` timed steps (ms/step, last loss), then 5 steps under
+    ``torch.profiler`` from another fresh state (device time per step)."""
+    import torch
+
+    from mindrec_tpu_torch.data.criteo import to_device
+    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    batches = [to_device(hb, dev) for hb in host]
+    step = make_train_step(model, *opts)
+    state = init_train_state(model, 0, *opts, device=dev)
+    out = cs.timed_steps("mt-main", step, state, batches, cs.MT_BATCH,
+                         cs.MT_PER_STEP, warmup=3, steps=steps)
+    res["mt_ms_per_step"] = out["ms_per_step"]
+    res["last_loss"] = out["last_loss"]
+    state = init_train_state(model, 0, *opts, device=dev)
+    res["mt_device_ms_per_step"] = cs.profile_steps(step, state, batches)
+
+
+def one_sorted(tree: str, steps: int) -> None:
+    import inspect
+
+    import torch
+
+    cs, here, dev, gen = tree_modules(tree)
     takes_perm = "perm" in inspect.signature(cs.segsum_sorted).parameters
-    model, (opt_w, opt_d), host, buckets = here.mt_setup()
+    model, opts, host, buckets = here.mt_setup()
     _data, bucket, wd_host = here.wd_setup()
     res = {"tree": tree, "takes_perm": takes_perm}
     for tag, u, p, rows, d, n_out in here.sorted_cases(
@@ -124,16 +162,45 @@ def one_sorted(tree: str, steps: int) -> None:
             res[f"sorted_{tag}_ms"] = cs.graph_ms(
                 lambda: cs.segsum_sorted(g[p.long()], u, n_out))
         del g
-    torch.cuda.empty_cache()
-    batches = [to_device(hb, dev) for hb in host]
-    step = make_train_step(model, opt_w, opt_d)
-    state = init_train_state(model, 0, opt_w, opt_d, device=dev)
-    out = cs.timed_steps("mt-main", step, state, batches, cs.MT_BATCH,
-                         cs.MT_PER_STEP, warmup=3, steps=steps)
-    res["mt_ms_per_step"] = out["ms_per_step"]
-    res["last_loss"] = out["last_loss"]
-    state = init_train_state(model, 0, opt_w, opt_d, device=dev)
-    res["mt_device_ms_per_step"] = cs.profile_steps(step, state, batches)
+    mt_step(cs, res, model, opts, host, steps)
+    print("AB " + json.dumps(res), flush=True)
+
+
+def one_cols_update(tree: str, steps: int) -> None:
+    import torch
+
+    cs, here, dev, gen = tree_modules(tree)
+    model, opts, host, buckets = here.mt_setup()
+    res = {"tree": tree}
+    for case in here.table_launches(dev, model, host[0]):
+        name = case["name"]
+        res[f"gather_{name}_ms"] = here.check_gather_launch(
+            dev, gen, "multitable", case)["ms"]
+        if case["fold"] > 1:
+            out = here.check_ftrl_launch(dev, gen, "multitable", case)
+            res[f"ftrl_{name}_ms"] = out["ms"]
+            res[f"ftrl_{name}_digest"] = out["digest"]
+        torch.cuda.empty_cache()
+    fm_model, _ = here.deepfm_recipe("feature_major")
+    fm_host = here.criteo_host_batches(here.FM_VOCAB, 1)[0]
+    fm_rows = {**fm_host, "uq_ids": fm_host["uq_ids"][:here.FM_BUCKET]}
+    for case in here.table_launches(dev, fm_model, fm_rows):
+        res[f"gather_fm_{case['name']}_ms"] = here.check_gather_launch(
+            dev, gen, "DeepFM row_layout=True", case)["ms"]
+    ub = buckets["emb128"]
+    uq = torch.full((ub,), here.SENTINEL, dtype=torch.int32, device=dev)
+    ids = host[0]["emb128:uq_ids"][:ub]
+    uq[:ids.size] = torch.from_numpy(ids).to(dev)
+    res["adam_emb128_ms"] = here.check_adam_cols(
+        "emb128, f32 m/v", dev, gen, model.specs["emb128"].storage_shape, 1,
+        uq, None, torch.float32, eps=1e-6, loss_scale=1000.0)["ms"]
+    for tag, spec, fold in (("fm", fm_model.v_spec, 1),
+                            ("linear", fm_model.w_spec, 8)):
+        res[f"adam_{tag}_ms"] = here.check_adam_cols(
+            f"DeepFM {tag}, bf16 m/v", dev, gen, spec.storage_shape, fold,
+            *here.padded_cols(fm_host["uq_ids"], fold, dev), torch.bfloat16,
+            eps=5e-8, loss_scale=1024.0)["ms"]
+    mt_step(cs, res, model, opts, host, steps)
     print("AB " + json.dumps(res), flush=True)
 
 
@@ -143,7 +210,9 @@ KEYS = {
     "sorted": ("sorted_W&D_ms", "sorted_emb128_ms", "sorted_emb64_single_ms",
                "sorted_multi_ms", "mt_ms_per_step", "mt_device_ms_per_step",
                "last_loss"),
+    "cols_update": None,  # every measure the runs print
 }
+ONE = {"colpath": one, "sorted": one_sorted, "cols_update": one_cols_update}
 
 
 def main() -> int:
@@ -155,7 +224,7 @@ def main() -> int:
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        (one if args.what == "colpath" else one_sorted)(args.one, args.steps)
+        ONE[args.what](args.one, args.steps)
         return 0
     if len(args.trees) != 2:
         ap.error("give two trees: OLD NEW")
@@ -177,7 +246,7 @@ def main() -> int:
                 return 1
             line = [x for x in p.stdout.splitlines() if x.startswith("AB ")][-1]
             runs.append(json.loads(line[3:]))
-    for key in KEYS[args.what]:
+    for key in KEYS[args.what] or [k for k in runs[0] if k != "tree"]:
         cols = [f"{tree}: " + ", ".join(f"{r[key]!r}" for r in runs
                                          if r["tree"] == tree)
                 for tree in args.trees]

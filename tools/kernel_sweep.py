@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time ``adam_cols``, ``segsum_unsorted``, ``segsum_cols`` or
-``segsum_sorted`` at the recipes' shapes with the kernels' constants
-changed, on one GPU.
+"""Time ``adam_cols``, ``segsum_unsorted``, ``segsum_cols``,
+``segsum_sorted``, ``gather_rows`` or ``ftrl_cols`` at the recipes' shapes
+with the kernels' constants changed, on one GPU.
 
 Run from the repository root::
 
@@ -9,6 +9,9 @@ Run from the repository root::
     python3 tools/kernel_sweep.py seg base c512:'kUChunk = 256;=>kUChunk = 512;'
     python3 tools/kernel_sweep.py colsum base l4:'kCLoads = 8;=>kCLoads = 4;'
     python3 tools/kernel_sweep.py sorted base r16:'kSRows = 8;=>kSRows = 16;'
+    python3 tools/kernel_sweep.py gather base n4:'kNarrowSlots = 2;=>kNarrowSlots = 4;'
+    python3 tools/kernel_sweep.py gather base q2:'kQuads = 4;=>kQuads = 2;'
+    python3 tools/kernel_sweep.py ftrl base b1k:'kFoldBlocks = 2048;=>kFoldBlocks = 1024;'
 
 Each variant ``name[:old=>new[;;old=>new...]]`` is a copy of the package
 under the git-ignored ``_cmp/sweep_<name>/`` with the plain-text
@@ -23,7 +26,14 @@ and W&D [24, N] feature-major shapes (bf16, as the view of [N, D]), with
 the device time of each pass; ``sorted`` - ``segsum_sorted`` through
 ``perm`` at the W&D [N, 128] and the multitable emb128 [N, 256],
 emb64_single and multi [N, 128] shapes (bf16, batch-order rows, with
-``chip_smoke.check_sorted``), with the device time of each pass.
+``chip_smoke.check_sorted``), with the device time of each pass;
+``gather`` - ``gather_rows`` at every launch shape of the multitable step
+and of the DeepFM ``row_layout=True`` step (``check_gather_launch``:
+kernel against plain version, device time, bounds); ``ftrl`` -
+``ftrl_cols`` at the multitable step's four folded wide tables
+(``check_ftrl_launch``).  ``--time-only`` (``gather`` and ``ftrl``) times
+the multitable launches without holding them to the plain versions, for
+variants that leave a pass out, to account for a kernel's time by pass.
 Compare variants only within one run.
 """
 
@@ -37,7 +47,29 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def measure(what: str) -> None:
+def time_launch(cs, dev, gen, what, case) -> None:
+    """Device time of ``gather_rows`` or (folded tables) ``ftrl_cols`` at
+    one launch shape, unchecked: for variants that leave out a pass."""
+    import torch
+
+    dp, vc = case["shape"]
+    cols, fold = case["cols"], case["fold"]
+    if what == "gather":
+        table = torch.randn((dp, vc), generator=gen, device=dev)
+        buf = torch.zeros((cols.numel(), case["width"]), device=dev)
+        ms = cs.graph_ms(lambda: cs.gather_rows(table, cols, buf, case["off"]))
+    elif fold > 1:
+        aug = cs.slot_grads(dev, gen, dp, fold, cols, case["sub"])
+        st = [torch.rand((dp, vc), generator=gen, device=dev) for _ in range(3)]
+        ms = cs.graph_ms(lambda: cs.ftrl_cols(*st, cols, aug, dim=1,
+                                              fold=fold))
+    else:
+        return
+    cs.log(f"[sweep] {what} {case['name']} [{dp}, {vc}] n {cols.numel()}, "
+           f"unchecked: {ms:.5f} ms")
+
+
+def measure(what: str, time_only: bool = False) -> None:
     """Runs in a variant's directory (its chip_smoke.py and package)."""
     sys.path.insert(0, ".")
     import numpy as np
@@ -80,6 +112,22 @@ def measure(what: str) -> None:
                    lambda: cs.segsum_cols(rows.T, uidx, n))
         return
     model, _opts, host, buckets = cs.mt_setup(steps=1)
+    if what in ("gather", "ftrl"):
+        for case in cs.table_launches(dev, model, host[0]):
+            if time_only:
+                time_launch(cs, dev, gen, what, case)
+            elif what == "gather":
+                cs.check_gather_launch(dev, gen, "multitable", case)
+            elif case["fold"] > 1:
+                cs.check_ftrl_launch(dev, gen, "multitable", case)
+        if what == "gather" and not time_only:
+            fm, _ = cs.deepfm_recipe("feature_major")
+            fm_uq = cs.criteo_host_batches(cs.FM_VOCAB, 1)[0]
+            fm_uq = {**fm_uq, "uq_ids": fm_uq["uq_ids"][:cs.FM_BUCKET]}
+            for case in cs.table_launches(dev, fm, fm_uq):
+                cs.check_gather_launch(dev, gen, "DeepFM row_layout=True",
+                                       case)
+        return
     if what == "sorted":
         _data, bucket, wd_host = cs.wd_setup()
         for case in cs.sorted_cases(dev, wd=(wd_host, bucket),
@@ -132,10 +180,13 @@ def measure(what: str) -> None:
 
 def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--measure":
-        measure(sys.argv[2])
+        measure(sys.argv[2], "--time-only" in sys.argv)
         return 0
+    time_only = "--time-only" in sys.argv
+    if time_only:
+        sys.argv.remove("--time-only")
     if len(sys.argv) < 3 or sys.argv[1] not in ("cols", "seg", "colsum",
-                                                   "sorted"):
+                                                   "sorted", "gather", "ftrl"):
         print(__doc__, file=sys.stderr)
         return 2
     for variant in sys.argv[2:]:
@@ -157,7 +208,8 @@ def main() -> int:
                 return 2
         print(f"=== variant {name} ({edits or 'as committed'})", flush=True)
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--measure", sys.argv[1]], cwd=work, check=True)
+                        "--measure", sys.argv[1]]
+                       + ["--time-only"] * time_only, cwd=work, check=True)
     return 0
 
 
