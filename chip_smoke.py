@@ -15,7 +15,8 @@ Phases (any failure exits non-zero):
    through a real synthetic Criteo batch's ``perm`` and ``uidx_sorted``,
    LazyAdam on the full deep table with bf16 m/v, FTRL on the full wide
    table), and time kernel, plain version and, where one exists, a
-   single PyTorch call computing the same function;
+   single PyTorch call computing the same function, beside each bound
+   (bytes, and whole 32-byte sectors of the touched rows);
    then both updates again on bf16 tables (the bf16-table bench extra);
 3. drive the train step at the recipe's full width (batch 16000 x 39,
    vocab 5.86M, emb 16, 7x1024 bf16 MLP, FTRL + LazyAdam with bf16 m/v,
@@ -73,9 +74,10 @@ Phases (any failure exits non-zero):
    these shapes and at edge shapes: D 1, 5, 24, 88, hot ids over several
    tiles, runs ending at tile edges, segments past n_out), and the fused
    LazyAdam / FTRL update + next-batch
-   gather (state to rounding, rows exact), each timed beside its plain
-   version, a single PyTorch call where one exists, and for the fused
-   kernels the separate update and gather kernels;
+   gather at its five launch shapes (``fused_shapes``: state to rounding,
+   rows exact), each timed beside its plain version, a single PyTorch
+   call where one exists, and for the fused kernels the separate update
+   and gather kernels, together and each alone, and the sector bound;
 9. the fused pump at the W&D shapes: batch k's update fused with batch
    k+1's gather over 4 batches, rows and state held against
    ``adam_cols`` / ``ftrl_cols`` followed by ``gather_cols`` from the
@@ -456,6 +458,15 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
         rows = torch.div(uq, pack, rounding_mode="floor")
         return rows, torch.remainder(uq, pack), int((rows < n_rows).sum())
 
+    def slice_sectors(rows, sub, n_rows, dim, elts):
+        """Whole 32-byte sectors of the [n_rows, 128] arrays that the live
+        slots' dim-wide slices touch, summed over arrays of element sizes
+        ``elts``."""
+        live = rows < n_rows
+        off = (rows[live].long() * 128 + sub[live].long() * dim)[:, None] \
+            + torch.arange(dim, device=dev)
+        return sum(sectors(off.flatten(), e) for e in elts)
+
     # -- LazyAdam on the full deep table, bf16 m/v ----------------------
     pack, dim, n_rows = 8, EMB, 733184
     rows, sub, valid = slots(pack, n_rows)
@@ -476,11 +487,14 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
     # ids of every slot; gradient and state of the live slots only
     t_b, by = bound(bucket * 8 + valid * dim * (4 + 2 * (4 + 2 + 2)),
                     valid * dim * 12)
+    sec = slice_sectors(rows, sub, n_rows, dim, (4, 2, 2))
     res["adam_rows"] = dict(
         max_abs_err=err, max_rel_err=rel,
         ms=graph_ms(lambda: adam_rows(*a, rows, sub, gs, lr_t, **hyper)),
         plain_ms=cuda_ms(lambda: adam_rows_plain(*b, rows, sub, gs, lr_t, **hyper), 5),
         bound_ms=t_b, bound_by=by, library_ms=None,
+        sector_bound_ms=bound(bucket * 8 + valid * dim * 4 + sec * 32 * 2,
+                              0)[0],
     )
     log("[kernel] adam_rows", json.dumps(res["adam_rows"]))
     del table, m, v, a, b
@@ -502,11 +516,14 @@ def phase_kernels(dev, gen, host_batch, bucket) -> dict:
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
     t_b, by = bound(bucket * 8 + valid * dim * (4 + 2 * 12),
                     valid * dim * 16)
+    sec = slice_sectors(rows, sub, n_rows, dim, (4, 4, 4))
     res["ftrl_rows"] = dict(
         max_abs_err=err, max_rel_err=rel,
         ms=graph_ms(lambda: ftrl_rows(*a, rows, sub, gs, **hyper)),
         plain_ms=cuda_ms(lambda: ftrl_rows_plain(*b, rows, sub, gs, **hyper), 5),
         bound_ms=t_b, bound_by=by, library_ms=None,
+        sector_bound_ms=bound(bucket * 8 + valid * dim * 4 + sec * 32 * 2,
+                              0)[0],
     )
     log("[kernel] ftrl_rows", json.dumps(res["ftrl_rows"]))
     del table, accum, linear, a, b
@@ -936,9 +953,18 @@ def live_cols(cols, vc):
 
 
 def sectors(cols, elt) -> int:
-    """32-byte sectors of a table row that hold one of ``cols``."""
+    """32-byte sectors of a table row that hold one of ``cols`` (or of a
+    flat array that hold one of the element offsets ``cols``)."""
     return int(torch.unique(torch.div(cols, 32 // elt,
                                       rounding_mode="floor")).numel())
+
+
+def digest(tensors) -> str:
+    """Fingerprint of tensors' bytes: two trees' kernels, fed the same
+    inputs, agree bit for bit when their digests do."""
+    return hashlib.sha256(b"".join(
+        x.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        for x in tensors)).hexdigest()[:16]
 
 
 def gather_rows_bounds(table, cols, off, width):
@@ -1035,14 +1061,11 @@ def check_ftrl_launch(dev, gen, path, case, per_10=10, plain=False) -> dict:
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
     bit_equal = all(torch.equal(x, y) for x, y in zip(a, b))
-    # fingerprint of the updated state: two trees' kernels, fed the same
-    # inputs, agree bit for bit when their digests do
-    digest = hashlib.sha256(b"".join(x.cpu().numpy().tobytes()
-                                     for x in a)).hexdigest()[:16]
     t_b, by, sec = ftrl_cols_bounds(a[0], cols, fold)
     ms = graph_ms(lambda: ftrl_cols(*a, cols, aug, **hyper))
     out = dict(
-        max_abs_err=err, max_rel_err=rel, bit_equal=bit_equal, digest=digest,
+        max_abs_err=err, max_rel_err=rel, bit_equal=bit_equal,
+        digest=digest(a),
         ms=ms, bound_ms=t_b, bound_by=by, library_ms=None,
         sector_bound_ms=sec, launches=per_10, ms_lost=per_10 * (ms - t_b),
         slots=cols.numel(), live_slots=int(live_cols(cols, vc).numel()))
@@ -1084,6 +1107,7 @@ def check_adam_cols(tag, dev, gen, shape, fold, cols, sub, state_dtype, *,
     err, rel = max_errs(zip(a, b))
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    state_digest = digest(a)
     live = cols[(cols >= 0) & (cols < vc)]
     n_live = int(live.numel())
     distinct = torch.unique(live)
@@ -1103,7 +1127,7 @@ def check_adam_cols(tag, dev, gen, shape, fold, cols, sub, state_dtype, *,
         bound_ms=t_b, bound_by=by, library_ms=None,
         sector_bound_ms=bound(io + sec_bytes, 0)[0],
         whole_table_ms=graph_ms(lambda: [x.mul_(1.0) for x in b]),
-        slots=n, live_slots=n_live,
+        slots=n, live_slots=n_live, digest=state_digest,
     )
     log(f"[kernel] adam_cols ({tag} [{dp}, {vc}] fold {fold}, n {n})",
         json.dumps(out))
@@ -1133,6 +1157,9 @@ def check_gather_cols(tag, dev, gen, shape, cols, dtype=torch.float32) -> dict:
     live = cols[(cols >= 0) & (cols < vc)]
     distinct = int(torch.unique(live).numel())
     t_b, by = bound(n * 4 + distinct * dp * table.element_size() + dp * n * 4, 0)
+    # whole 32-byte sectors of the live columns in each table row
+    sec = bound(n * 4 + sectors(live, table.element_size()) * dp * 32
+                + dp * n * 4, 0)[0]
     clamped = cols.clamp(0, vc - 1).long()
     out = dict(
         max_abs_err=err, max_rel_err=rel,
@@ -1140,7 +1167,7 @@ def check_gather_cols(tag, dev, gen, shape, cols, dtype=torch.float32) -> dict:
         plain_ms=cuda_ms(lambda: gather_cols_plain(table, cols), 5),
         bound_ms=t_b, bound_by=by,
         library_ms=graph_ms(lambda: torch.index_select(table, 1, clamped)),
-        live=int(live.numel()), distinct=distinct,
+        sector_bound_ms=sec, live=int(live.numel()), distinct=distinct,
     )
     log(f"[kernel] gather_cols ({tag} [{dp}, {vc}] -> [{dp}, {n}])",
         json.dumps(out))
@@ -1273,12 +1300,47 @@ def fused_calls(kind, lr_t):
     )
 
 
+def fused_bounds(state, cols_u, aug, cols_g, fold):
+    """(bound ms, its kind, sector bound ms, shared columns) of a fused
+    update + gather: every update slot's and next id's column (4 B), the
+    gradient and touch rows of the live update slots (a sentinel slot
+    reads none), each touched element (its sublane's summed touch row,
+    fold 1: touch row 0, above 0) of the weight and two state arrays read
+    and written, every other element of the next columns' weights read
+    (their untouched sublanes and the gather-only columns), and the rows
+    written once.  The sector bound moves the whole 32-byte sectors of
+    those elements instead."""
+    dp, vc = state[0].shape
+    ok = (cols_u >= 0) & (cols_u < vc)
+    upd_cols, inv = torch.unique(cols_u[ok], return_inverse=True)
+    touch = torch.zeros((8, upd_cols.numel()), device=aug.device)
+    touch.index_add_(1, inv, aug[dp:][:, ok])
+    gate = touch[:1].expand(dp, -1) if fold == 1 else touch[:dp]
+    sub, at = torch.nonzero(gate > 0, as_tuple=True)
+    touched = sub * vc + upd_cols[at].long()  # flat element offsets
+    next_cols = torch.unique(cols_g[(cols_g >= 0) & (cols_g < vc)]).long()
+    read = torch.unique(torch.cat([
+        touched, (torch.arange(dp, device=aug.device)[:, None] * vc
+                  + next_cols[None, :]).flatten()]))
+    io = ((cols_u.numel() + cols_g.numel()) * 4
+          + (dp + 8) * int(ok.sum()) * 4 + dp * cols_g.numel() * 4)
+    w_e = state[0].element_size()
+    st_e = sum(x.element_size() for x in state[1:])
+    t_b, by = bound(io + read.numel() * w_e + touched.numel() * w_e
+                    + touched.numel() * st_e * 2, touched.numel() * 16)
+    sec = (sectors(read, w_e) + sectors(touched, w_e)
+           + 2 * sum(sectors(touched, x.element_size()) for x in state[1:]))
+    shared = int(torch.isin(next_cols, upd_cols.long()).sum())
+    return t_b, by, bound(io + sec * 32, 0)[0], shared
+
+
 def check_fused(tag, dev, gen, kind, shape, fold, ids_u, ids_g,
                 state_dtype=torch.bfloat16) -> dict:
     """One fused update + gather against its plain version (state to
     rounding: the same float32 operations; rows exact from the updated
-    table), timed beside the plain version and beside the separate update
-    and gather kernels run one after the other."""
+    table), timed beside the plain version, the separate update and
+    gather kernels run one after the other, and each of the two alone.
+    ``digest`` fingerprints the updated state and the rows."""
     name = f"fused_{kind}_gather"
     dp, vc = shape
     cols_u, sub_u = padded_cols(ids_u, fold, dev)
@@ -1294,21 +1356,9 @@ def check_fused(tag, dev, gen, kind, shape, fold, ids_u, ids_g,
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
     if not torch.equal(rows_a, gather_cols(a[0], cols_g)):
         fail(f"{name} ({tag}): rows are not the updated table's columns")
+    state_digest = digest([*a, rows_a])
     del rows_a, rows_b, b
-    live_u = cols_u[(cols_u >= 0) & (cols_u < vc)]
-    live_g = cols_g[(cols_g >= 0) & (cols_g < vc)]
-    upd_cols, next_cols = torch.unique(live_u), torch.unique(live_g)
-    shared = int(torch.isin(next_cols, upd_cols).sum())
-    touched = int(upd_cols.numel()) * dp if fold == 1 else int(live_u.numel())
-    w_b = state[0].element_size()
-    st_b = state[1].element_size() + state[2].element_size()
-    n_u, n_g = cols_u.numel(), cols_g.numel()
-    # a sentinel slot returns before it reads its gradient: live slots only
-    nbytes = (n_u * 4 + (dp + 8) * int(live_u.numel()) * 4
-              + touched * (w_b + st_b) * 2
-              + n_g * 4 + dp * n_g * 4
-              + (int(next_cols.numel()) - shared) * dp * w_b)
-    t_b, by = bound(nbytes, touched * 16)
+    t_b, by, sec, shared = fused_bounds(state, cols_u, aug, cols_g, fold)
     c = [x.clone() for x in state]
 
     def separate():
@@ -1319,14 +1369,37 @@ def check_fused(tag, dev, gen, kind, shape, fold, ids_u, ids_g,
         max_abs_err=err, max_rel_err=rel,
         ms=graph_ms(lambda: fused(a, cols_u, aug, cols_g, **hyper)),
         plain_ms=cuda_ms(lambda: plain(c, cols_u, aug, cols_g, **hyper), 3),
-        bound_ms=t_b, bound_by=by, library_ms=None,
+        bound_ms=t_b, bound_by=by, library_ms=None, sector_bound_ms=sec,
         separate_kernels_ms=graph_ms(separate),
-        live_update_slots=int(live_u.numel()), live_next=int(live_g.numel()),
-        shared_columns=shared,
+        update_kernel_ms=graph_ms(lambda: update(c, cols_u, aug, **hyper)),
+        gather_kernel_ms=graph_ms(lambda: gather_cols(c[0], cols_g)),
+        live_update_slots=int(((cols_u >= 0) & (cols_u < vc)).sum()),
+        live_next=int(((cols_g >= 0) & (cols_g < vc)).sum()),
+        shared_columns=shared, digest=state_digest,
     )
-    log(f"[kernel] {name} ({tag} [{dp}, {vc}] fold {fold}, n_u {n_u}, "
-        f"n_g {n_g})", json.dumps(out))
+    log(f"[kernel] {name} ({tag} [{dp}, {vc}] fold {fold}, n_u "
+        f"{cols_u.numel()}, n_g {cols_g.numel()})", json.dumps(out))
     return out
+
+
+def fused_shapes(fm_host, wd_host) -> list:
+    """The five launch shapes of the fused kernels, from two host-prepared
+    batches of each recipe (update batch 0, gather batch 1): (tag,
+    optimizer, storage shape, fold, update ids, next ids)."""
+    fm = DeepFMModel(DeepFMConfig(vocab_size=FM_VOCAB, sparse=True,
+                                  table_layout="feature_major"))
+    wd = WideDeepModel(WideDeepConfig(vocab_size=VOCAB, emb_dim=EMB,
+                                      sparse=True,
+                                      table_layout="feature_major"))
+    w0, w1 = wd_host[0]["uq_ids"], wd_host[1]["uq_ids"]
+    f0, f1 = fm_host[0]["uq_ids"], fm_host[1]["uq_ids"]
+    return [
+        ("W&D deep", "adam", wd.deep_spec.storage_shape, 1, w0, w1),
+        ("W&D wide", "ftrl", wd.wide_spec.storage_shape, 8, w0, w1),
+        ("DeepFM fm", "adam", fm.v_spec.storage_shape, 1, f0, f1),
+        ("DeepFM linear", "adam", fm.w_spec.storage_shape, 8, f0, f1),
+        ("DeepFM linear", "ftrl", fm.w_spec.storage_shape, 8, f0, f1),
+    ]
 
 
 def phase_col_kernels(dev, gen, fm_host, wd_host) -> dict:
@@ -1342,7 +1415,7 @@ def phase_col_kernels(dev, gen, fm_host, wd_host) -> dict:
     fm_v, fm_w = fm.v_spec.storage_shape, fm.w_spec.storage_shape
     wd_d, wd_w = wd.deep_spec.storage_shape, wd.wide_spec.storage_shape
     res = {}
-    uq0, uq1 = fm_host[0]["uq_ids"], fm_host[1]["uq_ids"]
+    uq0 = fm_host[0]["uq_ids"]
     res["gather_cols"] = check_gather_cols(
         "DeepFM fm", dev, gen, fm_v, padded_cols(uq0, 1, dev)[0])
     check_gather_cols("DeepFM linear", dev, gen, fm_w,
@@ -1369,16 +1442,12 @@ def phase_col_kernels(dev, gen, fm_host, wd_host) -> dict:
     check_segsum_cols("W&D", dev, gen, wd_d[0] + wd_w[0],
                       torch.from_numpy(wd_host[0]["uidx_sorted"]).to(dev))
     check_segsum_cols_edges(dev, gen)
-    torch.cuda.empty_cache()
-    w0, w1 = wd_host[0]["uq_ids"], wd_host[1]["uq_ids"]
-    res["fused_adam_gather"] = check_fused("W&D deep", dev, gen, "adam", wd_d,
-                                           1, w0, w1)
-    torch.cuda.empty_cache()
-    res["fused_ftrl_gather"] = check_fused("W&D wide", dev, gen, "ftrl", wd_w,
-                                           8, w0, w1)
-    check_fused("DeepFM fm", dev, gen, "adam", fm_v, 1, uq0, uq1)
-    check_fused("DeepFM linear", dev, gen, "adam", fm_w, 8, uq0, uq1)
-    check_fused("DeepFM linear", dev, gen, "ftrl", fm_w, 8, uq0, uq1)
+    # the fused kernels: the W&D shapes are reported in the kernels line
+    for tag, kind, shape, fold, ids_u, ids_g in fused_shapes(fm_host,
+                                                            wd_host):
+        torch.cuda.empty_cache()
+        out = check_fused(tag, dev, gen, kind, shape, fold, ids_u, ids_g)
+        res.setdefault(f"fused_{kind}_gather", out)
     torch.cuda.synchronize()
     return res
 

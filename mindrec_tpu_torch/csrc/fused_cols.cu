@@ -1,56 +1,80 @@
 // Fused table pump on feature-major [dp, vc] storage: the lazy column
 // update of one batch (LazyAdam or FTRL-proximal, in place) and the gather
 // of the next batch's columns from the updated table,
-// rows[p, j] = table'[p, next[j]], in one pass.
+// rows[p, j] = table'[p, next[j]], in one launch.
 //
 // Replaces mindrec_tpu/ops/pallas/stream_fused.py: fused_adam_gather and
 // fused_ftrl_gather, which walked a flat schedule of (tile, update chunks,
 // gather chunks) over every touched tile of the table, combined gradients
 // and gathered with one-hot matmuls, and copied gather-only tiles through
 // VMEM.  The kernel's whole contract is that the gather sees the update.
-// Here one block works a range of table columns: it updates the columns of
-// the range's gradient slots exactly as update_cols.cu does (the slot that starts
-// a run of equal columns sums the run and updates once; the arithmetic is
-// shared, update_cols.cuh), waits at __syncthreads(), and then gathers its
-// next ids from the values it has just written.  A column belongs to one
-// range, so no barrier across the grid is needed; a range with gradients
-// and no next ids only updates, a range with next ids and no gradients
-// only reads.
 //
-// The ranges follow the ids, not the table: equal column ranges put the
-// dense part of the id space (Criteo's small fields) on one block, which
-// then ran alone for most of the kernel.  fused_bounds takes every
-// kSlots-th column of each sorted id list as a boundary and merges the two
-// boundary lists by rank (a binary search in the other list per
-// candidate), so a range holds at most kSlots gradient slots and kSlots
-// next ids (plus a run of equal columns), and stores beside each boundary
-// where it falls in both lists, so a block reads its two windows and
-// searches nothing.  kBlocks resident blocks walk the ranges (the many
-// empty ranges of a sentinel-padded list cost one read each).  Next
-// columns outside [0, vc) (the sentinel pads) belong to no range; every
-// block writes a share of their zeros before its walk.  A block
-// has kSlots threads for each of kPar sublanes at a time: threads of the
-// update take consecutive slots of one sublane and threads of the gather
-// consecutive j, so gradient reads and row writes coalesce.
-// Bound: bytes - those of the column update plus those of the column
-// gather, less one read of the columns that both touch.
+// What bounds it is sectors and the rows: each touched element of the
+// weight and its two state arrays is a 32-byte sector of its own, read and
+// written; each gather-only column is dp sectors read; the rows are
+// dp x n_g float32 written once (at the DeepFM shapes 91% of them the
+// zeros of sentinel pads).  The gather needs nothing from the update but
+// the columns the update writes, so the design keeps the two apart and
+// runs them side by side: no thread of the launch waits for another.  A
+// block takes one of two roles (the first blocks alternate, so both start
+// at once):
+// * update blocks run the column updates' own layouts and schedules
+//   (update_cols.cuh, update_cols.cu): LazyAdam at every fold and FTRL at
+//   fold 1 a slot and kSub sublanes per thread, blocks striding over the
+//   slots as adam_cols' do; FTRL at fold > 1 a lane per slot over all
+//   sublanes with the touched elements compacted over the warp.  The head
+//   of a run of equal columns also finds its column among the sorted next
+//   ids, while its weight and state loads are in flight, and writes, for
+//   every next id j that names it, rows[p, j] for each of its sublanes:
+//   the weight as stored where the touch gate opened, as loaded where it
+//   did not (at fold > 1 the head loads its untouched sublanes, the lane
+//   that updates a touched element writes that one);
+// * gather blocks take 256 next ids x kGRows sublanes: an id outside
+//   [0, vc) gives zeros; an id whose column is in the update list is left
+//   to that column's head; any other column's values are loaded (all in
+//   flight before the stores) and written.  Nobody writes those columns
+//   in this launch, so the loads start at once.
+// So every rows element is written by exactly one thread, from a value no
+// other thread changes after it is read, and the launch needs no barrier.
+// Equal next ids (fold 8: next = ids // 8) all take the head's column; the
+// untouched sublanes of a shared column keep their values; a zeroed touch
+// row leaves its sublane as it was.  Both lookups (a column among the next
+// ids, a next id among the update columns) are warp_span: a warp's keys
+// ascend with its lanes, so the warp places them together in a few
+// dependent loads where a binary search per thread takes twenty.
+//
+// On the card (NVIDIA H100 80GB HBM3, 700 W) the two halves barely
+// overlap: at the large shapes both are bound by device memory, and the
+// head's search lengthens every update round, so the launch takes about
+// as long as the separate update and gather kernels (PERF.md, section 6, by
+// pass).  Designs that made gathers wait for the update instead (a grid
+// claiming work items in order; per-block flags or a done mark with
+// counters of blocks) paid more in per-block synchronisation, at 6,500 to
+// 65,000 blocks a launch, than they saved.  Bound: bytes - cols, next, the
+// gradient and touch rows of the live slots read once, each touched
+// element's weight and two state values read and written once, every
+// other element of the next columns read once, and the rows written once.
 
 #include "update_cols.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kSlots = 256;       // ids between two boundaries of a list
-constexpr int kPar = kThreads / kSlots;  // sublanes a block works on at once
-constexpr int kBlocks = 264;  // resident blocks: two per multiprocessor
+constexpr int kThreads = 256;  // threads of a block, of either role
+constexpr int kSub = 2;        // sublanes per update thread, as adam_cols
+constexpr int kMaxBlocksX = 1024;  // update blocks along the slots, as adam_cols
+constexpr int kGRows = 8;      // sublanes per gather thread
+constexpr int kWindows = 4;    // windows of 32 a warp walks in warp_span
+constexpr int kMinBlocks = 5;  // resident blocks the registers must allow
+constexpr int kFoldMinBlocks = 4;  // the same at fold > 1
+constexpr unsigned kAll = 0xffffffffu;
 
-// First index in [0, n) whose (ascending) column is >= key, else n.
-__device__ __forceinline__ int lower_bound(const int* __restrict__ cols, int n,
-                                           int64_t key) {
+// First index in [0, n) whose (ascending) value is >= key, else n.
+__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
+                                           int key) {
   int lo = 0, hi = n;
   while (lo < hi) {
-    int mid = lo + (hi - lo) / 2;
-    if (cols[mid] < key)
+    const int mid = lo + (hi - lo) / 2;
+    if (a[mid] < key)
       lo = mid + 1;
     else
       hi = mid;
@@ -58,208 +82,286 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ cols, int n,
   return lo;
 }
 
-// Number of boundaries b in [0, nb) of a list (its every kSlots-th column)
-// that are < key (or <= key with `inclusive`).
-__device__ __forceinline__ int boundaries_below(const int* __restrict__ cols,
-                                                int nb, int key,
-                                                bool inclusive) {
-  int lo = 0, hi = nb;
-  while (lo < hi) {
-    int mid = lo + (hi - lo) / 2;
-    int c = cols[static_cast<int64_t>(mid) * kSlots];
-    if (c < key || (inclusive && c == key))
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// The two boundary lists merged in ascending order (gradient boundaries
-// first among equals), plus a last boundary at vc.  For the boundary of
-// rank k, its column clamped into [0, vc]: bounds[0][k] and bounds[1][k]
-// are the first gradient slot and the first next id at or past it.
-// bounds is [2, nb + 1], nb = nbu + nbg; one thread per boundary.
-__global__ void fused_bounds(const int* __restrict__ cols, int n, int nbu,
-                             const int* __restrict__ next, int n_g, int nbg,
-                             int64_t vc, int* __restrict__ bounds) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nb = nbu + nbg;
-  if (i > nb) return;
-  int64_t c;
-  int rank = nb;
-  if (i == nb) {
-    c = vc;
-  } else if (i < nbu) {
-    c = cols[static_cast<int64_t>(i) * kSlots];
-    rank = i + boundaries_below(next, nbg, static_cast<int>(c), false);
-  } else {
-    const int j = i - nbu;
-    c = next[static_cast<int64_t>(j) * kSlots];
-    rank = j + boundaries_below(cols, nbu, static_cast<int>(c), true);
-  }
-  c = c < 0 ? 0 : (c > vc ? vc : c);
-  bounds[rank] = lower_bound(cols, n, c);
-  bounds[nb + 1 + rank] = lower_bound(next, n_g, c);
-}
-
-// The windows of column range k: [s0, s1) of the gradient slots and
-// [g0, g1) of the next ids.
-struct Windows {
-  int s0, s1, g0, g1;
+// The entries of a sorted list equal to a key: [j0, j1).
+struct Span {
+  int j0, j1;
 };
 
-__device__ __forceinline__ Windows block_windows(const int* __restrict__ bounds,
-                                                 int range_blocks, int k) {
-  const int* g = bounds + (range_blocks + 1);
-  return Windows{bounds[k], bounds[k + 1], g[k], g[k + 1]};
-}
-
-// rows[p, j] = table[p, next[j]] for the block's window [g0, g1); table is
-// read through a plain pointer, after the block's own writes.
-template <typename TW>
-__device__ __forceinline__ void gather_window(const TW* table, int64_t vc,
-                                              int dp,
-                                              const int* __restrict__ next,
-                                              int n_g, int g0, int g1,
-                                              float* __restrict__ rows) {
-  for (int j = g0 + threadIdx.x % kSlots; j < g1; j += kSlots) {
-    const int c = next[j];
-    for (int p = threadIdx.x / kSlots; p < dp; p += kPar)
-      rows[static_cast<int64_t>(p) * n_g + j] =
-          mr::to_f(table[static_cast<int64_t>(p) * vc + c]);
+// The span of key in the ascending a[0, len) for each lane with need
+// (the others get an empty span), found by the warp together.  The needy
+// lanes' keys ascend with the lane (they come from consecutive sorted
+// slots or next ids), so a 32-way search by the whole warp places the
+// smallest (three rounds of 32 loads at 624,000 entries), and windows of
+// 32 entries from there, one coalesced load each, place the rest by
+// shuffles: a few dependent loads against a binary search's twenty.  A
+// lane still open after kWindows windows searches alone.  Every lane of
+// the warp calls it.
+__device__ __forceinline__ Span warp_span(const int* __restrict__ a, int len,
+                                          int key, bool need) {
+  const int lane = threadIdx.x & 31;
+  const unsigned needy = __ballot_sync(kAll, need);
+  if (needy == 0) return Span{0, 0};
+  const int key0 = __shfl_sync(kAll, key, __ffs(needy) - 1);
+  int lo = 0, hi = len;  // the smallest key's lower bound is in [lo, hi]
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) / 32;
+    const int pos = lo + (lane + 1) * step - 1;
+    const int cnt = __popc(__ballot_sync(kAll, pos < hi && a[pos] < key0));
+    if (cnt < 32) hi = min(hi, lo + (cnt + 1) * step - 1);
+    lo += cnt * step;
   }
-}
-
-// Zero rows[:, j] for the next ids outside [0, vc): the head [0, h0) of
-// negative ids and the tail [t0, n_g) of ids >= vc.  Block zb of nzb.
-__device__ __forceinline__ void zero_outside(int h0, int t0, int n_g, int dp,
-                                             float* __restrict__ rows, int zb,
-                                             int nzb) {
-  const int cnt = h0 + (n_g - t0);
-  for (int p = 0; p < dp; ++p) {
-    float* row = rows + static_cast<int64_t>(p) * n_g;
-    for (int k = zb * kThreads + threadIdx.x; k < cnt; k += nzb * kThreads)
-      row[k < h0 ? k : t0 + (k - h0)] = 0.f;
-  }
-}
-
-// One optimizer step of element idx from its summed gradient.
-template <typename TW, typename TS>
-struct AdamUpdate {
-  TW* table;
-  TS* m;
-  TS* v;
-  mr::AdamHyper h;
-  __device__ __forceinline__ void operator()(int64_t idx, float sum) const {
-    mr::adam_element(table, m, v, idx, sum, h);
-  }
-};
-
-template <typename TW>
-struct FtrlUpdate {
-  TW* table;
-  float* accum;
-  float* linear;
-  mr::FtrlHyper h;
-  __device__ __forceinline__ void operator()(int64_t idx, float sum) const {
-    mr::ftrl_element(table, accum, linear, idx, sum, h);
-  }
-};
-
-// Every block first writes its share of the zeros of the sentinel outputs
-// (stores that drain while it works) and then walks the column ranges
-// k = block, block + grid, ... (most ranges of a sentinel-padded id list
-// are empty and cost one read).
-template <typename TW, typename Update>
-__global__ void __launch_bounds__(kThreads)
-fused_kernel(TW* table, Update update, int64_t vc, int dp,
-             const int* __restrict__ cols, const float* __restrict__ g, int n,
-             int fold, const int* __restrict__ next, int n_g,
-             float* __restrict__ rows, const int* __restrict__ bounds,
-             int range_blocks) {
-  // the first and the last boundary sit at the ends of the live next ids
-  const int* next_at = bounds + (range_blocks + 1);
-  zero_outside(next_at[0], next_at[range_blocks], n_g, dp, rows, blockIdx.x,
-               gridDim.x);
-  for (int k = blockIdx.x; k < range_blocks; k += gridDim.x) {
-    const Windows w = block_windows(bounds, range_blocks, k);
-    if (w.s0 == w.s1 && w.g0 == w.g1) continue;  // the same for every thread
-    for (int p = threadIdx.x / kSlots; p < dp; p += kPar) {
-      for (int u = w.s0 + threadIdx.x % kSlots; u < w.s1; u += kSlots) {
-        int c;
-        float sum, touch;
-        if (!mr::run_sum(cols, g, n, vc, dp, fold, u, p, &c, &sum, &touch))
-          continue;
-        if (touch > 0.f) update(static_cast<int64_t>(p) * vc + c, sum);
-      }
+  int j0 = -1, j1 = -1, base = lo;
+  bool open = need;
+  for (int w = 0; w < kWindows && __any_sync(kAll, open); ++w, base += 32) {
+    const int x = base + lane < len ? a[base + lane] : INT32_MAX;
+    int lt = 0, le = 0;  // entries of the window below and not above key
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      if (__shfl_sync(kAll, x, lt + s - 1) < key) lt += s;
+      if (__shfl_sync(kAll, x, le + s - 1) <= key) le += s;
     }
-    __syncthreads();  // the block's updates are visible to its gather
-    gather_window(table, vc, dp, next, n_g, w.g0, w.g1, rows);
+    const int last = __shfl_sync(kAll, x, 31);
+    if (last < key) lt = 32;
+    if (last <= key) le = 32;
+    if (open && j0 < 0 && lt < 32) j0 = base + lt;
+    if (open && le < 32) {
+      j1 = base + le;
+      open = false;
+    }
   }
+  if (open) {
+    if (j0 < 0) j0 = base + lower_bound(a + base, len - base, key);
+    j1 = j0 + lower_bound(a + j0, len - j0, key + 1);
+  }
+  return need ? Span{j0, j1} : Span{0, 0};
+}
+
+// Rows policy of the slot layout: a head writes its kSub sublanes into
+// every j of its span.
+struct SlotRows {
+  static constexpr bool kOn = true;
+  using At = Span;
+  const int* next;
+  int n_g, dp;
+  float* rows;
+  __device__ __forceinline__ At find(int c, bool head) const {
+    return warp_span(next, n_g, c, head);
+  }
+  template <int R>
+  __device__ __forceinline__ void write(At at, int p0,
+                                        const float (&wq)[R]) const {
+    for (int j = at.j0; j < at.j1; ++j) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (p0 + r < dp) rows[static_cast<int64_t>(p0 + r) * n_g + j] = wq[r];
+    }
+  }
+  __device__ __forceinline__ void untouched(At, int, unsigned) const {}
+  __device__ __forceinline__ void stage(int, At) const {}
+  __device__ __forceinline__ void element(int, int, float) const {}
+};
+
+// Rows policy of the folded layout: the head loads and writes its
+// untouched sublanes and stages its span for the lanes that update its
+// touched elements (spans: the warp's 32 in shared memory).
+template <typename TW>
+struct FoldRows {
+  static constexpr bool kOn = true;
+  using At = Span;
+  const TW* table;
+  int64_t vc;
+  const int* next;
+  int n_g, dp;
+  float* rows;
+  Span* spans;
+  __device__ __forceinline__ At find(int c, bool head) const {
+    return warp_span(next, n_g, c, head);
+  }
+  template <int R>
+  __device__ __forceinline__ void write(At, int, const float (&)[R]) const {}
+  __device__ __forceinline__ void untouched(At at, int c,
+                                            unsigned mask) const {
+    if (at.j0 == at.j1) return;
+    float w[mr::kFoldMax];
+#pragma unroll
+    for (int p = 0; p < mr::kFoldMax; ++p)
+      w[p] = (p < dp && !((mask >> p) & 1u))
+                 ? mr::to_f(table[static_cast<int64_t>(p) * vc + c])
+                 : 0.f;
+    for (int j = at.j0; j < at.j1; ++j) {
+#pragma unroll
+      for (int p = 0; p < mr::kFoldMax; ++p)
+        if (p < dp && !((mask >> p) & 1u))
+          rows[static_cast<int64_t>(p) * n_g + j] = w[p];
+    }
+  }
+  __device__ __forceinline__ void stage(int lane, At at) const {
+    spans[lane] = at;
+  }
+  __device__ __forceinline__ void element(int head, int p, float w) const {
+    const Span at = spans[head];
+    for (int j = at.j0; j < at.j1; ++j)
+      rows[static_cast<int64_t>(p) * n_g + j] = w;
+  }
+};
+
+// Block b's role and its index k among the blocks of that role: the
+// first 2 min(nu, ng) blocks alternate update and gather, so both roles
+// start at once; the rest take the larger role.
+__device__ __forceinline__ bool update_block(int nu, int ng, int* k) {
+  const int b = blockIdx.x, both = nu < ng ? nu : ng;
+  if (b < 2 * both) {
+    *k = b >> 1;
+    return !(b & 1);
+  }
+  *k = b - both;
+  return nu > ng;
+}
+
+// Gather block k: next ids j = 256 (k / ysub) + threadIdx.x, the kGRows
+// sublanes from kGRows (k % ysub).
+template <typename TW>
+__device__ __forceinline__ void gather_round(const TW* table, int64_t vc,
+                                             int dp,
+                                             const int* __restrict__ cols,
+                                             int n,
+                                             const int* __restrict__ next,
+                                             int n_g, float* __restrict__ rows,
+                                             int k) {
+  const int ysub = (dp + kGRows - 1) / kGRows;
+  const int64_t j = static_cast<int64_t>(k / ysub) * kThreads + threadIdx.x;
+  const int p0 = k % ysub * kGRows;
+  const bool in = j < n_g;
+  const int c = in ? next[j] : -1;
+  const bool live = c >= 0 && c < vc;
+  const Span s = warp_span(cols, n, c, live);
+  if (!in || s.j1 > s.j0) return;  // its head writes a shared column's rows
+  float v[kGRows];
+#pragma unroll
+  for (int r = 0; r < kGRows; ++r)
+    v[r] = (live && p0 + r < dp)
+               ? mr::to_f(table[static_cast<int64_t>(p0 + r) * vc + c])
+               : 0.f;
+#pragma unroll
+  for (int r = 0; r < kGRows; ++r)
+    if (p0 + r < dp) rows[static_cast<int64_t>(p0 + r) * n_g + j] = v[r];
+}
+
+// LazyAdam at every fold (Opt = AdamCols) and FTRL at fold 1 (FtrlCols).
+// Update block k takes adam_cols' schedule: the slots from 256 (k % nux)
+// in strides of 256 nux, the kSub sublanes from kSub (k / nux); a gather
+// block takes 256 next ids.
+template <typename Opt>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fused_cols_kernel(Opt opt, int64_t vc, int dp, const int* __restrict__ cols,
+                  const float* __restrict__ g, int n, int fold,
+                  const int* __restrict__ next, int n_g,
+                  float* __restrict__ rows, int nux, int nu, int ng) {
+  int k;
+  if (!update_block(nu, ng, &k)) {
+    gather_round(opt.table, vc, dp, cols, n, next, n_g, rows, k);
+    return;
+  }
+  opt.ready();
+  const SlotRows out{next, n_g, dp, rows};
+  const int p0 = k / nux * kSub;
+  for (int64_t b = static_cast<int64_t>(k % nux) * kThreads;
+       mr::live_round(cols, n, vc, b); b += static_cast<int64_t>(nux) * kThreads)
+    mr::update_slot<kSub>(opt, vc, dp, cols, g, n, fold,
+                          static_cast<int>(b) + threadIdx.x, p0, out);
+}
+
+// FTRL at fold > 1: update block k takes the slots from 256 k in strides
+// of 256 nu, each warp 32 of them over all dp sublanes.
+template <typename TW>
+__global__ void __launch_bounds__(kThreads, kFoldMinBlocks)
+fused_fold_kernel(TW* table, float* accum, float* linear, int64_t vc, int dp,
+                  const int* __restrict__ cols, const float* __restrict__ g,
+                  int n, mr::FtrlHyper h, const int* __restrict__ next,
+                  int n_g, float* __restrict__ rows, int nu, int ng) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float4 stage[kWarps][32 * mr::kFoldRow];
+  __shared__ Span spans[kWarps][32];
+  int k;
+  if (!update_block(nu, ng, &k)) {
+    gather_round(table, vc, dp, cols, n, next, n_g, rows, k);
+    return;
+  }
+  const int w = threadIdx.x >> 5;
+  const FoldRows<TW> out{table, vc, next, n_g, dp, rows, spans[w]};
+  for (int64_t b = static_cast<int64_t>(k) * kThreads;
+       mr::live_round(cols, n, vc, b); b += static_cast<int64_t>(nu) * kThreads)
+    mr::ftrl_fold_round(table, accum, linear, vc, dp, cols, g, n, h,
+                        static_cast<int>(b) + threadIdx.x, stage[w], out);
+}
+
+// Blocks along the slots of an update: one per 256, at most kMaxBlocksX
+// (they stride over the rest).
+int slot_blocks(int n) {
+  const int bx = static_cast<int>(mr::blocks_for(n, kThreads));
+  return bx < kMaxBlocksX ? bx : kMaxBlocksX;
+}
+
+// Gather blocks of a launch: one per 256 next ids x kGRows sublanes.
+int gather_blocks(int n_g, int dp) {
+  return static_cast<int>(mr::blocks_for(n_g, kThreads)) *
+         ((dp + kGRows - 1) / kGRows);
 }
 
 bool bad_fused(int64_t vc, int dp, int n, int fold, int n_g) {
   return mr::bad_cols_shape(vc, dp, n, fold) || n_g < 0 || vc > INT32_MAX;
 }
 
-// Fill bounds, then run the fused kernel over the column ranges.
-template <typename TW, typename Update>
-void launch_fused(void* table, const Update& update, int64_t vc, int dp,
-                  const int* cols, const float* g, int n, int fold,
-                  const int* next, int n_g, float* rows, int* bounds,
-                  cudaStream_t st) {
-  const int nbu = (n + kSlots - 1) / kSlots, nbg = (n_g + kSlots - 1) / kSlots;
-  const int range_blocks = nbu + nbg;
-  fused_bounds<<<mr::blocks_for(range_blocks + 1, kSlots), kSlots, 0, st>>>(
-      cols, n, nbu, next, n_g, nbg, vc, bounds);
-  fused_kernel<TW, Update><<<kBlocks, kThreads, 0, st>>>(
-      static_cast<TW*>(table), update, vc, dp, cols, g, n, fold, next, n_g,
-      rows, bounds, range_blocks);
+template <typename Opt>
+void launch_cols(const Opt& opt, int64_t vc, int dp, const int* cols,
+                 const float* g, int n, int fold, const int* next, int n_g,
+                 float* rows, cudaStream_t st) {
+  const int nux = slot_blocks(n), nu = nux * ((dp + kSub - 1) / kSub);
+  const int ng = gather_blocks(n_g, dp);
+  if (nu + ng == 0) return;
+  fused_cols_kernel<Opt><<<nu + ng, kThreads, 0, st>>>(
+      opt, vc, dp, cols, g, n, fold, next, n_g, rows, nux, nu, ng);
 }
 
 template <typename TW, typename TS>
 void launch_adam(void* table, void* m, void* v, const mr::AdamHyper& h,
                  int64_t vc, int dp, const int* cols, const float* g, int n,
-                 int fold, const int* next, int n_g, float* rows, int* bounds,
+                 int fold, const int* next, int n_g, float* rows,
                  cudaStream_t st) {
-  const AdamUpdate<TW, TS> update{static_cast<TW*>(table), static_cast<TS*>(m),
-                                  static_cast<TS*>(v), h};
-  launch_fused<TW>(table, update, vc, dp, cols, g, n, fold, next, n_g, rows,
-                   bounds, st);
+  const mr::AdamCols<TW, TS> opt{static_cast<TW*>(table), static_cast<TS*>(m),
+                                 static_cast<TS*>(v), h, 0.f};
+  launch_cols(opt, vc, dp, cols, g, n, fold, next, n_g, rows, st);
 }
 
 template <typename TW>
 void launch_ftrl(void* table, float* accum, float* linear,
                  const mr::FtrlHyper& h, int64_t vc, int dp, const int* cols,
                  const float* g, int n, int fold, const int* next, int n_g,
-                 float* rows, int* bounds, cudaStream_t st) {
-  const FtrlUpdate<TW> update{static_cast<TW*>(table), accum, linear, h};
-  launch_fused<TW>(table, update, vc, dp, cols, g, n, fold, next, n_g, rows,
-                   bounds, st);
+                 float* rows, cudaStream_t st) {
+  if (fold == 1) {
+    const mr::FtrlCols<TW> opt{static_cast<TW*>(table), accum, linear, h};
+    launch_cols(opt, vc, dp, cols, g, n, fold, next, n_g, rows, st);
+    return;
+  }
+  const int nu = slot_blocks(n), ng = gather_blocks(n_g, dp);
+  if (nu + ng == 0) return;
+  fused_fold_kernel<TW><<<nu + ng, kThreads, 0, st>>>(
+      static_cast<TW*>(table), accum, linear, vc, dp, cols, g, n, h, next, n_g,
+      rows, nu, ng);
 }
 
 }  // namespace
 
-// Ints of the bounds scratch of both fused kernels for n gradient slots and
-// n_g next ids: [2, ceil(n / kSlots) + ceil(n_g / kSlots) + 1].
-extern "C" int64_t mr_fused_bounds_len(int64_t n, int n_g) {
-  const int64_t nb = (n + kSlots - 1) / kSlots +
-                     (static_cast<int64_t>(n_g) + kSlots - 1) / kSlots;
-  return 2 * (nb + 1);
-}
-
 // table: [dp, vc] f32 or bf16 (table_bf16); m, v: [dp, vc] f32 or bf16
 // (state_bf16); cols: [n] i32 ascending; g: [dp + 8, n] f32; lr_t: one f32
 // on the device; next: [n_g] i32 ascending; rows: [dp, n_g] f32, every
-// element written; bounds: i32 scratch of mr_fused_bounds_len(n, n_g)
-// elements.
+// element written.
 extern "C" int mr_fused_adam_gather(
     void* table, int table_bf16, void* m, void* v, int state_bf16, int64_t vc,
     int dp, const int* cols, const float* g, int n, int fold,
     const float* lr_t, float b1, float one_minus_b1, float b2,
     float one_minus_b2, float eps, float inv_scale, const int* next, int n_g,
-    float* rows, int* bounds, void* stream) {
+    float* rows, void* stream) {
   if (bad_fused(vc, dp, n, fold, n_g))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -267,17 +369,16 @@ extern "C" int mr_fused_adam_gather(
                         inv_scale};
   if (table_bf16 && state_bf16)
     launch_adam<__nv_bfloat16, __nv_bfloat16>(table, m, v, h, vc, dp, cols, g,
-                                              n, fold, next, n_g, rows, bounds,
-                                              st);
+                                              n, fold, next, n_g, rows, st);
   else if (table_bf16)
     launch_adam<__nv_bfloat16, float>(table, m, v, h, vc, dp, cols, g, n, fold,
-                                      next, n_g, rows, bounds, st);
+                                      next, n_g, rows, st);
   else if (state_bf16)
     launch_adam<float, __nv_bfloat16>(table, m, v, h, vc, dp, cols, g, n, fold,
-                                      next, n_g, rows, bounds, st);
+                                      next, n_g, rows, st);
   else
     launch_adam<float, float>(table, m, v, h, vc, dp, cols, g, n, fold, next,
-                              n_g, rows, bounds, st);
+                              n_g, rows, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -287,16 +388,16 @@ extern "C" int mr_fused_ftrl_gather(
     void* table, int table_bf16, float* accum, float* linear, int64_t vc,
     int dp, const int* cols, const float* g, int n, int fold, float lr,
     float l1, float two_l2, float inv_scale, const int* next, int n_g,
-    float* rows, int* bounds, void* stream) {
+    float* rows, void* stream) {
   if (bad_fused(vc, dp, n, fold, n_g))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const mr::FtrlHyper h{lr, l1, two_l2, inv_scale};
   if (table_bf16)
     launch_ftrl<__nv_bfloat16>(table, accum, linear, h, vc, dp, cols, g, n,
-                               fold, next, n_g, rows, bounds, st);
+                               fold, next, n_g, rows, st);
   else
     launch_ftrl<float>(table, accum, linear, h, vc, dp, cols, g, n, fold, next,
-                       n_g, rows, bounds, st);
+                       n_g, rows, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,24 +32,20 @@ from mindrec_tpu_torch.ops.kernels.update_cols import (
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _ADAM_ARGS = [_P, _I, _P, _P, _I, _L, _I, _P, _P, _I, _I, _P,
-              _F, _F, _F, _F, _F, _F, _P, _I, _P, _P, _P]
+              _F, _F, _F, _F, _F, _F, _P, _I, _P, _P]
 _FTRL_ARGS = [_P, _I, _P, _P, _L, _I, _P, _P, _I, _I, _F, _F, _F, _F,
-              _P, _I, _P, _P, _P]
+              _P, _I, _P, _P]
 
 
-def _check_next(name, table, cols, next_cols):
-    """Check the next ids; -> (rows [Dp, n_g] to fill, scratch for the
-    kernel's column-range boundaries)."""
+def _check_next(name, table, next_cols):
+    """Check the next ids; -> rows [Dp, n_g] for the kernel to fill."""
     require(next_cols.dim() == 1 and next_cols.dtype == torch.int32, name,
             "next_cols_sorted must be [n_g] int32")
     require(next_cols.is_contiguous() and next_cols.shape[0] < 2**31, name,
             "next_cols_sorted must be contiguous and fit int32")
     require(table.shape[1] < 2**31, name, "Vc must fit int32")
-    n_bounds = _build.scratch_len("mr_fused_bounds_len", cols.shape[0],
-                                  next_cols.shape[0])
-    rows = torch.empty((table.shape[0], next_cols.shape[0]),
+    return torch.empty((table.shape[0], next_cols.shape[0]),
                        dtype=torch.float32, device=table.device)
-    return rows, torch.empty(n_bounds, dtype=torch.int32, device=table.device)
 
 
 def fused_adam_gather_plain(table, m, v, cols_sorted, grads_aug, lr_t,
@@ -97,7 +93,7 @@ def fused_adam_gather(table, m, v, cols_sorted, grads_aug, lr_t,
             f"m/v dtype {m.dtype}/{v.dtype}")
     require(lr_t.numel() == 1 and lr_t.dtype == torch.float32, name,
             "lr_t must be one float32")
-    rows, bounds = _check_next(name, table, cols_sorted, next_cols_sorted)
+    rows = _check_next(name, table, next_cols_sorted)
     dp, vc = table.shape
     fn = _build.kernel_fn("mr_fused_adam_gather", _ADAM_ARGS)
     rc = fn(table.data_ptr(), int(table.dtype == torch.bfloat16),
@@ -105,7 +101,7 @@ def fused_adam_gather(table, m, v, cols_sorted, grads_aug, lr_t,
             cols_sorted.data_ptr(), grads_aug.data_ptr(), cols_sorted.shape[0],
             fold, lr_t.data_ptr(), b1, 1.0 - b1, b2, 1.0 - b2, eps,
             1.0 / loss_scale, next_cols_sorted.data_ptr(),
-            next_cols_sorted.shape[0], rows.data_ptr(), bounds.data_ptr(),
+            next_cols_sorted.shape[0], rows.data_ptr(),
             _build.stream_of(table))
     _build.check(rc, name)
     LAUNCHES[name] += 1
@@ -131,7 +127,7 @@ def fused_ftrl_gather(table, accum, linear, cols_sorted, grads_aug,
                grads_aug, dim, fold)
     require(accum.dtype == torch.float32 and linear.dtype == torch.float32,
             name, "accum and linear must be float32")
-    rows, bounds = _check_next(name, table, cols_sorted, next_cols_sorted)
+    rows = _check_next(name, table, next_cols_sorted)
     dp, vc = table.shape
     fn = _build.kernel_fn("mr_fused_ftrl_gather", _FTRL_ARGS)
     rc = fn(table.data_ptr(), int(table.dtype == torch.bfloat16),
@@ -139,7 +135,7 @@ def fused_ftrl_gather(table, accum, linear, cols_sorted, grads_aug,
             cols_sorted.data_ptr(), grads_aug.data_ptr(), cols_sorted.shape[0],
             fold, learning_rate, l1, 2.0 * l2, 1.0 / loss_scale,
             next_cols_sorted.data_ptr(), next_cols_sorted.shape[0],
-            rows.data_ptr(), bounds.data_ptr(), _build.stream_of(table))
+            rows.data_ptr(), _build.stream_of(table))
     _build.check(rc, name)
     LAUNCHES[name] += 1
     return table, accum, linear, rows

@@ -729,3 +729,141 @@ def test_ftrl_cols_edge_cases_on_card(cuda_device, case, dtype):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
     changed = any(not torch.equal(x, y) for x, y in zip(a, before))
     assert changed == (kind != "all-sentinel")
+
+
+# ---------------------------------------------------------------------------
+# shared edge cases: the fused update + gather
+# ---------------------------------------------------------------------------
+
+FUSED_KINDS = ["all-shared", "none-shared", "repeated-next", "sparse-sublanes",
+               "zero-touch-shared", "run-of-8", "update-all-sentinel",
+               "next-all-sentinel", "next-outside"]
+# (case id, kind, fold): every kind at fold 1 and fold 8
+FUSED_EDGE_CASES = [(f"{k}-fold{f}", k, f) for k in FUSED_KINDS for f in (1, 8)]
+FUSED_EDGE_IDS = [c[0] for c in FUSED_EDGE_CASES]
+FUSED_VC = 512
+
+
+def fused_edge_case(kind, fold):
+    """Numpy inputs of one fused update + gather on a [dp, 512] table (dp
+    16 at fold 1, 8 at fold 8, emb_dim 1): the update's sorted ``cols``
+    (ids // fold, 37 sentinel pads), ``aug`` [dp + 8, n] (gradients
+    multiples of 1/8 below 32 in magnitude, so every float32 sum of them
+    is exact in any order; at fold 8 masked to the slot's sublane; every
+    fifth slot's gradient zero, every seventh slot's touch rows zeroed),
+    the sorted next columns ``nxt`` (29 sentinel pads), ``table``, ``m``,
+    ``v`` float32 and ``dim``.  Kinds: every next column an update column
+    (``all-shared``); none (``none-shared``); next columns repeated on
+    update columns (fold 8: all 8 ids of a column; fold 1: each column
+    three times); one id per update column and all ``fold`` ids of half
+    of them next (``sparse-sublanes``: at fold 8, 7 untouched sublanes
+    of each shared column); the touch rows of half the shared columns'
+    slots zeroed (``zero-touch-shared``); runs of 8 equal update columns,
+    shared (``run-of-8``: a tiny group's ids at fold 8, duplicate ids at
+    fold 1); an all-sentinel update list with live next ids, and the
+    reverse; next ids below 0 and at or past vc (``next-outside``)."""
+    rng = np.random.default_rng(sum(map(ord, kind)) * 10 + fold)
+    dp, dim = (16, 16) if fold == 1 else (8, 1)
+    space = FUSED_VC * fold
+
+    def ids_of(cols_):  # every id of the given columns
+        return (np.asarray(cols_)[:, None] * fold + np.arange(fold)).ravel()
+
+    ids_u = np.sort(rng.choice(space, size=150, replace=False))
+    if kind == "sparse-sublanes":
+        col_u = np.sort(rng.choice(FUSED_VC, size=100, replace=False))
+        ids_u = col_u * fold + rng.integers(0, fold, size=100)
+        ids_g = ids_of(col_u[::2])
+    elif kind == "run-of-8":
+        runs = rng.choice(np.setdiff1d(np.arange(FUSED_VC), ids_u // fold), 3,
+                          replace=False)
+        run_ids = ids_of(runs) if fold > 1 else np.repeat(runs, 8)
+        ids_u = np.sort(np.concatenate([ids_u, run_ids]))
+        ids_g = np.concatenate([ids_of(runs), ids_u[::3]])
+    else:
+        ids_g = ids_u[::2]
+    if kind == "none-shared":
+        free = np.setdiff1d(np.arange(FUSED_VC), ids_u // fold)
+        ids_g = ids_of(rng.choice(free, size=60, replace=False))
+    elif kind == "repeated-next":
+        rep = np.unique(ids_u // fold)[::4]
+        ids_g = ids_of(rep) if fold > 1 else np.repeat(rep, 3)
+        ids_g = np.concatenate([ids_g, ids_u[1::5]])
+    elif kind == "all-shared":
+        ids_g = ids_u
+    if kind == "update-all-sentinel":
+        ids_u = np.zeros(0, np.int64)
+    if kind == "next-all-sentinel":
+        ids_g = np.zeros(0, np.int64)
+    ids = np.concatenate([ids_u, np.full(37, SENT)])
+    cols, sub = ids // fold, ids % fold
+    outside = [-7, -1, FUSED_VC, FUSED_VC + 1, FUSED_VC + 9]
+    nxt = np.sort(np.concatenate([ids_g // fold, outside if kind ==
+                                  "next-outside" else []])).astype(np.int64)
+    nxt = np.concatenate([nxt, np.full(29, SENT // fold)]).astype(np.int32)
+    n = cols.size
+    g = np.clip(np.round(rng.normal(size=(dp, n)) * 40.0), -255, 255) / 8.0
+    if fold > 1:
+        g *= np.arange(dp)[:, None] == sub[None, :]
+    g = g.astype(np.float32)
+    g[:, ::5] = 0.0
+    aug = make_aug_grads(_t(g), _t(sub) if fold > 1 else None).numpy().copy()
+    aug[dp:, 3::7] = 0.0
+    if kind == "zero-touch-shared":
+        gone = np.isin(cols, np.unique(nxt)[::2])
+        aug[dp:, gone] = 0.0
+    shape = (dp, FUSED_VC)
+    return dict(
+        cols=cols.astype(np.int32), aug=aug, nxt=nxt, dim=dim,
+        table=(rng.normal(size=shape) * 0.01).astype(np.float32),
+        m=(rng.normal(size=shape) * 1e-3).astype(np.float32),
+        v=np.abs(rng.normal(size=shape) * 1e-6).astype(np.float32),
+    )
+
+
+def fused_edge_state(c, opt, table_dtype, device="cpu"):
+    """(state tensors, hyper-parameters, lr_t or None) of a fused edge
+    case: LazyAdam with float32 m, v; FTRL with accum v + 0.1, linear m."""
+    table = _t(c["table"]).to(getattr(torch, table_dtype)).to(device)
+    if opt == "adam":
+        return ([table, _t(c["m"]).to(device), _t(c["v"]).to(device)],
+                dict(dim=c["dim"], eps=1e-6, loss_scale=1000.0),
+                torch.tensor(1e-3, device=device))
+    return ([table, _t(c["v"] + 0.1).to(device), _t(c["m"]).to(device)],
+            dict(dim=c["dim"], learning_rate=5e-2, l1=5e-4, l2=5e-4,
+                 loss_scale=1000.0), None)
+
+
+def fused_call(opt, lr_t, plain=False):
+    """f(state, cols, aug, nxt, **hyper) -> (table, s1, s2, rows)."""
+    if opt == "adam":
+        fn = fused_adam_gather_plain if plain else fused_adam_gather
+        return lambda st, c, a, nx, **h: fn(*st, c, a, lr_t, nx, **h)
+    fn = fused_ftrl_gather_plain if plain else fused_ftrl_gather
+    return lambda st, c, a, nx, **h: fn(*st, c, a, nx, **h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["adam", "ftrl"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FUSED_EDGE_CASES, ids=FUSED_EDGE_IDS)
+def test_fused_edge_cases_on_card(cuda_device, case, dtype, opt):
+    """Kernel against plain version: the state equal to rounding (rtol
+    1e-6, the same float32 operations in the same order); the rows
+    exactly the updated table's columns (zeros outside the table); the
+    state unchanged when the update list is all sentinels."""
+    _id, kind, fold = case
+    c = fused_edge_case(kind, fold)
+    dev = cuda_device
+    a, hyper, lr_t = fused_edge_state(c, opt, dtype, dev)
+    b = [x.clone() for x in a]
+    before = [x.clone() for x in a]
+    cols, aug, nxt = (_t(c[k]).to(dev) for k in ("cols", "aug", "nxt"))
+    rows = fused_call(opt, lr_t)(a, cols, aug, nxt, fold=fold, **hyper)[3]
+    want = fused_call(opt, lr_t, plain=True)(b, cols, aug, nxt, fold=fold,
+                                             **hyper)[3]
+    for x, y in [*zip(a, b), (rows, want)]:
+        torch.testing.assert_close(x.float(), y.float(), rtol=1e-6, atol=1e-9)
+    assert torch.equal(rows, gather_cols(a[0], nxt))
+    changed = any(not torch.equal(x, y) for x, y in zip(a, before))
+    assert changed == (kind != "update-all-sentinel")

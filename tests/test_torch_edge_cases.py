@@ -1,5 +1,5 @@
 """Edge cases of ``segsum_unsorted``, ``segsum_cols``, ``adam_cols``,
-``gather_rows`` and ``ftrl_cols`` on the CPU: the
+``gather_rows``, ``ftrl_cols`` and the fused update + gather on the CPU: the
 port's plain versions (which the wrappers take for CPU tensors) against
 the JAX package's Pallas kernels in interpret mode, on the same numpy
 inputs.  The case lists are shared with ``tests/test_torch_cuda.py``,
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from mindrec_tpu.ops.pallas import stream_update
+from mindrec_tpu.ops.pallas import stream_fused, stream_update
 from mindrec_tpu.ops.pallas.stream_gather import streamed_gather_rows
 from mindrec_tpu.ops.pallas.stream_segsum import (
     streamed_segsum, streamed_segsum_unsorted,
@@ -20,10 +20,11 @@ from mindrec_tpu_torch.ops.kernels.gather import gather_rows
 from mindrec_tpu_torch.ops.kernels.segsum import segsum_cols, segsum_unsorted
 from mindrec_tpu_torch.ops.kernels.update_cols import adam_cols, ftrl_cols
 from test_torch_cuda import (
-    ADAM_COLS_CASES, FTRL_COLS_CASES, FTRL_COLS_IDS, GATHER_ROWS_CASES,
-    GATHER_ROWS_IDS, SEGSUM_COLS_CASES, SEGSUM_COLS_IDS, SEGSUM_IDS,
-    SEGSUM_UNSORTED_CASES, adam_cols_case, ftrl_cols_case, gather_rows_case,
-    segsum_cols_case, segsum_float64, segsum_unsorted_case,
+    ADAM_COLS_CASES, FTRL_COLS_CASES, FTRL_COLS_IDS, FUSED_EDGE_CASES,
+    FUSED_EDGE_IDS, GATHER_ROWS_CASES, GATHER_ROWS_IDS, SEGSUM_COLS_CASES,
+    SEGSUM_COLS_IDS, SEGSUM_IDS, SEGSUM_UNSORTED_CASES, adam_cols_case,
+    ftrl_cols_case, fused_call, fused_edge_case, fused_edge_state,
+    gather_rows_case, segsum_cols_case, segsum_float64, segsum_unsorted_case,
 )
 
 
@@ -176,3 +177,54 @@ def test_ftrl_cols_edge_cases_match_pallas(case, table_dtype):
                                    atol=1e-8)
     changed = any(not torch.equal(x, y) for x, y in zip(out, before))
     assert changed == (kind != "all-sentinel")
+
+
+@pytest.mark.parametrize("opt", ["adam", "ftrl"])
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FUSED_EDGE_CASES, ids=FUSED_EDGE_IDS)
+def test_fused_edge_cases_match_pallas(case, table_dtype, opt):
+    """The port (its plain version, which CPU tensors take) against the
+    reference's fused kernel in interpret mode (``matmul_dtype`` float32,
+    on gradients whose float32 sums are exact in any order): the state at
+    rtol 2e-5 (the same elementwise float32 arithmetic in another
+    order), a bfloat16 weight (the reference runs on its float32
+    widening) within one ulp (2**-7); the rows of the next ids inside the
+    table held as the weights are, and equal to the
+    port's updated table's columns; the rows outside the table zero (the
+    reference compares only inside); the state unchanged when the update
+    list is all sentinels."""
+    _id, kind, fold = case
+    c = fused_edge_case(kind, fold)
+    state, hyper, lr_t = fused_edge_state(c, opt, table_dtype)
+    before = [x.clone() for x in state]
+    # the reference's fused kernels take float32 tables: a bfloat16 table
+    # runs there as its float32 widening
+    ref_state = [jnp.asarray(x.float().numpy()) for x in state]
+    ref_args = [jnp.asarray(c["cols"]), jnp.asarray(c["aug"])]
+    kw = dict(fold=fold, tile=128, chunk=64, matmul_dtype=jnp.float32,
+              interpret=True, **hyper)
+    if opt == "adam":
+        ref = stream_fused.fused_adam_gather(
+            *ref_state, *ref_args, jnp.float32(1e-3), jnp.asarray(c["nxt"]),
+            **kw)
+    else:
+        ref = stream_fused.fused_ftrl_gather(
+            *ref_state, *ref_args, jnp.asarray(c["nxt"]), **kw)
+    out = fused_call(opt, lr_t)(state, _t(c["cols"]), _t(c["aug"]),
+                                _t(c["nxt"]), fold=fold, **hyper)
+    atol = 1e-8 if opt == "adam" else 1e-7
+    for got, want in zip(out[:3], ref[:3]):
+        rtol = 2.0**-7 if got.dtype == torch.bfloat16 else 2e-5
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=rtol,
+                                   atol=atol)
+    nxt, rows = c["nxt"], out[3].numpy()
+    inside = (nxt >= 0) & (nxt < state[0].shape[1])
+    rtol = 2.0**-7 if table_dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(rows[:, inside], np.asarray(ref[3])[:, inside],
+                               rtol=rtol, atol=atol)
+    np.testing.assert_array_equal(
+        rows[:, inside], out[0].float().numpy()[:, nxt[inside]])
+    assert not rows[:, ~inside].any()
+    changed = any(not torch.equal(x, y) for x, y in zip(out[:3], before))
+    assert changed == (kind != "update-all-sentinel")

@@ -3,7 +3,7 @@
 updates of two trees of this repository in turns, in one run on one GPU.
 
     python3 tools/ab_colpath.py OLD_TREE NEW_TREE
-        [--what colpath|sorted|cols_update] [--turns 2] [--steps 20]
+        [--what colpath|sorted|cols_update|fused] [--turns 2] [--steps 20]
 
 A tree is a checkout of the repository, e.g. a parent commit unpacked
 with ``git archive`` under the git-ignored ``_cmp/``.  The trees run one
@@ -40,8 +40,17 @@ host batch 0's ids) and of the DeepFM ``row_layout=True`` step (fm and
 the folded linear table), ``ftrl_cols`` at the 4 folded wide tables,
 ``adam_cols`` at its ``chip_smoke.py`` shapes (multitable emb128 with
 float32 m/v, DeepFM fm and linear with bf16 m/v), each checked against
-its plain version and timed by CUDA-graph replay; then the multitable
+its plain version and timed by CUDA-graph replay (the updates with a
+digest of their state); then the multitable
 step as under ``--what sorted``.
+
+``--what fused``: ``fused_adam_gather`` and ``fused_ftrl_gather`` at the
+five launch shapes of ``chip_smoke.py`` (``fused_shapes``: W&D deep Adam,
+W&D wide FTRL, DeepFM fm Adam, DeepFM linear Adam and FTRL; update from
+batch 0's ids, gather of batch 1's), each checked against its plain
+version and timed by CUDA-graph replay beside the separate update +
+``gather_cols`` pair and each of the two alone, with a digest of the
+updated state and rows (equal digests: bit-identical results).
 """
 
 
@@ -166,6 +175,23 @@ def one_sorted(tree: str, steps: int) -> None:
     print("AB " + json.dumps(res), flush=True)
 
 
+def one_fused(tree: str, steps: int) -> None:
+    import torch
+
+    cs, here, dev, gen = tree_modules(tree)
+    wd_host = here.criteo_host_batches(here.VOCAB, 2)
+    fm_host = here.criteo_host_batches(here.FM_VOCAB, 2)
+    res = {"tree": tree}
+    for tag, kind, shape, fold, ids_u, ids_g in here.fused_shapes(fm_host,
+                                                                 wd_host):
+        torch.cuda.empty_cache()
+        out = here.check_fused(tag, dev, gen, kind, shape, fold, ids_u, ids_g)
+        for f in ("ms", "separate_kernels_ms", "update_kernel_ms",
+                  "gather_kernel_ms", "digest"):
+            res[f"{kind} {tag} {f}"] = out[f]
+    print("AB " + json.dumps(res), flush=True)
+
+
 def one_cols_update(tree: str, steps: int) -> None:
     import torch
 
@@ -191,15 +217,18 @@ def one_cols_update(tree: str, steps: int) -> None:
     uq = torch.full((ub,), here.SENTINEL, dtype=torch.int32, device=dev)
     ids = host[0]["emb128:uq_ids"][:ub]
     uq[:ids.size] = torch.from_numpy(ids).to(dev)
-    res["adam_emb128_ms"] = here.check_adam_cols(
+    out = here.check_adam_cols(
         "emb128, f32 m/v", dev, gen, model.specs["emb128"].storage_shape, 1,
-        uq, None, torch.float32, eps=1e-6, loss_scale=1000.0)["ms"]
+        uq, None, torch.float32, eps=1e-6, loss_scale=1000.0)
+    res["adam_emb128_ms"], res["adam_emb128_digest"] = out["ms"], out["digest"]
     for tag, spec, fold in (("fm", fm_model.v_spec, 1),
                             ("linear", fm_model.w_spec, 8)):
-        res[f"adam_{tag}_ms"] = here.check_adam_cols(
+        out = here.check_adam_cols(
             f"DeepFM {tag}, bf16 m/v", dev, gen, spec.storage_shape, fold,
             *here.padded_cols(fm_host["uq_ids"], fold, dev), torch.bfloat16,
-            eps=5e-8, loss_scale=1024.0)["ms"]
+            eps=5e-8, loss_scale=1024.0)
+        res[f"adam_{tag}_ms"], res[f"adam_{tag}_digest"] = (out["ms"],
+                                                          out["digest"])
     mt_step(cs, res, model, opts, host, steps)
     print("AB " + json.dumps(res), flush=True)
 
@@ -211,8 +240,10 @@ KEYS = {
                "sorted_multi_ms", "mt_ms_per_step", "mt_device_ms_per_step",
                "last_loss"),
     "cols_update": None,  # every measure the runs print
+    "fused": None,
 }
-ONE = {"colpath": one, "sorted": one_sorted, "cols_update": one_cols_update}
+ONE = {"colpath": one, "sorted": one_sorted, "cols_update": one_cols_update,
+       "fused": one_fused}
 
 
 def main() -> int:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time ``adam_cols``, ``segsum_unsorted``, ``segsum_cols``,
-``segsum_sorted``, ``gather_rows`` or ``ftrl_cols`` at the recipes' shapes
-with the kernels' constants changed, on one GPU.
+``segsum_sorted``, ``gather_rows``, ``ftrl_cols`` or the fused update +
+gather at the recipes' shapes with the kernels' code changed, on one GPU.
 
 Run from the repository root::
 
@@ -12,6 +12,9 @@ Run from the repository root::
     python3 tools/kernel_sweep.py gather base n4:'kNarrowSlots = 2;=>kNarrowSlots = 4;'
     python3 tools/kernel_sweep.py gather base q2:'kQuads = 4;=>kQuads = 2;'
     python3 tools/kernel_sweep.py ftrl base b1k:'kFoldBlocks = 2048;=>kFoldBlocks = 1024;'
+    python3 tools/kernel_sweep.py fused base g128:'kGat = 256;=>kGat = 128;'
+    python3 tools/kernel_sweep.py fused --time-only base \
+        nogather:'gather_round(opt.table,=>if (0) gather_round(opt.table,;;gather_round(table, vc,=>if (0) gather_round(table, vc,'
 
 Each variant ``name[:old=>new[;;old=>new...]]`` is a copy of the package
 under the git-ignored ``_cmp/sweep_<name>/`` with the plain-text
@@ -31,9 +34,13 @@ emb64_single and multi [N, 128] shapes (bf16, batch-order rows, with
 and of the DeepFM ``row_layout=True`` step (``check_gather_launch``:
 kernel against plain version, device time, bounds); ``ftrl`` -
 ``ftrl_cols`` at the multitable step's four folded wide tables
-(``check_ftrl_launch``).  ``--time-only`` (``gather`` and ``ftrl``) times
-the multitable launches without holding them to the plain versions, for
-variants that leave a pass out, to account for a kernel's time by pass.
+(``check_ftrl_launch``); ``fused`` - ``fused_adam_gather`` and
+``fused_ftrl_gather`` at the five launch shapes of ``chip_smoke.py``
+(``check_fused``: kernel against plain version, device time beside the
+separate update + ``gather_cols`` pair and each alone).  ``--time-only``
+(``gather``, ``ftrl`` and ``fused``) times the launches without holding
+them to the plain versions, for variants that leave a pass out, to
+account for a kernel's time by pass.
 Compare variants only within one run.
 """
 
@@ -66,6 +73,22 @@ def time_launch(cs, dev, gen, what, case) -> None:
     else:
         return
     cs.log(f"[sweep] {what} {case['name']} [{dp}, {vc}] n {cols.numel()}, "
+           f"unchecked: {ms:.5f} ms")
+
+
+def time_fused(cs, dev, gen, tag, kind, shape, fold, ids_u, ids_g) -> None:
+    """Device time of a fused update + gather at one launch shape,
+    unchecked: for variants that leave out a pass."""
+    import torch
+
+    cols_u, sub_u = cs.padded_cols(ids_u, fold, dev)
+    cols_g, _ = cs.padded_cols(ids_g, fold, dev)
+    state, hyper, lr_t = cs.fused_case(dev, gen, kind, shape, fold,
+                                       torch.bfloat16)
+    aug = cs.slot_grads(dev, gen, shape[0], fold, cols_u, sub_u)
+    fused = cs.fused_calls(kind, lr_t)[0]
+    ms = cs.graph_ms(lambda: fused(state, cols_u, aug, cols_g, **hyper))
+    cs.log(f"[sweep] fused_{kind}_gather {tag} {list(shape)} fold {fold}, "
            f"unchecked: {ms:.5f} ms")
 
 
@@ -110,6 +133,16 @@ def measure(what: str, time_only: bool = False) -> None:
             cs.check_segsum_cols(tag, dev, gen, d, uidx)  # checked, timed
             passes(f"segsum_cols {tag} [{d}, {n}] bf16",
                    lambda: cs.segsum_cols(rows.T, uidx, n))
+        return
+    if what == "fused":
+        wd_host = cs.criteo_host_batches(cs.VOCAB, 2)
+        fm_host = cs.criteo_host_batches(cs.FM_VOCAB, 2)
+        for case in cs.fused_shapes(fm_host, wd_host):
+            torch.cuda.empty_cache()
+            if time_only:
+                time_fused(cs, dev, gen, *case)
+            else:
+                cs.check_fused(case[0], dev, gen, *case[1:])
         return
     model, _opts, host, buckets = cs.mt_setup(steps=1)
     if what in ("gather", "ftrl"):
@@ -186,9 +219,18 @@ def main() -> int:
     if time_only:
         sys.argv.remove("--time-only")
     if len(sys.argv) < 3 or sys.argv[1] not in ("cols", "seg", "colsum",
-                                                   "sorted", "gather", "ftrl"):
+                                                   "sorted", "gather", "ftrl",
+                                                   "fused"):
         print(__doc__, file=sys.stderr)
         return 2
+    sources = "".join(f.read_text()
+                      for f in (ROOT / "mindrec_tpu_torch" / "csrc").iterdir())
+    for variant in sys.argv[2:]:  # every edit must apply before any run
+        for edit in filter(None, variant.partition(":")[2].split(";;")):
+            if edit.partition("=>")[0] not in sources:
+                print(f"variant {variant.partition(':')[0]}: "
+                      f"{edit.partition('=>')[0]!r} not found", file=sys.stderr)
+                return 2
     for variant in sys.argv[2:]:
         name, _, edits = variant.partition(":")
         work = ROOT / "_cmp" / f"sweep_{name}"
@@ -198,14 +240,8 @@ def main() -> int:
         shutil.copy(ROOT / "chip_smoke.py", work)
         for edit in filter(None, edits.split(";;")):
             old, _, new = edit.partition("=>")
-            hits = 0
             for src in (work / "mindrec_tpu_torch" / "csrc").iterdir():
-                text = src.read_text()
-                hits += text.count(old)
-                src.write_text(text.replace(old, new))
-            if hits == 0:
-                print(f"variant {name}: {old!r} not found", file=sys.stderr)
-                return 2
+                src.write_text(src.read_text().replace(old, new))
         print(f"=== variant {name} ({edits or 'as committed'})", flush=True)
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
                         "--measure", sys.argv[1]]
