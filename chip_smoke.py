@@ -95,7 +95,26 @@ Phases (any failure exits non-zero):
     versions;
 11. drive DeepFM and DCN at their bench recipes on the default path
     (row_packed tables, ``row_layout=True``, bucket 131,072): 3 warm-up
-    and 10 timed steps each.
+    and 10 timed steps each;
+12. train through ``RecModel`` (``jit=True``: the step captured in a
+    CUDA graph per batch signature and replayed) over raw host batches:
+    the W&D bench recipe with ``unique_bucket=AdaptiveBucket.from_sample``
+    of 2 raw batches and 2 prep workers (native prep, the prep pool,
+    staging on a side stream, the captured step), 3 warm-up and 20 timed
+    steps end to end (samples/s, host prep included; launches counted per
+    replay x replays); native prep ms per batch beside numpy's on the
+    same batch; the eager and the captured step on staged batches in
+    turns (eager, captured, captured, eager), with the device busy share
+    of each; captured == eager bit for bit over 5 batches from one state;
+    a bucket below what later batches need (one regrow, one new capture,
+    the state equal to an eager run with the same regrow); ``eval`` on 4
+    held-out batches against ``make_eval_step`` + ``roc_auc``; then the
+    multitable recipe through ``RecModel(host_prep=True)`` (per-group
+    lossless native prep), 3 warm-up and 5 timed steps, prep ms, the
+    steps in turns and captured == eager; and the DeepFM (feature-major
+    with ``row_layout=False``, and the default path) and DCN steps
+    captured (ms/step, busy share).  Every phase-12 line carries the
+    card's name and power limit.
 
 Every kernel and every library call is timed by replaying a CUDA graph
 of 10 calls (device time, no host work between the launches); the plain
@@ -119,9 +138,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mindrec_tpu_torch.data.criteo import SyntheticCriteo, to_device
+from mindrec_tpu_torch import RecModel
+from mindrec_tpu_torch.data.criteo import (
+    PrefetchToDevice, SyntheticCriteo, to_device,
+)
 from mindrec_tpu_torch.data.outbrain import SyntheticOutbrain
-from mindrec_tpu_torch.data.pipeline import AdaptiveBucket, round_bucket
+from mindrec_tpu_torch.data.pipeline import (
+    AdaptiveBucket, SparseInputPipeline, round_bucket,
+)
 from mindrec_tpu_torch.models.dcn import DCNConfig, DCNModel
 from mindrec_tpu_torch.models.deepfm import DeepFMConfig, DeepFMModel
 from mindrec_tpu_torch.models.multitable import (
@@ -148,9 +172,11 @@ from mindrec_tpu_torch.ops.kernels.update_rows import (
     adam_rows, adam_rows_plain, ftrl_rows, ftrl_rows_plain,
 )
 from mindrec_tpu_torch.train import optim
+from mindrec_tpu_torch.train.callbacks import Callback
+from mindrec_tpu_torch.train.metrics import roc_auc
 from mindrec_tpu_torch.train.step import (
-    SENTINEL, _group_layouts, init_train_state, make_batch_sort,
-    make_train_step, prep_groups,
+    SENTINEL, CapturedStep, _group_layouts, _state_tensors, init_train_state,
+    make_batch_sort, make_eval_step, make_train_step, prep_groups,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -193,6 +219,7 @@ FM_PACKED_PER_STEP = {"segsum_sorted": 1, "adam_rows": 2}
 DCN_PER_STEP = {"segsum_sorted": 1, "adam_rows": 1}
 FM_VOCAB, DCN_VOCAB, FM_BUCKET = 184_965, 200_000, 131_072  # bench.py
 PUMP_BATCHES = 4
+SMI = ""  # the card's name and power limit (nvidia-smi), set by main()
 
 
 def log(*a):
@@ -600,18 +627,23 @@ def profile_steps(step, state, batches, n=5):
     return busy
 
 
-def phase_main_path(dev, data, bucket, warmup=3, steps=10,
-                    profile=False) -> dict:
-    """The train step at the benchmark recipe's full width."""
+def wd_recipe():
+    """The W&D bench recipe's model and optimizers (bench.py:86-119)."""
     cfg = WideDeepConfig(
         batch_size=BATCH, field_size=FIELDS, vocab_size=VOCAB, emb_dim=EMB,
         deep_layer_dim=(1024,) * 7, use_mixed_precision=True, sparse=True,
         loss_scale=1024.0,
     )
-    model = WideDeepModel(cfg)
     opt_w = optim.ftrl(loss_scale=cfg.loss_scale)
     opt_d = optim.lazy_adam(loss_scale=cfg.loss_scale,
                             state_dtype=torch.bfloat16)
+    return WideDeepModel(cfg), (opt_w, opt_d)
+
+
+def phase_main_path(dev, data, bucket, warmup=3, steps=10,
+                    profile=False) -> dict:
+    """The train step at the benchmark recipe's full width."""
+    model, (opt_w, opt_d) = wd_recipe()
     state = init_train_state(model, 0, opt_w, opt_d, device=dev)
     prep = make_batch_sort(FIELDS, unique_bucket=bucket, minimal=True)
     host = []
@@ -643,13 +675,15 @@ def timed_steps(tag, step, state, batches, batch_size, per_step,
         losses.append(ld)
     torch.cuda.synchronize()
     kernels.reset_launches()
+    if isinstance(step, CapturedStep):
+        step.reset_counts()
     t0 = time.perf_counter()
     for i in range(steps):
         state, (_lw, ld) = step(state, batches[(warmup + i) % len(batches)])
         losses.append(ld)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = real_launches(step)
     losses = torch.stack(losses).float().cpu().numpy()
     out = dict(
         samples_per_s=steps * batch_size / dt, ms_per_step=dt / steps * 1e3,
@@ -667,9 +701,21 @@ def timed_steps(tag, step, state, batches, batch_size, per_step,
                  f"timed steps (expected {per} per step)")
     if profile:
         busy = profile_steps(step, state, batches)
+        out["busy_share"] = busy / out["ms_per_step"]
         log(f"[profile] {tag} device busy share "
             f"{busy / out['ms_per_step']:.3f} of the unprofiled "
             f"{out['ms_per_step']:.3f} ms/step")
+    return out
+
+
+def real_launches(step) -> dict:
+    """Kernel launches since the counters were set to 0.  A captured
+    step's wrappers count their launches when a graph is captured, so its
+    recorded launches are taken out and its replays' launches added."""
+    out = dict(kernels.LAUNCHES)
+    if isinstance(step, CapturedStep):
+        for k in out:
+            out[k] += step.replayed.get(k, 0) - step.recorded.get(k, 0)
     return out
 
 
@@ -714,18 +760,25 @@ def phase_kernel_vs_plain_step(dev) -> None:
                     [to_device(data.get_batch(i), dev) for i in range(3)])
 
 
+def mt_recipe(batch=MT_BATCH):
+    """The multitable recipe's model and optimizers
+    (benchmarks/bench_multitable.py:63-97)."""
+    cfg = MultiTableConfig(batch_size=batch, sparse=True)
+    opt_w = optim.ftrl(learning_rate=cfg.ftrl_lr, l1=5e-4, l2=5e-4,
+                       initial_accum=0.1, loss_scale=cfg.loss_scale)
+    opt_d = optim.lazy_adam(learning_rate=cfg.adam_lr, eps=1e-6,
+                            loss_scale=cfg.loss_scale)
+    return MultiTableWideDeepModel(cfg), (opt_w, opt_d)
+
+
 def mt_setup(batch=MT_BATCH, steps=2):
     """The multitable recipe (benchmarks/bench_multitable.py): model,
     optimizers, and ``steps`` host-prepared SyntheticOutbrain batches:
     the sorted groups prepped with the multi group compacted to its
     masked-in positions (kept budget x1.05) and each sorted group's
     unique ids trimmed to a shared x1.2 bucket."""
-    cfg = MultiTableConfig(batch_size=batch, sparse=True)
-    model = MultiTableWideDeepModel(cfg)
-    opt_w = optim.ftrl(learning_rate=cfg.ftrl_lr, l1=5e-4, l2=5e-4,
-                       initial_accum=0.1, loss_scale=cfg.loss_scale)
-    opt_d = optim.lazy_adam(learning_rate=cfg.adam_lr, eps=1e-6,
-                            loss_scale=cfg.loss_scale)
+    model, (opt_w, opt_d) = mt_recipe(batch)
+    cfg = model.config
     data = SyntheticOutbrain(cfg, steps, seed=0)
     raw = [data.get_batch(i) for i in range(steps)]
     groups = prep_groups(model)
@@ -1575,6 +1628,19 @@ def phase_deepfm_kernel_vs_plain_step(dev) -> None:
                     row_layout=False)
 
 
+def dcn_recipe():
+    """bench.py's DCN recipe: model and its two Adams (bf16 m/v)."""
+    cfg = DCNConfig(
+        batch_size=BATCH, field_size=FIELDS, vocab_size=DCN_VOCAB, emb_dim=27,
+        deep_layer_dim=(1024, 1024), cross_layer_num=6,
+        use_mixed_precision=True, sparse=True, loss_scale=1024.0,
+    )
+    opts = tuple(optim.adam(learning_rate=cfg.learning_rate,
+                            loss_scale=cfg.loss_scale,
+                            state_dtype=torch.bfloat16) for _ in range(2))
+    return DCNModel(cfg), opts
+
+
 def phase_default_paths(dev, fm_host) -> None:
     """DeepFM and DCN at their bench recipes on the default row_packed
     path (bucket 131,072)."""
@@ -1586,20 +1652,324 @@ def phase_default_paths(dev, fm_host) -> None:
                 BATCH, FM_PACKED_PER_STEP)
     del state, batches
     torch.cuda.empty_cache()
-    cfg = DCNConfig(
-        batch_size=BATCH, field_size=FIELDS, vocab_size=DCN_VOCAB, emb_dim=27,
-        deep_layer_dim=(1024, 1024), cross_layer_num=6,
-        use_mixed_precision=True, sparse=True, loss_scale=1024.0,
-    )
-    model = DCNModel(cfg)
-    opts = tuple(optim.adam(learning_rate=cfg.learning_rate,
-                            loss_scale=cfg.loss_scale,
-                            state_dtype=torch.bfloat16) for _ in range(2))
+    model, opts = dcn_recipe()
     batches = [to_device(hb, dev)
                for hb in criteo_host_batches(DCN_VOCAB, 4, bucket=FM_BUCKET)]
     state = init_train_state(model, 0, *opts, device=dev)
     timed_steps("dcn-packed", make_train_step(model, *opts), state, batches,
                 BATCH, DCN_PER_STEP)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: RecModel over the native-prep pipeline, the step captured
+# ---------------------------------------------------------------------------
+
+
+class DeviceLosses(Callback):
+    """Keeps each step's deep loss on the card (no host read per step)."""
+
+    def __init__(self):
+        self.losses = []
+
+    def on_train_step_end(self, ctx):
+        self.losses.append(ctx.net_outputs[1])
+
+
+def rec_log(tag: str, msg: str) -> None:
+    log(f"[{tag}] ({SMI}) {msg}")
+
+
+def rec_train(tag, rm, raw, batch_size, per_step) -> dict:
+    """``RecModel.train`` over raw host batches, timed end to end (native
+    prep, staging, captured step; host clock to a synchronize) with the
+    launch counters set to 0 just before and read just after."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rm.train_step.reset_counts()
+    rec = DeviceLosses()
+    t0 = time.perf_counter()
+    rm.train(1, raw, callbacks=[rec], dataset_sink_mode=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = real_launches(rm.train_step)
+    losses = torch.stack(rec.losses).float().cpu().numpy()
+    out = dict(samples_per_s=len(raw) * batch_size / dt,
+               ms_per_step=dt / len(raw) * 1e3, steps=len(raw),
+               captures=rm.train_step.captures, replays=rm.train_step.replays,
+               launches=launches, last_loss=float(losses[-1]))
+    rec_log(tag, json.dumps(out))
+    if len(losses) != len(raw) or not np.isfinite(losses).all():
+        fail(f"{tag}: {len(losses)} steps for {len(raw)} batches, losses "
+             f"{losses}")
+    for k, per in per_step.items():
+        if launches[k] < per * len(raw):
+            fail(f"{tag}: kernel {k} launched {launches[k]} times in "
+                 f"{len(raw)} steps (expected {per} per step)")
+    return out
+
+
+def pace(tag, dev, raw, pipe_kw, step_ms, e2e_ms) -> dict:
+    """Which stage sets the end-to-end pace: the prep pool alone (1, 2
+    and 4 workers, no consumer) and the staging alone (pinned copy and
+    side-stream transfer of prepped batches, no step), in ms per batch,
+    beside the captured step and the end-to-end time."""
+    out = {}
+    for workers in (1, 2, 4):
+        t0 = time.perf_counter()
+        prepped = list(SparseInputPipeline(raw, workers=workers, device=False,
+                                           **pipe_kw()))
+        out[f"prep_pool_{workers}w_ms"] = (time.perf_counter() - t0) / len(raw) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = list(PrefetchToDevice(iter(prepped), depth=2, device=dev))
+    torch.cuda.synchronize()
+    out["staging_ms"] = (time.perf_counter() - t0) / len(raw) * 1e3
+    out["staged_mb_per_batch"] = sum(t.numel() * t.element_size()
+                                     for t in staged[0].values()) / 1e6
+    out.update(captured_step_ms=step_ms, end_to_end_ms=e2e_ms)
+    stages = {"prep (2 workers)": out["prep_pool_2w_ms"],
+              "staging": out["staging_ms"], "captured step": step_ms}
+    out["set_by"] = max(stages, key=stages.get)
+    rec_log(tag, json.dumps(out))
+    return out
+
+
+def prep_ms(prep, raw, reps) -> float:
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        prep(dict(raw))
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def captured_vs_eager_turns(tag, dev, model, opts, batches, batch_size,
+                            per_step, warmup, steps) -> dict:
+    """ms/step of the eager and the captured step on staged batches, in
+    turns (eager, captured, captured, eager), device busy share of the
+    first of each by torch.profiler."""
+    ms = {"eager": [], "captured": []}
+    busy = {}
+    for kind in ("eager", "captured", "captured", "eager"):
+        state = init_train_state(model, 0, *opts, device=dev)
+        step = make_train_step(model, *opts, jit=kind == "captured")
+        prof = kind not in busy
+        out = timed_steps(f"{tag}-{kind}", step, state, batches, batch_size,
+                          per_step, warmup, steps, profile=prof)
+        ms[kind].append(out["ms_per_step"])
+        if prof:
+            busy[kind] = out["busy_share"]
+        del state, step
+        torch.cuda.empty_cache()
+    rec_log(f"{tag}-compare", f"ms/step in turns: eager {ms['eager'][0]:.3f}, "
+            f"captured {ms['captured'][0]:.3f}, {ms['captured'][1]:.3f}, "
+            f"eager {ms['eager'][1]:.3f}; device busy share: eager "
+            f"{busy['eager']:.3f}, captured {busy['captured']:.3f}")
+    return {"ms": ms, "busy_share": busy}
+
+
+def state_diffs(a, b) -> list:
+    """(leaf, max abs difference) of the leaves of two states that are
+    not bit-equal."""
+    out = []
+    for i, (x, y) in enumerate(zip(_state_tensors(a), _state_tensors(b))):
+        if not torch.equal(x, y):
+            out.append((i, float((x.float() - y.float()).abs().max())))
+    return out
+
+
+def check_captured_equals_eager(tag, dev, model, opts, batches) -> None:
+    """From one state (two copies), the captured and the eager step over
+    the same batches: losses and every leaf bit-equal."""
+    se = init_train_state(model, 1, *opts, device=dev)
+    sc = init_train_state(model, 1, *opts, device=dev)
+    eager = make_train_step(model, *opts)
+    cap = make_train_step(model, *opts, jit=True)
+    for i, b in enumerate(batches):
+        se, le = eager(se, b)
+        sc, lc = cap(sc, b)
+        if not all(torch.equal(x, y) for x, y in zip(le, lc)):
+            fail(f"{tag}: step {i} losses eager {le} captured {lc}")
+    diffs = state_diffs(se, sc)
+    if diffs:
+        fail(f"{tag}: captured state differs from eager in leaves "
+             f"(index, max abs diff) {diffs}")
+    rec_log(tag, f"captured == eager, bit for bit, over {len(batches)} steps "
+            f"({len(_state_tensors(se))} leaves, {cap.captures} capture, "
+            f"{cap.replays} replays)")
+    del se, sc
+    torch.cuda.empty_cache()
+
+
+def phase_rec_wd(dev, model, opts, steps=20, warmup=3) -> dict:
+    """12.1-12.4: the W&D bench recipe through ``RecModel.train``."""
+    data = SyntheticCriteo(BATCH, FIELDS, VOCAB, steps=warmup + steps + 4,
+                           seed=0, fields="criteo")
+    t0 = time.perf_counter()
+    raw = [data.get_batch(s) for s in range(len(data))]
+    log(f"[rec-data] {len(raw)} raw batches in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    bucket = AdaptiveBucket.from_sample(raw[:2])
+    native = make_batch_sort(FIELDS, unique_bucket=bucket.bucket, minimal=True)
+    numpy_ = make_batch_sort(FIELDS, unique_bucket=bucket.bucket,
+                             minimal=True, native=False)
+    nat_ms, np_ms = prep_ms(native, raw[0], 10), prep_ms(numpy_, raw[0], 3)
+    rec_log("rec-prep", f"W&D batch {BATCH}x{FIELDS}: native prep "
+            f"{nat_ms:.2f} ms/batch, numpy {np_ms:.2f} ms/batch (one thread)")
+
+    rm = RecModel(model, *opts, unique_bucket=bucket, prep_workers=2,
+                  jit=True, device=dev)
+    warm = rec_train("rec-wd-warmup", rm, raw[:warmup], BATCH, WD_PER_STEP)
+    if warm["captures"] != 1:
+        fail(f"rec-wd: {warm['captures']} captures in the warm-up")
+    out = rec_train("rec-wd", rm, raw[warmup:warmup + steps], BATCH,
+                    WD_PER_STEP)
+    if out["captures"] or out["replays"] != steps:
+        fail(f"rec-wd: {out['captures']} captures, {out['replays']} replays")
+
+    held = raw[warmup + steps:]
+    auc = rm.eval(held)["auc"]
+    ev = make_eval_step(model)
+    probs, labels = [], []
+    for b in held:
+        p, y = ev(rm.state.params, to_device(b, dev))
+        probs.append(p.float().cpu().numpy())
+        labels.append(y.float().cpu().numpy())
+    want = roc_auc(np.concatenate(labels), np.concatenate(probs))
+    if auc != want or not 0.0 < auc < 1.0:
+        fail(f"rec-wd eval: RecModel.eval AUC {auc} != make_eval_step + "
+             f"roc_auc {want}")
+    rec_log("rec-eval", f"RecModel.eval AUC {auc:.6f} on {len(held)} held-out "
+            f"batches == make_eval_step + roc_auc")
+    del rm
+    torch.cuda.empty_cache()
+
+    staged = []
+    for b in raw[:8]:
+        hb = native(b)
+        hb["uq_ids"] = hb["uq_ids"][: bucket.bucket]
+        staged.append(to_device(hb, dev))
+    out["turns"] = captured_vs_eager_turns("rec-wd", dev, model, opts, staged,
+                                           BATCH, WD_PER_STEP, 3, 10)
+    out["pace"] = pace(
+        "rec-wd-pace", dev, raw[warmup:warmup + steps],
+        lambda: dict(field_size=FIELDS, policy=AdaptiveBucket(
+            bucket.bucket, log=lambda *a, **k: None)),
+        min(out["turns"]["ms"]["captured"]), out["ms_per_step"])
+    check_captured_equals_eager("rec-wd-equal", dev, model, opts, staged[:5])
+    out.update(native_prep_ms=nat_ms, numpy_prep_ms=np_ms,
+               bucket=bucket.bucket, auc=auc)
+    return out
+
+
+def phase_rec_regrow(dev, model, opts) -> None:
+    """12.3: a bucket below what later batches need: one regrow, one new
+    capture, and the state equal to an eager run with the same regrow."""
+    lo = SyntheticCriteo(BATCH, FIELDS, VOCAB, steps=3, seed=50,
+                         fields="criteo")
+    hi = SyntheticCriteo(BATCH, FIELDS, VOCAB, steps=3, seed=60,
+                         fields="criteo", zipf_a=1.05)
+    raw = [lo.get_batch(i) for i in range(3)] + [hi.get_batch(i)
+                                                 for i in range(3)]
+    nus = [int(np.unique(b["ids"]).size) for b in raw]
+    start = max(nus[:3])
+    if min(nus[3:]) <= round_bucket(start):
+        fail(f"rec-regrow: distinct ids {nus} need no regrow from {start}")
+    grows = []
+    rm = RecModel(model, *opts, seed=2, prep_workers=1, jit=True, device=dev,
+                  unique_bucket=AdaptiveBucket(start, log=lambda *a, **k:
+                                               grows.append(a[0])))
+    rm.train(1, raw, dataset_sink_mode=True)
+    cap = rm.train_step
+    grew = [g for g in grows if "overflow:" in g]
+    if len(grew) != 1 or cap.captures != 2 or cap.replays != 4:
+        fail(f"rec-regrow: {len(grew)} regrows, {cap.captures} captures, "
+             f"{cap.replays} replays (expected 1, 2, 4): {grows}")
+    st = init_train_state(model, 2, *opts, device=dev)
+    step = make_train_step(model, *opts)
+    pol = AdaptiveBucket(start, log=lambda *a, **k: None)
+    for b in SparseInputPipeline(raw, FIELDS, policy=pol, workers=1):
+        st, _ = step(st, b)
+    diffs = state_diffs(st, rm.state)
+    if diffs or pol.bucket != rm.bucket_policy.bucket:
+        fail(f"rec-regrow: captured run differs from the eager run "
+             f"(buckets {rm.bucket_policy.bucket}, {pol.bucket}): {diffs}")
+    rec_log("rec-regrow", f"distinct ids {nus}: bucket "
+            f"{round_bucket(start)} -> {pol.bucket}, 1 regrow, 2 captures, 4 "
+            f"replays; state == the eager run's, bit for bit")
+    del rm, st
+    torch.cuda.empty_cache()
+
+
+def phase_captured_others(dev, fm_host) -> dict:
+    """12.6: the DeepFM (feature-major with ``row_layout=False``, and the
+    default path) and DCN steps captured, on the staged batches of phases
+    10-11: ms/step and device busy share (their eager runs are above)."""
+    out = {}
+    model, opts = deepfm_recipe("feature_major")
+    full = [to_device(hb, dev) for hb in fm_host]
+    state = init_train_state(model, 0, *opts, device=dev)
+    out["deepfm-col"] = timed_steps(
+        "rec-deepfm-col-captured", make_train_step(model, *opts, jit=True,
+                                                   row_layout=False),
+        state, full, BATCH, FM_COL_PER_STEP, profile=True)
+    del state, full
+    model, opts = deepfm_recipe("auto")
+    trimmed = [to_device({**hb, "uq_ids": hb["uq_ids"][:FM_BUCKET]}, dev)
+               for hb in fm_host]
+    state = init_train_state(model, 0, *opts, device=dev)
+    out["deepfm-packed"] = timed_steps(
+        "rec-deepfm-packed-captured", make_train_step(model, *opts, jit=True),
+        state, trimmed, BATCH, FM_PACKED_PER_STEP, profile=True)
+    del state, trimmed
+    torch.cuda.empty_cache()
+    model, opts = dcn_recipe()
+    batches = [to_device(hb, dev)
+               for hb in criteo_host_batches(DCN_VOCAB, 4, bucket=FM_BUCKET)]
+    state = init_train_state(model, 0, *opts, device=dev)
+    out["dcn-packed"] = timed_steps(
+        "rec-dcn-packed-captured", make_train_step(model, *opts, jit=True),
+        state, batches, BATCH, DCN_PER_STEP, profile=True)
+    del state, batches
+    torch.cuda.empty_cache()
+    rec_log("rec-captured-others", json.dumps(
+        {k: {"ms_per_step": v["ms_per_step"], "busy_share": v["busy_share"]}
+         for k, v in out.items()}))
+    return out
+
+
+def phase_rec_mt(dev, warmup=3, steps=5) -> dict:
+    """12.5: the multitable recipe through ``RecModel(host_prep=True)``:
+    per-group lossless native prep."""
+    model, opts = mt_recipe()
+    data = SyntheticOutbrain(model.config, warmup + steps, seed=0)
+    t0 = time.perf_counter()
+    raw = [data.get_batch(i) for i in range(warmup + steps)]
+    log(f"[rec-data] {len(raw)} raw multitable batches in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    groups = prep_groups(model)
+    native = make_batch_sort(0, groups=groups, minimal=True)
+    numpy_ = make_batch_sort(0, groups=groups, minimal=True, native=False)
+    nat_ms, np_ms = prep_ms(native, raw[0], 3), prep_ms(numpy_, raw[0], 1)
+    rec_log("rec-prep", f"multitable batch {MT_BATCH}, groups "
+            f"{sorted(groups)}: native prep {nat_ms:.2f} ms/batch, numpy "
+            f"{np_ms:.2f} ms/batch (one thread)")
+    rm = RecModel(model, *opts, host_prep=True, prep_workers=2, jit=True,
+                  device=dev)
+    rec_train("rec-mt-warmup", rm, raw[:warmup], MT_BATCH, MT_PER_STEP)
+    out = rec_train("rec-mt", rm, raw[warmup:], MT_BATCH, MT_PER_STEP)
+    if out["captures"] or out["replays"] != steps:
+        fail(f"rec-mt: {out['captures']} captures, {out['replays']} replays")
+    del rm
+    torch.cuda.empty_cache()
+    staged = [to_device(native(b), dev) for b in raw[:5]]
+    out["turns"] = captured_vs_eager_turns("rec-mt", dev, model, opts,
+                                           staged[:4], MT_BATCH, MT_PER_STEP,
+                                           2, 5)
+    out["pace"] = pace("rec-mt-pace", dev, raw[warmup:],
+                       lambda: dict(field_size=0, groups=groups),
+                       min(out["turns"]["ms"]["captured"]), out["ms_per_step"])
+    check_captured_equals_eager("rec-mt-equal", dev, model, opts, staged)
+    out.update(native_prep_ms=nat_ms, numpy_prep_ms=np_ms)
+    return out
 
 
 def main() -> int:
@@ -1613,12 +1983,13 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
+    global SMI
+    SMI = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    log(smi)
+    log(SMI)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     phase_build()
@@ -1653,6 +2024,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_deepfm_kernel_vs_plain_step(dev)
     phase_default_paths(dev, fm_host)
+    others = phase_captured_others(dev, fm_host)
+    del fm_host
+    torch.cuda.empty_cache()
+
+    wd_model, wd_opts = wd_recipe()
+    rec_wd = phase_rec_wd(dev, wd_model, wd_opts)
+    phase_rec_regrow(dev, wd_model, wd_opts)
+    rec_mt = phase_rec_mt(dev)
+    rec_log("rec-summary", json.dumps({"wd": rec_wd, "multitable": rec_mt,
+                                       "captured_others": others}))
 
     launches = {**main_path["launches"],
                 **{k: mt_path["launches"][k] for k in MT_PER_STEP

@@ -7,13 +7,27 @@ is a CUDA C++ kernel under ``csrc/`` (built at first use by
 ``ops/kernels/_build.py``); each kernel module also holds the plain
 PyTorch version that CPU tensors take.
 
-Ported so far: the sparse train step on one device
-(``train/step.py:make_train_step``) in both streamed formulations
-(``row_layout=True`` for one or several id groups of row_packed or
-feature-major tables, with the tiny-vocab path; ``row_layout=False`` for
-a single group of feature-major tables), the Wide&Deep, DeepFM, DCN and
-multitable (Outbrain) Wide&Deep models, and a CUDA counterpart of every
-Pallas kernel of the reference.
+Ported so far:
+
+* ``train/rec_model.py:RecModel`` (``train``, ``online_train``,
+  ``eval``) over the host-prep input pipeline (``data/pipeline.py``:
+  native prep in a thread pool, the adaptive unique bucket, staging on
+  a side CUDA stream by ``data/criteo.py:PrefetchToDevice``), with the
+  step captured in a CUDA graph (``jit=True``);
+* the native batch prep (``native/batchprep.cc``, built by g++ at first
+  use), metrics (AUC, grouped MAP@12) and callbacks;
+* the sparse train step on one device (``train/step.py``) in both
+  streamed formulations (``row_layout=True`` for one or several id
+  groups of row_packed or feature-major tables, with the tiny-vocab
+  path; ``row_layout=False`` for a single group of feature-major
+  tables), with the overflow guard on the device;
+* the Wide&Deep, DeepFM, DCN and multitable (Outbrain) Wide&Deep
+  models, and a CUDA counterpart of every Pallas kernel of the
+  reference.
 """
 
 __version__ = "0.1.0"
+
+from mindrec_tpu_torch.train.rec_model import RecModel  # noqa: E402
+
+__all__ = ["__version__", "RecModel"]

@@ -3,13 +3,17 @@
 ``criteo_field_sizes`` and :class:`SyntheticCriteo` are copies of
 ``mindrec_tpu/data/criteo.py`` (numpy only), so the same seed gives the
 same batches in both packages.  :func:`to_device` stages a host batch
-through pinned memory with non-blocking copies.
+through pinned memory with non-blocking copies on the current stream;
+:class:`PrefetchToDevice` (port of the reference's) stages the next
+batches from a background thread on a side stream while the step runs.
 
 Batch layout: ``{"ids": [B,F] int32, "wts": [B,F] f32, "label": [B,1] f32}``.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -22,6 +26,11 @@ CRITEO_KAGGLE_CAT_CARDINALITIES = (
     15, 286181, 105, 142572,
 )
 N_DENSE_FIELDS = 13  # int columns, bucketized into small id ranges
+# Held while a batch is staged on the card and while a train step is
+# captured in a CUDA graph (train/step.py:CapturedStep): a staging
+# thread's CUDA calls (pinned allocations, copies, events) must not
+# interleave with a capture, which any of them can invalidate.
+STAGING_LOCK = threading.Lock()
 
 
 def criteo_field_sizes(vocab_size: int, field_size: int = 39) -> np.ndarray:
@@ -116,3 +125,93 @@ def to_device(batch: dict, device="cuda") -> dict[str, torch.Tensor]:
         else:
             out[k] = t.to(device)
     return out
+
+
+class PrefetchToDevice:
+    """Async host->device prefetch: a background thread stages the next
+    ``depth`` batches on the card while the current step runs.
+
+    Each batch is copied into pinned host memory and then to ``device``
+    by ``non_blocking`` copies on a side CUDA stream, which records an
+    event.  The consumer's current stream waits on that event before it
+    gets the batch, and each staged tensor is marked with
+    ``record_stream`` for the consumer's stream, so the allocator does
+    not hand its memory out again while the consumer may still use it.
+    An exception of the source or of the staging surfaces in the
+    consumer, in order.  ``sharding`` (multi-GPU) is not ported yet."""
+
+    def __init__(self, it, depth: int = 2, sharding=None, device="cuda"):
+        if sharding is not None:
+            raise NotImplementedError(
+                "sharded staging is not ported yet (ROADMAP.md section 1 "
+                "item 10)")
+        self.it = iter(it)
+        self.depth = depth
+        self.device = torch.device(device)
+        if self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.stream = torch.cuda.Stream(self.device)
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._done = object()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="mrec-prefetch")
+        self._thread.start()
+
+    def _stage(self, batch):
+        # the pinned copies are released inside the lock too: freeing
+        # pinned memory records and queries events
+        with STAGING_LOCK, torch.cuda.stream(self.stream):
+            out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                   .to(self.device, non_blocking=True)
+                   for k, v in batch.items()}
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        return out, ready
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self.q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _worker(self):
+        try:
+            with torch.cuda.device(self.device):
+                for batch in self.it:
+                    if not self._put(self._stage(batch)):
+                        return
+        except BaseException as e:  # surfaces in the consumer, in order
+            self._put(e)
+        finally:
+            self._put(self._done)
+
+    def close(self) -> None:
+        """Stop the thread (a consumer that leaves early) and close the
+        source iterator it drove."""
+        self._stop.set()
+        self._thread.join(timeout=10)
+        close = getattr(self.it, "close", None)
+        if close is not None and not self._thread.is_alive():
+            close()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self.q.get()
+        if item is self._done:
+            self._stop.set()
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self._stop.set()
+            raise item
+        out, ready = item
+        consumer = torch.cuda.current_stream(self.device)
+        consumer.wait_event(ready)
+        for t in out.values():
+            t.record_stream(consumer)
+        return out

@@ -89,6 +89,7 @@ class MultiTableWideDeepModel:
         if c.dropout_flag and c.keep_prob < 1.0:
             raise NotImplementedError("dropout is not ported yet")
         self.config = c
+        self._pool_cache = {}  # device -> _make_pool_matrix(device)
 
         def mk(name, vocab, dim, slice_mode="none"):
             return EmbeddingTableSpec(
@@ -182,7 +183,14 @@ class MultiTableWideDeepModel:
     def _pool_matrix(self, device):
         """``[sum(Lk), 6]`` field one-hot and the float32 ``1/Lk`` per
         field: one matmul and one small multiply give the 6 masked
-        full-length means."""
+        full-length means.  Made once per device: the host-to-device
+        copy of ``1/Lk`` cannot run inside a captured step."""
+        key = str(device)
+        if key not in self._pool_cache:
+            self._pool_cache[key] = self._make_pool_matrix(device)
+        return self._pool_cache[key]
+
+    def _make_pool_matrix(self, device):
         sizes = self.config.multi_hot_sizes
         p = torch.zeros((sum(sizes), len(sizes)), dtype=torch.float32,
                         device=device)

@@ -266,6 +266,18 @@ def _get(params, path):
     return node
 
 
+def _keep_unless(finite, new, old):
+    """``new`` where the device flag ``finite`` holds, else ``old``, leaf
+    by leaf of an optimizer state (None: ``new``)."""
+    if finite is None:
+        return new
+    if isinstance(new, dict):
+        return {k: _keep_unless(finite, v, old[k]) for k, v in new.items()}
+    if isinstance(new, torch.Tensor) and new is not old:
+        return torch.where(finite, new, old)
+    return new
+
+
 def _supported(model, sparse, row_layout):
     """Raise NotImplementedError for every branch this port lacks."""
     if not sparse:
@@ -412,6 +424,8 @@ def make_train_step(
     row_layout: bool = True,
     unique_bucket: int | dict | None = None,
     tiny_vocab: int = 2048,
+    jit: bool = False,
+    donate: bool = True,
 ):
     """Build ``step(state, batch) -> (state, (loss_w, loss_d))``.
 
@@ -428,12 +442,25 @@ def make_train_step(
     the lazy updates.  ``matmul_dtype``: type of the expanded rows and of
     their gradients (bf16 in production, as the reference).
     ``check_overflow``: skip the update (but advance the step) when a
-    gradient is not finite; this reads one flag on the host each step.
+    gradient is not finite, by a flag on the device that gates every
+    touch and selects every dense leaf and optimizer state (nothing is
+    read on the host, so the guarded step can be captured).
     ``row_layout=False``: the feature-major formulation (module
     docstring) for a single id group of feature-major tables; it takes
     the unique ids at their full length and ignores ``unique_bucket``
     and ``tiny_vocab`` (both ``row_layout=True`` parameters, as in the
-    reference)."""
+    reference).
+
+    ``jit=True`` (the reference's ``jax.jit``): on a CUDA state the step
+    is captured once per batch signature in a CUDA graph and replayed
+    (:class:`CapturedStep`); on the CPU it is the eager step.
+    ``donate``: the step updates the tables (and, captured, every leaf)
+    in place, so the state passed in is always donated; ``donate=False``
+    raises."""
+    if not donate:
+        raise NotImplementedError(
+            "the port's step updates the state in place (it is donated); "
+            "donate=False is not ported")
     cfg = model.config
     if sparse is None:
         sparse = bool(getattr(cfg, "sparse", False))
@@ -593,18 +620,27 @@ def make_train_step(
         return (dict(zip(leaves, grads[: len(leaves)])), grads[len(leaves):],
                 (loss_w.detach(), loss_d.detach()))
 
-    def overflowed(dense_grads, g_deltas) -> bool:
-        """check_overflow: True when a gradient is not finite (reads one
-        flag on the host)."""
+    def guard(dense_grads, g_deltas):
+        """check_overflow: -> (finite, dense_grads, g_deltas), where
+        ``finite`` is a bool scalar on the device (None without the
+        guard) and the gradients are zeroed unless it holds, so no NaN
+        reaches a kernel.  Nothing is read on the host."""
         if not check_overflow:
-            return False
+            return None, dense_grads, g_deltas
         finite = torch.stack([torch.isfinite(g).all()
-                              for g in (*dense_grads.values(), *g_deltas)])
-        return not bool(finite.all())
+                              for g in (*dense_grads.values(), *g_deltas)]).all()
+        return (finite,
+                {k: torch.where(finite, g, 0.0) for k, g in dense_grads.items()},
+                [torch.where(finite, g, 0.0) for g in g_deltas])
 
-    def finish(state, dense_grads, col_grads, cols, subs, touch_mask, losses):
+    def finish(state, dense_grads, col_grads, cols, subs, touch_mask, losses,
+               finite=None):
         """The shared tail: dense updates, then each table's lazy update
-        from its summed gradients (``_finish_sparse`` of the reference)."""
+        from its summed gradients (``_finish_sparse`` of the reference).
+        ``finite`` (the guard's flag) gates every table's touches and
+        selects every dense leaf and optimizer state: where it is False
+        all keep their values and only ``step`` advances (the reference's
+        ``_guard``)."""
         params = state.params
         opt_w_state, opt_d_state = dict(state.opt_w), dict(state.opt_d)
 
@@ -613,9 +649,9 @@ def make_train_step(
                 return leaf
             opt, states = ((opt_w, opt_w_state) if is_wide_key(key)
                            else (opt_d, opt_d_state))
-            p2, states[key] = opt.update_leaf(dense_grads[key], states[key],
-                                              leaf)
-            return p2
+            p2, st = opt.update_leaf(dense_grads[key], states[key], leaf)
+            states[key] = _keep_unless(finite, st, states[key])
+            return _keep_unless(finite, p2, leaf)
 
         new_params = map_leaves(dense_update, params)
         for key, (name, path, spec) in table_keys.items():
@@ -624,21 +660,27 @@ def make_train_step(
             opt = opt_w if wide else opt_d
             table = _get(params, path)
             gate = touch_mask.get(name)
+            if finite is not None:  # no touch at all on overflow
+                f = finite.to(torch.float32).reshape(1, 1)
+                gate = f if gate is None else gate * f
             if spec.row_packed:
-                present = None if gate is None else (gate.reshape(-1) > 0).to(
-                    torch.int32)
-                _t, states[key] = _packed_table_update(
+                u = cols[name].shape[0]
+                present = None if gate is None else (
+                    (gate > 0).to(torch.int32).expand(1, u).reshape(-1)
+                    .contiguous())
+                _t, st = _packed_table_update(
                     opt, col_grads[name], cols[name], subs[name], states[key],
                     table, spec, present=present, use_kernels=use_kernels,
                 )
-                continue
-            g_aug = make_aug_grads(col_grads[name], subs[name])
-            if gate is not None:  # absent ids of a tiny group: no touch
-                g_aug = torch.cat([g_aug[:-AUG], g_aug[-AUG:] * gate])
-            _t, states[key] = _streamed_table_update(
-                opt, g_aug.contiguous(), cols[name], states[key], table, spec,
-                use_kernels=use_kernels,
-            )
+            else:
+                g_aug = make_aug_grads(col_grads[name], subs[name])
+                if gate is not None:  # absent ids of a tiny group: no touch
+                    g_aug = torch.cat([g_aug[:-AUG], g_aug[-AUG:] * gate])
+                _t, st = _streamed_table_update(
+                    opt, g_aug.contiguous(), cols[name], states[key], table,
+                    spec, use_kernels=use_kernels,
+                )
+            states[key] = _keep_unless(finite, st, states[key])
         return TrainState(new_params, opt_w_state, opt_d_state,
                           state.step + 1), losses
 
@@ -652,8 +694,7 @@ def make_train_step(
         dense_grads, g_deltas, losses = run_model(
             state.params, batch, rows_pos,
             lambda rp: table_rows(gdata, dict(zip(gdata, rp))))
-        if overflowed(dense_grads, g_deltas):  # keep params and state
-            return state._replace(step=state.step + 1), losses
+        finite, dense_grads, g_deltas = guard(dense_grads, g_deltas)
         col_grads, touch_mask = backward_sums(gdata,
                                               dict(zip(gdata, g_deltas)))
         cols, subs = {}, {}
@@ -661,7 +702,7 @@ def make_train_step(
             cols.update(gd["cols"])
             subs.update(gd["subs"])
         return finish(state, dense_grads, col_grads, cols, subs, touch_mask,
-                      losses)
+                      losses, finite)
 
     gather_c = gather_cols if use_kernels else gather_cols_plain
     segsum_c = segsum_cols if use_kernels else segsum_cols_plain
@@ -705,8 +746,7 @@ def make_train_step(
 
         dense_grads, g_deltas, losses = run_model(state.params, batch,
                                                   [rows_pos], rows_of)
-        if overflowed(dense_grads, g_deltas):  # keep params and state
-            return state._replace(step=state.step + 1), losses
+        finite, dense_grads, g_deltas = guard(dense_grads, g_deltas)
         g_sorted = g_deltas[0][perm.long()]  # [N, sum_d], sorted order
         # the kernel reads the [sum_d, N] view's row-major memory: no copy
         g_uq = segsum_c(g_sorted.T, uidx_s.to(torch.int32), n_pos)
@@ -723,9 +763,117 @@ def make_train_step(
             if dn < dp_full:  # restore the sublane padding
                 g = torch.cat([g, g.new_zeros((dp_full - dn, n_pos))])
             col_grads[name] = g
-        return finish(state, dense_grads, col_grads, cols, subs, {}, losses)
+        return finish(state, dense_grads, col_grads, cols, subs, {}, losses,
+                      finite)
 
-    return step_rows if row_layout else step_cols
+    step = step_rows if row_layout else step_cols
+    return CapturedStep(step) if jit else step
+
+
+# ---------------------------------------------------------------------------
+# the captured step (jit=True)
+# ---------------------------------------------------------------------------
+
+
+def _state_tensors(state: TrainState) -> list[torch.Tensor]:
+    return [leaf for _p, leaf in _leaves(
+        {"params": state.params, "opt_w": state.opt_w, "opt_d": state.opt_d,
+         "step": state.step}) if isinstance(leaf, torch.Tensor)]
+
+
+def _step_in_place(step, state: TrainState, batch):
+    """Run ``step`` and copy every leaf it replaced into ``state``'s own
+    tensors (the tables it already updates in place), so that ``state``
+    stays the live state at fixed addresses."""
+    new, losses = step(state, batch)
+    for old, fresh in zip(_state_tensors(state), _state_tensors(new)):
+        if fresh is not old:
+            old.copy_(fresh)
+    return losses
+
+
+class CapturedStep:
+    """The train step captured in a CUDA graph per batch signature (keys,
+    shapes, dtypes) and state, then replayed: the counterpart of the
+    reference's ``jax.jit(step, donate_argnums=(0,))``.
+
+    The first call of a signature runs the step eagerly on a side stream
+    (the warm-up: it builds the kernel library, asks the kernels' scratch
+    sizes and makes every lazily cached tensor, and it is this batch's
+    real step), then captures one step into a ``torch.cuda.CUDAGraph``
+    over static copies of the batch.  Later calls copy the batch into the
+    static inputs and replay.  The graph updates the caller's
+    :class:`TrainState` in place (every leaf keeps its address) and the
+    returned losses are copies that the next replay does not overwrite.
+    A bucket regrow is a new signature and gets one new capture; graphs
+    of earlier signatures are kept for batches still in flight.  A
+    capture that fails raises: it never falls back to the eager step.
+
+    A kernel wrapper counts its launch when the graph is captured, not on
+    each replay.  Since :meth:`reset_counts`, ``recorded`` sums what the
+    captures counted (launches put into graphs, not run) and ``replayed``
+    what the replays launched, so the kernels' real launches are
+    ``LAUNCHES - recorded + replayed``.  On a CPU state the call is the
+    eager step."""
+
+    def __init__(self, step):
+        self.step = step
+        self._graphs = {}  # (state addresses, batch signature) -> entry
+        self._state = None
+        self._state_key = None
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        self.captures = self.replays = 0
+        self.recorded = {}  # kernel -> launches counted by captures
+        self.replayed = {}  # kernel -> launches made by replays
+
+    def __call__(self, state: TrainState, batch):
+        if state.step.device.type != "cuda":
+            return self.step(state, batch)
+        if state is not self._state:
+            self._state = state
+            self._state_key = tuple(t.data_ptr() for t in _state_tensors(state))
+        sig = tuple((k, tuple(v.shape), v.dtype, str(v.device))
+                    for k, v in sorted(batch.items()))
+        entry = self._graphs.get((self._state_key, sig))
+        if entry is None:
+            return state, self._capture((self._state_key, sig), state, batch)
+        graph, static, losses, per_replay = entry
+        for k, v in batch.items():
+            static[k].copy_(v)
+        graph.replay()
+        self.replays += 1
+        for k, n in per_replay.items():
+            self.replayed[k] = self.replayed.get(k, 0) + n
+        return state, tuple(x.clone() for x in losses)
+
+    def _capture(self, key, state, batch):
+        from mindrec_tpu_torch.data.criteo import STAGING_LOCK
+        from mindrec_tpu_torch.ops.kernels import LAUNCHES
+
+        dev = state.step.device
+        with torch.cuda.device(dev):
+            cur = torch.cuda.current_stream(dev)
+            static = {k: v.clone() for k, v in batch.items()}
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                losses = tuple(x.clone() for x in
+                               _step_in_place(self.step, state, static))
+            cur.wait_stream(side)
+            before = dict(LAUNCHES)
+            graph = torch.cuda.CUDAGraph()
+            # the input pipeline's staging thread waits while we capture
+            with STAGING_LOCK, torch.cuda.graph(graph):
+                out = _step_in_place(self.step, state, static)
+        per_replay = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                      if LAUNCHES[k] != before[k]}
+        self._graphs[key] = (graph, static, out, per_replay)
+        self.captures += 1
+        for k, n in per_replay.items():
+            self.recorded[k] = self.recorded.get(k, 0) + n
+        return losses
 
 
 # ---------------------------------------------------------------------------
@@ -775,13 +923,20 @@ def _np_sort_meta(ids):
     return sorted_ids, perm, inv, uq, uidx_sorted[inv], uidx_sorted, int(u.size)
 
 
-def make_batch_sort(field_size: int, unique_bucket=None, minimal: bool = False,
+def make_batch_sort(field_size: int, unique_bucket=None,
+                    native: bool | None = None, minimal: bool = False,
                     groups: dict | None = None,
                     kept_budget: dict | None = None):
-    """Host-side batch prep (numpy): attach ``perm``, ``uq_ids``,
-    ``uidx``, ``uidx_sorted`` (and ``sorted_ids``/``inv`` unless
-    ``minimal``) so the step skips its device sort.  Port of the numpy
-    path of the reference's ``make_batch_sort``.
+    """Host-side batch prep: attach ``perm``, ``uq_ids``, ``uidx``,
+    ``uidx_sorted`` (and ``sorted_ids``/``inv`` unless ``minimal``) so
+    the step skips its device sort.  Port of the reference's
+    ``make_batch_sort``.
+
+    ``native``: None (the default) or True sorts with the native radix
+    sort (``native/batchprep.cc``, built by g++ at first use; a failed
+    build raises), whose ctypes call releases the GIL so a thread pool
+    overlaps prep with the device step; False takes the numpy path (the
+    tests pin exact native <-> numpy parity).
 
     ``unique_bucket``: the step's static bucket (an int, or ``{group:
     int}``); a batch with more distinct ids raises
@@ -796,6 +951,13 @@ def make_batch_sort(field_size: int, unique_bucket=None, minimal: bool = False,
     than the budget, or when ``n_unique >= unique_bucket``).  An id
     occurring only at masked positions is then not touched."""
     del field_size  # kept for the reference's signature
+    if native is False:
+        sort_meta = _np_sort_meta
+    else:
+        from mindrec_tpu_torch.native import batchprep
+
+        def sort_meta(ids):
+            return batchprep.batch_prep(ids, uq_len=ids.size, minimal=minimal)
 
     def group_items(batch):
         if groups is None:
@@ -827,7 +989,7 @@ def make_batch_sort(field_size: int, unique_bucket=None, minimal: bool = False,
             nk = pos.size
             if nk > budget:
                 raise BucketOverflow(nk, budget)
-            _s, perm_k, _i, uq_k, uidx_k, uidx_sorted_k, nu = _np_sort_meta(
+            _s, perm_k, _i, uq_k, uidx_k, uidx_sorted_k, nu = sort_meta(
                 ids[pos])
             if bucket is not None and nu >= bucket:
                 # >=: the pad slots' segment needs index nu
@@ -845,7 +1007,7 @@ def make_batch_sort(field_size: int, unique_bucket=None, minimal: bool = False,
             out[pref + "uidx"] = uidx
             out[pref + "uidx_sorted"] = uidx_sorted
             return
-        sorted_ids, perm, inv, uq, uidx, uidx_sorted, nu = _np_sort_meta(ids)
+        sorted_ids, perm, inv, uq, uidx, uidx_sorted, nu = sort_meta(ids)
         if bucket is not None and nu > bucket:
             raise BucketOverflow(nu, bucket)
         if not minimal:

@@ -31,6 +31,8 @@ setup(
         "mindrec_tpu.native": ["*.so", "*.cc", "Makefile"],
         # CUDA sources of the PyTorch port, built at first use
         "mindrec_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        # the port's native batch prep, built by g++ at first use
+        "mindrec_tpu_torch.native": ["*.cc"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],

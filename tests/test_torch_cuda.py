@@ -33,6 +33,7 @@ from mindrec_tpu_torch.ops.kernels.update_cols import (
 from mindrec_tpu_torch.ops.kernels.update_rows import (
     adam_rows, adam_rows_plain, ftrl_rows, ftrl_rows_plain,
 )
+from mindrec_tpu_torch.train.step import _state_tensors
 
 SENT = 2**31 - 2
 N_ROWS = 256
@@ -867,3 +868,183 @@ def test_fused_edge_cases_on_card(cuda_device, case, dtype, opt):
     assert torch.equal(rows, gather_cols(a[0], nxt))
     changed = any(not torch.equal(x, y) for x, y in zip(a, before))
     assert changed == (kind != "update-all-sentinel")
+
+
+# ---------------------------------------------------------------------------
+# the captured step, the prefetch stream and the guard on the card
+# ---------------------------------------------------------------------------
+
+
+def _small_recipe(kind, dev):
+    """(model, optimizers, host-prepared device batches) of a small W&D
+    (row_packed, one group; batches 3-5 in a larger bucket: a regrow) or
+    multitable model (two tiny and two sorted groups, feature-major)."""
+    from mindrec_tpu_torch.data.criteo import SyntheticCriteo, to_device
+    from mindrec_tpu_torch.data.outbrain import SyntheticOutbrain
+    from mindrec_tpu_torch.models import multitable, wide_deep
+    from mindrec_tpu_torch.train import optim
+    from mindrec_tpu_torch.train.step import make_batch_sort, prep_groups
+
+    if kind == "wd":
+        cfg = wide_deep.WideDeepConfig(
+            batch_size=512, field_size=39, vocab_size=100_000, emb_dim=16,
+            deep_layer_dim=(256, 256), use_mixed_precision=True, sparse=True,
+            loss_scale=1024.0)
+        opts = (optim.ftrl(loss_scale=1024.0),
+                optim.lazy_adam(loss_scale=1024.0, state_dtype=torch.bfloat16))
+        data = SyntheticCriteo(512, 39, 100_000, seed=5, fields="criteo")
+        prep = make_batch_sort(39, minimal=True)
+        batches = []
+        for i in range(6):
+            hb = prep(data.get_batch(i))
+            hb["uq_ids"] = hb["uq_ids"][: 6144 if i < 3 else 8192]
+            batches.append(to_device(hb, dev))
+        return wide_deep.WideDeepModel(cfg), opts, batches
+    cfg = multitable.MultiTableConfig(
+        batch_size=1024, continue_field_size=4, indicator_field_size=2,
+        emb128_field_size=1, emb64_single_field_size=2,
+        multi_hot_sizes=(3, 4, 3, 2, 2, 3), emb_128_size=3000,
+        emb64_single_size=50, emb64_multi_size=2500, indicator_size=16,
+        deep_layer_dim=(256, 256), sparse=True)
+    model = multitable.MultiTableWideDeepModel(cfg)
+    opts = (optim.ftrl(l1=5e-4, l2=5e-4, initial_accum=0.1, loss_scale=1000.0),
+            optim.lazy_adam(learning_rate=1e-3, eps=1e-6, loss_scale=1000.0))
+    prep = make_batch_sort(0, groups=prep_groups(model), minimal=True)
+    batches = [to_device(prep(b), dev)
+               for b in SyntheticOutbrain(cfg, 5, seed=11)]
+    return model, opts, batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["wd", "multitable"])
+def test_captured_step_equals_eager_on_card(cuda_device, kind):
+    """The step captured in a CUDA graph gives the eager step's losses and
+    state bit for bit, through a regrow (a new signature: one more
+    capture); the state object stays the caller's, updated in place."""
+    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+
+    model, opts, batches = _small_recipe(kind, cuda_device)
+    se = init_train_state(model, 3, *opts, device=cuda_device)
+    sc = init_train_state(model, 3, *opts, device=cuda_device)
+    eager = make_train_step(model, *opts)
+    cap = make_train_step(model, *opts, jit=True)
+    for b in batches:
+        se, le = eager(se, b)
+        out, lc = cap(sc, b)
+        assert out is sc
+        for x, y in zip(le, lc):
+            assert torch.equal(x, y)
+    torch.cuda.synchronize()
+    for x, y in zip(_state_tensors(se), _state_tensors(sc)):
+        assert torch.equal(x, y)
+    assert cap.captures == (2 if kind == "wd" else 1)
+    assert cap.replays == len(batches) - cap.captures
+    assert cap.replayed and all(n > 0 for n in cap.replayed.values())
+
+
+@pytest.mark.cuda
+def test_prefetch_matches_host_batches_with_busy_consumer(cuda_device):
+    """Batches staged on the side stream equal the host batches, in
+    order, while the consumer's stream is busy; a source error surfaces
+    in the consumer after the batches before it."""
+    from mindrec_tpu_torch.data.criteo import PrefetchToDevice
+
+    rng = np.random.default_rng(0)
+    host = [{"ids": rng.integers(0, 1 << 30, (4096, 39)).astype(np.int32),
+             "wts": rng.normal(size=(4096, 39)).astype(np.float32)}
+            for _ in range(8)]
+    it = PrefetchToDevice(iter(host), depth=2, device=cuda_device)
+    for want in host:
+        torch.cuda._sleep(20_000_000)  # the consumer's stream is busy
+        got = next(it)
+        for k, v in want.items():
+            assert got[k].device.type == "cuda"
+            np.testing.assert_array_equal(got[k].cpu().numpy(), v)
+    with pytest.raises(StopIteration):
+        next(it)
+
+    def failing():
+        yield host[0]
+        raise ValueError("source failed")
+
+    it = PrefetchToDevice(failing(), device=cuda_device)
+    next(it)
+    with pytest.raises(ValueError, match="source failed"):
+        next(it)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jit", [False, True])
+def test_guarded_step_on_card_equals_plain(cuda_device, jit):
+    """check_overflow on the card: an inf batch keeps every leaf, and the
+    kernel step (eager or captured) equals the plain guarded step within
+    the kernel-vs-plain tolerances (the plain segment sums add with
+    atomics)."""
+    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+
+    model, opts, batches = _small_recipe("wd", cuda_device)
+    batches = batches[:3]
+    bad = dict(batches[1])
+    bad["wts"] = bad["wts"].clone()
+    bad["wts"][0, 0] = float("inf")
+    batches[1] = bad
+    sa = init_train_state(model, 4, *opts, device=cuda_device)
+    sb = init_train_state(model, 4, *opts, device=cuda_device)
+    fa = make_train_step(model, *opts, check_overflow=True, jit=jit)
+    fb = make_train_step(model, *opts, check_overflow=True, use_kernels=False)
+    for i, b in enumerate(batches):
+        before = [x.clone() for x in _state_tensors(sa)]
+        sa, _ = fa(sa, b)
+        sb, _ = fb(sb, b)
+        if i == 1:
+            after = _state_tensors(sa)
+            for x, y in zip(before[:-1], after[:-1]):  # all but state.step
+                assert torch.equal(x, y)
+    assert int(sa.step) == int(sb.step) == 3
+    for x, y in zip(_state_tensors(sa), _state_tensors(sb)):
+        rtol = 2.0**-7 if x.dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(x.float(), y.float(), rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_rec_model_captures_beside_staging_on_card(cuda_device):
+    """RecModel.train (jit=True) over raw batches: the step is captured
+    while the pipeline's staging thread pins and copies the next batches
+    on its own stream; a regrow mid-stream gives one more capture, and
+    the state equals the eager step's over the same pipeline."""
+    from mindrec_tpu_torch import RecModel
+    from mindrec_tpu_torch.data.criteo import SyntheticCriteo
+    from mindrec_tpu_torch.data.pipeline import (
+        AdaptiveBucket, SparseInputPipeline,
+    )
+    from mindrec_tpu_torch.models import wide_deep
+    from mindrec_tpu_torch.train import optim
+    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = wide_deep.WideDeepConfig(
+        batch_size=2048, field_size=39, vocab_size=1_000_000, emb_dim=16,
+        deep_layer_dim=(256, 256), use_mixed_precision=True, sparse=True,
+        loss_scale=1024.0)
+    model = wide_deep.WideDeepModel(cfg)
+    opts = (optim.ftrl(loss_scale=1024.0),
+            optim.lazy_adam(loss_scale=1024.0, state_dtype=torch.bfloat16))
+    lo = SyntheticCriteo(2048, 39, 1_000_000, steps=3, seed=50,
+                         fields="criteo")
+    hi = SyntheticCriteo(2048, 39, 1_000_000, steps=3, seed=60,
+                         fields="criteo", zipf_a=1.05)
+    raw = [lo.get_batch(i) for i in range(3)] + [hi.get_batch(i)
+                                                 for i in range(3)]
+    start = max(int(np.unique(b["ids"]).size) for b in raw[:3])
+    quiet = lambda *a, **k: None  # noqa: E731
+    rm = RecModel(model, *opts, seed=5, prep_workers=1, device=cuda_device,
+                  unique_bucket=AdaptiveBucket(start, log=quiet))
+    rm.train(1, raw, dataset_sink_mode=True)
+    assert rm.train_step.captures == 2 and rm.train_step.replays == 4
+    st = init_train_state(model, 5, *opts, device=cuda_device)
+    step = make_train_step(model, *opts)
+    pol = AdaptiveBucket(start, log=quiet)
+    for b in SparseInputPipeline(raw, 39, policy=pol, workers=1):
+        st, _ = step(st, b)
+    assert pol.bucket == rm.bucket_policy.bucket > start
+    for x, y in zip(_state_tensors(st), _state_tensors(rm.state)):
+        assert torch.equal(x, y)
