@@ -114,14 +114,33 @@ Phases (any failure exits non-zero):
     steps in turns and captured == eager; and the DeepFM (feature-major
     with ``row_layout=False``, and the default path) and DCN steps
     captured (ms/step, busy share).  Every phase-12 line carries the
-    card's name and power limit.
+    card's name and power limit;
+13. the dense step (``sparse=False``, every model config's default; no
+    kernel of the port runs on it, as no Pallas kernel runs on the
+    reference's), captured: the W&D reference accuracy recipe
+    (``WideDeepConfig()``: batch 16000 x 39, vocab 200,000, emb 80,
+    1024-512-256-128 bf16, FTRL + dense Adam) through ``RecModel.train``
+    over raw batches (``PrefetchToDevice``), 3 warm-up and 20 timed steps
+    end to end; eager and captured in turns with busy shares; captured
+    with dropout (keep_prob 0.9); captured == eager bit for bit over 5
+    batches with dropout off and on; two replays' masks differ, each
+    keeping its share within 0.5% of 0.9; an inf batch under
+    ``check_overflow`` keeps the state; two state replacements, one
+    capture each and one graph held; then the W&D bench recipe dense
+    (vocab 5.86M, emb 16, 7x1024, bf16 m/v; ``--profile`` adds the
+    device time of its parts), DeepFM, DCN and the multitable recipe at
+    their default configs dense (ms/step, busy share; the multitable
+    step captured == eager too), and DCN's one-hot
+    lookup against its gather lookup at vocab 1,000, batch 4,096
+    (logits, loss, table gradient; each step timed).  Its lines carry
+    the card's name and power limit too.
 
 Every kernel and every library call is timed by replaying a CUDA graph
 of 10 calls (device time, no host work between the launches); the plain
 versions, which synchronise, by an eager loop.
 
 ``--profile`` adds the device time by kernel over 5 more steps of
-phases 3, 6 and 10.  It prints a ``{"kernels": [...]}`` JSON line before the
+phases 3, 6, 10 and 13's bench recipe, and that step's parts.  It prints a ``{"kernels": [...]}`` JSON line before the
 last line and ends with ``{"ok": true, "device": {...}}``.
 """
 
@@ -152,7 +171,7 @@ from mindrec_tpu_torch.models.multitable import (
     MULTI_FIELDS, MultiTableConfig, MultiTableWideDeepModel,
 )
 from mindrec_tpu_torch.models.wide_deep import WideDeepConfig, WideDeepModel
-from mindrec_tpu_torch.ops import kernels
+from mindrec_tpu_torch.ops import kernels, prng
 from mindrec_tpu_torch.ops.kernels import _build
 from mindrec_tpu_torch.ops.kernels.fused import (
     fused_adam_gather, fused_adam_gather_plain, fused_ftrl_gather,
@@ -175,8 +194,9 @@ from mindrec_tpu_torch.train import optim
 from mindrec_tpu_torch.train.callbacks import Callback
 from mindrec_tpu_torch.train.metrics import roc_auc
 from mindrec_tpu_torch.train.step import (
-    SENTINEL, CapturedStep, _group_layouts, _state_tensors, init_train_state,
-    make_batch_sort, make_eval_step, make_train_step, prep_groups,
+    SENTINEL, CapturedStep, TrainState, _group_layouts, _state_tensors,
+    init_train_state, make_batch_sort, make_eval_step, make_train_step,
+    map_leaves, prep_groups,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -760,10 +780,10 @@ def phase_kernel_vs_plain_step(dev) -> None:
                     [to_device(data.get_batch(i), dev) for i in range(3)])
 
 
-def mt_recipe(batch=MT_BATCH):
+def mt_recipe(batch=MT_BATCH, sparse=True):
     """The multitable recipe's model and optimizers
     (benchmarks/bench_multitable.py:63-97)."""
-    cfg = MultiTableConfig(batch_size=batch, sparse=True)
+    cfg = MultiTableConfig(batch_size=batch, sparse=sparse)
     opt_w = optim.ftrl(learning_rate=cfg.ftrl_lr, l1=5e-4, l2=5e-4,
                        initial_accum=0.1, loss_scale=cfg.loss_scale)
     opt_d = optim.lazy_adam(learning_rate=cfg.adam_lr, eps=1e-6,
@@ -1972,6 +1992,357 @@ def phase_rec_mt(dev, warmup=3, steps=5) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dense step (every model config's default), dropout, one-hot
+# ---------------------------------------------------------------------------
+
+ACC_VOCAB = 200_000  # WideDeepConfig() = examples/wide_deep_config.yaml
+
+
+def dense_wd_recipe(**kw):
+    """The W&D reference accuracy recipe: ``WideDeepConfig()`` defaults
+    (batch 16000 x 39, vocab 200,000, emb 80, 1024-512-256-128 bf16 MLP,
+    dense tables, l2 8e-5, loss scale 1024) with FTRL + dense Adam, as
+    ``examples/train_criteo.py:93-112`` and ``RecModel`` build them."""
+    model = WideDeepModel(WideDeepConfig(**kw))
+    sens = model.config.loss_scale
+    return model, (optim.ftrl(loss_scale=sens), optim.adam(loss_scale=sens))
+
+
+def replace_state(state):
+    """A new state holding the same values in new tensors, as a callback
+    that replaces the train state hands one over."""
+    def copy(node):
+        return map_leaves(lambda _k, t: t.clone(), node)
+
+    return TrainState(copy(state.params), copy(state.opt_w),
+                      copy(state.opt_d), state.step.clone(), state.rng.clone())
+
+
+def check_dropout_masks(tag, dev, model, opts, batches, keep_prob) -> None:
+    """The captured dense step with dropout: two replays draw different
+    masks at every layer, each keeping its share within 0.5% of
+    ``keep_prob``.  The masks are the graph's own outputs, taken by
+    wrapping ``prng.bernoulli`` while the step is captured."""
+    drawn, real = [], prng.bernoulli
+
+    def record(key, p, shape):
+        drawn.append(real(key, p, shape))
+        return drawn[-1]
+
+    state = init_train_state(model, 2, *opts, device=dev)
+    cap = make_train_step(model, *opts, jit=True)
+    prng.bernoulli = record
+    try:
+        state, _ = cap(state, batches[0])  # eager warm-up, then the capture
+    finally:
+        prng.bernoulli = real
+    masks = drawn[-len(model.mlp_dims):]
+    seen = []
+    for b in batches[1:3]:
+        state, _ = cap(state, b)
+        seen.append([m.clone() for m in masks])
+    shares = [[round(m.float().mean().item(), 6) for m in ms] for ms in seen]
+    same = [torch.equal(a, b) for a, b in zip(*seen)]
+    off = [x for row in shares for x in row if abs(x / keep_prob - 1) > 0.005]
+    rec_log(tag, f"kept share per layer in replays 1 and 2: {shares}; "
+            f"masks equal across the replays, per layer: {same}")
+    if any(same) or off or (cap.captures, cap.replays) != (1, 2):
+        fail(f"{tag}: shares {shares}, equal {same}, captures "
+             f"{cap.captures}, replays {cap.replays}")
+    del state, cap, drawn, masks, seen
+    torch.cuda.empty_cache()
+
+
+def check_dense_guard(tag, dev, model, opts, batches) -> None:
+    """``check_overflow`` on the captured dense step: a batch with an inf
+    keeps every parameter and optimizer leaf and advances the step and
+    the key; the next batch trains."""
+    state = init_train_state(model, 3, *opts, device=dev)
+    step = make_train_step(model, *opts, check_overflow=True, jit=True)
+    state, _ = step(state, batches[0])
+    bad = dict(batches[1])
+    bad["wts"] = bad["wts"].clone()
+    bad["wts"][0, 0] = float("inf")
+    before = [t.clone() for t in _state_tensors(state)]
+    state, _ = step(state, bad)
+    after = _state_tensors(state)  # ... rng, step last
+    kept = all(torch.equal(x, y) for x, y in zip(before[:-2], after[:-2]))
+    moved = (not torch.equal(before[-2], after[-2])
+             and int(after[-1]) == int(before[-1]) + 1)
+    state, (_, ld) = step(state, batches[2])
+    ok = kept and moved and np.isfinite(float(ld))
+    rec_log(tag, f"inf batch: {len(after) - 2} leaves kept {kept}, step and "
+            f"key advanced {moved}; next loss {float(ld):.6f}")
+    if not ok or (step.captures, step.replays) != (1, 2):
+        fail(f"{tag}: kept {kept}, advanced {moved}, loss {float(ld)}")
+    del state, step, before
+    torch.cuda.empty_cache()
+
+
+def check_graph_cache(tag, dev, model, opts, batches) -> None:
+    """A callback replaces the state twice: each replacement gives one new
+    capture and leaves the step one graph (the live state's one batch
+    signature), and the run equals an eager run with the same
+    replacements, bit for bit.  Device memory reserved (after
+    ``empty_cache``) is printed beside each state: graphs of replaced
+    states and their pools are gone."""
+    se = init_train_state(model, 5, *opts, device=dev)
+    sc = init_train_state(model, 5, *opts, device=dev)
+    eager = make_train_step(model, *opts)
+    cap = make_train_step(model, *opts, jit=True)
+    held, reserved = [], []
+    for i, b in enumerate(batches[:3]):
+        if i:
+            se, sc = replace_state(se), replace_state(sc)
+        se, le = eager(se, b)
+        sc, lc = cap(sc, b)
+        if not all(torch.equal(x, y) for x, y in zip(le, lc)):
+            fail(f"{tag}: state {i} losses eager {le} captured {lc}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held.append((cap.captures, cap.graphs))
+        reserved.append(torch.cuda.memory_reserved(dev))
+    diffs = state_diffs(se, sc)
+    rec_log(tag, f"(captures, graphs held) after each of 3 states: {held}; "
+            f"memory reserved {reserved} bytes; captured == eager: "
+            f"{not diffs}")
+    if held != [(1, 1), (2, 1), (3, 1)] or diffs:
+        fail(f"{tag}: {held}, diffs {diffs}")
+    del se, sc, eager, cap
+    torch.cuda.empty_cache()
+
+
+def dense_parts(tag, dev, model, opts, state, batch) -> dict:
+    """Device time (CUDA-graph replay) of the dense W&D step's parts at
+    its shapes: the two lookups, their backward into full-table gradients
+    (zero fill and the sorted chunked sum of ``embedding``), the deep
+    table's l2 term (forward and backward), the dense Adam and FTRL over
+    the full tables, and the MLP forward and backward (cuBLAS and its
+    elementwise work).  Beside them, not in the sum: the same gradients
+    by the backward of ``table[ids]`` (a zero fill and an accumulating
+    index-put)."""
+    c = model.config
+    idx = batch["ids"].reshape(-1).long()
+    deep, wide = state.params["deep"]["table"], state.params["wide"]["table"]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    g_rows = torch.randn((idx.numel(), c.emb_dim), generator=gen, device=dev)
+    g_wide = torch.randn((idx.numel(), 1), generator=gen, device=dev)
+    g_deep = torch.randn(deep.shape, generator=gen, device=dev)
+    g_wtab = torch.randn(wide.shape, generator=gen, device=dev)
+    x = torch.randn((idx.numel() // c.field_size, c.field_size * c.emb_dim),
+                    generator=gen, device=dev)
+
+    def lookups():
+        torch.nn.functional.embedding(idx, deep)
+        torch.nn.functional.embedding(idx, wide)
+
+    def table_grads():
+        for t, g in ((deep, g_rows), (wide, g_wide)):
+            torch.ops.aten.embedding_dense_backward(g, idx, t.shape[0], -1,
+                                                    False)
+
+    def index_put():
+        torch.zeros_like(deep).index_put_((idx,), g_rows, accumulate=True)
+        torch.zeros_like(wide).index_put_((idx,), g_wide, accumulate=True)
+
+    def l2():
+        t = deep.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = c.l2_coef * 0.5 * torch.sum(torch.square(t.float()))
+            torch.autograd.grad(loss, t)
+
+    def updates():
+        opts[1].update_leaf(g_deep, state.opt_d["deep/table"], deep)
+        opts[0].update_leaf(g_wtab, state.opt_w["wide/table"], wide)
+
+    def mlp():
+        p = [{k: v.detach().requires_grad_(True) for k, v in layer.items()}
+             for layer in state.params["deep"]["mlp"]]
+        xg = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = model._mlp(p, xg)
+            torch.autograd.grad(out.sum(), [xg, *(t for lay in p
+                                                   for t in lay.values())])
+
+    out = {}
+    for name, fn in (("lookups", lookups), ("table_grads", table_grads),
+                     ("l2", l2), ("updates", updates), ("mlp", mlp)):
+        out[name] = graph_ms(fn, calls=4, replays=3)
+        torch.cuda.empty_cache()
+    out["sum"] = sum(out.values())
+    out["table_grads_index_put"] = graph_ms(index_put, calls=4, replays=3)
+    rec_log(tag, json.dumps(out))
+    return out
+
+
+def phase_dense_wd(dev, steps=20, warmup=3) -> dict:
+    """13.1: the W&D reference accuracy recipe through ``RecModel.train``
+    (raw host batches, ``PrefetchToDevice``, the captured dense step) end
+    to end; eager and captured in turns on staged batches; captured with
+    dropout (keep_prob 0.9); captured == eager bit for bit with dropout
+    off and on; the dropout masks across replays; the guard; replaced
+    states."""
+    model, opts = dense_wd_recipe()
+    data = SyntheticCriteo(BATCH, FIELDS, ACC_VOCAB, steps=warmup + steps,
+                           seed=0, fields="criteo")
+    raw = [data.get_batch(s) for s in range(len(data))]
+    rm = RecModel(model, *opts, jit=True, device=dev)
+    warm = rec_train("dense-wd-warmup", rm, raw[:warmup], BATCH, {})
+    out = rec_train("dense-wd", rm, raw[warmup:], BATCH, {})
+    if warm["captures"] != 1 or out["captures"] or out["replays"] != steps:
+        fail(f"dense-wd: captures {warm['captures']}, {out['captures']}, "
+             f"replays {out['replays']}")
+    del rm
+    torch.cuda.empty_cache()
+    staged = [to_device(b, dev) for b in raw[:6]]
+    out["turns"] = captured_vs_eager_turns("dense-wd", dev, model, opts,
+                                           staged, BATCH, {}, 3, 10)
+    check_captured_equals_eager("dense-wd-equal", dev, model, opts, staged[:5])
+    dmodel, dopts = dense_wd_recipe(dropout_flag=True, keep_prob=0.9)
+    state = init_train_state(dmodel, 0, *dopts, device=dev)
+    out["dropout"] = timed_steps(
+        "dense-wd-dropout-captured", make_train_step(dmodel, *dopts, jit=True),
+        state, staged, BATCH, {})
+    del state
+    torch.cuda.empty_cache()
+    check_captured_equals_eager("dense-wd-dropout-equal", dev, dmodel, dopts,
+                                staged[:5])
+    check_dropout_masks("dense-wd-dropout-masks", dev, dmodel, dopts, staged,
+                        0.9)
+    check_dense_guard("dense-wd-guard", dev, model, opts, staged)
+    check_graph_cache("dense-graphs", dev, model, opts, staged)
+    return out
+
+
+def phase_dense_bench(dev, profile=False) -> dict:
+    """13.2: the W&D bench recipe dense (``bench.py --dense``,
+    ``bench.py:86-101``): vocab 5.86M (deep table [5865472, 16] f32), 7 x
+    1024 bf16 MLP, FTRL + Adam with bf16 m/v, captured; ``--profile``
+    adds the device time by kernel and by part of the step."""
+    cfg = WideDeepConfig(
+        batch_size=BATCH, field_size=FIELDS, vocab_size=VOCAB, emb_dim=EMB,
+        deep_layer_dim=(1024,) * 7, use_mixed_precision=True, sparse=False,
+        loss_scale=1024.0)
+    model = WideDeepModel(cfg)
+    opts = (optim.ftrl(loss_scale=1024.0),
+            optim.lazy_adam(loss_scale=1024.0, state_dtype=torch.bfloat16))
+    data = SyntheticCriteo(BATCH, FIELDS, VOCAB, steps=4, seed=0,
+                           fields="criteo")
+    batches = [to_device(data.get_batch(s), dev) for s in range(4)]
+    state = init_train_state(model, 0, *opts, device=dev)
+    out = timed_steps("dense-bench-captured",
+                      make_train_step(model, *opts, jit=True), state, batches,
+                      BATCH, {}, profile=profile)
+    if profile:
+        out["parts"] = dense_parts("dense-bench-parts", dev, model, opts,
+                                   state, batches[0])
+    del state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense_others(dev) -> dict:
+    """13.3: DeepFM and DCN at their default configs and the multitable
+    recipe (batch 131,072) with ``sparse=False``, captured, with the
+    optimizers ``examples/train_criteo.py`` and
+    ``benchmarks/bench_multitable.py`` give them; the multitable step
+    also captured == eager over 3 batches."""
+    out = {}
+    fm = DeepFMModel(DeepFMConfig())
+    c = fm.config
+    fm_opts = (optim.ftrl(loss_scale=c.loss_scale),
+               optim.adam(learning_rate=c.learning_rate, eps=c.epsilon,
+                          loss_scale=c.loss_scale))
+    dc = DCNModel(DCNConfig())
+    dc_opts = (optim.ftrl(), optim.adam(learning_rate=dc.config.learning_rate,
+                                        loss_scale=dc.config.loss_scale))
+    mt, mt_opts = mt_recipe(sparse=False)
+    for tag, model, opts in (("dense-deepfm", fm, fm_opts),
+                             ("dense-dcn", dc, dc_opts),
+                             ("dense-mt", mt, mt_opts)):
+        if model is mt:
+            data = SyntheticOutbrain(mt.config, 4, seed=0)
+            batch_size = MT_BATCH
+        else:
+            data = SyntheticCriteo(BATCH, FIELDS, model.config.vocab_size,
+                                   steps=4, seed=0, fields="criteo")
+            batch_size = BATCH
+        batches = [to_device(data.get_batch(s), dev) for s in range(4)]
+        state = init_train_state(model, 0, *opts, device=dev)
+        out[tag] = timed_steps(f"{tag}-captured",
+                               make_train_step(model, *opts, jit=True), state,
+                               batches, batch_size, {}, profile=True)
+        del state
+        if model is mt:  # 4M multi-hot lookups a batch, hot ids included
+            check_captured_equals_eager(f"{tag}-equal", dev, model, opts,
+                                        batches[:3])
+        del batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def dcn_table_grad(model, state, batch):
+    """(logits, loss, gradient of the loss by the table) of one batch."""
+    t = state.params["emb"]["table"].detach().requires_grad_(True)
+    params = {**state.params, "emb": {"table": t}}
+    with torch.enable_grad():
+        logits = model.apply_batch(params, batch)
+        loss = model.loss(params, logits, batch["label"])[1]
+        (g,) = torch.autograd.grad(loss, t)
+    return logits.detach(), loss.detach(), g
+
+
+def phase_one_hot(dev, batch=4096, vocab=1000) -> dict:
+    """13.4: DCN's one-hot lookup against its gather lookup at vocab 1,000
+    (padded 8,192), batch 4,096 (a [159744, 8192] f32 one-hot, 5.2 GB):
+    from one state, equal logits and loss (an f32 product with a one-hot
+    row is exact) and the table's gradient (the one-hot's transposed
+    product against the sorted index-put: other summation orders) within
+    1e-5 of its largest element; then each step captured, timed."""
+    kw = dict(batch_size=batch, vocab_size=vocab)
+    oh = DCNModel(DCNConfig(use_one_hot_embeddings=True, **kw))
+    gm = DCNModel(DCNConfig(**kw))
+    opts = (optim.ftrl(), optim.adam(learning_rate=oh.config.learning_rate,
+                                     loss_scale=oh.config.loss_scale))
+    data = SyntheticCriteo(batch, FIELDS, vocab, steps=4, seed=0,
+                           fields="criteo")
+    batches = [to_device(data.get_batch(s), dev) for s in range(4)]
+    state = init_train_state(gm, 0, *opts, device=dev)
+    la, lossa, ga = dcn_table_grad(oh, state, batches[0])
+    lb, lossb, gb = dcn_table_grad(gm, state, batches[0])
+    err = float((ga - gb).abs().max() / gb.abs().max())
+    rec_log("dcn-one-hot", f"logits equal {torch.equal(la, lb)}, losses "
+            f"{float(lossa)} {float(lossb)}, table gradient max abs diff "
+            f"{err:.3g} of its largest element")
+    if not torch.equal(la, lb) or not torch.equal(lossa, lossb) or err > 1e-5:
+        fail(f"dcn-one-hot: logits or loss differ, or gradient off by {err}")
+    del state, ga, gb
+    torch.cuda.empty_cache()
+    out = {}
+    for tag, model in (("dcn-one-hot", oh), ("dcn-gather", gm)):
+        state = init_train_state(model, 0, *opts, device=dev)
+        out[tag] = timed_steps(f"{tag}-captured",
+                               make_train_step(model, *opts, jit=True), state,
+                               batches, batch, {}, warmup=2, steps=5)
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense(dev, profile=False) -> dict:
+    """Phase 13, each part with the card's name and power limit."""
+    out = {"wd_accuracy": phase_dense_wd(dev),
+           "wd_bench": phase_dense_bench(dev, profile)}
+    out.update(phase_dense_others(dev))
+    out.update(phase_one_hot(dev))
+    rec_log("dense-summary", json.dumps({
+        k: {"ms_per_step": v["ms_per_step"],
+            "samples_per_s": v["samples_per_s"],
+            "busy_share": v.get("busy_share")} for k, v in out.items()}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2034,6 +2405,7 @@ def main() -> int:
     rec_mt = phase_rec_mt(dev)
     rec_log("rec-summary", json.dumps({"wd": rec_wd, "multitable": rec_mt,
                                        "captured_others": others}))
+    phase_dense(dev, profile=args.profile)
 
     launches = {**main_path["launches"],
                 **{k: mt_path["launches"][k] for k in MT_PER_STEP

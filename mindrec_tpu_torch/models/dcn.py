@@ -16,10 +16,12 @@ of ``init`` (the reference's keys: ``emb/table``, ``cross``, ``mlp``,
 The reference pads the cross chain to a multiple of 128 lanes, a layout
 trick of its hardware with no effect on the values; it is not carried
 over.  As in the reference, ``keep_prob`` and ``dropout_flag`` are
-config fields that the forward never reads.  Sharded tables
-(``table_slice_mode``) and the one-hot matmul lookup
-(``use_one_hot_embeddings``, which needs the dense step) are not ported
-and raise.
+config fields that the forward never reads (the forward takes ``train``
+and ``rng`` like the other models' and ignores them).
+``use_one_hot_embeddings`` looks the rows up as a one-hot
+``[B*F, padded_vocab]`` product with a dense table (``torch.matmul``,
+bf16 under mixed precision), as the reference's XLA dot does.  Sharded
+tables (``table_slice_mode``) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ class DCNConfig:
     dropout_flag: bool = False
     use_mixed_precision: bool = False
     sparse: bool = False
-    # lookup as a one-hot matmul; needs a dense table (not ported: raises)
+    # lookup as a one-hot matmul; needs a dense table
     use_one_hot_embeddings: bool = False
     loss_scale: float = 1.0
     learning_rate: float = 1e-4
@@ -69,11 +71,6 @@ class DCNModel:
             raise NotImplementedError(
                 f"sharded tables are not ported yet "
                 f"(table_slice_mode={c.table_slice_mode!r})"
-            )
-        if c.use_one_hot_embeddings:
-            raise NotImplementedError(
-                "use_one_hot_embeddings needs a dense table, and the dense "
-                "step is not ported yet"
             )
         self.config = c
         self.emb_spec = EmbeddingTableSpec(
@@ -129,7 +126,7 @@ class DCNModel:
             h = self.act(h)
         return h.float()
 
-    def apply_rows(self, params, rows, wts):
+    def apply_rows(self, params, rows, wts, train=False, rng=None):
         """Forward from pre-gathered rows ``{"emb": [B,F,D]}`` and weights
         ``wts [B,F]`` -> logits [B, 1]."""
         emb = rows["emb"]
@@ -139,13 +136,26 @@ class DCNModel:
         h = torch.cat([deep_out, cross_out.to(deep_out.dtype)], dim=1)
         return torch.matmul(h, params["final"]["w"]) + params["final"]["b"]
 
-    def apply(self, params, ids, wts):
+    def apply(self, params, ids, wts, train=False, rng=None):
         """Forward with the lookup inside: ``ids``, ``wts`` [B, F]."""
-        rows = {"emb": lookup(self.emb_spec, params["emb"]["table"], ids)}
-        return self.apply_rows(params, rows, wts)
+        c = self.config
+        table = params["emb"]["table"]
+        if c.use_one_hot_embeddings:
+            if c.sparse:
+                raise ValueError("use_one_hot_embeddings requires a dense table")
+            dtype = (torch.bfloat16 if c.use_mixed_precision
+                     else torch.float32)
+            flat = ids.reshape(-1, 1).long()
+            oh = (flat == torch.arange(table.shape[0], device=flat.device)
+                  ).to(dtype)  # ids outside the table give zero rows
+            rows_flat = torch.matmul(oh, table.to(dtype)).float()
+            rows = {"emb": rows_flat.reshape(*ids.shape, c.emb_dim)}
+        else:
+            rows = {"emb": lookup(self.emb_spec, table, ids)}
+        return self.apply_rows(params, rows, wts, train, rng)
 
-    def apply_batch(self, params, batch):
-        return self.apply(params, batch["ids"], batch["wts"])
+    def apply_batch(self, params, batch, train=False, rng=None):
+        return self.apply(params, batch["ids"], batch["wts"], train, rng)
 
     def predict(self, params, ids, wts):
         """Eval head: sigmoid of the logits."""

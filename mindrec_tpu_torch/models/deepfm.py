@@ -8,7 +8,8 @@ layout of ``init`` (the reference's keys: ``linear/table``, ``fm/table``,
 * FM pairwise term by the sum-square minus square-sum identity:
   ``0.5 * sum_d((sum_f v)^2 - sum_f v^2)``, reductions in float32;
 * deep tower: MLP over the flattened masked embeddings, bfloat16 end to
-  end under ``use_mixed_precision``;
+  end under ``use_mixed_precision``, with Wide&Deep's inverted dropout
+  when ``dropout_flag`` is set (off by default, as in the reference);
 * loss: mean sigmoid cross-entropy, plus ``l2_coef / 2 * (|w|^2 +
   |V|^2)`` unless sparse.
 
@@ -16,8 +17,8 @@ No parameter path contains "wide", so ``train/step.py`` routes every
 parameter to the deep optimizer (the reference's single-Adam recipe).
 The reference sums over fields with a tiled-identity matmul, a layout
 trick of its hardware; here the field sum is a float32 ``sum`` over the
-field axis, the same value.  Dropout (``dropout_flag`` with ``keep_prob <
-1``) and sharded tables (``table_slice_mode``) are not ported and raise.
+field axis, the same value.  Sharded tables (``table_slice_mode``) are
+not ported and raise.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Sequence
 import torch
 
 from mindrec_tpu_torch.models.wide_deep import ACTS, sigmoid_cross_entropy
+from mindrec_tpu_torch.ops import prng
 from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, lookup
 
 
@@ -64,8 +66,6 @@ class DeepFMModel:
 
     def __init__(self, config: DeepFMConfig):
         c = config
-        if c.dropout_flag and c.keep_prob < 1.0:
-            raise NotImplementedError("dropout is not ported yet")
         if c.table_slice_mode != "none":
             raise NotImplementedError(
                 f"sharded tables are not ported yet "
@@ -105,18 +105,21 @@ class DeepFMModel:
                     for i, o in self.mlp_dims],
         }
 
-    def _mlp(self, mlp_params, x):
-        dtype = (torch.bfloat16 if self.config.use_mixed_precision
-                 else torch.float32)
+    def _mlp(self, mlp_params, x, train=False, rng=None):
+        c = self.config
+        dtype = torch.bfloat16 if c.use_mixed_precision else torch.float32
         h = x.to(dtype)
         n = len(mlp_params)
         for i, layer in enumerate(mlp_params):
+            if train and c.dropout_flag and c.keep_prob < 1.0 and rng is not None:
+                rng, sub = prng.split(rng)
+                h = prng.dropout(h, c.keep_prob, sub)
             h = torch.matmul(h, layer["w"].to(dtype)) + layer["b"].to(dtype)
             if i < n - 1:
                 h = self.act(h)
         return h.float()
 
-    def apply_rows(self, params, rows, wts):
+    def apply_rows(self, params, rows, wts, train=False, rng=None):
         """Forward from pre-gathered rows ``{"linear": [B,F,1], "fm":
         [B,F,D]}`` and weights ``wts [B,F]`` -> logits [B, 1].  A folded
         feature-major linear table gives ``[B,F,8]`` rows with only the
@@ -135,18 +138,19 @@ class DeepFMModel:
         v2 = torch.sum(torch.square(vx.float()), dim=(1, 2))
         fm_out = (0.5 * (v1 - v2))[:, None]
         deep_in = vx.reshape(-1, c.field_size * c.emb_dim)
-        return linear_out + fm_out + self._mlp(params["mlp"], deep_in)
+        return (linear_out + fm_out
+                + self._mlp(params["mlp"], deep_in, train, rng))
 
-    def apply(self, params, ids, wts):
+    def apply(self, params, ids, wts, train=False, rng=None):
         """Forward with the lookups inside: ``ids``, ``wts`` [B, F]."""
         rows = {
             name: lookup(spec, params[path[0]][path[1]], ids)
             for name, (path, spec) in self.table_specs.items()
         }
-        return self.apply_rows(params, rows, wts)
+        return self.apply_rows(params, rows, wts, train, rng)
 
-    def apply_batch(self, params, batch):
-        return self.apply(params, batch["ids"], batch["wts"])
+    def apply_batch(self, params, batch, train=False, rng=None):
+        return self.apply(params, batch["ids"], batch["wts"], train, rng)
 
     def predict(self, params, ids, wts):
         """Eval head: sigmoid of the logits."""

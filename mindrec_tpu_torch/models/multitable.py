@@ -15,7 +15,10 @@ Port of ``mindrec_tpu/models/multitable.py`` (the reference's
 The sparse step (``train/step.py``) reads :attr:`table_specs` and
 :attr:`table_groups` (8 tables over 4 id spaces; the ``multi`` group
 declares ``mask_keys`` so host prep may compact masked positions) and
-calls :meth:`apply_rows_batch`.  Dropout is not ported and raises.
+calls :meth:`apply_rows_batch`; the dense step calls :meth:`apply_batch`
+(the lookups inside).  With ``dropout_flag`` and ``keep_prob < 1`` the
+deep tower drops its input and every hidden layer before each matmul,
+as Wide&Deep's does.
 
 Batch layout (dict): ``continue_val [B,32] f32``, ``indicator_id
 [B,Fi] i32``, ``emb_128_id [B,F128] i32``, ``emb_64_single_id [B,F64]
@@ -31,6 +34,7 @@ from typing import Sequence
 import torch
 
 from mindrec_tpu_torch.models.wide_deep import ACTS, sigmoid_cross_entropy
+from mindrec_tpu_torch.ops import prng
 from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, lookup
 
 MULTI_FIELDS = (
@@ -86,8 +90,6 @@ class MultiTableWideDeepModel:
 
     def __init__(self, config: MultiTableConfig):
         c = config
-        if c.dropout_flag and c.keep_prob < 1.0:
-            raise NotImplementedError("dropout is not ported yet")
         self.config = c
         self._pool_cache = {}  # device -> _make_pool_matrix(device)
 
@@ -202,18 +204,21 @@ class MultiTableWideDeepModel:
                              device=device)
         return p, inv_l
 
-    def _mlp(self, mlp_params, x):
-        dtype = (torch.bfloat16 if self.config.use_mixed_precision
-                 else torch.float32)
+    def _mlp(self, mlp_params, x, train=False, rng=None):
+        c = self.config
+        dtype = torch.bfloat16 if c.use_mixed_precision else torch.float32
         h = x.to(dtype)
         n = len(mlp_params)
         for i, layer in enumerate(mlp_params):
+            if train and c.dropout_flag and c.keep_prob < 1.0 and rng is not None:
+                rng, sub = prng.split(rng)
+                h = prng.dropout(h, c.keep_prob, sub)
             h = torch.matmul(h, layer["w"].to(dtype)) + layer["b"].to(dtype)
             if i < n - 1:
                 h = self.act(h)
         return h.float()
 
-    def apply_rows_batch(self, params, rows, batch):
+    def apply_rows_batch(self, params, rows, batch, train=False, rng=None):
         """Forward from pre-gathered rows (the sparse step's entry).
 
         ``rows`` is keyed by table name: deep tables give ``[B, F_g, D]``,
@@ -243,7 +248,7 @@ class MultiTableWideDeepModel:
             rows["emb64_single"].reshape(B, -1).float(),
             pooled.reshape(B, -1),
         ], dim=1)
-        deep_out = self._mlp(params["deep"]["mlp"], deep_in)
+        deep_out = self._mlp(params["deep"]["mlp"], deep_in, train, rng)
 
         # wide tower: folded wide rows are summed over their last axis
         val_w = torch.sum(cont * w["continue_w"][None, :], dim=1, keepdim=True)
@@ -258,7 +263,7 @@ class MultiTableWideDeepModel:
                     + wsum(rows["w64_single"]) + wm + w["bias"])
         return wide_out + deep_out
 
-    def apply(self, params, batch):
+    def apply(self, params, batch, train=False, rng=None):
         """Forward with the lookups inside -> logits [B, 1]."""
         ids = {
             "emb64_indicator": batch["indicator_id"],
@@ -274,7 +279,10 @@ class MultiTableWideDeepModel:
         rows = {}
         for name, (path, spec) in self.table_specs.items():
             rows[name] = lookup(spec, params[path[0]][path[1]], ids[name])
-        return self.apply_rows_batch(params, rows, batch)
+        return self.apply_rows_batch(params, rows, batch, train, rng)
+
+    def apply_batch(self, params, batch, train=False, rng=None):
+        return self.apply(params, batch, train, rng)
 
     def loss(self, params, logits, label):
         """(wide_loss, deep_loss): both the plain mean sigmoid CE."""

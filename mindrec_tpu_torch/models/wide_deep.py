@@ -3,18 +3,21 @@
 Port of ``mindrec_tpu/models/wide_deep.py``: the config, the parameter
 layout of ``init`` (nested dicts with the reference's keys, so
 ``train/step.py`` splits wide and deep parameters by the same path
-names), the forward from pre-gathered rows (``apply_rows``), the loss
-with the ``no_l2loss`` rule and ``sigmoid_cross_entropy``.
+names), the forward with the lookups inside (``apply``,
+``apply_batch``: the dense step's entry) and from pre-gathered rows
+(``apply_rows``: the sparse steps'), the loss with the ``no_l2loss``
+rule and ``sigmoid_cross_entropy``.
 
 * forward: ``wide = sum_f(w[id_f] * wt_f) + b``;
   ``deep = MLP(concat_f(emb[id_f] * wt_f))``; ``logit = wide + deep``.
 * the MLP stays bfloat16 end to end under ``use_mixed_precision``; its
   matmuls are plain ``torch.matmul``.
+* dropout (``train`` with ``dropout_flag`` and ``keep_prob < 1`` and a
+  key): inverted, before every layer's matmul, the first included (so
+  the embedding input is dropped too), one subkey per layer split off
+  the step's key (``ops/prng.py``);
 * loss: mean sigmoid cross-entropy; the deep side adds
   ``l2_coef * sum(table^2) / 2`` unless sparse or PS.
-
-Dropout (``dropout_flag`` with ``keep_prob < 1``) is not ported yet and
-raises.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Sequence
 
 import torch
 
+from mindrec_tpu_torch.ops import prng
 from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, lookup
 
 ACTS = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh}
@@ -67,8 +71,6 @@ class WideDeepModel:
 
     def __init__(self, config: WideDeepConfig):
         c = config
-        if c.dropout_flag and c.keep_prob < 1.0:
-            raise NotImplementedError("dropout is not ported yet")
         if c.parameter_server or c.dynamic_embedding or c.vocab_cache_size:
             raise NotImplementedError(
                 "PS, dynamic-embedding and cache regimes are not ported yet"
@@ -113,18 +115,21 @@ class WideDeepModel:
             },
         }
 
-    def _mlp(self, mlp_params, x):
-        dtype = (torch.bfloat16 if self.config.use_mixed_precision
-                 else torch.float32)
+    def _mlp(self, mlp_params, x, train=False, rng=None):
+        c = self.config
+        dtype = torch.bfloat16 if c.use_mixed_precision else torch.float32
         h = x.to(dtype)
         n = len(mlp_params)
         for i, layer in enumerate(mlp_params):
+            if train and c.dropout_flag and c.keep_prob < 1.0 and rng is not None:
+                rng, sub = prng.split(rng)
+                h = prng.dropout(h, c.keep_prob, sub)
             h = torch.matmul(h, layer["w"].to(dtype)) + layer["b"].to(dtype)
             if i < n - 1:
                 h = self.act(h)
         return h.float()
 
-    def apply_rows(self, params, rows, wts):
+    def apply_rows(self, params, rows, wts, train=False, rng=None):
         """Forward from pre-gathered rows ``{"wide": [B,F,1],
         "deep": [B,F,D]}`` and weights ``wts [B,F]`` -> logits [B, 1].
         A folded feature-major wide table gives ``[B,F,8]`` rows with
@@ -138,15 +143,19 @@ class WideDeepModel:
         )
         wide_out = wide_out[:, None] + params["wide"]["bias"]
         deep_in = (deep_rows * mask).reshape(-1, c.field_size * c.emb_dim)
-        return wide_out + self._mlp(params["deep"]["mlp"], deep_in)
+        return wide_out + self._mlp(params["deep"]["mlp"], deep_in, train, rng)
 
-    def apply(self, params, ids, wts):
+    def apply(self, params, ids, wts, train=False, rng=None):
         """Forward with the lookups inside: ``ids``, ``wts`` [B, F]."""
         rows = {
             name: lookup(spec, params[path[0]][path[1]], ids)
             for name, (path, spec) in self.table_specs.items()
         }
-        return self.apply_rows(params, rows, wts)
+        return self.apply_rows(params, rows, wts, train, rng)
+
+    def apply_batch(self, params, batch, train=False, rng=None):
+        """Model-agnostic entry of the dense step."""
+        return self.apply(params, batch["ids"], batch["wts"], train, rng)
 
     def predict(self, params, ids, wts):
         """Eval head: sigmoid of the logits."""

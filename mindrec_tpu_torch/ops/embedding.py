@@ -1,10 +1,10 @@
 """Embedding table specs and storage helpers.
 
-Port of the parts of ``mindrec_tpu/ops/embedding.py`` that the sparse
-steps need: :class:`EmbeddingTableSpec` (layout arithmetic),
-``_init_rows``, ``to_storage`` / ``from_storage``, the row_packed
-``packed_gather`` / ``packed_expand`` and the lookup of either layout
-(:func:`lookup`, the reference's ``EmbeddingLookup.__call__``).  Storage
+Port of the parts of ``mindrec_tpu/ops/embedding.py`` that the steps
+need: :class:`EmbeddingTableSpec` (layout arithmetic), ``_init_rows``,
+``to_storage`` / ``from_storage``, the row_packed ``packed_gather`` /
+``packed_expand`` and the lookup of every layout with the ``max_norm``
+clip (:func:`lookup`, the reference's ``EmbeddingLookup.__call__``).  Storage
 layouts are bit-identical to the reference, so tables convert between
 the two packages by a plain copy (``convert.py``).
 
@@ -220,9 +220,8 @@ def lookup(spec: EmbeddingTableSpec, table: torch.Tensor,
            ids: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` (storage layout) for ``ids`` of any shape ->
     ``ids.shape + [emb_dim]`` (the reference's ``EmbeddingLookup``).
-    Ids must lie in the table; ``max_norm`` is not ported."""
-    if spec.max_norm is not None:
-        raise NotImplementedError("max_norm lookups are not ported yet")
+    Ids must lie in the table.  With ``spec.max_norm`` each row is
+    scaled by ``min(1, max_norm / max(norm, 1e-12))``."""
     flat = ids.reshape(-1)
     if spec.row_packed:
         out = packed_gather(spec, table, flat)
@@ -233,5 +232,13 @@ def lookup(spec: EmbeddingTableSpec, table: torch.Tensor,
         sub = torch.remainder(flat, r).long()
         out = g[torch.arange(g.shape[0], device=g.device), sub]
     else:
-        out = table[flat.long()]
+        # its backward (the dense step's table gradient) sorts the ids and
+        # sums each id's rows in chunks, then the chunks, in a fixed
+        # order: deterministic, and parallel over a hot id's duplicates,
+        # which the backward of ``table[ids]`` adds one after another
+        out = torch.nn.functional.embedding(flat, table)
+    if spec.max_norm is not None:
+        norms = torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+        out = out * torch.clamp(
+            spec.max_norm / torch.clamp(norms, min=1e-12), max=1.0)
     return out.reshape(*ids.shape, spec.emb_dim)

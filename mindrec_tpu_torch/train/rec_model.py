@@ -18,10 +18,13 @@ With ``jit=True`` the step on the card is captured in a CUDA graph per
 batch signature and replayed (``train/step.py:CapturedStep``); on the
 CPU (``device="cpu"``) it runs eagerly.
 
+Dense models (every model config's default, ``sparse=False``) take no
+bucket and no host prep: their batches go through ``PrefetchToDevice``
+to the dense step, captured like the sparse steps.
+
 Not ported yet (each raises ``NotImplementedError``): the wire format,
 ``prep_placement="device"`` and ``input_recipe="auto"`` (``ROADMAP.md``
-section 1 item 6), and models that need the dense step or dropout.
-Multi-GPU is item 10: ``rank_id`` is 0.
+section 1 item 6).  Multi-GPU is item 10: ``rank_id`` is 0.
 """
 
 from __future__ import annotations

@@ -1,9 +1,24 @@
-"""Sparse CTR train step (one device) and eval step.
+"""CTR train steps (one device) and eval step.
 
-Port of the two streamed (``use_pallas``) branches of
-``mindrec_tpu/train/step.py:make_train_step`` for unsharded tables, with
-their tail ``_finish_sparse``, ``_packed_table_update`` and
+Port of ``mindrec_tpu/train/step.py:make_train_step`` for unsharded
+tables: the dense step (``dense_step``) and the two streamed
+(``use_pallas``) branches of the sparse step, with their tail
+``_finish_sparse``, ``_packed_table_update`` and
 ``_streamed_table_update``.
+
+``sparse=False`` (every model config's default) is the dense step:
+autograd runs through ``model.apply_batch(params, batch, train=True,
+rng)`` over every parameter, full tables included (a table's gradient
+is the backward of ``embedding``: ids sorted, each id's rows summed in
+chunks in a fixed order, so deterministic), and every leaf takes its optimizer's dense ``update_leaf``: wide keys
+the wide optimizer, the rest the deep one.  So dense FTRL updates every
+row of a wide table (an untouched row whose ``|linear| <= l1`` becomes
+0), and a dense table's l2 term covers the whole table every step, as
+in the reference.  No kernel runs on this path.
+
+Every step splits the state's key (``TrainState.rng``, ``ops/prng.py``)
+and passes the subkey to the model, so ``dropout_flag`` trains on every
+path.
 
 ``row_layout=True`` (the default) serves one or several id groups (the
 multitable model declares four) and either storage layout.  One step,
@@ -51,13 +66,13 @@ expansion:
 5. split per table, fold-masked and padded back to ``Dp`` sublanes, they
    update the tables with ``adam_cols`` / ``ftrl_cols`` (kernels).
 
-The step updates the tables and their optimizer state **in place** and
-returns a new :class:`TrainState` that shares them: the state passed in
-must not be used again (the reference donates it).  With
-``use_kernels=False`` the step calls the kernels' plain versions
-directly on any device (the reference for the kernels on the card).
-The dense step, the generic path without the streamed kernels, sharded
-or host-resident tables and non-sparse table specs raise
+The sparse steps update the tables and their optimizer state **in
+place** and return a new :class:`TrainState` that shares them: the state
+passed in must not be used again (the reference donates it).  With
+``use_kernels=False`` they call the kernels' plain versions directly on
+any device (the reference for the kernels on the card).  The generic
+sparse path without the streamed kernels, sharded or host-resident
+tables and non-sparse table specs under ``sparse=True`` raise
 ``NotImplementedError``; so does ``row_layout=False`` for a multi-group
 model or a row_packed table (the reference drops those to its generic
 path).
@@ -70,6 +85,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from mindrec_tpu_torch.ops import prng
 from mindrec_tpu_torch.ops.embedding import packed_expand, packed_gather
 from mindrec_tpu_torch.ops.kernels.gather import (
     gather_cols, gather_cols_plain, gather_rows, gather_rows_plain,
@@ -146,12 +162,14 @@ class TrainState(NamedTuple):
     opt_w: dict  # path key -> optimizer state (wide side)
     opt_d: dict  # path key -> optimizer state (deep side)
     step: torch.Tensor  # int32 scalar on the device
+    rng: torch.Tensor  # the dropout key (ops/prng.py) on the device
 
 
 def init_train_state(model, seed: int, opt_w: Optimizer, opt_d: Optimizer,
                      device="cuda") -> TrainState:
-    """Random parameters from ``torch.Generator(device).manual_seed(seed)``
-    and fresh optimizer state, all on ``device``."""
+    """Random parameters from ``torch.Generator(device).manual_seed(seed)``,
+    fresh optimizer state and the key ``prng.key(seed)``, all on
+    ``device``."""
     gen = torch.Generator(device=device).manual_seed(seed)
     params = model.init(gen, device=device)
     flat = flatten_params(params)
@@ -160,6 +178,7 @@ def init_train_state(model, seed: int, opt_w: Optimizer, opt_d: Optimizer,
         opt_w={k: opt_w.init_leaf(p) for k, p in flat if is_wide_key(k)},
         opt_d={k: opt_d.init_leaf(p) for k, p in flat if not is_wide_key(k)},
         step=torch.zeros((), dtype=torch.int32, device=device),
+        rng=prng.key(seed, device),
     )
 
 
@@ -280,8 +299,14 @@ def _keep_unless(finite, new, old):
 
 def _supported(model, sparse, row_layout):
     """Raise NotImplementedError for every branch this port lacks."""
+    for name, (_path, spec) in model.table_specs.items():
+        if spec.slice_mode != "none" or spec.target != "device":
+            raise NotImplementedError(
+                f"table {name}: sharded or host tables are not ported yet "
+                f"(slice_mode={spec.slice_mode!r}, target={spec.target!r})"
+            )
     if not sparse:
-        raise NotImplementedError("the dense train step is not ported yet")
+        return
     groups = getattr(model, "table_groups", None)
     if not row_layout and groups and (len(groups) > 1
                                       or "_default" not in groups):
@@ -298,11 +323,6 @@ def _supported(model, sparse, row_layout):
                 f"build the model with table_layout='feature_major' (the "
                 f"reference drops to its generic path here, which is not "
                 f"ported)"
-            )
-        if spec.slice_mode != "none" or spec.target != "device":
-            raise NotImplementedError(
-                f"table {name}: sharded or host tables are not ported yet "
-                f"(slice_mode={spec.slice_mode!r}, target={spec.target!r})"
             )
         if not spec.sparse:
             raise NotImplementedError(
@@ -432,7 +452,10 @@ def make_train_step(
     ``batch``: tensors on the state's device: the model's id keys (``ids
     [B,F] int32`` and ``wts [B,F] f32`` for Criteo models; the
     multitable keys otherwise), ``label [B,1] f32``, plus optionally the
-    host-prep keys of :func:`make_batch_sort`.  ``unique_bucket``: static
+    host-prep keys of :func:`make_batch_sort`.  ``sparse``: the sparse
+    step (True) or the dense step (False; the parameters below that
+    name sort metadata, buckets and kernels are sparse-step ones);
+    None takes the model config's flag.  ``unique_bucket``: static
     bound on distinct ids per batch (rounded up to 2048), an int for a
     sole id group or ``{group: int}``; defaults to the length of the
     group's ``uq_ids`` (host prep) or the lossless position count.
@@ -441,10 +464,10 @@ def make_train_step(
     backward is one unsorted segment-sum, with presence counts gating
     the lazy updates.  ``matmul_dtype``: type of the expanded rows and of
     their gradients (bf16 in production, as the reference).
-    ``check_overflow``: skip the update (but advance the step) when a
-    gradient is not finite, by a flag on the device that gates every
-    touch and selects every dense leaf and optimizer state (nothing is
-    read on the host, so the guarded step can be captured).
+    ``check_overflow``: skip the update (but advance the step and the
+    key) when a gradient is not finite, by a flag on the device that
+    gates every touch and selects every dense leaf and optimizer state
+    (nothing is read on the host, so the guarded step can be captured).
     ``row_layout=False``: the feature-major formulation (module
     docstring) for a single id group of feature-major tables; it takes
     the unique ids at their full length and ignores ``unique_bucket``
@@ -454,9 +477,9 @@ def make_train_step(
     ``jit=True`` (the reference's ``jax.jit``): on a CUDA state the step
     is captured once per batch signature in a CUDA graph and replayed
     (:class:`CapturedStep`); on the CPU it is the eager step.
-    ``donate``: the step updates the tables (and, captured, every leaf)
-    in place, so the state passed in is always donated; ``donate=False``
-    raises."""
+    ``donate``: the sparse steps update the tables in place, and a
+    captured step every leaf, so the state passed in is always donated;
+    ``donate=False`` raises."""
     if not donate:
         raise NotImplementedError(
             "the port's step updates the state in place (it is donated); "
@@ -468,8 +491,11 @@ def make_train_step(
     sens = float(loss_scale if loss_scale is not None
                  else getattr(cfg, "loss_scale", 1.0))
     table_specs = model.table_specs
+    # the sparse step updates these leaves from their rows' gradients;
+    # the dense step differentiates them like every other leaf
     table_keys = {"/".join(path): (name, path, spec)
-                  for name, (path, spec) in table_specs.items()}
+                  for name, (path, spec) in table_specs.items()
+                  if sparse}
     table_groups = getattr(model, "table_groups", None) or {
         "_default": {"keys": ("ids",), "tables": tuple(table_specs)}
     }
@@ -592,11 +618,20 @@ def make_train_step(
                 col_grads[name] = gcol
         return col_grads, touch_mask
 
-    def run_model(params, batch, rows_pos, rows_of):
-        """Forward and backward from the expanded rows ``rows_pos`` (leaf
-        tensors; ``rows_of`` cuts them into the model's per-table rows).
-        -> (dense gradients by key, gradients of ``rows_pos`` in its
-        order, (loss_w, loss_d))."""
+    def call_rows(p_view, rows, batch, rng):
+        """The model's forward from per-table rows, in training."""
+        if hasattr(model, "apply_rows_batch"):
+            return model.apply_rows_batch(p_view, rows, batch, train=True,
+                                          rng=rng)
+        return model.apply_rows(p_view, rows, batch["wts"], train=True,
+                                rng=rng)
+
+    def run_model(params, label, rows_pos, forward):
+        """Forward and backward: ``forward(p_view, rows_pos) -> logits``
+        over the parameters (a sparse step's tables are reached through
+        the expanded rows ``rows_pos``, leaf tensors).  -> (gradients of
+        the other leaves by key, gradients of ``rows_pos`` in its order,
+        (loss_w, loss_d))."""
         leaves = {}  # dense parameters, tracked for autograd
 
         def track(key, leaf):
@@ -607,12 +642,8 @@ def make_train_step(
 
         p_view = map_leaves(track, params)
         with torch.enable_grad():
-            rows = rows_of(rows_pos)
-            if hasattr(model, "apply_rows_batch"):
-                logits = model.apply_rows_batch(p_view, rows, batch)
-            else:
-                logits = model.apply_rows(p_view, rows, batch["wts"])
-            loss_w, loss_d = model.loss(p_view, logits, batch["label"])
+            logits = forward(p_view, rows_pos)
+            loss_w, loss_d = model.loss(p_view, logits, label)
             inputs = [*leaves.values(), *rows_pos]
             grads = torch.autograd.grad(loss_d * sens, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
@@ -634,13 +665,13 @@ def make_train_step(
                 [torch.where(finite, g, 0.0) for g in g_deltas])
 
     def finish(state, dense_grads, col_grads, cols, subs, touch_mask, losses,
-               finite=None):
+               rng, finite=None):
         """The shared tail: dense updates, then each table's lazy update
         from its summed gradients (``_finish_sparse`` of the reference).
         ``finite`` (the guard's flag) gates every table's touches and
         selects every dense leaf and optimizer state: where it is False
-        all keep their values and only ``step`` advances (the reference's
-        ``_guard``)."""
+        all keep their values and only ``step`` and the key ``rng``
+        advance (the reference's ``_guard``)."""
         params = state.params
         opt_w_state, opt_d_state = dict(state.opt_w), dict(state.opt_d)
 
@@ -682,9 +713,10 @@ def make_train_step(
                 )
             states[key] = _keep_unless(finite, st, states[key])
         return TrainState(new_params, opt_w_state, opt_d_state,
-                          state.step + 1), losses
+                          state.step + 1, rng), losses
 
     def step_rows(state: TrainState, batch):
+        rng, sub = prng.split(state.rng)
         gdata = forward_meta(state.params, batch)
         rows_pos = [
             gd["buf"].to(matmul_dtype)[gd["uidx_b"].long()]
@@ -692,8 +724,9 @@ def make_train_step(
             for gd in gdata.values()
         ]
         dense_grads, g_deltas, losses = run_model(
-            state.params, batch, rows_pos,
-            lambda rp: table_rows(gdata, dict(zip(gdata, rp))))
+            state.params, batch["label"], rows_pos,
+            lambda p, rp: call_rows(
+                p, table_rows(gdata, dict(zip(gdata, rp))), batch, sub))
         finite, dense_grads, g_deltas = guard(dense_grads, g_deltas)
         col_grads, touch_mask = backward_sums(gdata,
                                               dict(zip(gdata, g_deltas)))
@@ -702,13 +735,14 @@ def make_train_step(
             cols.update(gd["cols"])
             subs.update(gd["subs"])
         return finish(state, dense_grads, col_grads, cols, subs, touch_mask,
-                      losses, finite)
+                      losses, rng, finite)
 
     gather_c = gather_cols if use_kernels else gather_cols_plain
     segsum_c = segsum_cols if use_kernels else segsum_cols_plain
 
     def step_cols(state: TrainState, batch):
         """The feature-major formulation (``row_layout=False``)."""
+        rng, sub = prng.split(state.rng)
         ids = batch["ids"]
         flat = ids.reshape(-1).contiguous()
         n_pos = flat.numel()
@@ -744,8 +778,9 @@ def make_train_step(
                 off += dn
             return rows
 
-        dense_grads, g_deltas, losses = run_model(state.params, batch,
-                                                  [rows_pos], rows_of)
+        dense_grads, g_deltas, losses = run_model(
+            state.params, batch["label"], [rows_pos],
+            lambda p, rp: call_rows(p, rows_of(rp), batch, sub))
         finite, dense_grads, g_deltas = guard(dense_grads, g_deltas)
         g_sorted = g_deltas[0][perm.long()]  # [N, sum_d], sorted order
         # the kernel reads the [sum_d, N] view's row-major memory: no copy
@@ -764,9 +799,22 @@ def make_train_step(
                 g = torch.cat([g, g.new_zeros((dp_full - dn, n_pos))])
             col_grads[name] = g
         return finish(state, dense_grads, col_grads, cols, subs, {}, losses,
-                      finite)
+                      rng, finite)
 
-    step = step_rows if row_layout else step_cols
+    def step_dense(state: TrainState, batch):
+        """The dense step (``sparse=False``): every leaf's gradient by
+        autograd through the model's lookups, then its dense update."""
+        rng, sub = prng.split(state.rng)
+        dense_grads, _, losses = run_model(
+            state.params, batch["label"], [],
+            lambda p, _rp: model.apply_batch(p, batch, train=True, rng=sub))
+        finite, dense_grads, _ = guard(dense_grads, [])
+        return finish(state, dense_grads, {}, {}, {}, {}, losses, rng, finite)
+
+    if not sparse:
+        step = step_dense
+    else:
+        step = step_rows if row_layout else step_cols
     return CapturedStep(step) if jit else step
 
 
@@ -778,7 +826,16 @@ def make_train_step(
 def _state_tensors(state: TrainState) -> list[torch.Tensor]:
     return [leaf for _p, leaf in _leaves(
         {"params": state.params, "opt_w": state.opt_w, "opt_d": state.opt_d,
-         "step": state.step}) if isinstance(leaf, torch.Tensor)]
+         "step": state.step, "rng": state.rng})
+        if isinstance(leaf, torch.Tensor)]
+
+
+def _state_key(state: TrainState) -> tuple:
+    """Where and how the state's tensors lie: a graph replays only on
+    tensors at these addresses with these shapes, types and strides (the
+    caching allocator may hand a new state an old one's addresses)."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.stride())
+                 for t in _state_tensors(state))
 
 
 def _step_in_place(step, state: TrainState, batch):
@@ -806,8 +863,12 @@ class CapturedStep:
     :class:`TrainState` in place (every leaf keeps its address) and the
     returned losses are copies that the next replay does not overwrite.
     A bucket regrow is a new signature and gets one new capture; graphs
-    of earlier signatures are kept for batches still in flight.  A
-    capture that fails raises: it never falls back to the eager step.
+    of the live state's earlier signatures are kept for batches still in
+    flight.  A call with another state (a callback replaced it) drops
+    every graph, and with it every private memory pool, held for the
+    state it replaces: that state was donated, so no graph of it can be
+    replayed again.  A capture that fails raises: it never falls back to
+    the eager step.
 
     A kernel wrapper counts its launch when the graph is captured, not on
     each replay.  Since :meth:`reset_counts`, ``recorded`` sums what the
@@ -818,10 +879,15 @@ class CapturedStep:
 
     def __init__(self, step):
         self.step = step
-        self._graphs = {}  # (state addresses, batch signature) -> entry
+        self._graphs = {}  # batch signature -> entry, for the live state
         self._state = None
         self._state_key = None
         self.reset_counts()
+
+    @property
+    def graphs(self) -> int:
+        """Graphs held: one per batch signature of the live state."""
+        return len(self._graphs)
 
     def reset_counts(self) -> None:
         self.captures = self.replays = 0
@@ -832,13 +898,16 @@ class CapturedStep:
         if state.step.device.type != "cuda":
             return self.step(state, batch)
         if state is not self._state:
+            key = _state_key(state)
+            if key != self._state_key:
+                self._graphs.clear()  # the replaced state's graphs
+                self._state_key = key
             self._state = state
-            self._state_key = tuple(t.data_ptr() for t in _state_tensors(state))
         sig = tuple((k, tuple(v.shape), v.dtype, str(v.device))
                     for k, v in sorted(batch.items()))
-        entry = self._graphs.get((self._state_key, sig))
+        entry = self._graphs.get(sig)
         if entry is None:
-            return state, self._capture((self._state_key, sig), state, batch)
+            return state, self._capture(sig, state, batch)
         graph, static, losses, per_replay = entry
         for k, v in batch.items():
             static[k].copy_(v)

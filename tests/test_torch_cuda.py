@@ -998,7 +998,8 @@ def test_guarded_step_on_card_equals_plain(cuda_device, jit):
         sb, _ = fb(sb, b)
         if i == 1:
             after = _state_tensors(sa)
-            for x, y in zip(before[:-1], after[:-1]):  # all but state.step
+            # all but state.rng and state.step, which advance
+            for x, y in zip(before[:-2], after[:-2]):
                 assert torch.equal(x, y)
     assert int(sa.step) == int(sb.step) == 3
     for x, y in zip(_state_tensors(sa), _state_tensors(sb)):
@@ -1047,4 +1048,135 @@ def test_rec_model_captures_beside_staging_on_card(cuda_device):
         st, _ = step(st, b)
     assert pol.bucket == rm.bucket_policy.bucket > start
     for x, y in zip(_state_tensors(st), _state_tensors(rm.state)):
+        assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the dense step, dropout and replaced states on the card
+# ---------------------------------------------------------------------------
+
+
+def _dense_recipe(dev, n=6, **cfg_kw):
+    """(model, optimizers, device batches) of a small dense W&D: bf16 MLP,
+    FTRL + dense Adam, the l2 term over the deep table."""
+    from mindrec_tpu_torch.data.criteo import SyntheticCriteo, to_device
+    from mindrec_tpu_torch.models import wide_deep
+    from mindrec_tpu_torch.train import optim
+
+    cfg = wide_deep.WideDeepConfig(
+        batch_size=512, field_size=39, vocab_size=100_000, emb_dim=16,
+        deep_layer_dim=(256, 256), **cfg_kw)
+    opts = (optim.ftrl(loss_scale=1024.0), optim.adam(loss_scale=1024.0))
+    data = SyntheticCriteo(512, 39, 100_000, seed=7, fields="criteo")
+    batches = [to_device(data.get_batch(i), dev) for i in range(n)]
+    return wide_deep.WideDeepModel(cfg), opts, batches
+
+
+def _replace(state):
+    """A new state holding the same values in new tensors, as a callback
+    that replaces the train state (``EvictionCallback``) hands one over."""
+    from mindrec_tpu_torch.train.step import TrainState, map_leaves
+
+    def copy(node):
+        return map_leaves(lambda _k, t: t.clone(), node)
+
+    return TrainState(copy(state.params), copy(state.opt_w),
+                      copy(state.opt_d), state.step.clone(),
+                      state.rng.clone())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [False, True], ids=["plain", "dropout"])
+def test_dense_captured_step_equals_eager_on_card(cuda_device, dropout):
+    """The dense step captured in a CUDA graph gives the eager step's
+    losses and state bit for bit (the table gradient's index-put adds in
+    a fixed order on the card), with dropout off and with dropout drawn
+    from the state's key; the captured step's launches run no kernel of
+    the port."""
+    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+
+    kw = dict(dropout_flag=True, keep_prob=0.9) if dropout else {}
+    model, opts, batches = _dense_recipe(cuda_device, **kw)
+    se = init_train_state(model, 3, *opts, device=cuda_device)
+    sc = init_train_state(model, 3, *opts, device=cuda_device)
+    eager = make_train_step(model, *opts)
+    cap = make_train_step(model, *opts, jit=True)
+    for b in batches:
+        se, le = eager(se, b)
+        out, lc = cap(sc, b)
+        assert out is sc
+        for x, y in zip(le, lc):
+            assert torch.equal(x, y)
+    torch.cuda.synchronize()
+    for x, y in zip(_state_tensors(se), _state_tensors(sc)):
+        assert torch.equal(x, y)
+    assert cap.captures == 1 and cap.replays == len(batches) - 1
+    assert cap.recorded == {} and cap.replayed == {}
+
+
+@pytest.mark.cuda
+def test_dropout_masks_differ_across_replays_on_card(cuda_device,
+                                                     monkeypatch):
+    """Each replay of the captured dense step draws new masks from the
+    key the state holds then: two replays' masks differ at every layer,
+    and each keeps its share within 0.5% of keep_prob."""
+    from mindrec_tpu_torch.ops import prng
+    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+
+    model, opts, batches = _dense_recipe(cuda_device, n=3, dropout_flag=True,
+                                         keep_prob=0.9)
+    drawn, real = [], prng.bernoulli
+    monkeypatch.setattr(prng, "bernoulli",
+                        lambda k, p, shape: drawn.append(real(k, p, shape))
+                        or drawn[-1])
+    state = init_train_state(model, 4, *opts, device=cuda_device)
+    cap = make_train_step(model, *opts, jit=True)
+    state, _ = cap(state, batches[0])  # eager warm-up, then the capture
+    masks = drawn[-len(model.mlp_dims):]  # the graph's outputs
+    seen = []
+    for b in batches[1:]:
+        state, _ = cap(state, b)
+        seen.append([m.clone() for m in masks])
+    assert cap.captures == 1 and cap.replays == 2
+    for a, b in zip(*seen):
+        assert not torch.equal(a, b)
+        for m in (a, b):
+            assert abs(m.float().mean().item() / 0.9 - 1) < 0.005
+
+
+@pytest.mark.cuda
+def test_captured_step_drops_replaced_states_graphs_on_card(cuda_device):
+    """A callback replaces the state twice: each replacement gives exactly
+    one new capture, the step holds graphs only for the live state's
+    batch signatures, and the run equals an eager run with the same
+    replacements bit for bit."""
+    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+
+    model, opts, batches = _small_recipe("wd", cuda_device)  # 2 signatures
+    se = init_train_state(model, 6, *opts, device=cuda_device)
+    sc = init_train_state(model, 6, *opts, device=cuda_device)
+    eager = make_train_step(model, *opts)
+    cap = make_train_step(model, *opts, jit=True)
+
+    def run(i):
+        nonlocal se, sc
+        se, le = eager(se, batches[i])
+        sc, lc = cap(sc, batches[i])
+        for x, y in zip(le, lc):
+            assert torch.equal(x, y)
+
+    run(0)
+    run(3)  # the other signature
+    assert (cap.captures, cap.graphs) == (2, 2)
+    for i, j in ((1, 4), (2, 5)):
+        se, sc = _replace(se), _replace(sc)
+        run(i)
+        assert (cap.captures, cap.graphs) == (3 if i == 1 else 5, 1)
+        run(j)
+        assert cap.graphs == 2
+    assert cap.captures == 6 and cap.replays == 0
+    run(1)
+    assert (cap.captures, cap.replays, cap.graphs) == (6, 1, 2)
+    torch.cuda.synchronize()
+    for x, y in zip(_state_tensors(se), _state_tensors(sc)):
         assert torch.equal(x, y)

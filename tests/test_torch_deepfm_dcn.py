@@ -188,8 +188,8 @@ def test_deepfm_mixed_precision_forward_matches_jax():
 
 def test_dcn_cross_layer_and_one_hot():
     """One cross layer equals ``x0 * (x0 @ w) + b + x0`` and the chain
-    equals the reference's; the one-hot lookup needs the dense step,
-    which is not ported, so the model refuses it."""
+    equals the reference's; the one-hot lookup on the dense table gives
+    the gather lookup's rows, in float32 bit for bit."""
     jm, js, _, tm, ts, _ = _setup("dcn", sparse=False)
     x0 = torch.from_numpy(np.random.default_rng(0).normal(
         size=(4, tm.input_size)).astype(np.float32))
@@ -200,20 +200,18 @@ def test_dcn_cross_layer_and_one_hot():
         tm._cross_net(ts.params["cross"], x0).numpy(),
         np.asarray(jm._cross_net(js.params["cross"], jnp.asarray(x0.numpy()))),
         rtol=1e-5, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="dense"):
-        dcn.DCNModel(dcn.DCNConfig(**{**DCN, "use_one_hot_embeddings": True}))
+    one_hot = dcn.DCNModel(dcn.DCNConfig(**{**DCN,
+                                           "use_one_hot_embeddings": True}))
+    b = to_device(SyntheticCriteo(B, F, V, seed=4).get_batch(0), "cpu")
+    torch.testing.assert_close(one_hot.apply_batch(ts.params, b),
+                               tm.apply_batch(ts.params, b), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("make", [
-    lambda: deepfm.DeepFMModel(deepfm.DeepFMConfig(dropout_flag=True)),
     lambda: deepfm.DeepFMModel(deepfm.DeepFMConfig(
         table_slice_mode="table_row_slice")),
     lambda: dcn.DCNModel(dcn.DCNConfig(table_slice_mode="table_row_slice")),
-    lambda: make_train_step(dcn.DCNModel(dcn.DCNConfig()), optim.adam(),
-                            optim.adam()),  # the dense step
-    lambda: dcn.DCNModel(dcn.DCNConfig(use_one_hot_embeddings=True)),
-], ids=["deepfm_dropout", "deepfm_sliced", "dcn_sliced", "dcn_dense_step",
-        "dcn_one_hot"])
+], ids=["deepfm_sliced", "dcn_sliced"])
 def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError):
         make()

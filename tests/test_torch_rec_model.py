@@ -220,8 +220,3 @@ def test_unported_options_raise(kw, exc):
     with pytest.raises(exc):
         RecModel(tm, device="cpu", **kw)
 
-
-def test_dense_model_raises():
-    cfg = wide_deep.WideDeepConfig(**{**WD, "sparse": False})
-    with pytest.raises(NotImplementedError, match="dense train step"):
-        RecModel(wide_deep.WideDeepModel(cfg), device="cpu")

@@ -232,8 +232,6 @@ def test_check_overflow_keeps_state():
 @pytest.mark.parametrize("change,ctor_kw", [
     ({"deep_table_slice_mode": "table_column_slice"}, {}),
     ({"deep_table_slice_mode": "table_row_slice"}, {}),
-    ({"sparse": False}, {}),
-    ({"multitable": True, "sparse": False}, {}),  # the dense multitable step
     ({}, {"row_layout": False}),  # row_packed tables on the column path
     ({"multitable": True, "sparse": True}, {"row_layout": False}),  # groups
 ])
