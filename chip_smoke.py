@@ -133,7 +133,32 @@ Phases (any failure exits non-zero):
     step captured == eager too), and DCN's one-hot
     lookup against its gather lookup at vocab 1,000, batch 4,096
     (logits, loss, table gradient; each step timed).  Its lines carry
-    the card's name and power limit too.
+    the card's name and power limit too;
+14. checkpoints and the serving hand-off (``io/``, ``serving/``):
+    ``[ckpt-wd]`` trains the W&D bench recipe through ``RecModel.train``
+    (captured, native prep, kernels 1-3 with the counters set to 0 just
+    before the straight run and read just after) 10 steps straight, and
+    5 steps with an async ``CheckpointCallback`` followed by a fresh
+    ``RecModel`` restored from the latest file taking the other 5: every
+    leaf equal bit for bit (digests printed), the file's MB, the
+    snapshot's host wait, the write, the restore and the captures after
+    it; ``[ckpt-dense]`` the same on the dense W&D accuracy recipe with
+    dropout (keep 0.9), so the key survives the round trip;
+    ``[profile]``: ``profile()`` around 3 captured steps of the restored
+    model, each under ``step_annotation``, the Chrome trace naming the
+    annotations and ``segsum_sorted``'s kernel; ``[export-wd]``,
+    ``[export-fm]``, ``[export-dcn]``: the trained W&D bench state and
+    ``DeepFMConfig()`` / ``DCNConfig()`` after 3 default steps exported
+    by ``ExportCallback`` (MREC1, sidecar, ONNX), 2 batches of 1,000
+    written by ``records2bin`` and served by the C++ client (built by
+    g++, host CPU), by the ONNX graph on the card and by ``predict`` on
+    the card, client and ONNX within 1e-5 of float32 ``predict``;
+    ``[export-mt]``: the multitable recipe, ONNX only; ``[floor]``:
+    ``sparse_step_floor`` of the W&D and multitable recipes with the
+    card's constants beside the captured ms/step of phase 12, and the
+    ``TimeMonitor(speed_of_light=model)`` line of ``[ckpt-wd]``'s
+    straight run.  Temporary files live under ``tempfile.mkdtemp()`` and
+    are removed.
 
 Every kernel and every library call is timed by replaying a CUDA graph
 of 10 calls (device time, no host work between the launches); the plain
@@ -147,10 +172,16 @@ last line and ends with ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import hashlib
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -190,9 +221,18 @@ from mindrec_tpu_torch.ops.kernels.update_cols import (
 from mindrec_tpu_torch.ops.kernels.update_rows import (
     adam_rows, adam_rows_plain, ftrl_rows, ftrl_rows_plain,
 )
+from mindrec_tpu_torch.io import checkpoint
+from mindrec_tpu_torch.io.onnx import export_onnx
+from mindrec_tpu_torch.serving import client, records2bin
+from mindrec_tpu_torch.serving.onnx_ref import OnnxModel
 from mindrec_tpu_torch.train import optim
-from mindrec_tpu_torch.train.callbacks import Callback
+from mindrec_tpu_torch.train.callbacks import (
+    Callback, CheckpointCallback, ExportCallback, RunContext, TimeMonitor,
+)
 from mindrec_tpu_torch.train.metrics import roc_auc
+from mindrec_tpu_torch.utils.profiling import (
+    profile, sparse_step_floor, step_annotation,
+)
 from mindrec_tpu_torch.train.step import (
     SENTINEL, CapturedStep, TrainState, _group_layouts, _state_tensors,
     init_train_state, make_batch_sort, make_eval_step, make_train_step,
@@ -1035,9 +1075,10 @@ def sectors(cols, elt) -> int:
 def digest(tensors) -> str:
     """Fingerprint of tensors' bytes: two trees' kernels, fed the same
     inputs, agree bit for bit when their digests do."""
-    return hashlib.sha256(b"".join(
-        x.contiguous().view(torch.uint8).cpu().numpy().tobytes()
-        for x in tensors)).hexdigest()[:16]
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.reshape(-1).contiguous().view(torch.uint8).cpu().numpy())
+    return h.hexdigest()[:16]
 
 
 def gather_rows_bounds(table, cols, off, width):
@@ -2343,6 +2384,313 @@ def phase_dense(dev, profile=False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: checkpoint and resume, the serving hand-off, the floor, a profile
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS, SERVE_BATCH, SERVE_BATCHES = 10, 1000, 2
+SERVE_TOL = 1e-5  # float32 serving forwards against float32 predict
+
+
+class TimedCheckpoint(CheckpointCallback):
+    """``CheckpointCallback`` whose save is timed as the trainer sees it:
+    the step is waited for first, so the time is the snapshot (the host
+    copy) and the hand-off to the writer thread."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.snapshot_ms, self.handed_off = [], None
+
+    def on_train_step_end(self, ctx):
+        if ctx.cur_step_num % self.save_steps:
+            return
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        super().on_train_step_end(ctx)
+        self.handed_off = time.perf_counter()
+        self.snapshot_ms.append((self.handed_off - t0) * 1e3)
+
+
+def ckpt_resume(tag, make_rm, raw, per_step, monitor=None) -> tuple:
+    """Run A: ``len(raw)`` steps straight through ``RecModel.train``
+    (launch counters set to 0 just before, read just after).  Run B: the
+    first half with an async ``CheckpointCallback``, then a fresh
+    ``RecModel`` restored from the latest checkpoint takes the second
+    half.  Every leaf of A and B must be equal bit for bit.  Returns the
+    numbers and the resumed ``RecModel``."""
+    half = len(raw) // 2
+    tmp = tempfile.mkdtemp(prefix="mrec-ckpt-")
+    try:
+        rm_a = make_rm()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        rm_a.train_step.reset_counts()
+        rm_a.train(1, raw, callbacks=[monitor] if monitor else None)
+        torch.cuda.synchronize()
+        launches = real_launches(rm_a.train_step)
+        for k, per in per_step.items():
+            if launches[k] < per * len(raw):
+                fail(f"{tag}: kernel {k} launched {launches[k]} times in "
+                     f"{len(raw)} steps")
+        rm_b = make_rm()
+        cb = TimedCheckpoint(tmp, save_steps=half, async_save=True)
+        rm_b.train(1, raw[:half], callbacks=[cb])
+        write_ms = (time.perf_counter() - cb.handed_off) * 1e3
+        path, step = checkpoint.latest_checkpoint(tmp)
+        if step != half or cb.saved != [path]:
+            fail(f"{tag}: latest checkpoint {path} at step {step}, saved "
+                 f"{cb.saved}")
+        del rm_b
+        rm_c = make_rm()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rm_c.state = checkpoint.restore_checkpoint(path, rm_c.state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        rm_c.train_step.reset_counts()
+        rm_c.train(1, raw[half:])
+        torch.cuda.synchronize()
+        diffs = state_diffs(rm_a.state, rm_c.state)
+        out = dict(steps=len(raw), resumed_at=half,
+                   checkpoint_mb=os.path.getsize(path) / 1e6,
+                   snapshot_ms=cb.snapshot_ms[0], write_ms=write_ms,
+                   restore_ms=restore_ms,
+                   captures_after_restore=rm_c.train_step.captures,
+                   leaves=len(_state_tensors(rm_a.state)),
+                   digest_straight=digest(_state_tensors(rm_a.state)),
+                   digest_resumed=digest(_state_tensors(rm_c.state)),
+                   launches_straight=launches, bit_identical=not diffs)
+        rec_log(tag, json.dumps(out))
+        if diffs or out["digest_straight"] != out["digest_resumed"]:
+            fail(f"{tag}: resumed state differs from the straight run in "
+                 f"leaves (index, max abs diff) {diffs}")
+        if rm_c.train_step.captures != 1:
+            fail(f"{tag}: {rm_c.train_step.captures} captures after restore")
+        return out, rm_c
+    finally:
+        shutil.rmtree(tmp)
+
+
+def serving_model(model):
+    """The same model at float32 (the serving precision of MREC1 and
+    ONNX): ``predict`` of the same parameters without the bf16 MLP."""
+    return type(model)(dataclasses.replace(model.config,
+                                           use_mixed_precision=False))
+
+
+def serve_check(tag, kind, model, state, dev) -> dict:
+    """Export with ``ExportCallback`` (MREC1, its sidecar and ONNX),
+    write ``SERVE_BATCHES`` batches of ``SERVE_BATCH`` with
+    ``records2bin``, and serve them three ways: the C++ client (host
+    CPU), the ONNX graph run on the card, and ``predict`` on the card.
+    Client and ONNX are held to ``SERVE_TOL`` of float32 ``predict``."""
+    tmp = tempfile.mkdtemp(prefix="mrec-export-")
+    try:
+        cb = ExportCallback(tmp, kind, export_steps=1, keep_max=1,
+                            onnx_model=model)
+        params = state.params
+        ctx = RunContext(cur_step_num=1, train_state=state)
+        t0 = time.perf_counter()
+        cb.on_train_step_end(ctx)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        mrec = Path(cb.exported[-1])
+        onnx_path = mrec.with_suffix(".onnx")
+        t0 = time.perf_counter()
+        export_onnx(onnx_path, kind, model, params)
+        onnx_ms = (time.perf_counter() - t0) * 1e3
+        bins = Path(tmp) / "bins"
+        records2bin.convert(SyntheticCriteo(
+            SERVE_BATCH, FIELDS, model.config.vocab_size, steps=SERVE_BATCHES,
+            seed=999, fields="criteo"), bins)
+        t0 = time.perf_counter()
+        runner = OnnxModel(onnx_path.read_bytes(), dev)
+        torch.cuda.synchronize()
+        onnx_load_ms = (time.perf_counter() - t0) * 1e3
+        f32 = serving_model(model)
+        err = {"client": 0.0, "onnx_card": 0.0, "bf16_predict": 0.0}
+        client_ms, onnx_batch_ms = [], []
+        for i in range(SERVE_BATCHES):
+            ids = np.fromfile(bins / f"ids_{i}.bin", np.int32).reshape(
+                SERVE_BATCH, FIELDS)
+            wts = np.fromfile(bins / f"wts_{i}.bin", np.float32).reshape(
+                SERVE_BATCH, FIELDS)
+            probs, ms = client.run_files(mrec, bins / f"ids_{i}.bin",
+                                         bins / f"wts_{i}.bin", SERVE_BATCH,
+                                         FIELDS, Path(tmp) / f"out_{i}.txt")
+            client_ms.append(ms)
+            t_ids = torch.from_numpy(ids).to(dev)
+            t_wts = torch.from_numpy(wts).to(dev)
+            feeds = {"ids": t_ids, "wts": t_wts}
+            runner(feeds)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = runner(feeds)["prob"].reshape(-1)
+            torch.cuda.synchronize()
+            onnx_batch_ms.append((time.perf_counter() - t0) * 1e3)
+            with torch.no_grad():
+                want = f32.predict(params, t_ids, t_wts).reshape(-1)
+                own = model.predict(params, t_ids, t_wts).reshape(-1)
+            want_np = want.double().cpu().numpy()
+            err["client"] = max(err["client"],
+                                float(np.abs(probs - want_np).max()))
+            err["onnx_card"] = max(err["onnx_card"],
+                                   float((got - want).abs().max()))
+            err["bf16_predict"] = max(err["bf16_predict"],
+                                      float((own.float() - want).abs().max()))
+        out = dict(
+            mrec_mb=mrec.stat().st_size / 1e6,
+            sidecar_mb=Path(str(mrec) + ".npz").stat().st_size / 1e6,
+            onnx_mb=onnx_path.stat().st_size / 1e6,
+            export_ms=export_ms, onnx_build_ms=onnx_ms,
+            onnx_load_to_card_ms=onnx_load_ms,
+            client_us_per_sample_host=[m * 1e3 / SERVE_BATCH
+                                       for m in client_ms],
+            onnx_card_ms_per_batch=onnx_batch_ms,
+            max_abs_err_vs_f32_predict=err, tolerance=SERVE_TOL,
+            batches=SERVE_BATCHES, batch=SERVE_BATCH)
+        rec_log(tag, json.dumps(out))
+        if max(err["client"], err["onnx_card"]) > SERVE_TOL:
+            fail(f"{tag}: client or ONNX off predict by {err}")
+        return out
+    finally:
+        shutil.rmtree(tmp)
+
+
+def serve_multitable(dev) -> dict:
+    """The multitable recipe's model exported to ONNX only (the client has
+    no multitable kind), run on the card against float32 ``predict`` on
+    the first ``SERVE_BATCH`` rows of a synthetic batch."""
+    model, opts = mt_recipe()
+    state = init_train_state(model, 0, *opts, device=dev)
+    tmp = tempfile.mkdtemp(prefix="mrec-export-")
+    try:
+        t0 = time.perf_counter()
+        path = export_onnx(Path(tmp) / "mt.onnx", "multitable", model,
+                           state.params)
+        onnx_ms = (time.perf_counter() - t0) * 1e3
+        runner = OnnxModel(Path(path).read_bytes(), dev)
+        raw = SyntheticOutbrain(model.config, 1, seed=0).get_batch(0)
+        feeds = {k: torch.from_numpy(v[:SERVE_BATCH]).to(dev)
+                 for k, v in raw.items()}
+        runner(feeds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = runner(feeds)["prob"].reshape(-1)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            want = serving_model(model).predict(state.params,
+                                                feeds).reshape(-1)
+        err = float((got - want).abs().max())
+        out = dict(onnx_mb=Path(path).stat().st_size / 1e6,
+                   onnx_build_ms=onnx_ms, onnx_card_ms_per_batch=batch_ms,
+                   max_abs_err_vs_f32_predict=err, tolerance=SERVE_TOL)
+        rec_log("export-mt", json.dumps(out))
+        if err > SERVE_TOL:
+            fail(f"export-mt: ONNX off predict by {err}")
+        return out
+    finally:
+        shutil.rmtree(tmp)
+        del state
+        torch.cuda.empty_cache()
+
+
+class Annotate(Callback):
+    """Each train step under ``step_annotation("train_step", n)``."""
+
+    def on_train_step_begin(self, ctx):
+        self._range = step_annotation("train_step", ctx.cur_step_num)
+        self._range.__enter__()
+
+    def on_train_step_end(self, ctx):
+        self._range.__exit__(None, None, None)
+
+
+def profile_check(rm, raw) -> dict:
+    """``profile()`` around 3 captured W&D steps through ``RecModel.train``
+    (they replay the graph the restore captured): the Chrome trace must
+    exist and name the annotations and ``segsum_sorted``'s kernels."""
+    tmp = tempfile.mkdtemp(prefix="mrec-prof-")
+    try:
+        torch.cuda.synchronize()
+        with profile(tmp) as p:
+            rm.train(1, raw[:3], callbacks=[Annotate()])
+            torch.cuda.synchronize()
+        text = Path(p.trace_path).read_text()
+        names = ["train_step#1", "train_step#3", "sorted_chunk_sum"]
+        found = {n: n in text for n in names}
+        out = dict(trace_mb=len(text) / 1e6, found=found,
+                   replays=rm.train_step.replays)
+        rec_log("profile", json.dumps(out))
+        if not all(found.values()):
+            fail(f"profile: the trace lacks {found}")
+        return out
+    finally:
+        shutil.rmtree(tmp)
+
+
+def phase_serving(dev, wd_model, wd_opts, rec_wd, rec_mt) -> dict:
+    """Phase 14, each line with the card's name and power limit."""
+    out = {}
+    data = SyntheticCriteo(BATCH, FIELDS, VOCAB, steps=CKPT_STEPS, seed=70,
+                           fields="criteo")
+    raw = [data.get_batch(s) for s in range(CKPT_STEPS)]
+    monitor = TimeMonitor(speed_of_light=wd_model)
+    lines = io.StringIO()
+    with contextlib.redirect_stdout(lines):
+        out["ckpt_wd"], rm = ckpt_resume(
+            "ckpt-wd", lambda: RecModel(
+                wd_model, *wd_opts, prep_workers=2, jit=True, device=dev,
+                unique_bucket=AdaptiveBucket.from_sample(
+                    raw[:2], log=lambda *a, **k: None)),
+            raw, WD_PER_STEP, monitor)
+    print(lines.getvalue(), end="", flush=True)
+    tm_line = [x for x in lines.getvalue().splitlines()
+               if x.startswith("epoch time")][0]
+    out["profile"] = profile_check(rm, raw)
+    out["export_wd"] = serve_check("export-wd", "wide_deep", wd_model,
+                                   rm.state, dev)
+    del rm
+    torch.cuda.empty_cache()
+
+    dmodel, dopts = dense_wd_recipe(dropout_flag=True, keep_prob=0.9)
+    draw = [SyntheticCriteo(BATCH, FIELDS, ACC_VOCAB, steps=CKPT_STEPS,
+                            seed=80, fields="criteo").get_batch(s)
+            for s in range(CKPT_STEPS)]
+    out["ckpt_dense"], rm = ckpt_resume(
+        "ckpt-dense", lambda: RecModel(dmodel, *dopts, jit=True, device=dev),
+        draw, {})
+    del rm
+    torch.cuda.empty_cache()
+
+    for tag, kind, model in (
+            ("export-fm", "deepfm", DeepFMModel(DeepFMConfig())),
+            ("export-dcn", "dcn", DCNModel(DCNConfig()))):
+        rm = RecModel(model, jit=True, device=dev)
+        rm.train(1, [SyntheticCriteo(BATCH, FIELDS, model.config.vocab_size,
+                                     steps=3, seed=90, fields="criteo"
+                                     ).get_batch(s) for s in range(3)])
+        out[tag] = serve_check(tag, kind, model, rm.state, dev)
+        del rm
+        torch.cuda.empty_cache()
+    out["export_mt"] = serve_multitable(dev)
+
+    mt_model, _ = mt_recipe()
+    floors = {}
+    for name, model, bs, ms in (
+            ("wd", wd_model, BATCH, min(rec_wd["turns"]["ms"]["captured"])),
+            ("multitable", mt_model, MT_BATCH,
+             min(rec_mt["turns"]["ms"]["captured"]))):
+        f = sparse_step_floor(model, bs)
+        floors[name] = dict(f, captured_ms_per_step=ms,
+                            share_of_floor=f["floor_ms"] / ms)
+    rec_log("floor", json.dumps(floors))
+    rec_log("floor", f"TimeMonitor(speed_of_light=model) over [ckpt-wd]'s "
+            f"straight run: {tm_line}")
+    out["floor"] = floors
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2406,6 +2754,7 @@ def main() -> int:
     rec_log("rec-summary", json.dumps({"wd": rec_wd, "multitable": rec_mt,
                                        "captured_others": others}))
     phase_dense(dev, profile=args.profile)
+    phase_serving(dev, wd_model, wd_opts, rec_wd, rec_mt)
 
     launches = {**main_path["launches"],
                 **{k: mt_path["launches"][k] for k in MT_PER_STEP

@@ -15,7 +15,16 @@ Ported so far:
   a side CUDA stream by ``data/criteo.py:PrefetchToDevice``), with the
   step captured in a CUDA graph (``jit=True``);
 * the native batch prep (``native/batchprep.cc``, built by g++ at first
-  use), metrics (AUC, grouped MAP@12) and callbacks;
+  use), metrics (AUC, grouped MAP@12) and callbacks (loss, eval,
+  ``TimeMonitor`` with the step's floor, checkpoints, exports);
+* checkpoints interchangeable with the reference's files
+  (``io/checkpoint.py``: save, async save, retention, restore, merge of
+  sliced files), the MREC1 export and the C++ client that serves it on
+  the host (``io/export.py``, ``serving/infer_client.cc``, built by g++
+  at first use), the ONNX export and a runner of it on the card
+  (``io/onnx.py``, ``serving/onnx_ref.py``), ``serving/records2bin.py``
+  and the profiler hooks and speed-of-light floor
+  (``utils/profiling.py``);
 * the sparse train step on one device (``train/step.py``) in both
   streamed formulations (``row_layout=True`` for one or several id
   groups of row_packed or feature-major tables, with the tiny-vocab

@@ -2,11 +2,10 @@
 
 Port of ``mindrec_tpu/train/callbacks.py`` (the same messages): per-step
 loss logging with the rank id, per-epoch eval with an ``eval.log``, step
-timing and fault injection.  Not ported yet: ``CheckpointCallback`` and
-``ExportCallback`` (they need ``io/``, ``ROADMAP.md`` section 1 item 5),
-``EvictionCallback`` (the dynamic tables, item 8) and
-``TimeMonitor(speed_of_light=...)`` (its floor needs the card's
-constants).
+timing with the step's speed-of-light floor, interval checkpoints with
+``keep_max`` retention, periodic serving exports and fault injection.
+Not ported yet: ``EvictionCallback`` (the dynamic tables, ``ROADMAP.md``
+section 1 item 7).
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 
 def _scalar(x) -> float:
@@ -144,20 +144,35 @@ class EvalCallback(Callback):
 class TimeMonitor(Callback):
     """Epoch and per-step timing on the host clock.  A step's time is
     its enqueue unless something in it (a callback reading the loss, a
-    full prefetch queue) waits for the card.  ``speed_of_light`` is not
-    ported: the reference's floor is a TPU model."""
+    full prefetch queue) waits for the card; the epoch's end waits for
+    the card, so the epoch time holds every step's device work.
+
+    ``speed_of_light``: a model (its floor is derived from its static
+    shapes at ``batch_size``, default its config's) or a precomputed
+    :func:`~mindrec_tpu_torch.utils.profiling.sparse_step_floor` dict;
+    each epoch line then also reports samples/s as a share of that
+    analytic floor, in the reference's words.  The rate is the epoch's
+    time per step, where the reference takes the median step time: on
+    the card a step's host time is its enqueue, which can be shorter
+    than the floor itself."""
 
     def __init__(self, data_size: Optional[int] = None,
                  speed_of_light=None, batch_size: Optional[int] = None):
-        if speed_of_light is not None:
-            raise NotImplementedError(
-                "TimeMonitor(speed_of_light=...) needs a step floor with "
-                "the card's constants, which is not ported yet")
         self.data_size = data_size
         self.step_times: list[float] = []
         self._epoch_t0 = None
         self._step_t0 = None
         self.batch_size = batch_size
+        self.floor = None
+        if speed_of_light is not None:
+            if isinstance(speed_of_light, dict):
+                self.floor = speed_of_light
+            else:  # a model: the floor of its static shapes
+                from mindrec_tpu_torch.utils.profiling import sparse_step_floor
+
+                bs = batch_size or speed_of_light.config.batch_size
+                self.batch_size = bs
+                self.floor = sparse_step_floor(speed_of_light, bs)
 
     def on_train_epoch_begin(self, ctx):
         self._epoch_t0 = time.perf_counter()
@@ -171,13 +186,79 @@ class TimeMonitor(Callback):
             self.step_times.append(time.perf_counter() - self._step_t0)
 
     def on_train_epoch_end(self, ctx):
+        step = getattr(getattr(ctx, "train_state", None), "step", None)
+        if isinstance(step, torch.Tensor) and step.device.type == "cuda":
+            torch.cuda.synchronize(step.device)
         dt = time.perf_counter() - self._epoch_t0
         n = len(self.step_times) or 1
-        print(
+        line = (
             f"epoch time: {dt * 1000:.3f} ms, per step time: "
-            f"{dt * 1000 / n:.3f} ms",
-            flush=True,
+            f"{dt * 1000 / n:.3f} ms"
         )
+        if self.floor and self.batch_size and self.step_times:
+            per_step = dt / n
+            sps = self.batch_size / per_step
+            pct = 100.0 * (self.floor["floor_ms"] / 1e3) / per_step
+            line += (
+                f", {sps:,.0f} samples/s = {pct:.0f}% of the "
+                f"{self.floor['floor_samples_per_sec']:,}/s analytic "
+                f"floor (hbm {self.floor['hbm_ms']} ms + mxu "
+                f"{self.floor['mxu_ms']} ms)"
+            )
+        print(line, flush=True)
+
+
+def _global_step(ctx: RunContext) -> int:
+    """The state's optimizer step (one host read), which survives a
+    restart; the run-local count for a state without one."""
+    try:
+        return int(ctx.train_state.step)
+    except (AttributeError, TypeError):
+        return ctx.cur_step_num
+
+
+class CheckpointCallback(Callback):
+    """Save every ``save_steps`` steps, keep at most ``keep_max`` files,
+    numbered by the global step, so a resumed run's saves sort after the
+    earlier ones.  ``async_save=True`` snapshots the state to host memory
+    before the next step and writes the file on a background thread
+    (``io/checkpoint.py:AsyncCheckpointer``); the callback can be used
+    again in later ``train`` / ``online_train`` calls.  Resume with
+    ``rm.state = restore_checkpoint(path, rm.state)``."""
+
+    def __init__(self, directory: str, prefix: str = "ckpt",
+                 save_steps: int = 100, keep_max: int = 5,
+                 async_save: bool = False):
+        self.directory = directory
+        self.prefix = prefix
+        self.save_steps = save_steps
+        self.keep_max = keep_max
+        self.async_save = async_save
+        self.saved: list[str] = []
+        self._async = None
+
+    def on_train_step_end(self, ctx: RunContext):
+        if ctx.cur_step_num % self.save_steps != 0:
+            return
+        from mindrec_tpu_torch.io import checkpoint
+
+        kw = dict(step=_global_step(ctx), prefix=self.prefix,
+                  keep_max=self.keep_max)
+        if not self.async_save:
+            self.saved.append(checkpoint.save_checkpoint(
+                self.directory, ctx.train_state, **kw))
+            return
+        if self._async is None or self._async.closed:
+            self._async = checkpoint.AsyncCheckpointer()
+        fut = self._async.save(self.directory, ctx.train_state, **kw)
+        # .saved holds paths only, appended once each file has landed
+        fut.add_done_callback(
+            lambda f: self.saved.append(f.result())
+            if f.exception() is None else None)
+
+    def on_train_end(self, ctx: RunContext):
+        if self._async is not None:
+            self._async.close()
 
 
 class FaultInjector(Callback):
@@ -202,3 +283,67 @@ class FaultInjector(Callback):
         raise RuntimeError(
             f"FaultInjector: simulated crash at step {ctx.cur_step_num}"
         )
+
+
+class ExportCallback(Callback):
+    """Export the serving artifacts every ``export_steps`` steps (online
+    training ends in a serving side that reloads the freshest model):
+    ``<dir>/<prefix>-<global_step>.mrec`` and its ``.npz`` sidecar
+    (``io/export.py``), plus ``.onnx`` when ``onnx_model`` is given
+    (``io/onnx.py``).  Keeps the newest ``keep_max`` exports and a
+    ``<prefix>-latest`` symlink, swapped atomically, for pollers.
+
+    ``model`` gives the tables' storage specs for MREC1 (default:
+    ``onnx_model``); one of the two is required."""
+
+    def __init__(self, directory: str, model_kind: str,
+                 export_steps: int = 100, prefix: str = "model",
+                 keep_max: int = 5, onnx_model=None, model=None):
+        from pathlib import Path as _P
+
+        self.model = model if model is not None else onnx_model
+        if self.model is None:
+            raise ValueError("ExportCallback needs model= (or onnx_model=) "
+                             "for the tables' storage specs")
+        self.directory = _P(directory)
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.model_kind = model_kind
+        self.export_steps = export_steps
+        self.prefix = prefix
+        self.keep_max = keep_max
+        self.onnx_model = onnx_model
+        self.exported: list[str] = []
+
+    def on_train_step_end(self, ctx: RunContext):
+        if ctx.cur_step_num % self.export_steps != 0:
+            return
+        import os
+
+        from mindrec_tpu_torch.io.export import export_model
+
+        params = ctx.train_state.params
+        path = self.directory / f"{self.prefix}-{_global_step(ctx):010d}.mrec"
+        export_model(path, self.model_kind, params, self.model)
+        if self.onnx_model is not None:
+            from mindrec_tpu_torch.io.onnx import export_onnx
+
+            export_onnx(path.with_suffix(".onnx"), self.model_kind,
+                        self.onnx_model, params)
+        self.exported.append(str(path))
+        # atomic latest pointer for serving-side pollers
+        link = self.directory / f"{self.prefix}-latest"
+        tmp = self.directory / f".{self.prefix}-latest.tmp"
+        try:
+            if tmp.exists() or tmp.is_symlink():
+                tmp.unlink()
+            tmp.symlink_to(path.name)
+            os.replace(tmp, link)
+        except OSError:
+            pass  # filesystems without symlinks: pollers sort by name
+        while len(self.exported) > self.keep_max:
+            old = self.exported.pop(0)  # ".../<prefix>-<step>.mrec"
+            for victim in (old, old + ".npz", old[: -len(".mrec")] + ".onnx"):
+                try:
+                    os.unlink(victim)
+                except FileNotFoundError:
+                    pass

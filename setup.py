@@ -33,6 +33,8 @@ setup(
         "mindrec_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
         # the port's native batch prep, built by g++ at first use
         "mindrec_tpu_torch.native": ["*.cc"],
+        # the port's C++ inference client, built by g++ at first use
+        "mindrec_tpu_torch.serving": ["*.cc"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],

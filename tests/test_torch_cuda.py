@@ -1180,3 +1180,94 @@ def test_captured_step_drops_replaced_states_graphs_on_card(cuda_device):
     torch.cuda.synchronize()
     for x, y in zip(_state_tensors(se), _state_tensors(sc)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_async_save_keeps_the_pre_step_state_on_card(cuda_device, tmp_path):
+    """An async save followed at once by a captured step, which updates
+    every leaf in place: the file holds the state before that step."""
+    from mindrec_tpu_torch.io import checkpoint
+    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+
+    model, opts, batches = _small_recipe("wd", cuda_device)
+    state = init_train_state(model, 8, *opts, device=cuda_device)
+    cap = make_train_step(model, *opts, jit=True)
+    state, _ = cap(state, batches[0])
+    state, _ = cap(state, batches[1])  # captured from here on
+    want = [t.cpu().clone() for t in _state_tensors(state)]
+    with checkpoint.AsyncCheckpointer() as ac:
+        ac.save(tmp_path, state, step=2)
+        for b in batches[1:3]:
+            state, _ = cap(state, b)
+        path = ac.wait_until_finished()
+    assert cap.replays == 3
+    back = checkpoint.restore_checkpoint(path, state)
+    for x, y in zip(_state_tensors(back), want):
+        assert torch.equal(x.cpu(), y)
+    assert not torch.equal(_state_tensors(state)[0].cpu(), want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sparse", "dense_dropout"])
+def test_captured_resume_is_bit_identical_on_card(cuda_device, tmp_path,
+                                                  kind):
+    """4 captured steps straight == 2 steps, a checkpoint, a fresh state
+    restored from it and 2 more steps with a new captured step."""
+    from mindrec_tpu_torch.io import checkpoint
+    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+
+    if kind == "sparse":
+        model, opts, batches = _small_recipe("wd", cuda_device)
+        batches = batches[:3] + batches[:1]  # one batch signature
+    else:
+        model, opts, batches = _dense_recipe(cuda_device, n=4,
+                                             dropout_flag=True, keep_prob=0.9)
+    straight = init_train_state(model, 9, *opts, device=cuda_device)
+    cap = make_train_step(model, *opts, jit=True)
+    for b in batches:
+        straight, _ = cap(straight, b)
+    first = init_train_state(model, 9, *opts, device=cuda_device)
+    cap1 = make_train_step(model, *opts, jit=True)
+    for b in batches[:2]:
+        first, _ = cap1(first, b)
+    path = checkpoint.save_checkpoint(tmp_path, first, step=2)
+    resumed = checkpoint.restore_checkpoint(
+        path, init_train_state(model, 1, *opts, device=cuda_device))
+    cap2 = make_train_step(model, *opts, jit=True)
+    for b in batches[2:]:
+        resumed, _ = cap2(resumed, b)
+    torch.cuda.synchronize()
+    assert cap2.captures == 1
+    for x, y in zip(_state_tensors(resumed), _state_tensors(straight)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["wide_deep", "deepfm", "dcn"])
+def test_run_onnx_on_card_agrees_with_predict(cuda_device, tmp_path, kind):
+    """The exported graph run on the card by ``serving/onnx_ref.py``
+    against ``predict`` on the card (float32 model, no TF32)."""
+    from mindrec_tpu_torch.data.criteo import SyntheticCriteo, to_device
+    from mindrec_tpu_torch.io.onnx import export_onnx
+    from mindrec_tpu_torch.models import dcn, deepfm, wide_deep
+    from mindrec_tpu_torch.serving.onnx_ref import run_onnx
+    from mindrec_tpu_torch.train.step import init_train_state
+    from mindrec_tpu_torch.train import optim
+
+    kw = dict(batch_size=256, field_size=39, vocab_size=50_000,
+              deep_layer_dim=(64, 32), use_mixed_precision=False)
+    model = {"wide_deep": lambda: wide_deep.WideDeepModel(
+                 wide_deep.WideDeepConfig(emb_dim=16, sparse=True, **kw)),
+             "deepfm": lambda: deepfm.DeepFMModel(deepfm.DeepFMConfig(
+                 emb_dim=8, sparse=True, table_layout="feature_major", **kw)),
+             "dcn": lambda: dcn.DCNModel(dcn.DCNConfig(emb_dim=8, **kw))}[kind]()
+    state = init_train_state(model, 2, optim.ftrl(), optim.adam(),
+                             device=cuda_device)
+    b = to_device(SyntheticCriteo(256, 39, 50_000, seed=1).get_batch(0),
+                  cuda_device)
+    want = model.predict(state.params, b["ids"], b["wts"])
+    data = open(export_onnx(tmp_path / "m.onnx", kind, model, state.params),
+                "rb").read()
+    got = run_onnx(data, {"ids": b["ids"], "wts": b["wts"]})["prob"]
+    assert got.device.type == "cuda"
+    assert float((got - want).abs().max()) < 1e-5

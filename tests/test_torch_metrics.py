@@ -107,8 +107,24 @@ def test_eval_and_time_callbacks_match_reference(capsys, monkeypatch):
         outs.append(capsys.readouterr().out)
     assert outs[0] == outs[1] == (
         "epoch time: 10.000 ms, per step time: 10.000 ms\n")
-    with pytest.raises(NotImplementedError):
-        tcb.TimeMonitor(speed_of_light={"floor_ms": 1.0})
+    # speed_of_light: the same floor and one step spanning the epoch (the
+    # reference rates the median step, the port the epoch per step)
+    floor = {"floor_ms": 1.0, "floor_samples_per_sec": 16000,
+             "hbm_ms": 0.6, "mxu_ms": 0.4}
+    outs = []
+    for mod in (tcb, jcb):
+        ticks = iter([0.0, 0.0, 0.010, 0.010])
+        monkeypatch.setattr(mod.time, "perf_counter", lambda t=ticks: next(t))
+        tm = mod.TimeMonitor(speed_of_light=floor, batch_size=16)
+        ctx = _ctx(mod)
+        tm.on_train_epoch_begin(ctx)
+        tm.on_train_step_begin(ctx)
+        tm.on_train_step_end(ctx)
+        tm.on_train_epoch_end(ctx)
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] == (
+        "epoch time: 10.000 ms, per step time: 10.000 ms, 1,600 samples/s "
+        "= 10% of the 16,000/s analytic floor (hbm 0.6 ms + mxu 0.4 ms)\n")
 
 
 def test_fault_injector_and_stop(tmp_path):
