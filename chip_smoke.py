@@ -158,7 +158,34 @@ Phases (any failure exits non-zero):
     card's constants beside the captured ms/step of phase 12, and the
     ``TimeMonitor(speed_of_light=model)`` line of ``[ckpt-wd]``'s
     straight run.  Temporary files live under ``tempfile.mkdtemp()`` and
-    are removed.
+    are removed;
+15. the cache regime (``train/cached.py``) at the reference's cache
+    recipe (benchmarks/bench_cached.py: virtual vocab 100M behind a
+    4.6M-row cache, batch 16000 x 39 zipf(1.3) ids, emb 16, 7x1024 bf16,
+    FTRL + LazyAdam, feature-major tables, host tiers capped at 1 GiB of
+    RAM each with SSD spill, ``max_swap`` the largest distinct count + 8,
+    the captured step): ``[cache-wd]`` 8 warm-up and 24 timed steps by
+    the serial protocol and again by ``AsyncCachedTrainer`` from one
+    state, final states and the tiers' touched rows equal bit for bit,
+    one capture each (samples/s, hit rates, loads and evictions per
+    step, prepare / writeback / swap + step ms, SSD rows, arena MB, host
+    MB touched; the counters set to 0 just before the serial timed steps
+    and read just after); ``[cache-evict]`` the same pair with a
+    200,000-row cache over 16 steps, so rows are evicted and written
+    back every step; ``[cache-kernels]`` 3 cached steps with the kernels
+    against 3 with the plain versions; ``[cache-rec]`` the model through
+    ``RecModel`` as examples/train_criteo.py:189-225 wires it (wrapped
+    train and eval steps), 10 steps, ``eval`` over 2 batches, and
+    ``flush_all`` then a tier read equal to the card's rows;
+16. the dynamic-embedding regime (``train/dynamic.py``), ``[dyn-wd]``:
+    ``WideDeepConfig()`` with ``dynamic_embedding=True, sparse=True``
+    (capacity 200,000, emb 80, 1024-512-256-128) over raw int64 keys (a
+    64-bit hash of zipf(1.3) ids over 10M) through
+    ``RecModel.online_train`` for 40 steps, admission at 2, eviction
+    after 20 idle steps by ``EvictionCallback`` every 10 steps with an
+    incremental export: freed rows equal the adapter's draws, their
+    optimizer state zero, one capture, and the export imported into a
+    fresh model predicts as the trained one on the live keys.
 
 Every kernel and every library call is timed by replaying a CUDA graph
 of 10 calls (device time, no host work between the launches); the plain
@@ -174,10 +201,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import io
 import json
 import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -203,6 +232,7 @@ from mindrec_tpu_torch.models.multitable import (
 )
 from mindrec_tpu_torch.models.wide_deep import WideDeepConfig, WideDeepModel
 from mindrec_tpu_torch.ops import kernels, prng
+from mindrec_tpu_torch.ops.embedding import read_rows
 from mindrec_tpu_torch.ops.kernels import _build
 from mindrec_tpu_torch.ops.kernels.fused import (
     fused_adam_gather, fused_adam_gather_plain, fused_ftrl_gather,
@@ -226,17 +256,22 @@ from mindrec_tpu_torch.io.onnx import export_onnx
 from mindrec_tpu_torch.serving import client, records2bin
 from mindrec_tpu_torch.serving.onnx_ref import OnnxModel
 from mindrec_tpu_torch.train import optim
-from mindrec_tpu_torch.train.callbacks import (
-    Callback, CheckpointCallback, ExportCallback, RunContext, TimeMonitor,
+from mindrec_tpu_torch.train.cached import (
+    AsyncCachedTrainer, CachedTrainingAdapter, cached_train_step,
 )
+from mindrec_tpu_torch.train.callbacks import (
+    Callback, CheckpointCallback, EvictionCallback, ExportCallback,
+    RunContext, TimeMonitor,
+)
+from mindrec_tpu_torch.train.dynamic import DynamicEmbeddingAdapter
 from mindrec_tpu_torch.train.metrics import roc_auc
 from mindrec_tpu_torch.utils.profiling import (
     profile, sparse_step_floor, step_annotation,
 )
 from mindrec_tpu_torch.train.step import (
     SENTINEL, CapturedStep, TrainState, _group_layouts, _state_tensors,
-    init_train_state, make_batch_sort, make_eval_step, make_train_step,
-    map_leaves, prep_groups,
+    flatten_params, init_train_state, make_batch_sort, make_eval_step,
+    make_train_step, map_leaves, prep_groups,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -2691,6 +2726,488 @@ def phase_serving(dev, wd_model, wd_opts, rec_wd, rec_mt) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 15-16: the cache regime and the dynamic-embedding regime
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_cached.py:33-48, 60-75: virtual vocab, cache rows, RAM
+# cap per tier; warm-up and timed steps of its run
+CACHE_VIRTUAL, CACHE_ROWS, CACHE_RAM = 100_000_000, 4_600_000, 1 << 30
+CACHE_WARMUP, CACHE_STEPS = 8, 24
+CACHE_EVICT_ROWS, CACHE_EVICT_STEPS = 200_000, 16
+CACHE_PER_STEP = {"gather_rows": 2, "segsum_sorted": 1, "adam_cols": 1,
+                  "ftrl_cols": 1}
+DYN_STEPS, DYN_KEYS = 40, 10_000_000
+
+
+def cache_recipe(cache_rows=CACHE_ROWS):
+    """The cache recipe's model (built with vocab = the cache's rows,
+    feature-major tables) and optimizers (benchmarks/bench_cached.py:
+    60-75)."""
+    cfg = WideDeepConfig(
+        batch_size=BATCH, field_size=FIELDS, vocab_size=cache_rows,
+        emb_dim=EMB, deep_layer_dim=(1024,) * 7, use_mixed_precision=True,
+        sparse=True, loss_scale=1024.0, table_layout="feature_major")
+    return WideDeepModel(cfg), (optim.ftrl(loss_scale=cfg.loss_scale),
+                                optim.lazy_adam(loss_scale=cfg.loss_scale))
+
+
+def cache_batches(n, seed=0) -> list:
+    """zipf(1.3) ids over the virtual vocab (benchmarks/bench_cached.py:
+    51-57, 97-100), with each batch's distinct-id count."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = (rng.zipf(1.3, size=(BATCH, FIELDS)).astype(np.int64) - 1
+               ) % CACHE_VIRTUAL
+        out.append({"ids": ids, "wts": np.ones((BATCH, FIELDS), np.float32),
+                    "label": rng.integers(0, 2, (BATCH, 1)).astype(np.float32)})
+    return out
+
+
+def cache_adapter(model, spill, max_swap):
+    return CachedTrainingAdapter(
+        model, virtual_vocab=CACHE_VIRTUAL,
+        cache_rows=model.config.vocab_size, max_swap=max_swap,
+        ram_bytes=CACHE_RAM, spill_dir=tempfile.mkdtemp(dir=spill))
+
+
+def tier_rows(adapter, ids) -> dict:
+    return {(n, t): tier.read(ids) for n, tiers in adapter.tiers.items()
+            for t, tier in tiers.items()}
+
+
+def arena_mb(model, state) -> float:
+    """MB of the tables and their optimizer state on the card."""
+    n = 0
+    for _name, (path, _spec) in model.table_specs.items():
+        key = "/".join(path)
+        n += state.params[path[0]][path[1]].nbytes
+        st = (state.opt_w if key in state.opt_w else state.opt_d)[key]
+        n += sum(t.nbytes for t in st.values() if t.dim() == 2)
+    return n / 1e6
+
+
+def cache_serial(tag, model, opts, state, batches, adapter, uniques,
+                 warmup) -> tuple:
+    """The serial protocol (``cached_train_step``'s parts, timed each) over
+    the captured step: ``warmup`` steps, then the rest timed with the
+    launch counters set to 0 just before and read just after."""
+    step = make_train_step(model, *opts, jit=True)
+    for b in batches[:warmup]:
+        state, _ = cached_train_step(adapter, step, state, b)
+    torch.cuda.synchronize()
+    captures = step.captures  # the warm-up's
+    kernels.reset_launches()
+    step.reset_counts()
+    parts = {"prepare": [], "swap": [], "writeback": [], "step": []}
+    # inside prepare: the LRU lookup, and the tier reads (summed over the
+    # io threads, which run them side by side)
+    inner = {"lru": [], "tier_reads": []}
+    lookup = adapter.lru.lookup
+
+    def timed_lookup(ids):
+        t = time.perf_counter()
+        res = lookup(ids)
+        inner["lru"].append((time.perf_counter() - t) * 1e3)
+        return res
+
+    def timed_read(read):
+        def run(ids):
+            t = time.perf_counter()
+            res = read(ids)
+            inner["tier_reads"].append((time.perf_counter() - t) * 1e3)
+            return res
+        return run
+
+    adapter.lru.lookup = timed_lookup
+    for tiers in adapter.tiers.values():
+        for tier in tiers.values():
+            tier.read = timed_read(tier.read)
+    events, traffic, losses = [], [], []
+    t_start = time.perf_counter()
+    for b, nu in zip(batches[warmup:], uniques[warmup:]):
+        t0 = time.perf_counter()
+        prep = adapter.prepare(b)
+        t1 = time.perf_counter()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state = adapter.apply_swap(state, prep)
+        t2 = time.perf_counter()
+        adapter.writeback(prep)
+        t3 = time.perf_counter()
+        state, (_lw, ld) = step(state, adapter.transform(b, prep))
+        e1 = torch.cuda.Event(enable_timing=True)
+        e1.record()
+        t4 = time.perf_counter()
+        for k, (a, z) in zip(parts, ((t0, t1), (t1, t2), (t2, t3), (t3, t4))):
+            parts[k].append((z - a) * 1e3)
+        events.append((e0, e1))
+        losses.append(ld)
+        traffic.append((prep["load_ids"].size, prep["evict_ids"].size, nu))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_start
+    n = len(batches) - warmup
+    loads, evicts, nus = (np.array(x, np.float64) for x in zip(*traffic))
+    out = dict(
+        samples_per_s=n * BATCH / dt, ms_per_step=dt / n * 1e3,
+        prepare_ms=float(np.mean(parts["prepare"])),
+        lru_lookup_ms=float(np.mean(inner["lru"])),
+        tier_reads_thread_ms=float(np.sum(inner["tier_reads"]) / n),
+        swap_dispatch_ms=float(np.mean(parts["swap"])),
+        writeback_ms=float(np.mean(parts["writeback"])),
+        step_dispatch_ms=float(np.mean(parts["step"])),
+        swap_plus_step_stream_ms=float(np.mean(
+            [a.elapsed_time(z) for a, z in events])),
+        loads_per_step=float(loads.mean()), evictions_per_step=float(evicts.mean()),
+        hit_rate_distinct=float(np.mean(1 - loads / nus)),
+        hit_rate_position=float(np.mean(1 - loads / (BATCH * FIELDS))),
+        captures=captures + step.captures, launches=real_launches(step),
+        last_loss=float(torch.stack(losses)[-1]))
+    if not torch.isfinite(torch.stack(losses)).all():
+        fail(f"{tag}: non-finite losses")
+    return state, out
+
+
+def cache_async(model, opts, state, batches, adapter, warmup) -> tuple:
+    """``AsyncCachedTrainer`` over the same batches: ``warmup`` steps, then
+    the rest timed (to the final writeback and a synchronize)."""
+    step = make_train_step(model, *opts, jit=True)
+    trainer = AsyncCachedTrainer(adapter, step, state)
+    for b in batches[:warmup]:
+        trainer.step(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[warmup:]:
+        trainer.step(b)
+    state = trainer.finish()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = len(batches) - warmup
+    return state, dict(samples_per_s=n * BATCH / dt, ms_per_step=dt / n * 1e3,
+                       captures=step.captures)
+
+
+def cache_pair(tag, dev, cache_rows, batches, warmup, spill) -> dict:
+    """Serial protocol and ``AsyncCachedTrainer`` from one state over the
+    same batches: the final states and the tiers' touched rows must be
+    equal bit for bit, each run one capture, the dummy slot zero."""
+    uniques = [np.unique(b["ids"]).size for b in batches]
+    max_swap = max(uniques) + 8
+    model, opts = cache_recipe(cache_rows)
+    state0 = init_train_state(model, 0, *opts, device=dev)
+    ad_s = cache_adapter(model, spill, max_swap)
+    s_state, serial = cache_serial(tag, model, opts, replace_state(state0),
+                                   batches, ad_s, uniques, warmup)
+    ad_a = cache_adapter(model, spill, max_swap)
+    a_state, pipelined = cache_async(model, opts, state0, batches, ad_a, warmup)
+    touched = np.unique(np.concatenate([b["ids"].ravel() for b in batches]))
+    t0 = time.perf_counter()
+    ad_s.flush_all(s_state)
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    ad_a.flush_all(a_state)
+    rows_s, rows_a = tier_rows(ad_s, touched), tier_rows(ad_a, touched)
+    same_tiers = all(np.array_equal(rows_s[k], rows_a[k]) for k in rows_s)
+    same_state = all(torch.equal(x, y) for x, y in
+                     zip(_state_tensors(s_state), _state_tensors(a_state)))
+    dummy = max(float(read_rows(spec, s_state.params[p[0]][p[1]],
+                                [cache_rows]).abs().max())
+                for _n, (p, spec) in model.table_specs.items())
+    tiers = [t for ad in (ad_s,) for ts in ad.tiers.values() for t in ts.values()]
+    out = dict(
+        cache_rows=cache_rows, virtual_vocab=CACHE_VIRTUAL, max_swap=max_swap,
+        warmup_steps=warmup, timed_steps=len(batches) - warmup,
+        serial=serial, pipelined=pipelined,
+        pipelined_over_serial=pipelined["samples_per_s"] / serial["samples_per_s"],
+        bit_identical_state=same_state, bit_identical_tiers=same_tiers,
+        touched_ids=int(touched.size), flush_all_ms=flush_ms,
+        ssd_rows=sum(t.ssd_rows_used for t in tiers),
+        host_mb_touched=sum((t.ram_rows_touched + t.ssd_rows_used) * t.dim * 4
+                            for t in tiers) / 1e6,
+        max_rss_mb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e3,
+        arena_mb=arena_mb(model, s_state), dummy_max_abs=dummy)
+    rec_log(tag, json.dumps(out))
+    if not (same_state and same_tiers):
+        fail(f"{tag}: the pipelined run differs from the serial protocol "
+             f"(state {same_state}, tiers {same_tiers})")
+    if serial["captures"] != 1 or pipelined["captures"] != 1:
+        fail(f"{tag}: captures {serial['captures']}, {pipelined['captures']}"
+             f" (expected 1 each: the swap writes the state in place)")
+    if dummy != 0.0:
+        fail(f"{tag}: the dummy slot's rows are {dummy}, not zero")
+    for k, per in CACHE_PER_STEP.items():
+        if serial["launches"][k] < per * (len(batches) - warmup):
+            fail(f"{tag}: kernel {k} launched {serial['launches'][k]} times")
+    return out
+
+
+def phase_cache_kernels(dev, batches, spill) -> None:
+    """3 cached steps with the kernels and 3 with the plain versions from
+    one state at the cache recipe's shapes: losses (rtol 1e-5), the
+    state and the tiers' touched rows (rtol 1e-4, atol 1e-6, a bf16
+    value to its neighbour), as ``kernel_vs_plain``; the kernel run
+    launches kernels 1, 6, 7 and 8."""
+    model, opts = cache_recipe()
+    max_swap = max(np.unique(b["ids"]).size for b in batches) + 8
+    state_k = init_train_state(model, 2, *opts, device=dev)
+    state_p = replace_state(state_k)
+    runs = {}
+    for name, state, use in (("kernels", state_k, True),
+                             ("plain", state_p, False)):
+        ad = cache_adapter(model, spill, max_swap)
+        step = make_train_step(model, *opts, use_kernels=use)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        losses = []
+        for b in batches:
+            state, (_lw, ld) = cached_train_step(ad, step, state, b)
+            losses.append(ld)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        ad.flush_all(state)
+        runs[name] = (torch.stack(losses), state, ad, launches)
+    lk, sk, adk, launches = runs["kernels"]
+    lp, sp, adp, _ = runs["plain"]
+    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=0)
+    for x, y in zip(_state_tensors(sk), _state_tensors(sp)):
+        rtol = 2.0**-7 if x.dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(x.float(), y.float(), rtol=rtol, atol=1e-6)
+    touched = np.unique(np.concatenate([b["ids"].ravel() for b in batches]))
+    rk, rp = tier_rows(adk, touched), tier_rows(adp, touched)
+    worst = 0.0
+    for k in rk:
+        np.testing.assert_allclose(rk[k], rp[k], rtol=1e-4, atol=1e-6,
+                                   err_msg=str(k))
+        worst = max(worst, float(np.abs(rk[k] - rp[k]).max()))
+    rec_log("cache-kernels", json.dumps(dict(
+        steps=len(batches), losses_kernels=lk.float().tolist(),
+        losses_plain=lp.float().tolist(), tier_max_abs_diff=worst,
+        launches={k: launches[k] for k in CACHE_PER_STEP})))
+    for k, per in CACHE_PER_STEP.items():
+        if launches[k] < per * len(batches):
+            fail(f"cache-kernels: kernel {k} launched {launches[k]} times")
+
+
+def phase_cache_rec(dev, spill) -> dict:
+    """The cache recipe through ``RecModel`` as the reference's example
+    wires it (examples/train_criteo.py:189-225): the wrapped train step
+    over raw batches for 10 steps, then ``eval`` over 2 batches through
+    the wrapped eval; ``flush_all`` then a tier read gives the card's
+    rows."""
+    model, opts = cache_recipe()
+    raw, held = cache_batches(10, seed=3), cache_batches(2, seed=4)
+    max_swap = max(np.unique(b["ids"]).size for b in raw + held) + 8
+    rm = RecModel(model, *opts, jit=True, device=dev)
+    adapter = cache_adapter(model, spill, max_swap)
+    inner, orig_eval = rm.train_step, rm.eval_step
+    rm.train_step = functools.partial(cached_train_step, adapter, inner)
+
+    def cached_eval(params, batch):
+        prep = adapter.prepare(batch)
+        rm.state = adapter.apply_swap(rm.state, prep)
+        adapter.writeback(prep)
+        return orig_eval(rm.state.params, adapter.transform(batch, prep))
+
+    rm.eval_step = cached_eval
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    inner.reset_counts()
+    t0 = time.perf_counter()
+    rm.train(1, raw, dataset_sink_mode=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = real_launches(inner)
+    res = rm.eval(held)
+    adapter.flush_all(rm.state)
+    items = list(adapter._shadow.items())[:: max(1, len(adapter._shadow) // 4096)]
+    ids = np.array([i for i, _ in items], np.int64)
+    slots = np.array([s for _, s in items], np.int64)
+    same = True
+    for name, (path, spec) in model.table_specs.items():
+        key = "/".join(path)
+        st = rm.state.opt_w if key in rm.state.opt_w else rm.state.opt_d
+        for tname, tier in adapter.tiers[name].items():
+            leaf = rm.state.params[path[0]][path[1]] if tname == "param" else st[key][tname]
+            same &= np.array_equal(tier.read(ids),
+                                   read_rows(spec, leaf, slots).float().cpu().numpy())
+    out = dict(steps=len(raw), samples_per_s=len(raw) * BATCH / dt,
+               ms_per_step=dt / len(raw) * 1e3, auc=res["auc"],
+               eval_batches=len(held), captures=inner.captures,
+               flush_then_read_equals_card=bool(same), ids_checked=int(ids.size),
+               launches={k: launches[k] for k in CACHE_PER_STEP})
+    rec_log("cache-rec", json.dumps(out))
+    if not same:
+        fail("cache-rec: flush_all then a tier read differs from the card")
+    if inner.captures != 1 or not np.isfinite(res["auc"]):
+        fail(f"cache-rec: captures {inner.captures}, auc {res['auc']}")
+    return out
+
+
+def phase_cache(dev) -> dict:
+    """Phase 15: ``[cache-wd]``, ``[cache-evict]``, ``[cache-kernels]``,
+    ``[cache-rec]``."""
+    spill = tempfile.mkdtemp(prefix="mrec_cache_")
+    try:
+        batches = cache_batches(CACHE_WARMUP + CACHE_STEPS)
+        out = {"wd": cache_pair("cache-wd", dev, CACHE_ROWS, batches,
+                                CACHE_WARMUP, spill)}
+        torch.cuda.empty_cache()
+        out["evict"] = cache_pair("cache-evict", dev, CACHE_EVICT_ROWS,
+                                  batches[:CACHE_EVICT_STEPS], 4, spill)
+        torch.cuda.empty_cache()
+        phase_cache_kernels(dev, batches[:3], spill)
+        torch.cuda.empty_cache()
+        out["rec"] = phase_cache_rec(dev, spill)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    return out
+
+
+def hashed_keys(rng, n_ids=DYN_KEYS) -> np.ndarray:
+    """Raw int64 keys: the splitmix64 finalizer of zipf(1.3) feature ids
+    over ``n_ids``."""
+    x = ((rng.zipf(1.3, size=(BATCH, FIELDS)) - 1) % n_ids).astype(np.uint64)
+    with np.errstate(over="ignore"):
+        x = x + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        x = x ^ (x >> np.uint64(31))
+    return x.view(np.int64)
+
+
+def phase_dynamic(dev) -> dict:
+    """Phase 16, ``[dyn-wd]``: the W&D accuracy recipe
+    (``WideDeepConfig()``) with ``dynamic_embedding=True, sparse=True``
+    through ``RecModel.online_train`` over ``adapter.transform_batch`` (as
+    benchmarks/online_freshness.py:104-118), admission at 2, eviction
+    after 20 idle steps, ``EvictionCallback`` every 10 steps with an
+    incremental export; the counters set to 0 just before the run and
+    read just after."""
+    cfg = WideDeepConfig(dynamic_embedding=True, sparse=True)
+    model = WideDeepModel(cfg)
+    opts = (optim.ftrl(loss_scale=cfg.loss_scale),
+            optim.lazy_adam(loss_scale=cfg.loss_scale))
+    rm = RecModel(model, *opts, jit=True, device=dev)
+    adapter = DynamicEmbeddingAdapter(cfg.vocab_size, permit_filter_value=2,
+                                      evict_filter_value=20, seed=0)
+    rng = np.random.default_rng(21)
+    raw = [{"ids": hashed_keys(rng), "wts": np.ones((BATCH, FIELDS), np.float32),
+            "label": rng.integers(0, 2, (BATCH, 1)).astype(np.float32)}
+           for _ in range(DYN_STEPS)]
+    out_dir = Path(tempfile.mkdtemp(prefix="mrec_dyn_"))
+    freed_log, evict_ms, counts, export = [], [], [], []
+    store_evict, real_evict = adapter.store.evict, adapter.evict
+    real_export = adapter.export_tables
+
+    def logged_store_evict():
+        freed_log.append(store_evict())
+        return freed_log[-1]
+
+    def checked_evict(state, tables):
+        probe = np.random.default_rng()
+        probe.bit_generator.state = adapter._rng.bit_generator.state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_evict(state, tables)
+        torch.cuda.synchronize()
+        evict_ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(res[1])
+        if res[0] is not state:
+            fail("dyn-wd: evict replaced the state")
+        freed = freed_log[-1]
+        for _n, (path, spec) in tables.items():
+            want = probe.normal(0, 0.01, (freed.size, spec.emb_dim)).astype(np.float32)
+            leaf = state.params[path[0]][path[1]]
+            if freed.size and not np.array_equal(
+                    read_rows(spec, leaf, freed).cpu().numpy(), want):
+                fail(f"dyn-wd: freed rows of {path} differ from the draws")
+            key = "/".join(path)
+            st = state.opt_w if key in state.opt_w else state.opt_d
+            for t in st[key].values():
+                if t.shape == leaf.shape and freed.size and \
+                        read_rows(spec, t, freed).any():
+                    fail(f"dyn-wd: freed optimizer state of {path} not zero")
+        return res
+
+    def timed_export(params, tables):
+        t0 = time.perf_counter()
+        blob = real_export(params, tables)
+        export.append(((time.perf_counter() - t0) * 1e3,
+                       sum(v.nbytes for v in blob.values()) / 1e6))
+        return blob
+
+    adapter.store.evict = logged_store_evict
+    adapter.evict = checked_evict
+    adapter.export_tables = timed_export
+    path = out_dir / "incremental.npz"
+    ev = EvictionCallback(adapter, model.table_specs, every_steps=10,
+                          export_path=path)
+    dummy = [0]
+
+    def stream():
+        for b in raw:
+            t = adapter.transform_batch(b)
+            dummy[0] += int((t["ids"] == adapter.dummy_slot).sum())
+            yield t
+
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        rm.train_step.reset_counts()
+        t0 = time.perf_counter()
+        rm.online_train(stream(), callbacks=[ev], dataset_sink_mode=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = real_launches(rm.train_step)
+        t1 = time.perf_counter()
+        blob = dict(np.load(path))
+        load_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    keys = blob["__keys__"]
+    # import into a fresh model with the trained dense parameters (a
+    # checkpoint would carry them): predict on the live keys
+    fresh = RecModel(model, *opts, seed=1, jit=True, device=dev)
+    tables = {"/".join(p) for p, _s in model.table_specs.values()}
+    flat_old = dict(flatten_params(rm.state.params))
+    for k, t in flatten_params(fresh.state.params):
+        if k not in tables:
+            t.copy_(flat_old[k])
+    ad2 = DynamicEmbeddingAdapter(cfg.vocab_size, seed=1)
+    ad2.import_tables(fresh.state.params, blob, model.table_specs)
+    n = min(keys.size, BATCH * FIELDS) // FIELDS * FIELDS
+    live = keys[:n]
+    slots_old = adapter.store.lookup_or_insert(live).reshape(-1, FIELDS)
+    slots_new = ad2.store.lookup_or_insert(live).reshape(-1, FIELDS)
+    wts = torch.ones(slots_old.shape, device=dev)
+    p_old = model.predict(rm.state.params, torch.from_numpy(slots_old).to(dev), wts)
+    p_new = model.predict(fresh.state.params, torch.from_numpy(slots_new).to(dev), wts)
+    diff = float((p_old - p_new).abs().max())
+    out = dict(
+        steps=DYN_STEPS, samples_per_s=DYN_STEPS * BATCH / dt,
+        ms_per_step=dt / DYN_STEPS * 1e3, capacity=cfg.vocab_size,
+        admitted_keys=len(adapter.store),
+        dummy_share=dummy[0] / (DYN_STEPS * BATCH * FIELDS),
+        evictions_per_call=counts, evict_ms=evict_ms,
+        export_ms=[e[0] for e in export], export_mb=[e[1] for e in export],
+        export_load_ms=load_ms, exported_keys=int(keys.size),
+        import_predict_max_abs_diff=diff, predict_rows=int(slots_old.shape[0]),
+        captures=rm.train_step.captures,
+        launches={k: launches[k] for k in WD_PER_STEP})
+    rec_log("dyn-wd", json.dumps(out))
+    if rm.train_step.captures != 1:
+        fail(f"dyn-wd: {rm.train_step.captures} captures (expected 1: "
+             f"eviction writes the state in place)")
+    if not sum(counts) or diff > 1e-6:
+        fail(f"dyn-wd: evictions {counts}, import predict diff {diff}")
+    for k, per in WD_PER_STEP.items():
+        if launches[k] < per * DYN_STEPS:
+            fail(f"dyn-wd: kernel {k} launched {launches[k]} times")
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2755,6 +3272,11 @@ def main() -> int:
                                        "captured_others": others}))
     phase_dense(dev, profile=args.profile)
     phase_serving(dev, wd_model, wd_opts, rec_wd, rec_mt)
+    torch.cuda.empty_cache()
+    cache = phase_cache(dev)
+    dyn = phase_dynamic(dev)
+    by_path = {"cache": cache["wd"]["serial"]["launches"],
+               "dynamic": dyn["launches"]}
 
     launches = {**main_path["launches"],
                 **{k: mt_path["launches"][k] for k in MT_PER_STEP
@@ -2766,7 +3288,8 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": launches[k],
          **{f: res[k][f] for f in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}}
+                                   "bound_ms", "bound_by", "library_ms")},
+         "launches_by_path": {p: by_path[p].get(k, 0) for p in by_path}}
         for k in SOURCES
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -32,7 +32,14 @@ Ported so far:
   tables), with the overflow guard on the device;
 * the Wide&Deep, DeepFM, DCN and multitable (Outbrain) Wide&Deep
   models, and a CUDA counterpart of every Pallas kernel of the
-  reference.
+  reference;
+* the hierarchical embedding cache (``ops/cache.py``: the native LRU
+  ``native/cache.cc``, host RAM/SSD tiers; ``train/cached.py``: the
+  in-place swap, the serial protocol and the pipelined trainer) and the
+  hash-based dynamic embeddings (``native/hashstore.cc``,
+  ``train/dynamic.py``, ``ops/embedding.py:HashEmbeddingLookup``,
+  ``train/callbacks.py:EvictionCallback``), both built by g++ at first
+  use.
 """
 
 __version__ = "0.1.0"

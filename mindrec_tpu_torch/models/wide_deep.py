@@ -71,10 +71,12 @@ class WideDeepModel:
 
     def __init__(self, config: WideDeepConfig):
         c = config
-        if c.parameter_server or c.dynamic_embedding or c.vocab_cache_size:
+        if c.parameter_server:
             raise NotImplementedError(
-                "PS, dynamic-embedding and cache regimes are not ported yet"
-            )
+                "PS mode is not ported yet (ROADMAP.md section 1 item 8)")
+        # the cache (vocab_cache_size) and dynamic-embedding regimes leave
+        # the model as it is: train/cached.py and train/dynamic.py carry
+        # them (the model is built with vocab_size = cache rows / capacity)
         self.config = c
         self.wide_spec = EmbeddingTableSpec(
             vocab_size=c.vocab_size, emb_dim=1, name="wide_embedding",

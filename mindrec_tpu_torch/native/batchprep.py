@@ -16,19 +16,16 @@ device step.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
+from mindrec_tpu_torch.native import build as native_build
+
 SRC = Path(__file__).resolve().parent / "batchprep.cc"
-BUILD_ROOT = Path(__file__).resolve().parents[1] / "_build"
 LIB_NAME = "libmindrec_batchprep.so"
-CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+BUILD_ROOT = native_build.BUILD_ROOT
 SENTINEL = np.int32(2**31 - 2)
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
@@ -36,33 +33,11 @@ _lock = threading.Lock()
 _fn = None
 
 
-def build_dir() -> Path:
-    """Directory of the library for the current source and flags."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_ROOT / f"batchprep-{h.hexdigest()[:16]}"
-
-
 def build() -> Path:
     """Compile ``batchprep.cc`` with g++ (once per source hash); returns
     the library path.  Raises with the compiler's output on failure."""
-    lib = build_dir() / LIB_NAME
-    if lib.exists():
-        return lib
-    cxx = os.environ.get("CXX") or shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found (set CXX): the native batch prep "
-                           "is built from mindrec_tpu_torch/native at first use")
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{LIB_NAME}.tmp{os.getpid()}.{threading.get_ident()}")
-    r = subprocess.run([cxx, *CXX_FLAGS, str(SRC), "-o", str(tmp)],
-                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                       text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"{cxx} failed to build {SRC.name} "
-                           f"(rc {r.returncode}):\n{r.stdout}")
-    os.replace(tmp, lib)  # atomic: concurrent builds each land whole
-    return lib
+    return native_build.build_library("batchprep", SRC, LIB_NAME,
+                                      root=BUILD_ROOT)
 
 
 def _load():

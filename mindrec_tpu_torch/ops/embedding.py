@@ -3,8 +3,11 @@
 Port of the parts of ``mindrec_tpu/ops/embedding.py`` that the steps
 need: :class:`EmbeddingTableSpec` (layout arithmetic), ``_init_rows``,
 ``to_storage`` / ``from_storage``, the row_packed ``packed_gather`` /
-``packed_expand`` and the lookup of every layout with the ``max_norm``
-clip (:func:`lookup`, the reference's ``EmbeddingLookup.__call__``).  Storage
+``packed_expand``, the lookup of every layout with the ``max_norm``
+clip (:func:`lookup`, the reference's ``EmbeddingLookup.__call__``),
+logical row reads and in-place writes in every layout (:func:`read_rows`,
+:func:`write_rows`) and the dynamic-vocabulary lookup
+(:class:`HashEmbeddingLookup`).  Storage
 layouts are bit-identical to the reference, so tables convert between
 the two packages by a plain copy (``convert.py``).
 
@@ -24,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -242,3 +246,125 @@ def lookup(spec: EmbeddingTableSpec, table: torch.Tensor,
         out = out * torch.clamp(
             spec.max_norm / torch.clamp(norms, min=1e-12), max=1.0)
     return out.reshape(*ids.shape, spec.emb_dim)
+
+
+def _row_index(spec: EmbeddingTableSpec, storage: torch.Tensor, ids):
+    """Index tuple of logical rows ``ids`` in storage: selecting it gives
+    ``[n, emb_dim]``, and assigning ``[n, emb_dim]`` rows to it writes
+    them."""
+    ids = torch.as_tensor(ids).reshape(-1).to(storage.device).long()
+    d = spec.emb_dim
+    lanes = torch.arange(d, device=storage.device)
+    if spec.row_packed:
+        p = spec.pack
+        return ((ids // p)[:, None], (ids % p)[:, None] * d + lanes[None, :])
+    if not spec.feature_major:
+        return (ids,)
+    r = spec.fold
+    if r == 1:  # [Dp, Vc]: column i, sublanes [0, d)
+        return (lanes[None, :], ids[:, None])
+    # folded: logical row i at sublanes [(i % r) * d, +d) of column i // r
+    return ((ids % r)[:, None] * d + lanes[None, :], (ids // r)[:, None])
+
+
+def read_rows(spec: EmbeddingTableSpec, storage: torch.Tensor,
+              ids) -> torch.Tensor:
+    """Logical rows ``[len(ids), emb_dim]`` of a table in any storage
+    convention (row_packed, plain row-major, feature-major at any fold),
+    on the table's device."""
+    return storage[_row_index(spec, storage, ids)]
+
+
+def write_rows(spec: EmbeddingTableSpec, storage: torch.Tensor, ids,
+               rows) -> torch.Tensor:
+    """Set logical rows in place (one index-put on the table's device:
+    nothing of the table crosses to the host); returns ``storage``."""
+    rows = torch.as_tensor(rows).to(storage.device, storage.dtype)
+    storage[_row_index(spec, storage, ids)] = rows.reshape(-1, spec.emb_dim)
+    return storage
+
+
+class HashEmbeddingLookup:
+    """Dynamic-vocabulary embedding lookup (the reference's
+    ``HashEmbeddingLookup``).
+
+    Arbitrary int64 keys (-1 and -2 reserved) map to dense slots of a
+    fixed-capacity arena by a host-side hash store, which also tracks
+    admission (``permit_filter_value``: a key must be seen in at least
+    that many steps before it gets a real slot) and eviction
+    (``evict_filter_value``: keys untouched for that many steps are
+    erased).  The id -> slot translation runs on the host in the input
+    pipeline; the device side is a plain gather over the arena
+    ``[capacity + 1, dim]`` whose last row (the dummy slot, where keys
+    not admitted land) is zero."""
+
+    RESERVED_KEYS = (-1, -2)
+
+    def __init__(self, embedding_size: int, capacity: int = 1 << 20,
+                 default_value="normal", permit_filter_value: int = 1,
+                 evict_filter_value: int = 0x7FFFFFFF,
+                 max_norm: Optional[float] = None, seed: int = 0, store=None):
+        if permit_filter_value < 1:
+            raise ValueError("permit_filter_value must be >= 1")
+        if evict_filter_value < 1:
+            raise ValueError("evict_filter_value must be >= 1")
+        self.embedding_size = embedding_size
+        self.capacity = capacity
+        self.default_value = default_value
+        self.permit_filter_value = permit_filter_value
+        self.evict_filter_value = evict_filter_value
+        self.max_norm = max_norm
+        self._rng = np.random.default_rng(seed)
+        if store is None:
+            from mindrec_tpu_torch.native.hashstore import HashStore
+
+            store = HashStore(capacity=capacity,
+                              permit_threshold=permit_filter_value,
+                              evict_threshold=evict_filter_value)
+        self.store = store
+        self.dummy_slot = capacity
+
+    def init(self, generator: torch.Generator, device="cuda") -> torch.Tensor:
+        shape = (self.capacity + 1, self.embedding_size)
+        if isinstance(self.default_value, str):
+            arena = _init_rows(generator, shape, self.default_value, (), device)
+        else:
+            arena = torch.full(shape, float(self.default_value),
+                               dtype=torch.float32, device=device)
+        arena[self.dummy_slot] = 0.0
+        return arena
+
+    def map_ids(self, ids) -> np.ndarray:
+        """Host side: raw feature ids -> arena slots (keys not admitted,
+        or with the arena full, go to the dummy slot); advances the
+        store's step clock."""
+        ids = np.asarray(ids)
+        slots = self.store.lookup_or_insert(ids.reshape(-1))
+        slots = np.where(slots < 0, self.dummy_slot, slots)
+        return slots.reshape(ids.shape).astype(np.int32)
+
+    def evict_step(self) -> np.ndarray:
+        """Erase expired keys; returns the slots freed."""
+        return self.store.evict()
+
+    def __call__(self, arena: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+        out = arena[slots.long()]
+        if self.max_norm is not None:
+            norms = torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+            out = out * torch.clamp(
+                self.max_norm / torch.clamp(norms, min=1e-12), max=1.0)
+        return out
+
+    def export_table(self, arena: torch.Tensor):
+        """(keys, vectors) of every admitted key, on the host."""
+        keys, slots = self.store.items()
+        return keys, arena[torch.from_numpy(slots).to(arena.device)].cpu().numpy()
+
+    def import_table(self, arena: torch.Tensor, keys, vectors) -> torch.Tensor:
+        """Admit ``keys`` (forced) and write their vectors in place."""
+        slots = self.store.lookup_or_insert(np.asarray(keys).reshape(-1),
+                                            force=True)
+        ok = slots >= 0
+        arena[torch.from_numpy(slots[ok]).to(arena.device)] = torch.as_tensor(
+            np.asarray(vectors)[ok]).to(arena.device, arena.dtype)
+        return arena

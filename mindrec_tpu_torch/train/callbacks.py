@@ -3,9 +3,9 @@
 Port of ``mindrec_tpu/train/callbacks.py`` (the same messages): per-step
 loss logging with the rank id, per-epoch eval with an ``eval.log``, step
 timing with the step's speed-of-light floor, interval checkpoints with
-``keep_max`` retention, periodic serving exports and fault injection.
-Not ported yet: ``EvictionCallback`` (the dynamic tables, ``ROADMAP.md``
-section 1 item 7).
+``keep_max`` retention, periodic serving exports, fault injection and
+periodic feature eviction with an incremental export of the dynamic
+tables.
 """
 
 from __future__ import annotations
@@ -347,3 +347,69 @@ class ExportCallback(Callback):
                     os.unlink(victim)
                 except FileNotFoundError:
                     pass
+
+
+class EvictionCallback(Callback):
+    """Periodic feature eviction (and an optional incremental hash-table
+    export) for dynamic-embedding online training.
+
+    Every ``every_steps`` steps it
+
+    1. calls ``adapter.evict``: expired keys leave the hash store, their
+       table rows re-initialise and their optimizer state zeroes, in
+       place (``train/dynamic.py``); the state goes back through
+       ``ctx.train_state``;
+    2. with ``export_path``, reads the admitted keys and their rows to the
+       host (``adapter.export_tables``) and writes them to
+       ``export_path`` as ``.npz``, atomically (a temporary file, then
+       ``os.replace``): the artifact a serving process loads with
+       ``adapter.import_tables``.  With ``async_export`` the write runs
+       on one worker thread, so a slow disk holds back the next export,
+       not every step; write errors surface in order."""
+
+    def __init__(self, adapter, tables, every_steps: int = 100,
+                 export_path=None, async_export: bool = True):
+        if int(every_steps) < 1:
+            raise ValueError(f"every_steps must be >= 1, got {every_steps}")
+        self.adapter = adapter
+        self.tables = tables
+        self.every = int(every_steps)
+        self.export_path = export_path
+        self.evicted_total = 0
+        self.exports = 0
+        self._pool = None
+        self._pending = None
+        if export_path is not None and async_export:
+            import concurrent.futures
+
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="mrec-evict-export")
+
+    def _write(self, blob):
+        import os
+
+        tmp = str(self.export_path) + ".tmp.npz"
+        np.savez(tmp, **blob)
+        os.replace(tmp, self.export_path)
+
+    def on_train_step_end(self, ctx: RunContext):
+        if ctx.cur_step_num % self.every != 0:
+            return
+        state, n = self.adapter.evict(ctx.train_state, self.tables)
+        self.evicted_total += int(n)
+        ctx.train_state = state
+        if self.export_path is None:
+            return
+        blob = self.adapter.export_tables(state.params, self.tables)
+        if self._pool is not None:
+            if self._pending is not None:
+                self._pending.result()  # surface write errors in order
+            self._pending = self._pool.submit(self._write, blob)
+        else:
+            self._write(blob)
+        self.exports += 1
+
+    def on_train_end(self, ctx: RunContext):
+        if self._pending is not None:
+            self._pending.result()
+            self._pending = None

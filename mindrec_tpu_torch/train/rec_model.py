@@ -22,6 +22,14 @@ Dense models (every model config's default, ``sparse=False``) take no
 bucket and no host prep: their batches go through ``PrefetchToDevice``
 to the dense step, captured like the sparse steps.
 
+A ``train_step`` or ``eval_step`` that is not a step of
+``make_train_step`` / ``make_eval_step`` (those carry
+``takes_device_batches``), such as the cache regime's
+``cached_train_step`` wrapper (``train/cached.py``), gets each batch
+untouched, as the dataset yields it: no input pipeline, no staging, so
+the ids reach the LRU or the hash store as host arrays; the wrapper
+stages what its inner step needs.
+
 Not ported yet (each raises ``NotImplementedError``): the wire format,
 ``prep_placement="device"`` and ``input_recipe="auto"`` (``ROADMAP.md``
 section 1 item 6).  Multi-GPU is item 10: ``rank_id`` is 0.
@@ -141,8 +149,11 @@ class RecModel:
         return to_device(batch, self.state.step.device)
 
     def _exec_step(self, batch):
-        """Run one train step; returns its (loss_w, loss_d)."""
-        self.state, losses = self.train_step(self.state, self._tensors(batch))
+        """Run one train step; returns its (loss_w, loss_d).  A wrapper
+        ``train_step`` gets the batch untouched."""
+        if _takes_device_batches(self.train_step):
+            batch = self._tensors(batch)
+        self.state, losses = self.train_step(self.state, batch)
         return losses
 
     # ------------------------------------------------------------------
@@ -255,9 +266,10 @@ class RecModel:
         metrics = metrics or self.metrics
         for m in metrics.values():
             m.clear()
+        own = _takes_device_batches(self.eval_step)
         for batch in dataset:
-            probs, labels = self.eval_step(self.state.params,
-                                           self._tensors(batch))
+            probs, labels = self.eval_step(
+                self.state.params, self._tensors(batch) if own else batch)
             probs = probs.float().cpu().numpy()
             labels = labels.float().cpu().numpy()
             for m in metrics.values():
@@ -278,7 +290,7 @@ class RecModel:
             )
 
     def _maybe_sink(self, dataset, sink: bool) -> Iterable:
-        if not sink:
+        if not sink or not _takes_device_batches(self.train_step):
             return iter(dataset)
         on_card = self.state.step.device.type == "cuda"
         if self.host_prep:
@@ -297,6 +309,12 @@ class RecModel:
             return PrefetchToDevice(dataset, depth=2,
                                     device=self.state.step.device)
         return iter(dataset)
+
+
+def _takes_device_batches(fn) -> bool:
+    """A step of make_train_step / make_eval_step (RecModel stages its
+    batches), not a wrapper that takes host batches."""
+    return bool(getattr(fn, "takes_device_batches", False))
 
 
 def _host(x) -> np.ndarray:

@@ -325,8 +325,12 @@ def _supported(model, sparse, row_layout):
                 f"ported)"
             )
         if not spec.sparse:
+            # the reference trains these (dynamic_embedding over plain
+            # row-major tables) on its generic path only
             raise NotImplementedError(
-                f"table {name}: the sparse step needs sparse table specs"
+                f"table {name}: the sparse step over non-sparse (plain "
+                f"row-major) table specs is the generic path, not ported "
+                f"yet (ROADMAP.md section 1 item 3)"
             )
 
 
@@ -455,7 +459,8 @@ def make_train_step(
     host-prep keys of :func:`make_batch_sort`.  ``sparse``: the sparse
     step (True) or the dense step (False; the parameters below that
     name sort metadata, buckets and kernels are sparse-step ones);
-    None takes the model config's flag.  ``unique_bucket``: static
+    None takes the model config's ``sparse`` or ``dynamic_embedding``.
+    ``unique_bucket``: static
     bound on distinct ids per batch (rounded up to 2048), an int for a
     sole id group or ``{group: int}``; defaults to the length of the
     group's ``uq_ids`` (host prep) or the lossless position count.
@@ -486,7 +491,8 @@ def make_train_step(
             "donate=False is not ported")
     cfg = model.config
     if sparse is None:
-        sparse = bool(getattr(cfg, "sparse", False))
+        sparse = bool(getattr(cfg, "sparse", False)
+                      or getattr(cfg, "dynamic_embedding", False))
     _supported(model, sparse, row_layout)
     sens = float(loss_scale if loss_scale is not None
                  else getattr(cfg, "loss_scale", 1.0))
@@ -815,6 +821,7 @@ def make_train_step(
         step = step_dense
     else:
         step = step_rows if row_layout else step_cols
+    step.takes_device_batches = True  # RecModel stages batches for it
     return CapturedStep(step) if jit else step
 
 
@@ -876,6 +883,8 @@ class CapturedStep:
     what the replays launched, so the kernels' real launches are
     ``LAUNCHES - recorded + replayed``.  On a CPU state the call is the
     eager step."""
+
+    takes_device_batches = True  # RecModel stages batches for it
 
     def __init__(self, step):
         self.step = step
@@ -1103,4 +1112,5 @@ def make_eval_step(model):
     def eval_step(params, batch):
         return model.predict_batch(params, batch), batch["label"]
 
+    eval_step.takes_device_batches = True
     return eval_step

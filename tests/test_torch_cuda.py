@@ -1271,3 +1271,186 @@ def test_run_onnx_on_card_agrees_with_predict(cuda_device, tmp_path, kind):
     got = run_onnx(data, {"ids": b["ids"], "wts": b["wts"]})["prob"]
     assert got.device.type == "cuda"
     assert float((got - want).abs().max()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# cache mode and dynamic embeddings on the card
+# ---------------------------------------------------------------------------
+
+
+def _table_tensors(model, state):
+    """Each table and its row-aligned optimizer state's tensors."""
+    out = []
+    for _n, (path, _spec) in model.table_specs.items():
+        key = "/".join(path)
+        out.append(state.params[path[0]][path[1]])
+        st = (state.opt_w if key in state.opt_w else state.opt_d)[key]
+        out += [t for t in st.values() if t.dim() == 2]
+    return out
+
+
+def _cache_recipe(dev, tmp_path, cache_rows=300, layout="feature_major"):
+    """(model, opts, adapter, state, batches) of a small cache-mode W&D on
+    ``dev``: ids over a 4000-row virtual vocab, a 300-row cache, RAM tiers
+    capped at 1000 rows (the rest spills)."""
+    from mindrec_tpu_torch.models import wide_deep
+    from mindrec_tpu_torch.train import optim
+    from mindrec_tpu_torch.train.cached import CachedTrainingAdapter
+    from mindrec_tpu_torch.train.step import init_train_state
+
+    B, F, D = 64, 8, 16
+    model = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(
+        batch_size=B, field_size=F, vocab_size=cache_rows, emb_dim=D,
+        deep_layer_dim=(64, 32), sparse=True, table_layout=layout))
+    opts = (optim.ftrl(loss_scale=1024.0), optim.lazy_adam(loss_scale=1024.0))
+    adapter = CachedTrainingAdapter(
+        model, virtual_vocab=4000, cache_rows=cache_rows, max_swap=B * F + 8,
+        ram_bytes=1000 * D * 4, spill_dir=str(tmp_path))
+    rng = np.random.default_rng(5)
+    batches = [{"ids": ((rng.zipf(1.3, (B, F)) - 1) % 4000).astype(np.int64),
+                "wts": np.ones((B, F), np.float32),
+                "label": rng.integers(0, 2, (B, 1)).astype(np.float32)}
+               for _ in range(12)]
+    return model, opts, adapter, init_train_state(model, 0, *opts, device=dev), batches
+
+
+@pytest.mark.cuda
+def test_cached_swap_in_place_under_captured_step(cuda_device, tmp_path):
+    """The in-place swap keeps the captured step's graph: 12 cached steps
+    make one capture, every leaf keeps its address (the eager step
+    replaces the dense leaves; the tables keep theirs), and the run
+    equals the eager step's bit for bit (loss and tier rows); the dummy
+    slot's rows stay zero in every table."""
+    from mindrec_tpu_torch.ops.embedding import read_rows
+    from mindrec_tpu_torch.train.cached import cached_train_step
+    from mindrec_tpu_torch.train.step import make_train_step
+
+    runs = {}
+    for jit in (True, False):
+        model, opts, adapter, state, batches = _cache_recipe(
+            cuda_device, tmp_path / str(jit))
+        step = make_train_step(model, *opts, jit=jit)
+        leaves = (lambda _m, st: _state_tensors(st)) if jit else _table_tensors
+        ptrs = [t.data_ptr() for t in leaves(model, state)]
+        losses = []
+        for b in batches:
+            state, (_, ld) = cached_train_step(adapter, step, state, b)
+            losses.append(float(ld))
+        assert ptrs == [t.data_ptr() for t in leaves(model, state)]
+        if jit:
+            assert step.captures == 1 and step.replays == len(batches) - 1
+        for _n, (path, spec) in model.table_specs.items():
+            leaf = state.params[path[0]][path[1]]
+            assert not read_rows(spec, leaf, [adapter.cache_rows]).any()
+        adapter.flush_all(state)
+        touched = np.unique(np.concatenate([b["ids"].ravel() for b in batches]))
+        runs[jit] = (losses, {(n, t): adapter.tiers[n][t].read(touched)
+                              for n in adapter.tiers for t in adapter.tiers[n]})
+    assert runs[True][0] == runs[False][0]
+    for k in runs[True][1]:
+        np.testing.assert_array_equal(runs[True][1][k], runs[False][1][k])
+
+
+@pytest.mark.cuda
+def test_cached_writeback_waits_for_its_event_only(cuda_device, tmp_path,
+                                                   monkeypatch):
+    """The evicted rows reach the host through a pinned buffer and an
+    event: ``writeback`` never synchronises the device, and the pipelined
+    trainer equals the serial protocol bit for bit."""
+    from mindrec_tpu_torch.train.cached import (
+        AsyncCachedTrainer, cached_train_step,
+    )
+    from mindrec_tpu_torch.train.step import make_train_step
+
+    results = []
+    for mode in ("serial", "async"):
+        model, opts, adapter, state, batches = _cache_recipe(
+            cuda_device, tmp_path / mode, cache_rows=200)
+        step = make_train_step(model, *opts, jit=True)
+        state, _ = cached_train_step(adapter, step, state, batches[0])  # capture
+        syncs = []
+        monkeypatch.setattr(torch.cuda, "synchronize",
+                            lambda *a, **k: syncs.append(1))
+        if mode == "serial":
+            for b in batches[1:]:
+                prep = adapter.prepare(b)
+                state = adapter.apply_swap(state, prep)
+                if prep["evict_ids"].size:
+                    assert prep["evicted"]["deep"].is_pinned()
+                adapter.writeback(prep)
+                state, _ = step(state, adapter.transform(b, prep))
+        else:
+            tr = AsyncCachedTrainer(adapter, step, state)
+            for b in batches[1:]:
+                tr.step(b)
+            state = tr.finish()
+        assert not syncs
+        monkeypatch.undo()
+        adapter.flush_all(state)
+        touched = np.unique(np.concatenate([b["ids"].ravel() for b in batches]))
+        results.append(({(n, t): adapter.tiers[n][t].read(touched)
+                         for n in adapter.tiers for t in adapter.tiers[n]},
+                        [t.clone() for t in _state_tensors(state)]))
+    for k in results[0][0]:
+        np.testing.assert_array_equal(results[0][0][k], results[1][0][k])
+    for x, y in zip(results[0][1], results[1][1]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_dynamic_eviction_in_place_under_captured_step(cuda_device):
+    """Eviction between replays writes the freed rows in place: one
+    capture over 12 steps with an eviction every 3, the freed rows equal
+    the adapter's draws, their optimizer state zero."""
+    from mindrec_tpu_torch.data.criteo import to_device
+    from mindrec_tpu_torch.models import wide_deep
+    from mindrec_tpu_torch.ops.embedding import read_rows
+    from mindrec_tpu_torch.train import optim
+    from mindrec_tpu_torch.train.dynamic import DynamicEmbeddingAdapter
+    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+
+    B, F = 64, 8
+    model = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(
+        batch_size=B, field_size=F, vocab_size=500, emb_dim=16,
+        deep_layer_dim=(32,), sparse=True, dynamic_embedding=True))
+    opts = (optim.ftrl(), optim.lazy_adam())
+    state = init_train_state(model, 0, *opts, device=cuda_device)
+    ad = DynamicEmbeddingAdapter(500, permit_filter_value=2,
+                                 evict_filter_value=3, seed=1)
+    step = make_train_step(model, *opts, jit=True)
+    rng = np.random.default_rng(2)
+    freed_total = 0
+    for i in range(12):
+        b = {"ids": rng.zipf(1.3, (B, F)).astype(np.int64) * 7919,
+             "wts": np.ones((B, F), np.float32),
+             "label": rng.integers(0, 2, (B, 1)).astype(np.float32)}
+        state, _ = step(state, to_device(ad.transform_batch(b), cuda_device))
+        if i % 3 == 2:
+            probe = np.random.default_rng(0)
+            probe.bit_generator.state = ad._rng.bit_generator.state
+            freed = ad.store.evict()
+            ad.store = _Replay(ad.store, freed)
+            _state, n = ad.evict(state, model.table_specs)
+            assert _state is state and n == freed.size
+            freed_total += n
+            for _name, (path, spec) in model.table_specs.items():
+                want = probe.normal(0, 0.01, (freed.size, spec.emb_dim))
+                got = read_rows(spec, state.params[path[0]][path[1]], freed)
+                np.testing.assert_array_equal(
+                    got.cpu().numpy(), want.astype(np.float32))
+                for leaf in (state.opt_w if "wide" in path else state.opt_d)[
+                        "/".join(path)].values():
+                    if leaf.shape == state.params[path[0]][path[1]].shape:
+                        assert not read_rows(spec, leaf, freed).any()
+            ad.store = ad.store.store
+    assert step.captures == 1 and freed_total > 0
+
+
+class _Replay:
+    """A hash store whose next ``evict`` returns slots already taken."""
+
+    def __init__(self, store, freed):
+        self.store, self._freed = store, freed
+
+    def evict(self):
+        return self._freed
