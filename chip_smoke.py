@@ -185,7 +185,46 @@ Phases (any failure exits non-zero):
     after 20 idle steps by ``EvictionCallback`` every 10 steps with an
     incremental export: freed rows equal the adapter's draws, their
     optimizer state zero, one capture, and the export imported into a
-    fresh model predicts as the trained one on the live keys.
+    fresh model predicts as the trained one on the live keys;
+17. ``[files-wd]``: 24 seeded bench-recipe batches written as packed
+    shards (``data/criteo.py``, 121 MB) and trained through
+    ``RecModel.train`` over ``PackedCriteoDataset`` three ways, each
+    captured (3 steps that capture, then one timed epoch of 24 with the
+    counters set to 0 just before and read just after): (a) host prep
+    (native, 2 workers, the bucket), (b) ``prep_placement="device"`` with
+    ``BatchWire.for_sparse(host_prep=False)``, (c) (b) with the fused
+    superbatch driver forced at k = 8; for each end-to-end samples/s, the
+    captured step's ms, host prep or encode + audit ms, bytes staged per
+    batch, decode ms, graphs captured and a digest of the final state;
+    (b) == (c) bit for bit, (a) against (b) within the kernel-vs-plain
+    tolerance (the largest differences printed);
+18. ``[files-tfrecord]``: 2 of those batches as TFRecord (32 records)
+    and, where h5py is installed, as H5, read through ``create_dataset``
+    (write and read ms per batch), equal to the packed path's batches
+    array for array, 2 steps each;
+19. ``[wire-card]``: decode of encode on the card equals the batch bit
+    for bit for ``for_sparse`` with host prep off and on and for
+    ``for_fields`` (lossless weights), and with lossy bf16 weights equals
+    their rounding in numpy; decode µs per batch;
+20. ``[auto]``: ``input_recipe="auto"`` on the card (the measured link:
+    fixed ms per put, GB/s, and the decision), then with ``measure_link``
+    replaced by the reference's simulated tunnel (80 ms per put, 60
+    MB/s), which must choose device prep, the wire and k = 16: 32
+    batches, one capture;
+21. ``[outbrain-files]``: Outbrain TFRecords (``write_outbrain_tfrecords``,
+    ``OutbrainTFRecordDataset``) of 2 batches of 4,096 (the cut from
+    131,072) at the multitable recipe's widths, read back equal and
+    trained 2 steps through ``RecModel`` with host prep;
+22. ``[online-kafka]``: 200,000 ``RealisticCriteo(vocab_scale=0.03)``
+    rows as TSV and their ``collect_stats`` (2 worker processes); a
+    ``StubKafkaBroker`` in this process, a topic of 2 partitions, 2
+    producer threads sending 40,000 rows as JSON messages of 1,000 rows;
+    ``KafkaSource`` -> ``CriteoFeatureEngineer`` -> ``Channel`` ->
+    ``StreamingDataset`` -> ``RecModel.online_train`` at the online
+    recipe (batch 1,000, emb 16, 1024-512-256-128, FTRL + LazyAdam,
+    captured) with a ``CheckpointCallback`` every 10 steps keeping 2:
+    steps, samples/s, the vocabulary, freshness (send to the mtime of
+    the first checkpoint covering a batch: median, worst), restore ms.
 
 Every kernel and every library call is timed by replaying a CUDA graph
 of 10 calls (device time, no host work between the launches); the plain
@@ -211,6 +250,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -221,7 +261,13 @@ from mindrec_tpu_torch import RecModel
 from mindrec_tpu_torch.data.criteo import (
     PrefetchToDevice, SyntheticCriteo, to_device,
 )
+from mindrec_tpu_torch.data import criteo, formats, kafka_stub, kafka_wire
+from mindrec_tpu_torch.data import outbrain as ob_data
+from mindrec_tpu_torch.data import preprocess, realistic, streaming
+from mindrec_tpu_torch.data import wire as wire_mod
+from mindrec_tpu_torch.data.criteo import N_DENSE_FIELDS, criteo_field_sizes
 from mindrec_tpu_torch.data.outbrain import SyntheticOutbrain
+from mindrec_tpu_torch.data.wire import ARENA_KEY, BatchWire, bf16_bits
 from mindrec_tpu_torch.data.pipeline import (
     AdaptiveBucket, SparseInputPipeline, round_bucket,
 )
@@ -3208,6 +3254,572 @@ def phase_dynamic(dev) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phases 17-22: training from files and from a stream (data/, the wire,
+# device prep, the auto recipe, Outbrain TFRecords, Kafka)
+# ---------------------------------------------------------------------------
+
+FILES_BATCHES, FILES_K, AUTO_BATCHES = 24, 8, 32
+# the reference's tunnel figures (its SKILL.md, benchmarks/PROFILE_r04.md),
+# quoted only as the simulated link they are
+TUNNEL_LINK = (80.0, 60e6)
+OB_BATCH, OB_LPS = 4096, 1024  # the Outbrain cut: batch 4,096 of 131,072
+ONLINE_ROWS, ONLINE_SENT, ONLINE_BATCH, ONLINE_MSG = 200_000, 40_000, 1000, 1000
+# host prep against device prep: the kernel-vs-plain step tolerances
+# (losses rtol 1e-5; leaves rtol 2^-7 in bf16, 1e-4 in f32, atol 1e-6)
+LOSS_RTOL = 1e-5
+
+
+def quiet(*a, **k):
+    pass
+
+
+class StopAfter(Callback):
+    def __init__(self, n):
+        self.n = n
+
+    def on_train_step_end(self, ctx):
+        if ctx.cur_step_num >= self.n:
+            ctx.request_stop()
+
+
+def replay_ms(step, state, batch, n=10) -> float:
+    """ms per call of a captured step on one staged batch (host clock
+    between synchronizes); the state is trained further."""
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def files_run(tag, dev, model, opts, ds, n, bucket, fused=0, **kw) -> tuple:
+    """``RecModel.train`` over the packed shards: 3 steps that capture,
+    then one timed epoch of ``n`` batches (end to end: reading, prep,
+    staging, the captured step) with the counters set to 0 just before
+    and read just after."""
+    rm = RecModel(model, *opts, unique_bucket=AdaptiveBucket(bucket, log=quiet),
+                  prep_workers=2, jit=True, device=dev, **kw)
+    if fused:
+        rm._superbatch = fused
+        rm._build_fused(rm.bucket_policy.bucket)
+    rm.train(1, ds, callbacks=[StopAfter(3)], dataset_sink_mode=True)
+    step = rm._fused[0] if fused else rm.train_step
+    warm_captures = step.captures
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    step.reset_counts()
+    rec = DeviceLosses()
+    t0 = time.perf_counter()
+    rm.train(1, ds, callbacks=[rec], dataset_sink_mode=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = real_launches(step)
+    losses = torch.stack(rec.losses).float().cpu().numpy()
+    out = dict(samples_per_s=n * BATCH / dt, ms_per_batch=dt / n * 1e3,
+               steps=len(losses), graphs_captured=warm_captures + step.captures,
+               replays=step.replays, launches=launches,
+               last_loss=float(losses[-1]), digest=digest(_state_tensors(rm.state)))
+    if len(losses) != n or not np.isfinite(losses).all():
+        fail(f"{tag}: {len(losses)} steps for {n} batches, losses {losses}")
+    if out["graphs_captured"] != 1 or step.replays != n:
+        fail(f"{tag}: {out['graphs_captured']} captures, {step.replays} "
+             f"replays for {n} batches")
+    for k, per in WD_PER_STEP.items():
+        if launches[k] < per * n:
+            fail(f"{tag}: kernel {k} launched {launches[k]} times in {n} steps")
+    return rm, losses, out
+
+
+def state_compare(sa, sb) -> dict:
+    """Largest difference of each kind of leaf between two states, and
+    whether every leaf is within the kernel-vs-plain tolerance."""
+    worst, ok = {"bf16": 0.0, "f32": 0.0}, True
+    for x, y in zip(_state_tensors(sa), _state_tensors(sb)):
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            ok &= torch.equal(x, y)
+            continue
+        kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        d = (x.float() - y.float()).abs()
+        worst[kind] = max(worst[kind], float(d.max()) if d.numel() else 0.0)
+        rtol = 2.0**-7 if kind == "bf16" else 1e-4
+        ok &= bool((d <= 1e-6 + rtol * y.float().abs()).all())
+    return {"max_abs_diff": worst, "within_tol": ok}
+
+
+def phase_files_wd(dev, model, opts, raw, root) -> dict:
+    """Phase 17, ``[files-wd]``: the W&D bench recipe from packed shards,
+    three ways: (a) host prep (native, 2 workers, the bucket), (b) device
+    prep with ``BatchWire.for_sparse(host_prep=False)``, (c) (b) with the
+    fused superbatch step forced at k = 8."""
+    t0 = time.perf_counter()
+    shards = criteo.write_packed_shards(root / "packed", iter(raw))
+    write_s = time.perf_counter() - t0
+    mb = sum(f.stat().st_size for f in (root / "packed").iterdir()) / 1e6
+    ds = criteo.PackedCriteoDataset(root / "packed", BATCH)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in ds)
+    read_ms = (time.perf_counter() - t0) / n * 1e3
+    rec_log("files-data", f"{n} batches of {BATCH}x{FIELDS} in {shards} "
+            f"packed shards, {mb:.1f} MB: write {write_s:.2f} s, read "
+            f"{read_ms:.2f} ms/batch")
+    bucket = AdaptiveBucket.from_sample(raw, log=quiet).bucket
+    native = make_batch_sort(FIELDS, unique_bucket=bucket, minimal=True)
+    host0 = native(dict(raw[0]))
+    host0["uq_ids"] = host0["uq_ids"][:bucket]
+    wire_ = BatchWire.for_sparse(VOCAB, BATCH, FIELDS, host_prep=False)
+    arena0 = wire_.encode(raw[0])
+    t0 = time.perf_counter()
+    for _ in range(5):
+        wire_.encode(raw[0])
+    encode_ms = (time.perf_counter() - t0) / 5 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(5):
+        np.unique(raw[0]["ids"])
+    audit_ms = (time.perf_counter() - t0) / 5 * 1e3
+    staged_arena = to_device(arena0, dev)
+    dec = wire_.decoder()
+    dec(staged_arena)
+    decode_ms = cuda_ms(lambda: dec(staged_arena), 20)
+
+    runs = {}
+    rm_a, la, runs["host"] = files_run("files-wd-host", dev, model, opts, ds,
+                                       n, bucket)
+    runs["host"].update(prep_ms_per_batch=prep_ms(native, raw[0], 10),
+                        staged_bytes_per_batch=sum(
+                            v.nbytes for v in host0.values()))
+    rm_b, lb, runs["device"] = files_run(
+        "files-wd-device", dev, model, opts, ds, n, bucket,
+        prep_placement="device", wire=wire_)
+    wire_c = BatchWire.for_sparse(VOCAB, BATCH, FIELDS, host_prep=False)
+    rm_c, lc, runs["fused"] = files_run(
+        "files-wd-fused", dev, model, opts, ds, n, bucket, fused=FILES_K,
+        prep_placement="device", wire=wire_c)
+    for k in ("device", "fused"):
+        runs[k].update(encode_ms_per_batch=encode_ms,
+                       audit_ms_per_16_batches=audit_ms,
+                       staged_bytes_per_batch=int(arena0[ARENA_KEY].nbytes),
+                       decode_ms=decode_ms)
+    runs["fused"]["staged_bytes_per_copy"] = FILES_K * int(arena0[ARENA_KEY].nbytes)
+    same_bc = bool(np.array_equal(lb, lc)) and all(
+        torch.equal(x, y) for x, y in zip(_state_tensors(rm_b.state),
+                                          _state_tensors(rm_c.state)))
+    cmp_ab = state_compare(rm_a.state, rm_b.state)
+    loss_diff = float(np.abs(la - lb).max())
+    loss_ok = bool(np.allclose(lb, la, rtol=LOSS_RTOL, atol=0))
+    runs["host"]["captured_step_ms"] = replay_ms(rm_a.train_step, rm_a.state,
+                                                 to_device(host0, dev))
+    runs["device"]["captured_step_ms"] = replay_ms(
+        rm_b.train_step, rm_b.state, dec(staged_arena))
+    runs["fused"]["captured_step_ms"] = replay_ms(
+        rm_c._fused[0], rm_c.state, staged_arena)
+    for k, v in runs.items():
+        rec_log(f"files-wd-{k}", json.dumps(v))
+    rec_log("files-wd-compare", json.dumps(dict(
+        device_equals_fused_bit_for_bit=same_bc,
+        host_vs_device_max_loss_diff=loss_diff,
+        host_vs_device_state=cmp_ab, losses_within_rtol=loss_ok,
+        tolerance="losses rtol 1e-5; leaves rtol 2^-7 (bf16), 1e-4 (f32), "
+                  "atol 1e-6",
+        device_prep_beats_host_prep_end_to_end=runs["device"]["samples_per_s"]
+        > runs["host"]["samples_per_s"])))
+    if not same_bc or runs["device"]["digest"] != runs["fused"]["digest"]:
+        fail("files-wd: the fused step differs from per-batch device prep")
+    if not (cmp_ab["within_tol"] and loss_ok):
+        fail(f"files-wd: host prep vs device prep outside the tolerance: "
+             f"{cmp_ab}, loss diff {loss_diff}")
+    del rm_a, rm_b, rm_c
+    torch.cuda.empty_cache()
+    return {"runs": runs, "bucket": bucket, "launches": runs["host"]["launches"]}
+
+
+def same_arrays(tag, got, want) -> None:
+    if len(got) != len(want):
+        fail(f"{tag}: {len(got)} batches, expected {len(want)}")
+    for g, w in zip(got, want):
+        for k in w:
+            if g[k].dtype != w[k].dtype or not np.array_equal(g[k], w[k]):
+                fail(f"{tag}: key {k} differs from the packed path's batch")
+
+
+def phase_files_tfrecord(dev, model, opts, raw, bucket, root) -> dict:
+    """Phase 18, ``[files-tfrecord]``: 2 bench-recipe batches (32
+    records) as TFRecord, and as H5 where h5py is installed, read through
+    ``create_dataset``, equal to the packed path's batches, 2 steps each."""
+    packed = list(criteo.PackedCriteoDataset(root / "packed", BATCH))[:2]
+    out = {}
+    t0 = time.perf_counter()
+    formats.write_criteo_tfrecords(root / "tfr", iter(raw[:2]))
+    out["tfrecord_write_ms_per_batch"] = (time.perf_counter() - t0) / 2 * 1e3
+    ds = formats.create_dataset(root / "tfr", BATCH, formats.DataType.TFRECORD)
+    t0 = time.perf_counter()
+    got = list(ds)
+    out["tfrecord_read_ms_per_batch"] = (time.perf_counter() - t0) / 2 * 1e3
+    same_arrays("files-tfrecord", got, packed)
+    sources = {"tfrecord": ds}
+    try:
+        import h5py  # noqa: F401  (optional, as in the reference)
+    except ImportError:
+        rec_log("files-h5", "h5py is not installed on this machine: the H5 "
+                "reader is not run here (not a failure)")
+    else:
+        t0 = time.perf_counter()
+        formats.H5CriteoDataset.write_parts(root / "h5", iter(raw[:2]),
+                                            samples_per_part=2 * BATCH)
+        out["h5_write_ms_per_batch"] = (time.perf_counter() - t0) / 2 * 1e3
+        h5 = formats.create_dataset(root / "h5", BATCH, formats.DataType.H5)
+        t0 = time.perf_counter()
+        same_arrays("files-h5", list(h5), packed)
+        out["h5_read_ms_per_batch"] = (time.perf_counter() - t0) / 2 * 1e3
+        sources["h5"] = h5
+    rm = RecModel(model, *opts, unique_bucket=AdaptiveBucket(bucket, log=quiet),
+                  prep_workers=2, jit=True, device=dev)
+    for name, src in sources.items():
+        rec = DeviceLosses()
+        rm.train(1, src, callbacks=[rec], dataset_sink_mode=True)
+        losses = torch.stack(rec.losses).float().cpu().numpy()
+        if len(losses) != 2 or not np.isfinite(losses).all():
+            fail(f"files-{name}: losses {losses}")
+        out[f"{name}_losses"] = losses.tolist()
+    rec_log("files-tfrecord", json.dumps(out))
+    del rm
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_round(x: np.ndarray) -> np.ndarray:
+    """float32 -> its bf16 value as float32 (the reference's rounding;
+    ``wire.bf16_bits`` is held to ``ml_dtypes`` in the CPU tests)."""
+    return (bf16_bits(x).astype(np.uint32) << 16).view(np.float32)
+
+
+def phase_wire_card(dev, raw0) -> dict:
+    """Phase 19, ``[wire-card]``: decode of encode on the card equals the
+    batch bit for bit (``lossy=()``: ``for_sparse`` with host prep off
+    and on, ``for_fields``); with lossy bf16 weights it equals the
+    reference's rounding of them; decode µs per batch."""
+    rng = np.random.default_rng(3)
+    b = dict(raw0, wts=rng.normal(0, 3, (BATCH, FIELDS)).astype(np.float32))
+    prep = make_batch_sort(FIELDS, minimal=True)(dict(b))
+    fb = dict(b, wts=b["wts"].copy())
+    fb["wts"][:, N_DENSE_FIELDS:] = 1.0
+    plans = {
+        "sparse": (BatchWire.for_sparse(VOCAB, BATCH, FIELDS, lossy_wts=False), b),
+        "sparse_host_prep": (BatchWire.for_sparse(
+            VOCAB, BATCH, FIELDS, host_prep=True, lossy_wts=False), prep),
+        "fields": (BatchWire.for_fields(
+            criteo_field_sizes(VOCAB, FIELDS), BATCH,
+            wt_value_fields=range(N_DENSE_FIELDS), lossy_wts=False), fb),
+        "sparse_lossy_bf16": (BatchWire.for_sparse(VOCAB, BATCH, FIELDS), b),
+    }
+    out = {}
+    for name, (w, batch) in plans.items():
+        packed = w.encode(batch)
+        staged = to_device(packed, dev)
+        dec = w.decoder()
+        got = dec(staged)
+        want = dict(batch)
+        if name == "sparse_lossy_bf16":
+            want["wts"] = bf16_round(batch["wts"])
+        for k, v in want.items():
+            if not torch.equal(got[k].cpu(), torch.from_numpy(np.asarray(v))):
+                fail(f"wire-card {name}: key {k} not bit-equal after decode")
+        out[name] = dict(decode_us=cuda_ms(lambda: dec(staged), 20) * 1e3,
+                         bytes=int(packed[ARENA_KEY].nbytes),
+                         unpacked_bytes=int(sum(np.asarray(v).nbytes
+                                                for v in batch.values())))
+    rec_log("wire-card", json.dumps(out))
+    return out
+
+
+def phase_auto(dev, model, opts, raw, bucket) -> dict:
+    """Phase 20, ``[auto]``: ``input_recipe="auto"`` on the card (the
+    measured link and the decision), then with ``measure_link`` replaced
+    by the reference's tunnel figures: device prep, the wire and k = 16,
+    32 batches, one capture."""
+    rm = RecModel(model, *opts, unique_bucket=AdaptiveBucket(bucket, log=quiet),
+                  prep_workers=2, input_recipe="auto", device=dev)
+    rm.train(1, raw[:2], dataset_sink_mode=True)
+    fixed_ms, bw = rm.link
+    out = {"measured": dict(fixed_ms_per_put=fixed_ms, gb_per_s=bw / 1e9,
+                            decision=rm.prep_placement, wire=rm.wire is not None,
+                            superbatch=rm._superbatch)}
+    del rm
+    torch.cuda.empty_cache()
+    real = wire_mod.measure_link
+    wire_mod.measure_link = lambda *a, **k: TUNNEL_LINK
+    try:
+        rm = RecModel(model, *opts,
+                      unique_bucket=AdaptiveBucket(bucket, log=quiet),
+                      prep_workers=2, input_recipe="auto", device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        rec = DeviceLosses()
+        t0 = time.perf_counter()
+        rm.train(1, raw[:AUTO_BATCHES], callbacks=[rec], dataset_sink_mode=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        wire_mod.measure_link = real
+    step = rm._fused[0] if rm._fused is not None else rm.train_step
+    launches = real_launches(step)
+    losses = torch.stack(rec.losses).float().cpu().numpy()
+    out["tunnel"] = dict(
+        link=TUNNEL_LINK, decision=rm.prep_placement, superbatch=rm._superbatch,
+        fused=rm._fused is not None, steps=len(losses),
+        samples_per_s=AUTO_BATCHES * BATCH / dt, captures=step.captures,
+        replays=step.replays, launches={k: launches[k] for k in WD_PER_STEP},
+        last_loss=float(losses[-1]))
+    rec_log("auto", json.dumps(out))
+    if (rm.prep_placement != "device" or rm._superbatch != 16
+            or rm._fused is None or rm.wire is None):
+        fail(f"auto: the tunnel link chose {out['tunnel']}")
+    if step.captures != 1 or step.replays != AUTO_BATCHES - 1 or \
+            len(losses) != AUTO_BATCHES or not np.isfinite(losses).all():
+        fail(f"auto: {step.captures} captures, {step.replays} replays, "
+             f"losses {losses}")
+    for k, per in WD_PER_STEP.items():
+        if launches[k] < per * AUTO_BATCHES:
+            fail(f"auto: kernel {k} launched {launches[k]} times")
+    del rm
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_files(dev) -> dict:
+    """Phases 17-20 over one set of bench-recipe batches written to a
+    temporary directory."""
+    model, opts = wd_recipe()
+    data = SyntheticCriteo(BATCH, FIELDS, VOCAB, steps=AUTO_BATCHES, seed=31,
+                           fields="criteo")
+    t0 = time.perf_counter()
+    raw = [data.get_batch(s) for s in range(AUTO_BATCHES)]
+    log(f"[files-data] {len(raw)} raw batches in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    root = Path(tempfile.mkdtemp(prefix="mrec_files_"))
+    try:
+        out = phase_files_wd(dev, model, opts, raw[:FILES_BATCHES], root)
+        out["tfrecord"] = phase_files_tfrecord(dev, model, opts, raw,
+                                               out["bucket"], root)
+        out["wire"] = phase_wire_card(dev, raw[0])
+        out["auto"] = phase_auto(dev, model, opts, raw, out["bucket"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def outbrain_rows(batch, lps) -> list:
+    """A batch as packed rows of the 21-column TFRecord schema (the
+    columns no model reads hold the sample's index)."""
+    B = batch["label"].shape[0]
+    rows = []
+    for r in range(0, B, lps):
+        row = {}
+        for col in ob_data.COLUMNS:
+            key = ob_data._batch_key(col)
+            v = batch[key][r:r + lps] if key in batch else \
+                np.arange(r, r + lps, dtype=np.int32)
+            row[col] = np.asarray(v).reshape(lps, -1)
+        rows.append(row)
+    return rows
+
+
+def phase_outbrain_files(dev) -> dict:
+    """Phase 21, ``[outbrain-files]``: Outbrain TFRecords written by
+    ``write_outbrain_tfrecords`` and read by ``OutbrainTFRecordDataset``,
+    the multitable recipe's widths trained through ``RecModel`` with host
+    prep (batch 4,096, 2 steps: the cut)."""
+    model, opts = mt_recipe(batch=OB_BATCH)
+    batches = list(SyntheticOutbrain(model.config, 2, seed=5))
+    root = Path(tempfile.mkdtemp(prefix="mrec_ob_"))
+    try:
+        rows = [r for b in batches for r in outbrain_rows(b, OB_LPS)]
+        t0 = time.perf_counter()
+        ob_data.write_outbrain_tfrecords(root, iter(rows), rows_per_file=4)
+        write_ms = (time.perf_counter() - t0) / 2 * 1e3
+        ds = ob_data.OutbrainTFRecordDataset(root, OB_BATCH)
+        t0 = time.perf_counter()
+        got = list(ds)
+        read_ms = (time.perf_counter() - t0) / 2 * 1e3
+        for g, w in zip(got, batches):
+            for k, v in w.items():
+                if not np.array_equal(g[k], v) or g[k].dtype != v.dtype:
+                    fail(f"outbrain-files: key {k} differs after the round trip")
+        if len(got) != 2:
+            fail(f"outbrain-files: {len(got)} batches read, expected 2")
+        rm = RecModel(model, *opts, host_prep=True, prep_workers=2, jit=True,
+                      device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        rm.train_step.reset_counts()
+        rec = DeviceLosses()
+        t0 = time.perf_counter()
+        rm.train(1, ds, callbacks=[rec], dataset_sink_mode=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = real_launches(rm.train_step)
+    losses = torch.stack(rec.losses).float().cpu().numpy()
+    out = dict(batch=OB_BATCH, write_ms_per_batch=write_ms,
+               read_ms_per_batch=read_ms, steps=len(losses),
+               samples_per_s=len(losses) * OB_BATCH / dt,
+               captures=rm.train_step.captures, launches=launches,
+               losses=losses.tolist())
+    rec_log("outbrain-files", json.dumps(out))
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        fail(f"outbrain-files: losses {losses}")
+    for k, per in MT_PER_STEP.items():
+        if launches[k] < per * 2:
+            fail(f"outbrain-files: kernel {k} launched {launches[k]} times")
+    del rm
+    torch.cuda.empty_cache()
+    return out
+
+
+class StepClock(Callback):
+    """Host time at each step's end."""
+
+    def __init__(self):
+        self.ends = []
+
+    def on_train_step_end(self, ctx):
+        self.ends.append(time.perf_counter())
+
+
+class MtimeProbe(Callback):
+    """After ``CheckpointCallback`` (sync saves): each new file's mtime,
+    by step, before retention deletes it."""
+
+    def __init__(self, ck):
+        self.ck, self.mtimes = ck, {}
+
+    def on_train_step_end(self, ctx):
+        if ctx.cur_step_num % self.ck.save_steps == 0 and self.ck.saved:
+            self.mtimes[ctx.cur_step_num] = os.stat(self.ck.saved[-1]).st_mtime
+
+
+def phase_online_kafka(dev) -> dict:
+    """Phase 22, ``[online-kafka]``: RealisticCriteo rows as TSV, their
+    stats, a stub Kafka broker with 2 partitions fed by 2 producer
+    threads (JSON messages of 1,000 rows), KafkaSource ->
+    CriteoFeatureEngineer -> Channel -> StreamingDataset ->
+    ``RecModel.online_train`` at the online recipe, checkpoints every 10
+    steps keeping 2; freshness as benchmarks/online_freshness.py."""
+    root = Path(tempfile.mkdtemp(prefix="mrec_online_"))
+    broker = None
+    try:
+        t0 = time.perf_counter()
+        files = realistic.write_tsv(realistic.RealisticCriteo(
+            vocab_scale=0.03, seed=0), root / "tsv", ONLINE_ROWS,
+            rows_per_file=ONLINE_ROWS // 2)
+        tsv_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats = preprocess.collect_stats(files, workers=2)
+        stats_s = time.perf_counter() - t0
+        with open(files[0]) as f:
+            lines = [next(f).rstrip("\n").split("\t") for _ in range(ONLINE_SENT)]
+        cfg = WideDeepConfig(batch_size=ONLINE_BATCH, field_size=FIELDS,
+                             vocab_size=stats.vocab_size, emb_dim=EMB,
+                             deep_layer_dim=(1024, 512, 256, 128), sparse=True)
+        model = WideDeepModel(cfg)
+        rm = RecModel(model, optim.ftrl(loss_scale=cfg.loss_scale),
+                      optim.lazy_adam(loss_scale=cfg.loss_scale), jit=True,
+                      device=dev)
+        broker = kafka_stub.StubKafkaBroker()
+        bootstrap = broker.start()
+        streaming.create_topic("criteo_stream", 2, bootstrap_servers=bootstrap)
+        sent, order = {}, []
+        src = streaming.KafkaSource("criteo_stream", [0, 1],
+                                    bootstrap_servers=bootstrap, count=1,
+                                    idle_timeout_ms=3000,
+                                    auto_offset_reset="earliest")
+        fe = streaming.CriteoFeatureEngineer(stats)
+
+        def batches():
+            for msgs in src:
+                order.append(hashlib.sha1(msgs[0]).digest())
+                yield fe(json.loads(msgs[0]))
+
+        def produce(part):
+            prod = kafka_wire.MiniKafkaProducer(bootstrap)
+            mine = lines[part::2]
+            for i in range(0, len(mine), ONLINE_MSG):
+                value = json.dumps(mine[i:i + ONLINE_MSG]).encode()
+                sent[hashlib.sha1(value).digest()] = time.time()
+                prod.send("criteo_stream", value=value, partition=part)
+            prod.close()
+
+        channel = streaming.Channel(num_shards=1)
+        ck = CheckpointCallback(str(root / "ckpt"), save_steps=10, keep_max=2)
+        probe = MtimeProbe(ck)
+        rec, clock = DeviceLosses(), StepClock()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        rm.train_step.reset_counts()
+        t0 = time.perf_counter()
+        feeder = streaming.feed_channel_from_iterator(batches(), channel)
+        producers = [threading.Thread(target=produce, args=(p,), daemon=True)
+                     for p in (0, 1)]
+        for t in producers:
+            t.start()
+        rm.online_train(streaming.StreamingDataset(channel.receiver(0)),
+                        callbacks=[rec, ck, probe, clock])
+        torch.cuda.synchronize()
+        # to the last step: the stream then idles until the consumer's
+        # idle timeout ends it
+        dt = clock.ends[-1] - t0
+        for t in producers + [feeder]:
+            t.join(timeout=60)
+            if t.is_alive():
+                fail("online-kafka: a producer or the feeder did not end")
+        launches = real_launches(rm.train_step)
+        losses = torch.stack(rec.losses).float().cpu().numpy()
+        fresh = []
+        for b, h in enumerate(order):
+            cover = -(-(b + 1) // 10) * 10
+            if cover in probe.mtimes:
+                fresh.append(probe.mtimes[cover] - sent[h])
+        t1 = time.perf_counter()
+        restored = checkpoint.restore_checkpoint(ck.saved[-1], rm.state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t1) * 1e3
+        same = all(torch.equal(x, y) for x, y in zip(
+            _state_tensors(restored), _state_tensors(rm.state)))
+        kept = len(list((root / "ckpt").iterdir()))
+    finally:
+        if broker is not None:
+            broker.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    steps = ONLINE_SENT // ONLINE_BATCH
+    out = dict(rows_written=ONLINE_ROWS, tsv_write_s=tsv_s,
+               collect_stats_s=stats_s, vocab_size=stats.vocab_size,
+               rows_sent=ONLINE_SENT, steps=len(losses),
+               samples_per_s=len(losses) * ONLINE_BATCH / dt,
+               freshness_median_s=float(np.median(fresh)) if fresh else None,
+               freshness_worst_s=max(fresh) if fresh else None,
+               covered=len(fresh), checkpoints_kept=kept,
+               restore_ms=restore_ms, restored_equals_live=same,
+               all_losses_finite=bool(np.isfinite(losses).all()),
+               captures=rm.train_step.captures,
+               launches={k: launches[k] for k in WD_PER_STEP})
+    rec_log("online-kafka", json.dumps(out))
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"online-kafka: {len(losses)} steps for {steps}, losses {losses}")
+    if len(fresh) != steps or not same or rm.train_step.captures != 1:
+        fail(f"online-kafka: {len(fresh)} batches covered, restore equal "
+             f"{same}, {rm.train_step.captures} captures")
+    for k, per in WD_PER_STEP.items():
+        if launches[k] < per * steps:
+            fail(f"online-kafka: kernel {k} launched {launches[k]} times")
+    out["launches_all"] = launches
+    del rm
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3275,8 +3887,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     cache = phase_cache(dev)
     dyn = phase_dynamic(dev)
+    files = phase_files(dev)
+    ob = phase_outbrain_files(dev)
+    online = phase_online_kafka(dev)
     by_path = {"cache": cache["wd"]["serial"]["launches"],
-               "dynamic": dyn["launches"]}
+               "dynamic": dyn["launches"], "files": files["launches"],
+               "online": online["launches_all"],
+               "outbrain-files": ob["launches"]}
 
     launches = {**main_path["launches"],
                 **{k: mt_path["launches"][k] for k in MT_PER_STEP

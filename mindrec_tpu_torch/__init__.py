@@ -39,7 +39,12 @@ Ported so far:
   hash-based dynamic embeddings (``native/hashstore.cc``,
   ``train/dynamic.py``, ``ops/embedding.py:HashEmbeddingLookup``,
   ``train/callbacks.py:EvictionCallback``), both built by g++ at first
-  use.
+  use;
+* the input side (``data/``): packed shards, TFRecord, H5 and Outbrain
+  TFRecord readers and writers, Criteo TSV preprocessing, the
+  planted-model generator, the compact wire with device prep, superbatch
+  staging and ``RecModel(input_recipe="auto")``, and the online-learning
+  sources (channels, a Kafka client and stub broker).
 """
 
 __version__ = "0.1.0"

@@ -1,19 +1,25 @@
-"""Synthetic Criteo-style batches (numpy) and staging them on the card.
+"""Criteo-style batches: synthetic, packed on disk, staged on the card.
 
-``criteo_field_sizes`` and :class:`SyntheticCriteo` are copies of
-``mindrec_tpu/data/criteo.py`` (numpy only), so the same seed gives the
-same batches in both packages.  :func:`to_device` stages a host batch
-through pinned memory with non-blocking copies on the current stream;
-:class:`PrefetchToDevice` (port of the reference's) stages the next
-batches from a background thread on a side stream while the step runs.
+``criteo_field_sizes``, :class:`SyntheticCriteo`,
+:func:`write_packed_shards` and :class:`PackedCriteoDataset` are copies
+of ``mindrec_tpu/data/criteo.py`` (numpy only), so the same seed gives
+the same batches in both packages and either package reads the shards
+the other writes (``.npz`` files of ``line_per_sample`` samples per
+packed row; a batch of B samples is B / line_per_sample rows).
+:func:`to_device` stages a host batch through pinned memory with
+non-blocking copies on the current stream; :class:`PrefetchToDevice`
+(port of the reference's) stages the next batches from a background
+thread on a side stream (:func:`stage_batch`) while the step runs.
 
 Batch layout: ``{"ids": [B,F] int32, "wts": [B,F] f32, "label": [B,1] f32}``.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
+from pathlib import Path
 from typing import Iterator
 
 import numpy as np
@@ -111,6 +117,109 @@ class SyntheticCriteo:
             yield self.get_batch(s)
 
 
+# ---------------------------------------------------------------------------
+# packed on-disk format (.npz shards, 1000 samples per packed row)
+# ---------------------------------------------------------------------------
+
+LINE_PER_SAMPLE = 1000  # the reference's packing factor
+
+
+def write_packed_shards(
+    out_dir: str | os.PathLike,
+    batches: Iterator[dict[str, np.ndarray]],
+    rows_per_shard: int = 256,
+    line_per_sample: int = LINE_PER_SAMPLE,
+):
+    """Pack a sample stream into ``part-*.npz`` shards of
+    ``rows_per_shard`` packed rows, ``line_per_sample`` samples each; a
+    last partial row is dropped.  Returns the number of shards."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    buf_ids, buf_wts, buf_lab = [], [], []
+    shard_idx = 0
+    rows: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+
+    def flush_shard():
+        nonlocal shard_idx, rows
+        if not rows:
+            return
+        ids = np.stack([r[0] for r in rows])
+        wts = np.stack([r[1] for r in rows])
+        lab = np.stack([r[2] for r in rows])
+        np.savez(out / f"part-{shard_idx:05d}.npz", ids=ids, wts=wts, label=lab)
+        shard_idx += 1
+        rows = []
+
+    for batch in batches:
+        n = batch["ids"].shape[0]
+        for i in range(n):
+            buf_ids.append(batch["ids"][i])
+            buf_wts.append(batch["wts"][i])
+            buf_lab.append(batch["label"][i])
+            if len(buf_ids) == line_per_sample:
+                rows.append((np.stack(buf_ids), np.stack(buf_wts),
+                             np.stack(buf_lab)))
+                buf_ids, buf_wts, buf_lab = [], [], []
+                if len(rows) == rows_per_shard:
+                    flush_shard()
+    flush_shard()
+    return shard_idx
+
+
+class PackedCriteoDataset:
+    """Reader over packed npz shards: a batch of B samples is
+    B / line_per_sample packed rows, files sharded by
+    ``(num_shards, shard_id)``."""
+
+    def __init__(
+        self,
+        data_dir: str | os.PathLike,
+        batch_size: int,
+        num_shards: int = 1,
+        shard_id: int = 0,
+        line_per_sample: int = LINE_PER_SAMPLE,
+        drop_remainder: bool = True,
+    ):
+        if batch_size % line_per_sample != 0:
+            raise ValueError(
+                f"batch_size ({batch_size}) must be a multiple of "
+                f"line_per_sample ({line_per_sample})"
+            )
+        self.files = sorted(Path(data_dir).glob("part-*.npz"))
+        if not self.files:
+            raise FileNotFoundError(f"no part-*.npz under {data_dir}")
+        self.batch_size = batch_size
+        self.rows_per_batch = batch_size // line_per_sample
+        self.num_shards = num_shards
+        self.shard_id = shard_id
+        self.line_per_sample = line_per_sample
+        self.drop_remainder = drop_remainder
+
+    def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
+        pend_i, pend_w, pend_l = [], [], []
+        for fi, f in enumerate(self.files):
+            if fi % self.num_shards != self.shard_id:
+                continue
+            with np.load(f) as z:
+                ids, wts, lab = z["ids"], z["wts"], z["label"]
+            for r in range(ids.shape[0]):
+                pend_i.append(ids[r])
+                pend_w.append(wts[r])
+                pend_l.append(lab[r])
+                if len(pend_i) == self.rows_per_batch:
+                    yield self._assemble(pend_i, pend_w, pend_l)
+                    pend_i, pend_w, pend_l = [], [], []
+        if pend_i and not self.drop_remainder:
+            yield self._assemble(pend_i, pend_w, pend_l)
+
+    @staticmethod
+    def _assemble(pi, pw, pl):
+        ids = np.concatenate(pi, axis=0).astype(np.int32)
+        wts = np.concatenate(pw, axis=0).astype(np.float32)
+        lab = np.concatenate(pl, axis=0).reshape(-1, 1).astype(np.float32)
+        return {"ids": ids, "wts": wts, "label": lab}
+
+
 def to_device(batch: dict, device="cuda") -> dict[str, torch.Tensor]:
     """Host numpy batch -> tensors on ``device``.  On a CUDA device the
     arrays go through pinned memory with ``non_blocking=True`` copies on
@@ -125,6 +234,22 @@ def to_device(batch: dict, device="cuda") -> dict[str, torch.Tensor]:
         else:
             out[k] = t.to(device)
     return out
+
+
+def stage_batch(batch: dict, device, stream):
+    """Stage a host batch on ``device`` as :class:`PrefetchToDevice` does:
+    each array copied into pinned memory, then to the card by a
+    ``non_blocking`` copy on ``stream``.  Returns the tensors and an
+    event recorded on ``stream`` after the copies."""
+    # the pinned copies are released inside the lock too: freeing
+    # pinned memory records and queries events
+    with STAGING_LOCK, torch.cuda.stream(stream):
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+               .to(device, non_blocking=True)
+               for k, v in batch.items()}
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return out, ready
 
 
 class PrefetchToDevice:
@@ -144,7 +269,7 @@ class PrefetchToDevice:
         if sharding is not None:
             raise NotImplementedError(
                 "sharded staging is not ported yet (ROADMAP.md section 1 "
-                "item 10)")
+                "item 9)")
         self.it = iter(it)
         self.depth = depth
         self.device = torch.device(device)
@@ -159,15 +284,7 @@ class PrefetchToDevice:
         self._thread.start()
 
     def _stage(self, batch):
-        # the pinned copies are released inside the lock too: freeing
-        # pinned memory records and queries events
-        with STAGING_LOCK, torch.cuda.stream(self.stream):
-            out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                   .to(self.device, non_blocking=True)
-                   for k, v in batch.items()}
-            ready = torch.cuda.Event()
-            ready.record(self.stream)
-        return out, ready
+        return stage_batch(batch, self.device, self.stream)
 
     def _put(self, item) -> bool:
         while not self._stop.is_set():

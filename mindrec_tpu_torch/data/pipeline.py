@@ -1,7 +1,7 @@
 """Input pipeline: raw host batches -> multi-worker host prep -> staging
 on the card on a side stream -> the train step.
 
-Port of ``mindrec_tpu/data/pipeline.py`` on its host-prep path:
+Port of ``mindrec_tpu/data/pipeline.py``:
 
 * :class:`HostPrepPool`: N worker threads run the native batch prep
   (``native/batchprep.cc``; its ctypes call releases the GIL, so plain
@@ -20,16 +20,28 @@ Port of ``mindrec_tpu/data/pipeline.py`` on its host-prep path:
   ``on_grow``.  Batches already staged stay valid: a larger bucket only
   pads further.
 
+* device prep (``host_prep=False``): no host sort; the raw (optionally
+  wire-encoded) batches go to the card and the step sorts there, with a
+  host audit of the distinct-id count every ``audit_every`` batches that
+  grows the bucket and calls ``on_grow``;
+* the compact wire (``wire=``, ``data/wire.py``): batches are packed on
+  the host in the prep pool and decoded on the card after staging;
+* superbatch staging (``superbatch=k``): k batches stacked on the host
+  and staged as one copy, then sliced apart on the card (a slice is a
+  view, not a transfer); ``decode=False`` / ``unstack=False`` hand the
+  packed supergroups to a consumer that slices and decodes in its own
+  step (``RecModel``'s fused step).
+
 Steady-state throughput = max(step, prep / workers, host->device copy).
-Not ported here: the wire format, device-side prep (``host_prep=False``),
-superbatch staging and sharded staging (``ROADMAP.md`` §1 items 6 and
-10); each raises ``NotImplementedError``.
+Sharded staging (``sharding=``) is not ported (``ROADMAP.md`` section 1
+item 9) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import itertools
 import threading
 
 import numpy as np
@@ -142,17 +154,76 @@ class HostPrepPool:
             ex.shutdown(wait=False, cancel_futures=True)
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md section 1 item {item})")
+def _stack_groups(it, k: int, pad_tail: bool = False):
+    """Group k consecutive batches into one stacked dict (axis-0 stack
+    per key) so the device staging pays ONE transfer round-trip per
+    group; the tail group may be shorter.
+
+    ``pad_tail``: pad a short tail group to k by repeating its last
+    batch and attach the REAL batch count under ``"__sb_n__"`` (0-d
+    int32), so every group has one shape and a fused consumer (one
+    captured slice + decode + step per batch) needs no second capture
+    for the tail; consumers must run only the first ``__sb_n__``
+    slices."""
+    def stack(group):
+        if pad_tail:
+            # __sb_n__ rides EVERY group (not just padded ones) so full
+            # and tail groups have one structure
+            real = len(group)
+            group = group + [group[-1]] * (k - real)
+            out = stack_keys(group)
+            out["__sb_n__"] = np.int32(real)
+            return out
+        return stack_keys(group)
+
+    def stack_keys(group):
+        try:
+            return {
+                key: np.stack([g[key] for g in group]) for key in group[0]
+            }
+        except ValueError as e:
+            # a mid-group AdaptiveBucket regrow changes the uq arrays'
+            # length; surface the cause instead of np.stack's opaque
+            # shape error (flushing the short pre-grow group would drop
+            # the size guarantee consumers rely on)
+            raise ValueError(
+                "superbatch group has ragged per-key shapes — most "
+                "likely the unique bucket grew mid-group (AdaptiveBucket "
+                "on_grow); use a bucket with enough headroom to cover "
+                f"the stream, or superbatch=1: {e}"
+            ) from e
+
+    group = []
+    for b in it:
+        group.append(b)
+        if len(group) == k:
+            yield stack(group)
+            group = []
+    if group:
+        yield stack(group)
+
+
+def _unstack_groups(it):
+    """Inverse of :func:`_stack_groups` after staging: slicing a staged
+    tensor is a view on the card, no further transfer."""
+    for sb in it:
+        if "__sb_n__" in sb:
+            sb = dict(sb)
+            n = int(sb.pop("__sb_n__"))
+        else:
+            n = next(iter(sb.values())).shape[0]
+        for i in range(n):
+            yield {key: v[i] for key, v in sb.items()}
 
 
 class SparseInputPipeline:
     """raw host batches -> prep pool -> (optional) staging on the card.
 
-    Yields batches ready for ``make_train_step``: the step sizes its
-    unique buffer from the length of ``uq_ids``, which is trimmed to
-    ``policy.bucket``, so a regrow is a new batch signature.
+    Yields batches ready for ``make_train_step``: with host prep the step
+    sizes its unique buffer from the length of ``uq_ids``, which is
+    trimmed to ``policy.bucket``, so a regrow is a new batch signature;
+    with device prep the step is built with ``unique_bucket=
+    policy.bucket`` and ``on_grow`` rebuilds it.
 
     Args:
       source: iterable of raw host batches (dicts with ``ids`` etc.).
@@ -163,14 +234,32 @@ class SparseInputPipeline:
       device: True stages each batch onto the current CUDA device with
         :class:`PrefetchToDevice` (tensors); False yields the numpy
         dicts (host-side consumers and CPU tests).
+      sharding: sharded staging; not ported (raises).
       minimal: drop ``sorted_ids``/``inv`` from the prep output (the
         step never reads them).
       on_grow: callable(new_bucket) invoked after a re-bucket.
-      prefetch_depth: batches staged ahead on the card.
+      prefetch_depth: batches (or supergroups) staged ahead on the card.
       groups: a model's id groups (``step.prep_groups``): per-group
         lossless prep with ``{group}:``-prefixed keys; no policy then.
-      wire, host_prep=False, decode=False, superbatch > 1,
-        unstack=False, pad_tail, sharding: not ported (raise).
+      wire: a :class:`~mindrec_tpu_torch.data.wire.BatchWire`: batches
+        are packed on the host and decoded after staging (on the card,
+        or on the CPU with ``device=False``); the decoded batch has the
+        unpacked layout.
+      host_prep: False is device prep: no host sort, only the (encoded)
+        raw batches are staged and the step sorts on the card (build it
+        with ``unique_bucket=policy.bucket``).  The bucket is audited on
+        the host every ``audit_every`` batches (``np.unique``; the
+        step would drop the ids past a too-small bucket), growing the
+        policy and calling ``on_grow`` as host prep does.
+      decode: with ``wire``, False yields the staged packed batches for
+        a consumer that decodes inside its own step.
+      superbatch: stage k batches per copy (stacked on the host, sliced
+        apart on the card); consumers see ordinary batches and the tail
+        group may be smaller.
+      unstack: with ``superbatch`` > 1 and ``decode=False``, False
+        yields the staged [k, ...] supergroups themselves.
+      pad_tail: pad a short tail group to k (see :func:`_stack_groups`);
+        the real count stays on the host.
     """
 
     def __init__(self, source, field_size: int, policy=None,
@@ -180,16 +269,17 @@ class SparseInputPipeline:
                  wire=None, host_prep: bool = True, audit_every: int = 16,
                  decode: bool = True, superbatch: int = 1,
                  unstack: bool = True, pad_tail: bool = False):
-        del audit_every  # device-prep audit: not ported with host_prep=False
-        if wire is not None:
-            raise _not_ported("the wire format (wire=)", 6)
-        if not host_prep:
-            raise _not_ported("device-side prep (host_prep=False)", 6)
-        if not decode or not unstack or int(superbatch) > 1 or pad_tail:
-            raise _not_ported("superbatch staging (superbatch, decode, "
-                              "unstack, pad_tail)", 6)
         if sharding is not None:
-            raise _not_ported("sharded staging (sharding=)", 10)
+            raise NotImplementedError(
+                "sharded staging (sharding=) is not ported yet (ROADMAP.md "
+                "section 1 item 9)")
+        if not unstack and (superbatch <= 1 or decode):
+            raise ValueError(
+                "unstack=False yields staged supergroups for fused "
+                "consumers; it requires superbatch>1 and decode=False"
+            )
+        if not host_prep and groups is not None:
+            raise ValueError("device-prep mode is single-id-group only")
         if groups is not None and policy is not None:
             raise ValueError(
                 "AdaptiveBucket policy is single-group; pass policy=None "
@@ -206,18 +296,46 @@ class SparseInputPipeline:
         self.on_grow = on_grow
         self.prefetch_depth = prefetch_depth
         self.groups = groups
+        self.wire = wire
+        self.host_prep = host_prep
+        self.audit_every = audit_every
+        self.superbatch = int(superbatch)
+        self.unstack = unstack
+        self.pad_tail = bool(pad_tail)
+        self._decode = wire.decoder() if wire is not None and decode else None
         self._lock = threading.Lock()
         self._make_prep()
 
     def _make_prep(self):
         policy = self.policy
+        encode = self.wire.encode if self.wire is not None else None
+
+        if not self.host_prep:
+            # device prep: no host sort; the optional wire encode and the
+            # periodic bucket audit
+            counter = itertools.count()
+            audit = self.audit_every
+
+            def prep(raw):
+                if policy is not None and audit and next(counter) % audit == 0:
+                    nu = int(np.unique(np.asarray(raw["ids"])).size)
+                    policy.observe(nu)
+                    if nu > policy.bucket:
+                        raise BucketOverflow(nu, policy.bucket)
+                return encode(raw) if encode is not None else dict(raw)
+
+            self._prep = prep
+            return
+
         base = make_batch_sort(
             self.field_size,
             unique_bucket=policy.bucket if policy is not None else None,
             minimal=self.minimal, groups=self.groups,
         )
         if policy is None:
-            self._prep = base
+            self._prep = (
+                base if encode is None else (lambda raw: encode(base(raw)))
+            )
             return
 
         def prep(raw):
@@ -229,7 +347,7 @@ class SparseInputPipeline:
             # signature) and the host->device copy shrinks to the bucket
             if out["uq_ids"].shape[0] > policy.bucket:
                 out["uq_ids"] = out["uq_ids"][: policy.bucket]
-            return out
+            return out if encode is None else encode(out)
 
         self._prep = prep
 
@@ -250,6 +368,42 @@ class SparseInputPipeline:
     def __iter__(self):
         prep = self._prep_supervised if self.policy is not None else self._prep
         src = iter(HostPrepPool(self.source, prep, self.workers, self.depth))
-        if not self.device:
-            return src
-        return iter(PrefetchToDevice(src, depth=self.prefetch_depth))
+        counts = None
+        if self.superbatch > 1:
+            src = _stack_groups(src, self.superbatch, self.pad_tail)
+            if self.pad_tail and self.device:
+                # keep each group's real batch count on the host: staged,
+                # the consumer's int() would be a read from the card
+                counts = collections.deque()
+
+                def strip(it_):
+                    for sb in it_:
+                        sb = dict(sb)
+                        counts.append(int(sb.pop("__sb_n__")))
+                        yield sb
+
+                src = strip(src)
+        it = _staged(src, self.prefetch_depth) if self.device else src
+        if counts is not None:
+            def reattach(it_):
+                for sb in it_:
+                    out = dict(sb)
+                    out["__sb_n__"] = counts.popleft()
+                    yield out
+
+            it = reattach(it)
+        if self.superbatch > 1 and self.unstack:
+            it = _unstack_groups(it)
+        if self._decode is None:
+            return it
+        return (self._decode(b) for b in it)
+
+
+def _staged(src, depth):
+    """Stage ``src`` on the card; leaving the loop early (``close()``)
+    stops the staging thread."""
+    pf = PrefetchToDevice(src, depth=depth)
+    try:
+        yield from pf
+    finally:
+        pf.close()

@@ -7,11 +7,13 @@ batch and writes, per batch, ``ids_<i>.bin`` (int32 ``[B, F]``),
 
 Usage::
 
+  python -m mindrec_tpu_torch.serving.records2bin --data ./data/test \\
+      --out ./bins --batch-size 1000 [--max-batches N]
   python -m mindrec_tpu_torch.serving.records2bin --synthetic \\
       --out ./bins --batch-size 1000 [--max-batches N]
 
-``--data`` (packed Criteo shards) needs ``PackedCriteoDataset``, which is
-not ported yet (``ROADMAP.md`` section 1 item 5).
+``--data`` reads packed Criteo shards (``data/criteo.py:
+PackedCriteoDataset``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ def convert(dataset, out_dir, max_batches=None) -> int:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--data", help="packed dataset dir (not ported yet)")
+    ap.add_argument("--data", help="packed dataset dir (e.g. <root>/test)")
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--out", required=True)
     ap.add_argument("--batch-size", type=int, default=1000)
@@ -52,14 +54,16 @@ def main(argv=None):
     ap.add_argument("--max-batches", type=int, default=None)
     args = ap.parse_args(argv)
 
-    if not args.synthetic:
-        raise NotImplementedError(
-            "records2bin --data reads PackedCriteoDataset, which is not "
-            "ported yet (ROADMAP.md section 1 item 5); use --synthetic")
-    from mindrec_tpu_torch.data.criteo import SyntheticCriteo
+    if args.synthetic:
+        from mindrec_tpu_torch.data.criteo import SyntheticCriteo
 
-    ds = SyntheticCriteo(args.batch_size, args.field_size, args.vocab_size,
-                         steps=args.max_batches or 4, seed=999)
+        ds = SyntheticCriteo(args.batch_size, args.field_size,
+                             args.vocab_size, steps=args.max_batches or 4,
+                             seed=999)
+    else:
+        from mindrec_tpu_torch.data.criteo import PackedCriteoDataset
+
+        ds = PackedCriteoDataset(args.data, args.batch_size)
     n = convert(ds, args.out, args.max_batches)
     print(f"wrote {n} batches to {args.out}")
 

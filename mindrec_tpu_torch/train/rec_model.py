@@ -30,9 +30,14 @@ untouched, as the dataset yields it: no input pipeline, no staging, so
 the ids reach the LRU or the hash store as host arrays; the wrapper
 stages what its inner step needs.
 
-Not ported yet (each raises ``NotImplementedError``): the wire format,
-``prep_placement="device"`` and ``input_recipe="auto"`` (``ROADMAP.md``
-section 1 item 6).  Multi-GPU is item 10: ``rank_id`` is 0.
+The input recipes of the reference: ``wire=`` packs batches on the host
+and decodes them on the card (``data/wire.py``); ``prep_placement=
+"device"`` stages only the (encoded) raw batches and the step sorts on
+the card at a static ``unique_bucket``; ``input_recipe="auto"``
+measures the host->device link once and picks host prep, or device prep
+with the compact wire, superbatch staging and the fused step (one
+CUDA-graph replay per batch that slices, decodes and steps).
+Multi-GPU is ``ROADMAP.md`` section 1 item 9: ``rank_id`` is 0.
 """
 
 from __future__ import annotations
@@ -49,14 +54,9 @@ from mindrec_tpu_torch.train import optim as optim_lib
 from mindrec_tpu_torch.train.callbacks import CallbackManager, RunContext
 from mindrec_tpu_torch.train.metrics import AUCMetric
 from mindrec_tpu_torch.train.step import (
-    TrainState, init_train_state, make_eval_step, make_train_step,
-    prep_groups,
+    CapturedStep, TrainState, init_train_state, make_eval_step,
+    make_train_step, prep_groups,
 )
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md section 1 item 6)")
 
 
 class RecModel:
@@ -78,6 +78,21 @@ class RecModel:
       prep_workers: host prep threads.
       host_prep: run the pipeline without a bucket (lossless prep; the
         form for multi-id-group models, which get per-group prep).
+      wire: a :class:`~mindrec_tpu_torch.data.wire.BatchWire`: batches
+        are packed on the host and decoded on the card after staging.
+      prep_placement: ``"host"`` (default) sorts on the host;
+        ``"device"`` stages only the (encoded) raw batches and the step
+        sorts on the card at the static ``unique_bucket`` (required),
+        audited on the host every ``audit_every`` batches; a regrow
+        rebuilds the step (one new capture).
+      input_recipe: ``"auto"`` measures the host->device link at the
+        first ``train(dataset_sink_mode=True)`` on the card
+        (:func:`~mindrec_tpu_torch.data.wire.measure_link`) and keeps
+        host prep where the link hides under the step, else picks device
+        prep, the compact wire, superbatch staging (one copy per k
+        batches) and the fused step; it needs ``unique_bucket`` and a
+        single-id-group model, else it keeps the configured pipeline.
+        A no-op on the CPU.
       device: where the state lives, ``"cuda"`` (default) or ``"cpu"``.
     """
 
@@ -107,24 +122,12 @@ class RecModel:
         if input_recipe not in ("none", "auto"):
             raise ValueError(f"input_recipe must be 'none' or 'auto', "
                              f"got {input_recipe!r}")
-        if wire is not None:
-            raise _not_ported("the wire format (wire=)")
-        if prep_placement == "device":
-            raise _not_ported("device-side prep (prep_placement='device')")
-        if input_recipe == "auto":
-            raise _not_ported("the measured input recipe (input_recipe='auto')")
-        del audit_every  # the device-prep audit's period
         self.model = model
         self.device = torch.device(device)
         sens = float(getattr(model.config, "loss_scale", 1.0))
         self.opt_w = opt_w or optim_lib.ftrl(loss_scale=sens)
         self.opt_d = opt_d or optim_lib.adam(loss_scale=sens)
         self.metrics = metrics if metrics is not None else {"auc": AUCMetric()}
-        self.train_step = make_train_step(model, self.opt_w, self.opt_d,
-                                          jit=jit, donate=donate)
-        self.eval_step = make_eval_step(model)
-        self.state: TrainState = init_train_state(
-            model, seed, self.opt_w, self.opt_d, device=self.device)
         self.bucket_policy = None
         if unique_bucket is not None:
             self.bucket_policy = (
@@ -134,7 +137,125 @@ class RecModel:
         self.prep_workers = prep_workers
         self.host_prep = (host_prep if host_prep is not None
                           else unique_bucket is not None)
+        if prep_placement == "device":
+            if self.bucket_policy is None:
+                raise ValueError(
+                    "prep_placement='device' needs unique_bucket (the "
+                    "step's static distinct-id bound)"
+                )
+            self.host_prep = True  # the pipeline still runs (audit, wire)
+        self.wire = wire
+        self.prep_placement = prep_placement
+        self.audit_every = audit_every
+        self.input_recipe = input_recipe
+        self._recipe_resolved = input_recipe != "auto"
+        self.link = None  # (fixed ms per put, bytes/s) once measured
+        self._superbatch = 1
+        self._fused = None  # (fused step, superbatch k)
+        # with host prep the step sizes its unique buffer from the trimmed
+        # uq_ids (a regrow is a new signature); in device placement the
+        # bucket is static and a regrow rebuilds the step
+        self._step_kw = dict(jit=jit, donate=donate)
+        if prep_placement == "device":
+            self._step_kw["unique_bucket"] = self.bucket_policy.bucket
+        self.train_step = make_train_step(model, self.opt_w, self.opt_d,
+                                          **self._step_kw)
+        self.eval_step = make_eval_step(model)
+        self.state: TrainState = init_train_state(
+            model, seed, self.opt_w, self.opt_d, device=self.device)
         self.rank_id = 0
+
+    def _on_bucket_grow(self, new_bucket: int):
+        """Device placement: the host audit grew the bucket; rebuild the
+        step at the new static bound (one new capture)."""
+        self._step_kw["unique_bucket"] = new_bucket
+        self.train_step = make_train_step(self.model, self.opt_w, self.opt_d,
+                                          **self._step_kw)
+        if self._fused is not None:
+            self._build_fused(new_bucket)
+
+    # ------------------------------------------------------------------
+    # the measured input recipe (link physics -> prep placement)
+    # ------------------------------------------------------------------
+
+    def _resolve_recipe(self):
+        """``input_recipe='auto'``: measure the host->device link once and
+        set the wire, the prep placement and the superbatch depth from its
+        affine cost model (fixed ms per put + bytes/s)."""
+        self._recipe_resolved = True
+        if self.device.type != "cuda":
+            return
+        cfg = self.model.config
+        groups = getattr(self.model, "table_groups", None)
+        multi = groups is not None and not (
+            len(groups) == 1 and "_default" in groups
+        )
+        if self.bucket_policy is None or multi or self.wire is not None:
+            return  # keep the explicitly configured pipeline
+        from mindrec_tpu_torch.data.wire import BatchWire, measure_link
+
+        fixed_ms, bw = measure_link(self.device)
+        self.link = (fixed_ms, bw)
+        B, F = int(cfg.batch_size), int(cfg.field_size)
+        wire = BatchWire.for_sparse(int(cfg.vocab_size), B, F,
+                                    host_prep=False)
+        probe = {
+            "ids": np.zeros((B, F), np.int32),
+            "wts": np.zeros((B, F), np.float32),
+            "label": np.zeros((B, 1), np.float32),
+        }
+        wire_bytes = wire.wire_bytes(probe)
+        # host-prep payload: raw batch + perm/uidx/uidx_sorted i32 + the
+        # bucket-trimmed unique ids (the minimal prep set)
+        host_bytes = (
+            B * F * 4 * 2 + B * 4 + B * F * 4 * 3
+            + self.bucket_policy.bucket * 4
+        )
+        host_ms = host_bytes / bw * 1e3
+        # step-time proxy, only to decide whether the link is the
+        # bottleneck at all: the captured W&D bench step on an NVIDIA H100
+        # 80GB HBM3 at 700 W, 4.66-4.72 ms per 16,000 samples (about 3.4M
+        # samples/s; PERF.md section 6, PRs 10-11), scaled by batch size
+        step_proxy_ms = B / 3.4e6 * 1e3
+        if fixed_ms + host_ms <= step_proxy_ms:
+            return  # a fast link: host prep (the smallest step) wins
+        # amortize the link's fixed per-put cost to <= ~5 ms per batch,
+        # capped at 16 (staging memory), a power of two
+        k = max(1, min(16, -(-int(fixed_ms) // 5)))
+        k = 1 << (k - 1).bit_length() if k > 1 else 1
+        self.wire = wire
+        self.prep_placement = "device"
+        self.host_prep = True
+        self._superbatch = k
+        self._step_kw["unique_bucket"] = self.bucket_policy.bucket
+        self.train_step = make_train_step(self.model, self.opt_w, self.opt_d,
+                                          **self._step_kw)
+        if k > 1:
+            self._build_fused(self.bucket_policy.bucket)
+        print(
+            f"[mindrec] auto input recipe: link fixed={fixed_ms:.0f} ms/put"
+            f", bw={bw / 1e6:.0f} MB/s -> device-prep compact wire "
+            f"({wire_bytes / 1e6:.2f} MB/batch vs {host_bytes / 1e6:.2f} "
+            f"host-prep), superbatch={k}"
+            + (", fused slice/decode/step" if k > 1 else ""),
+            flush=True,
+        )
+
+    def _build_fused(self, bucket: int):
+        """The fused step: one step that decodes one batch's packed
+        arena and trains on it, captured once (``jit``) so each batch is
+        one CUDA-graph replay; the batch's slice of the staged supergroup
+        is copied into the graph's static input."""
+        kw = {**self._step_kw, "jit": False, "unique_bucket": bucket}
+        raw_step = make_train_step(self.model, self.opt_w, self.opt_d, **kw)
+        decode = self.wire.decoder()
+
+        def fused(state, batch):
+            return raw_step(state, decode(batch))
+
+        fused.takes_device_batches = True
+        self._fused = (CapturedStep(fused) if self._step_kw["jit"] else fused,
+                       self._superbatch)
 
     @property
     def params(self):
@@ -150,7 +271,14 @@ class RecModel:
 
     def _exec_step(self, batch):
         """Run one train step; returns its (loss_w, loss_d).  A wrapper
-        ``train_step`` gets the batch untouched."""
+        ``train_step`` gets the batch untouched.  The fused step's
+        batches arrive as ``{"__sup__": staged supergroup, "__i__":
+        slice}`` markers."""
+        if "__sup__" in batch:
+            sup, i = batch["__sup__"], batch["__i__"]
+            one = self._tensors({k: v[i] for k, v in sup.items()})
+            self.state, losses = self._fused[0](self.state, one)
+            return losses
         if _takes_device_batches(self.train_step):
             batch = self._tensors(batch)
         self.state, losses = self.train_step(self.state, batch)
@@ -292,23 +420,57 @@ class RecModel:
     def _maybe_sink(self, dataset, sink: bool) -> Iterable:
         if not sink or not _takes_device_batches(self.train_step):
             return iter(dataset)
+        if not self._recipe_resolved:
+            self._resolve_recipe()
         on_card = self.state.step.device.type == "cuda"
+        field_size = int(getattr(self.model.config, "field_size", 0))
+        if self._fused is not None:
+            pipe = SparseInputPipeline(
+                dataset, field_size=field_size, policy=self.bucket_policy,
+                workers=self.prep_workers, device=on_card, wire=self.wire,
+                host_prep=False, audit_every=self.audit_every,
+                on_grow=self._on_bucket_grow, superbatch=self._fused[1],
+                unstack=False, decode=False, pad_tail=True,
+            )
+            return _fused_markers(pipe)
         if self.host_prep:
             # raw host batches -> prep pool -> staging, with adaptive
             # re-bucketing (one id group) or per-group lossless prep
             groups = prep_groups(self.model)  # tiny groups need no sort
+            device_prep = self.prep_placement == "device"
+            if device_prep and groups is not None:
+                raise ValueError(
+                    "prep_placement='device' is single-id-group only")
             return iter(SparseInputPipeline(
-                dataset,
-                field_size=int(getattr(self.model.config, "field_size", 0)),
-                policy=self.bucket_policy if groups is None else None,
+                dataset, field_size=field_size,
+                policy=(self.bucket_policy
+                        if (device_prep or groups is None) else None),
                 groups=groups,
                 workers=self.prep_workers,
                 device=on_card,
+                wire=self.wire,
+                host_prep=not device_prep,
+                audit_every=self.audit_every,
+                on_grow=self._on_bucket_grow if device_prep else None,
             ))
         if on_card:
             return PrefetchToDevice(dataset, depth=2,
                                     device=self.state.step.device)
         return iter(dataset)
+
+
+def _fused_markers(pipe):
+    """Staged supergroups -> one marker per real batch (a padded tail's
+    repeats are skipped)."""
+    it = iter(pipe)
+    try:
+        for sup in it:
+            sup = dict(sup)
+            n = int(sup.pop("__sb_n__"))
+            for i in range(n):
+                yield {"__sup__": sup, "__i__": i}
+    finally:
+        _close(it)
 
 
 def _takes_device_batches(fn) -> bool:

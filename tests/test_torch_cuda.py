@@ -33,7 +33,7 @@ from mindrec_tpu_torch.ops.kernels.update_cols import (
 from mindrec_tpu_torch.ops.kernels.update_rows import (
     adam_rows, adam_rows_plain, ftrl_rows, ftrl_rows_plain,
 )
-from mindrec_tpu_torch.train.step import _state_tensors
+from mindrec_tpu_torch.train.step import CapturedStep, _state_tensors
 
 SENT = 2**31 - 2
 N_ROWS = 256
@@ -1454,3 +1454,88 @@ class _Replay:
 
     def evict(self):
         return self._freed
+
+
+# ---------------------------------------------------------------------------
+# the compact wire and device prep on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["sparse", "sparse_prep", "fields", "keys"])
+def test_wire_decode_on_card_equals_cpu(cuda_device, plan):
+    """The wire's decode of a staged arena (and of per-key arrays) on the
+    card equals its decode on the CPU bit for bit, sentinels, negative
+    bf16 weights and 3-byte ids included."""
+    from mindrec_tpu_torch.data.criteo import (
+        SyntheticCriteo, criteo_field_sizes, to_device,
+    )
+    from mindrec_tpu_torch.data.wire import BatchWire
+    from mindrec_tpu_torch.train.step import make_batch_sort
+
+    B, F, V = 4096, 39, 5_860_000
+    b = SyntheticCriteo(B, F, V, seed=3, fields="criteo").get_batch(0)
+    b["wts"] = np.random.default_rng(1).normal(0, 3, (B, F)).astype(np.float32)
+    if plan == "fields":
+        b["wts"][:, 13:] = 1.0
+        w = BatchWire.for_fields(criteo_field_sizes(V, F), B,
+                                 wt_value_fields=range(13))
+    else:
+        if plan == "sparse_prep":
+            b = make_batch_sort(F, minimal=True)(b)
+            b["uq_ids"] = b["uq_ids"][:65536]
+        w = BatchWire.for_sparse(V, B, F, host_prep=plan == "sparse_prep",
+                                 arena=plan != "keys")
+    packed = w.encode(b)
+    dec = w.decoder()
+    cpu = dec(packed)
+    card = dec(to_device(packed, cuda_device))
+    assert sorted(cpu) == sorted(card)
+    for k in cpu:
+        assert card[k].device.type == "cuda"
+        assert torch.equal(card[k].cpu(), torch.as_tensor(cpu[k])), k
+
+
+@pytest.mark.cuda
+def test_device_prep_captured_step_equals_host_prep_on_card(cuda_device):
+    """One W&D batch at a small vocab: the captured step fed the staged
+    wire arena and sorting on the card (device prep) equals the captured
+    step fed host-prepped metadata, bit for bit (both stable sorts give
+    one perm; the bucket is the same)."""
+    from mindrec_tpu_torch.data.criteo import SyntheticCriteo, to_device
+    from mindrec_tpu_torch.data.wire import BatchWire
+    from mindrec_tpu_torch.models import wide_deep
+    from mindrec_tpu_torch.train import optim
+    from mindrec_tpu_torch.train.step import (
+        init_train_state, make_batch_sort, make_train_step,
+    )
+
+    B, F, V = 2048, 39, 100_000
+    cfg = wide_deep.WideDeepConfig(
+        batch_size=B, field_size=F, vocab_size=V, emb_dim=16,
+        deep_layer_dim=(256, 256), use_mixed_precision=True, sparse=True,
+        loss_scale=1024.0)
+    model = wide_deep.WideDeepModel(cfg)
+    opts = (optim.ftrl(loss_scale=1024.0),
+            optim.lazy_adam(loss_scale=1024.0, state_dtype=torch.bfloat16))
+    raw = SyntheticCriteo(B, F, V, seed=9, fields="criteo").get_batch(0)
+    bucket = 32768
+    host = make_batch_sort(F, unique_bucket=bucket, minimal=True)(dict(raw))
+    host["uq_ids"] = host["uq_ids"][:bucket]
+    w = BatchWire.for_sparse(V, B, F)
+    arena = to_device(w.encode(raw), cuda_device)
+    dec = w.decoder()
+    sh = init_train_state(model, 2, *opts, device=cuda_device)
+    sd = init_train_state(model, 2, *opts, device=cuda_device)
+    step_h = make_train_step(model, *opts, jit=True)
+    raw_d = make_train_step(model, *opts, unique_bucket=bucket)
+    step_d = CapturedStep(lambda st, b: raw_d(st, dec(b)))
+    for _ in range(3):  # capture, then two replays
+        sh, lh = step_h(sh, to_device(host, cuda_device))
+        sd, ld = step_d(sd, arena)
+        for x, y in zip(lh, ld):
+            assert torch.equal(x, y)
+    assert step_d.captures == 1 and step_d.replays == 2
+    torch.cuda.synchronize()
+    for x, y in zip(_state_tensors(sh), _state_tensors(sd)):
+        assert torch.equal(x, y)

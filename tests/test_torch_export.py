@@ -259,7 +259,9 @@ def test_records2bin_matches_reference(tmp_path):
         for f in names:
             assert (tmp_path / a / f).read_bytes() == \
                 (tmp_path / b / f).read_bytes(), f
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # --data reads packed shards (tests/test_torch_formats.py converts
+    # shards against the reference's); a directory without shards raises
+    with pytest.raises(FileNotFoundError, match="part-"):
         records2bin.main(["--data", str(tmp_path), "--out",
                           str(tmp_path / "x")])
 

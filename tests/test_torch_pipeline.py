@@ -164,10 +164,17 @@ def test_pipeline_regrows_on_overflow():
 
 
 @pytest.mark.parametrize("kw", [
-    {"wire": object()}, {"host_prep": False}, {"superbatch": 2},
-    {"decode": False}, {"unstack": False}, {"pad_tail": True},
+    {"sharding": object(), "wire": object()},
+    {"sharding": object(), "host_prep": False},
+    {"sharding": object(), "superbatch": 2},
+    {"sharding": object(), "decode": False},
+    {"sharding": object(), "unstack": False},
+    {"sharding": object(), "pad_tail": True},
     {"sharding": object()},
 ])
 def test_unported_pipeline_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item"):
+    """Sharded staging is multi-GPU (ROADMAP.md section 1 item 9); the
+    wire, device prep and superbatch staging are ported
+    (tests/test_torch_wire.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 9"):
         SparseInputPipeline(iter([]), field_size=4, device=False, **kw)

@@ -7,7 +7,13 @@ JAX streamed step (``use_pallas=True``, Pallas in interpret mode) from
 the same state, carried across by ``convert.state_from_jax``.  Both
 steps run the expanded rows in float32, so the tolerances are those of
 ``tests/test_torch_step.py::test_step_matches_jax_f32``: losses rtol
-1e-5, every leaf rtol 1e-4 / atol 1e-8."""
+1e-5, every leaf rtol 1e-4 / atol 1e-8.  The input recipes (the wire,
+device prep, the fused step, ``input_recipe="auto"``) and online
+training from a Kafka stub broker are held to the reference the same
+way; the fused step to the per-batch path bit for bit."""
+
+import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+from mindrec_tpu.data import kafka_stub as jstub
+from mindrec_tpu.data import kafka_wire as jkw
 from mindrec_tpu.data import pipeline as jpipeline
+from mindrec_tpu.data import streaming as jstreaming
+from mindrec_tpu.data import wire as jwire
 from mindrec_tpu.models import multitable as jmt
 from mindrec_tpu.models import wide_deep as jwd
 from mindrec_tpu.ops.pallas import stream_update
@@ -23,12 +33,15 @@ from mindrec_tpu.train import optim as jopt
 from mindrec_tpu.train import rec_model as jrec
 from mindrec_tpu.train import step as jstep
 from mindrec_tpu_torch import RecModel, convert
+from mindrec_tpu_torch.data import (
+    kafka_stub, kafka_wire, preprocess, streaming, wire,
+)
 from mindrec_tpu_torch.data.outbrain import SyntheticOutbrain
 from mindrec_tpu_torch.data.pipeline import AdaptiveBucket
 from mindrec_tpu_torch.models import multitable, wide_deep
 from mindrec_tpu_torch.train import optim
 from mindrec_tpu_torch.train.callbacks import Callback
-from mindrec_tpu_torch.train.step import make_train_step
+from mindrec_tpu_torch.train.step import _state_tensors, make_train_step
 
 WD = dict(batch_size=32, field_size=4, vocab_size=50_000, emb_dim=8,
           deep_layer_dim=(16, 8), sparse=True, use_mixed_precision=False,
@@ -208,15 +221,222 @@ def test_online_train_errors_exhaustion_and_stop():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"wire": object()}, NotImplementedError),
-    ({"prep_placement": "device"}, NotImplementedError),
-    ({"input_recipe": "auto"}, NotImplementedError),
+    ({"wire": object(), "donate": False}, NotImplementedError),
+    ({"prep_placement": "device", "unique_bucket": 64, "donate": False},
+     NotImplementedError),
+    ({"input_recipe": "auto", "donate": False}, NotImplementedError),
     ({"prep_placement": "disk"}, ValueError),
     ({"input_recipe": "fast"}, ValueError),
     ({"donate": False}, NotImplementedError),
 ])
 def test_unported_options_raise(kw, exc):
+    """Only ``donate=False`` is still not ported; the wire, device prep
+    and the auto recipe are (they build, below), and raise with it."""
     _jm, _jo, tm, _to = _wd_setup()
     with pytest.raises(exc):
         RecModel(tm, device="cpu", **kw)
 
+
+def test_ported_input_options_build():
+    _jm, _jo, tm, _to = _wd_setup()
+    w = wire.BatchWire.for_sparse(50_000, 32, 4)
+    rm = RecModel(tm, device="cpu", wire=w, prep_placement="device",
+                  unique_bucket=64, input_recipe="auto")
+    assert rm.wire is w and rm.host_prep and rm.prep_placement == "device"
+    with pytest.raises(ValueError, match="unique_bucket"):
+        RecModel(tm, device="cpu", prep_placement="device")
+
+
+# ---------------------------------------------------------------------------
+# the input recipes: the wire, device prep, the fused step, "auto"
+# ---------------------------------------------------------------------------
+
+
+def _device_prep_pair(wire_kw=None):
+    """The port's and the reference's RecModel with device prep and the
+    wire from one state, both steps streamed in float32 (the reference's
+    Pallas kernels in interpret mode) at the bucket the audit grows."""
+    jm, jo, tm, to = _wd_setup()
+    js, ts = _carry(jm, jo)
+    wire_kw = wire_kw or {}
+    kw = dict(prep_workers=1, prep_placement="device", audit_every=1)
+    rm = RecModel(tm, opt_w=to[0], opt_d=to[1], device="cpu",
+                  unique_bucket=AdaptiveBucket(96, quantum=16, log=_quiet),
+                  wire=wire.BatchWire.for_sparse(50_000, 32, 4, **wire_kw),
+                  **kw)
+    rm._step_kw["matmul_dtype"] = torch.float32
+    rm.train_step = make_train_step(tm, *to, **rm._step_kw)
+    rm.state = ts
+    jrm = jrec.RecModel(jm, opt_w=jo[0], opt_d=jo[1],
+                        unique_bucket=jpipeline.AdaptiveBucket(
+                            96, quantum=16, log=_quiet),
+                        wire=jwire.BatchWire.for_sparse(50_000, 32, 4,
+                                                        **wire_kw), **kw)
+    jrm._step_kw.update(use_pallas=True, row_layout=True, donate=False,
+                        matmul_dtype=jnp.float32)
+    jrm.train_step = jstep.make_train_step(jm, *jo, **jrm._step_kw)
+    jrm.state = js
+    return rm, jrm
+
+
+@pytest.mark.parametrize("lossy_wts", [True, False])
+def test_device_prep_wire_matches_jax(lossy_wts):
+    """prep_placement="device" with the wire: raw batches encoded on the
+    host, decoded, sorted in the step; the audit regrows the bucket (one
+    step rebuild) as the reference's does."""
+    rm, jrm = _device_prep_pair({"lossy_wts": lossy_wts})
+    data = _wd_batches()
+    rec, jrec_ = _Record(), _Record()
+    state = rm.train(1, data, callbacks=[rec], dataset_sink_mode=True)
+    jrm.train(1, data, callbacks=[jrec_], dataset_sink_mode=True)
+    assert int(state.step) == 6
+    assert rm.bucket_policy.bucket == jrm.bucket_policy.bucket == 160
+    np.testing.assert_allclose(rec.losses, jrec_.losses, rtol=1e-5)
+    _compare(jrm.state, state)
+
+
+def test_fused_step_equals_per_batch_device_prep():
+    """The fused superbatch step (forced: k = 3 over 7 batches, a padded
+    tail of 1) trains bit for bit as the per-batch device-prep path."""
+    _jm, _jo, tm, to = _wd_setup()
+    data = _wd_batches() + _wd_batches()[:1]
+
+    def run(fused):
+        rm = RecModel(tm, opt_w=to[0], opt_d=to[1], device="cpu", seed=3,
+                      unique_bucket=AdaptiveBucket(2048, log=_quiet),
+                      prep_placement="device",
+                      wire=wire.BatchWire.for_sparse(50_000, 32, 4))
+        if fused:
+            rm._superbatch = 3
+            rm._build_fused(rm.bucket_policy.bucket)
+        rec = _Record()
+        rm.train(1, [dict(b) for b in data], callbacks=[rec],
+                 dataset_sink_mode=True)
+        return rm, rec.losses
+
+    plain, lp = run(False)
+    fused, lf = run(True)
+    assert fused._fused is not None and plain._fused is None
+    assert int(plain.state.step) == int(fused.state.step) == 7
+    assert lp == lf
+    for a, b in zip(_state_tensors(plain.state), _state_tensors(fused.state)):
+        assert torch.equal(a, b)
+
+
+def test_auto_recipe_is_a_no_op_on_the_cpu():
+    _jm, _jo, tm, to = _wd_setup()
+    rm = RecModel(tm, opt_w=to[0], opt_d=to[1], device="cpu",
+                  unique_bucket=2048, input_recipe="auto")
+    state = rm.train(1, _wd_batches()[:5], dataset_sink_mode=True)
+    assert int(state.step) == 5
+    assert rm._fused is None and rm.wire is None and rm.link is None
+    assert rm.prep_placement == "host"
+
+
+@pytest.mark.parametrize("link", [(0.02, 20e9), (80.0, 60e6)])
+def test_resolve_recipe_decides_as_the_reference(monkeypatch, link):
+    """``_resolve_recipe`` with the link measurement replaced: a PCIe-like
+    link keeps host prep; the tunnel's 80 ms per put and 60 MB/s choose
+    device prep, the wire and k = 16 (the reference's tunnel figures),
+    as the reference decides."""
+    cfg = dict(WD, batch_size=16_000, field_size=39, vocab_size=100_000)
+    tm = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(**cfg))
+    jm = jwd.WideDeepModel(jwd.WideDeepConfig(**cfg))
+    monkeypatch.setattr(wire, "measure_link", lambda *a, **k: link)
+    monkeypatch.setattr(jwire, "measure_link", lambda *a, **k: link)
+    monkeypatch.setattr(jrec.jax, "default_backend", lambda: "tpu")
+    rm = RecModel(tm, device="cpu", unique_bucket=150_000,
+                  input_recipe="auto")
+    rm.device = torch.device("cuda")  # decide as on the card
+    rm._resolve_recipe()
+    jrm = jrec.RecModel(jm, unique_bucket=150_000, input_recipe="auto")
+    jrm._resolve_recipe()
+    assert rm.prep_placement == jrm.prep_placement
+    assert rm._superbatch == getattr(jrm, "_superbatch", 1)
+    assert (rm._fused is None) == (jrm._fused is None)
+    assert (rm.wire is None) == (jrm.wire is None)
+    if link[0] > 1:
+        assert rm.prep_placement == "device" and rm._superbatch == 16
+        probe = {"ids": np.zeros((16_000, 39), np.int32),
+                 "wts": np.zeros((16_000, 39), np.float32),
+                 "label": np.zeros((16_000, 1), np.float32)}
+        assert rm.wire.wire_bytes(probe) == jrm.wire.wire_bytes(probe)
+    else:
+        assert rm.prep_placement == "host" and rm.link == link
+
+
+def _kafka_rows(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return ["\t".join([str(int(rng.uniform() > 0.7))]
+                      + [str(int(rng.integers(0, 50))) for _ in range(13)]
+                      + [f"v{int(rng.integers(0, 4))}" for _ in range(26)])
+            for _ in range(n)]
+
+
+def _kafka_chain(stub_mod, kw_mod, smod, stats, rows):
+    """Produce ``rows`` over 2 partitions (16 rows per JSON message, as
+    examples/kafka_producer.py) into a fresh stub; read them back through
+    KafkaSource -> CriteoFeatureEngineer -> Channel -> StreamingDataset."""
+    broker = stub_mod.StubKafkaBroker()
+    bootstrap = broker.start()
+    try:
+        smod.create_topic("criteo", 2, bootstrap_servers=bootstrap)
+        for part in range(2):
+            prod = kw_mod.MiniKafkaProducer(
+                bootstrap, value_serializer=lambda v: json.dumps(v).encode())
+            mine = [r.split("\t") for i, r in enumerate(rows) if i % 2 == part]
+            for i in range(0, len(mine), 16):
+                prod.send("criteo", value=mine[i:i + 16], partition=part)
+            prod.close()
+        src = smod.KafkaSource("criteo", [0, 1], bootstrap_servers=bootstrap,
+                               count=2, idle_timeout_ms=300,
+                               auto_offset_reset="earliest")
+        fe = smod.CriteoFeatureEngineer(stats)
+        ch = smod.Channel(num_shards=1)
+        feeder = smod.feed_channel_from_iterator(
+            (fe([r for m in msgs for r in json.loads(m)]) for msgs in src), ch)
+        return broker, feeder, smod.StreamingDataset(ch.receiver(0))
+    except BaseException:
+        broker.stop()
+        raise
+
+
+def test_kafka_online_train_matches_jax(tmp_path, monkeypatch):
+    """stub broker -> KafkaSource -> CriteoFeatureEngineer -> Channel ->
+    StreamingDataset -> online_train, the port's chain against the
+    reference's, from one state: the same losses and state."""
+    monkeypatch.setitem(sys.modules, "kafka", None)
+    monkeypatch.setitem(sys.modules, "kafka.admin", None)
+    rows = _kafka_rows(64) * 3  # every cat value clears the count > 6
+    tsv = tmp_path / "day0.tsv"
+    tsv.write_text("\n".join(rows) + "\n")
+    stats = preprocess.collect_stats([str(tsv)], workers=1)
+    cfg = dict(batch_size=32, field_size=39, vocab_size=stats.vocab_size,
+               emb_dim=4, deep_layer_dim=(8,), sparse=True,
+               use_mixed_precision=False, loss_scale=1.0)
+    jm = jwd.WideDeepModel(jwd.WideDeepConfig(**cfg))
+    tm = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(**cfg))
+    jo = (jopt.ftrl(), jopt.lazy_adam())
+    to = (optim.ftrl(), optim.lazy_adam())
+    js, ts = _carry(jm, jo)
+    rm = _rec_model(tm, to, ts)
+    jrm = jrec.RecModel(jm, opt_w=jo[0], opt_d=jo[1])
+    jrm.train_step = jstep.make_train_step(
+        jm, *jo, jit=True, donate=False, use_pallas=True, row_layout=True,
+        matmul_dtype=jnp.float32)
+    jrm.state = js
+    losses = []
+    for mods, model in (((kafka_stub, kafka_wire, streaming), rm),
+                        ((jstub, jkw, jstreaming), jrm)):
+        broker, feeder, ds = _kafka_chain(*mods, stats, rows)
+        try:
+            rec = _Record()
+            model.online_train(ds, callbacks=[rec])
+            feeder.join(timeout=30)
+            assert not feeder.is_alive()
+        finally:
+            broker.stop()
+        losses.append(rec.losses)
+    assert len(losses[0]) == len(losses[1]) == 6
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    _compare(jrm.state, rm.state)
