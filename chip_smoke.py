@@ -224,7 +224,34 @@ Phases (any failure exits non-zero):
     recipe (batch 1,000, emb 16, 1024-512-256-128, FTRL + LazyAdam,
     captured) with a ``CheckpointCallback`` every 10 steps keeping 2:
     steps, samples/s, the vocabulary, freshness (send to the mtime of
-    the first checkpoint covering a batch: median, worst), restore ms.
+    the first checkpoint covering a batch: median, worst), restore ms;
+23. PS mode (``ops/remote.py``, the port's table server built by g++,
+    every server on a free port with its own spill directory, shut down
+    at the end and killed after 10 s; a dead server fails the run):
+    ``[ps-cache]`` phase 15's ``[cache-wd]`` and ``[cache-evict]`` pairs
+    with every tier a ``RemoteTier`` on 2 servers (serial == pipelined
+    bit for bit; with evictions every evicted row read back from the
+    servers equals the arena's row before the swap), each part's ms
+    beside phase 15's host tiers;
+24. ``[ps-host]``: the W&D bench recipe with ``parameter_server=True``
+    (``train/host_target.py``: the tables never on the card) over its 8
+    batches, on host tiers and on 2 servers from the same seeded rows:
+    losses, rows and dense parameters equal bit for bit; ``segsum_sorted``
+    at its [624000, 17] shape against its plain version; 1 launch a step;
+25. ``[ps-tb]``: the TB-scale point (BASELINE.md:14,
+    examples/train_terabyte.py): virtual vocab 900M x emb 240 behind a
+    4.6M-row cache (feature-major, FTRL + LazyAdam, 1024-512-256-128),
+    batch 16,000 x 39 zipf(1.1) ids, tiers on 2 servers at 512 MB of RAM
+    per table (cut from 10 GB so that they spill within 8 steps):
+    gather_rows, segsum_sorted, adam_cols and ftrl_cols at this width on
+    batch 0 against their plain versions, then 2 warm-up and 6 timed
+    serial steps, the servers' RAM and SSD rows, loopback rows and MB/s,
+    and after ``flush_all`` the rows of 10,000 resident ids read back
+    equal to the arena's;
+26. ``[ps-dyn]``: phase 16's recipe over the distributed hash store on 2
+    servers, 20 steps, eviction after 8 idle steps every 5 (so that 20
+    steps evict), the admitted and evicted key sets equal to a local
+    ``NativeHashStore`` fed the same keys at every eviction.
 
 Every kernel and every library call is timed by replaying a CUDA graph
 of 10 calls (device time, no host work between the launches); the plain
@@ -277,7 +304,9 @@ from mindrec_tpu_torch.models.multitable import (
     MULTI_FIELDS, MultiTableConfig, MultiTableWideDeepModel,
 )
 from mindrec_tpu_torch.models.wide_deep import WideDeepConfig, WideDeepModel
-from mindrec_tpu_torch.ops import kernels, prng
+from mindrec_tpu_torch.native.hashstore import HashStore
+from mindrec_tpu_torch.ops import kernels, prng, remote
+from mindrec_tpu_torch.ops.cache import LruCache
 from mindrec_tpu_torch.ops.embedding import read_rows
 from mindrec_tpu_torch.ops.kernels import _build
 from mindrec_tpu_torch.ops.kernels.fused import (
@@ -310,6 +339,9 @@ from mindrec_tpu_torch.train.callbacks import (
     RunContext, TimeMonitor,
 )
 from mindrec_tpu_torch.train.dynamic import DynamicEmbeddingAdapter
+from mindrec_tpu_torch.train.host_target import (
+    HostTargetAdapter, init_dense_state, sort_ids,
+)
 from mindrec_tpu_torch.train.metrics import roc_auc
 from mindrec_tpu_torch.utils.profiling import (
     profile, sparse_step_floor, step_annotation,
@@ -2823,6 +2855,15 @@ def tier_rows(adapter, ids) -> dict:
             for t, tier in tiers.items()}
 
 
+def tier_rows_stored(tier) -> tuple[int, int]:
+    """(RAM rows, SSD rows) a tier holds: a host tier's own, a remote
+    tier's summed over its servers' ``STATS``."""
+    if isinstance(tier, remote.RemoteTier):
+        st = tier.stats()
+        return sum(r for r, _ in st), sum(d for _, d in st)
+    return tier.ram_rows_touched, tier.ssd_rows_used
+
+
 def arena_mb(model, state) -> float:
     """MB of the tables and their optimizer state on the card."""
     n = 0
@@ -2834,11 +2875,29 @@ def arena_mb(model, state) -> float:
     return n / 1e6
 
 
+def evicted_rows(model, state, prep) -> dict:
+    """The arena's rows (table and optimizer state) at this batch's evict
+    slots, read before its swap: ``{(table, tier): [n, D]}``."""
+    slots = prep["evict_slots"][: prep["evict_ids"].size]
+    out = {}
+    for name, (path, spec) in model.table_specs.items():
+        key = "/".join(path)
+        st = (state.opt_w if key in state.opt_w else state.opt_d)[key]
+        leaves = {"param": state.params[path[0]][path[1]],
+                  **{t: x for t, x in st.items() if x.dim() == 2}}
+        for t, leaf in leaves.items():
+            out[name, t] = read_rows(spec, leaf, slots).float().cpu().numpy()
+    return out
+
+
 def cache_serial(tag, model, opts, state, batches, adapter, uniques,
-                 warmup) -> tuple:
+                 warmup, check_evicted=False) -> tuple:
     """The serial protocol (``cached_train_step``'s parts, timed each) over
     the captured step: ``warmup`` steps, then the rest timed with the
-    launch counters set to 0 just before and read just after."""
+    launch counters set to 0 just before and read just after.
+    ``check_evicted``: every timed step's evicted rows, read back from the
+    tiers after ``writeback``, must equal the arena's rows before the swap
+    (the check's time is left out of every figure)."""
     step = make_train_step(model, *opts, jit=True)
     for b in batches[:warmup]:
         state, _ = cached_train_step(adapter, step, state, b)
@@ -2871,11 +2930,15 @@ def cache_serial(tag, model, opts, state, batches, adapter, uniques,
         for tier in tiers.values():
             tier.read = timed_read(tier.read)
     events, traffic, losses = [], [], []
+    checked, check_s = 0, 0.0
     t_start = time.perf_counter()
     for b, nu in zip(batches[warmup:], uniques[warmup:]):
         t0 = time.perf_counter()
         prep = adapter.prepare(b)
-        t1 = time.perf_counter()
+        t1 = tv = time.perf_counter()
+        if check_evicted:
+            before = evicted_rows(model, state, prep)
+            tv = time.perf_counter()
         e0 = torch.cuda.Event(enable_timing=True)
         e0.record()
         state = adapter.apply_swap(state, prep)
@@ -2886,13 +2949,21 @@ def cache_serial(tag, model, opts, state, batches, adapter, uniques,
         e1 = torch.cuda.Event(enable_timing=True)
         e1.record()
         t4 = time.perf_counter()
-        for k, (a, z) in zip(parts, ((t0, t1), (t1, t2), (t2, t3), (t3, t4))):
+        if check_evicted:
+            for (name, t), rows in before.items():
+                if not np.array_equal(adapter.tiers[name][t].read(
+                        prep["evict_ids"]), rows):
+                    fail(f"{tag}: evicted {name}/{t} rows read back from "
+                         f"the tiers differ from the arena's")
+            checked += prep["evict_ids"].size
+            check_s += (tv - t1) + (time.perf_counter() - t4)
+        for k, (a, z) in zip(parts, ((t0, t1), (tv, t2), (t2, t3), (t3, t4))):
             parts[k].append((z - a) * 1e3)
         events.append((e0, e1))
         losses.append(ld)
         traffic.append((prep["load_ids"].size, prep["evict_ids"].size, nu))
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t_start
+    dt = time.perf_counter() - t_start - check_s
     n = len(batches) - warmup
     loads, evicts, nus = (np.array(x, np.float64) for x in zip(*traffic))
     out = dict(
@@ -2910,6 +2981,8 @@ def cache_serial(tag, model, opts, state, batches, adapter, uniques,
         hit_rate_position=float(np.mean(1 - loads / (BATCH * FIELDS))),
         captures=captures + step.captures, launches=real_launches(step),
         last_loss=float(torch.stack(losses)[-1]))
+    if check_evicted:
+        out["evicted_rows_checked"] = checked
     if not torch.isfinite(torch.stack(losses)).all():
         fail(f"{tag}: non-finite losses")
     return state, out
@@ -2934,18 +3007,22 @@ def cache_async(model, opts, state, batches, adapter, warmup) -> tuple:
                        captures=step.captures)
 
 
-def cache_pair(tag, dev, cache_rows, batches, warmup, spill) -> dict:
+def cache_pair(tag, dev, cache_rows, batches, warmup, spill,
+               make_adapter=cache_adapter, check_evicted=False) -> dict:
     """Serial protocol and ``AsyncCachedTrainer`` from one state over the
     same batches: the final states and the tiers' touched rows must be
-    equal bit for bit, each run one capture, the dummy slot zero."""
+    equal bit for bit, each run one capture, the dummy slot zero.
+    ``make_adapter(model, spill, max_swap)`` builds each run's adapter
+    (host tiers by default)."""
     uniques = [np.unique(b["ids"]).size for b in batches]
     max_swap = max(uniques) + 8
     model, opts = cache_recipe(cache_rows)
     state0 = init_train_state(model, 0, *opts, device=dev)
-    ad_s = cache_adapter(model, spill, max_swap)
+    ad_s = make_adapter(model, spill, max_swap)
     s_state, serial = cache_serial(tag, model, opts, replace_state(state0),
-                                   batches, ad_s, uniques, warmup)
-    ad_a = cache_adapter(model, spill, max_swap)
+                                   batches, ad_s, uniques, warmup,
+                                   check_evicted)
+    ad_a = make_adapter(model, spill, max_swap)
     a_state, pipelined = cache_async(model, opts, state0, batches, ad_a, warmup)
     touched = np.unique(np.concatenate([b["ids"].ravel() for b in batches]))
     t0 = time.perf_counter()
@@ -2960,6 +3037,7 @@ def cache_pair(tag, dev, cache_rows, batches, warmup, spill) -> dict:
                                 [cache_rows]).abs().max())
                 for _n, (p, spec) in model.table_specs.items())
     tiers = [t for ad in (ad_s,) for ts in ad.tiers.values() for t in ts.values()]
+    ram_ssd = [tier_rows_stored(t) for t in tiers]
     out = dict(
         cache_rows=cache_rows, virtual_vocab=CACHE_VIRTUAL, max_swap=max_swap,
         warmup_steps=warmup, timed_steps=len(batches) - warmup,
@@ -2967,9 +3045,9 @@ def cache_pair(tag, dev, cache_rows, batches, warmup, spill) -> dict:
         pipelined_over_serial=pipelined["samples_per_s"] / serial["samples_per_s"],
         bit_identical_state=same_state, bit_identical_tiers=same_tiers,
         touched_ids=int(touched.size), flush_all_ms=flush_ms,
-        ssd_rows=sum(t.ssd_rows_used for t in tiers),
-        host_mb_touched=sum((t.ram_rows_touched + t.ssd_rows_used) * t.dim * 4
-                            for t in tiers) / 1e6,
+        ssd_rows=sum(x[1] for x in ram_ssd),
+        tier_mb_stored=sum((r + d) * t.dim * 4 for (r, d), t in
+                           zip(ram_ssd, tiers)) / 1e6,
         max_rss_mb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e3,
         arena_mb=arena_mb(model, s_state), dummy_max_abs=dummy)
     rec_log(tag, json.dumps(out))
@@ -3820,6 +3898,424 @@ def phase_online_kafka(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 23-26: PS mode (table servers, remote tiers under the cache, the
+# host-target regime, the distributed hash store, the TB-scale point)
+# ---------------------------------------------------------------------------
+
+PS_SERVERS = 2
+PS_HOST_WARMUP, PS_HOST_STEPS = 2, 6
+# BASELINE.md:14 and examples/train_terabyte.py: virtual vocab, width,
+# cache rows, MLP, id skew; the servers' RAM cap per table (cut from 10 GB)
+TB_VIRTUAL, TB_EMB, TB_CACHE_ROWS = 900_000_000, 240, 4_600_000
+TB_LAYERS, TB_ZIPF, TB_RAM_MB = (1024, 512, 256, 128), 1.1, 512
+TB_WARMUP, TB_STEPS, TB_CHECK_IDS = 2, 6, 10_000
+# [dyn-wd]'s recipe; eviction after 8 idle steps every 5 steps, so that
+# 20 steps evict (after 20 idle steps every 10, as [dyn-wd], none would)
+PS_DYN_STEPS, PS_DYN_EVICT, PS_DYN_EVERY = 20, 8, 5
+HOST_PER_STEP = {"segsum_sorted": 1}
+
+
+@contextlib.contextmanager
+def table_servers(n, root, ram_mb=None):
+    """``n`` of the port's table servers (built by g++ at first use) on
+    free ports, each spilling into its own directory under ``root``;
+    yields their addresses.  Each is shut down at the end, and killed if
+    it has not exited within 10 s; a server found dead fails the run."""
+    procs = []
+    try:
+        for _ in range(n):
+            procs.append(remote.launch_table_server(
+                ram_mb=ram_mb, spill_dir=tempfile.mkdtemp(dir=root)))
+        yield [p.addr for p in procs]
+        dead = [(p.addr, p.returncode) for p in procs if p.poll() is not None]
+        if dead:
+            fail(f"table servers died during the phase: {dead}")
+    finally:
+        for p in procs:
+            remote.stop_table_server(p.addr, p)
+
+
+SERIAL_PARTS = ("ms_per_step", "prepare_ms", "lru_lookup_ms",
+                "tier_reads_thread_ms", "swap_dispatch_ms",
+                "swap_plus_step_stream_ms", "writeback_ms", "step_dispatch_ms")
+
+
+def phase_ps_cache(dev, host_cache) -> dict:
+    """Phase 23, ``[ps-cache]``: ``[cache-wd]``'s and ``[cache-evict]``'s
+    pairs (serial protocol and ``AsyncCachedTrainer`` from one state, bit
+    for bit) with every tier a ``RemoteTier`` on 2 table servers (each
+    run its own 2, so both start from the servers' initial rows); with
+    evictions every evicted row, read back from the servers, equals the
+    arena's row before the swap.  Each part's ms beside ``[cache-wd]``'s
+    and ``[cache-evict]``'s host tiers from this run."""
+    root = tempfile.mkdtemp(prefix="mrec_ps_cache_")
+    try:
+        with contextlib.ExitStack() as stack:
+            def remote_adapter(model, _spill, max_swap):
+                addrs = stack.enter_context(table_servers(PS_SERVERS, root))
+                return CachedTrainingAdapter(
+                    model, virtual_vocab=CACHE_VIRTUAL,
+                    cache_rows=model.config.vocab_size, max_swap=max_swap,
+                    remote_addrs=addrs)
+
+            batches = cache_batches(CACHE_WARMUP + CACHE_STEPS)
+            out = {"wd": cache_pair("ps-cache", dev, CACHE_ROWS, batches,
+                                    CACHE_WARMUP, root, remote_adapter)}
+            torch.cuda.empty_cache()
+            out["evict"] = cache_pair(
+                "ps-cache-evict", dev, CACHE_EVICT_ROWS,
+                batches[:CACHE_EVICT_STEPS], 4, root, remote_adapter,
+                check_evicted=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not out["evict"]["serial"]["evicted_rows_checked"]:
+        fail("ps-cache-evict: no row was evicted")
+    for k in ("wd", "evict"):
+        rec_log(f"ps-cache-{k}-vs-host", json.dumps({
+            p: {"servers": out[k]["serial"][p], "host": host_cache[k]["serial"][p]}
+            for p in SERIAL_PARTS}))
+    return out
+
+
+def ps_host_run(tag, dev, model, opts, batches, bucket, union, rows0,
+                root, remote_addrs=None) -> dict:
+    """The host-target regime over ``batches`` (``PS_HOST_WARMUP``, then
+    the rest timed with the counters set to 0 just before and read just
+    after), its param tiers holding ``rows0`` for ``union`` first."""
+    ad = HostTargetAdapter(model, VOCAB, bucket, *opts, spill_dir=root,
+                           remote_addrs=remote_addrs)
+    for n, rows in rows0.items():
+        ad.tiers[n]["param"].write(union, rows)
+    state = init_dense_state(model, 0, *opts, device=dev)
+    tables = [k for k, _ in flatten_params(state.params) if "table" in k]
+    if tables:
+        fail(f"{tag}: the dense state holds tables {tables}")
+    io = {"read": [], "write": []}
+
+    def timed(kind, fn):
+        def run(*a):
+            t = time.perf_counter()
+            res = fn(*a)
+            io[kind].append((time.perf_counter() - t) * 1e3)
+            return res
+        return run
+
+    for tiers in ad.tiers.values():
+        for tier in tiers.values():
+            tier.read, tier.write = timed("read", tier.read), timed("write", tier.write)
+    losses = []
+    for b in batches[:PS_HOST_WARMUP]:
+        state, (_lw, ld) = ad.train_step(state, b)
+        losses.append(ld)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    io["read"].clear()
+    io["write"].clear()
+    t0 = time.perf_counter()
+    for b in batches[PS_HOST_WARMUP:]:
+        state, (_lw, ld) = ad.train_step(state, b)
+        losses.append(ld)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n = len(batches) - PS_HOST_WARMUP
+    rows = {(name, t): tier.read(union) for name, tiers in ad.tiers.items()
+            for t, tier in tiers.items()}
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.isfinite(losses).all():
+        fail(f"{tag}: non-finite losses {losses}")
+    for k, per in HOST_PER_STEP.items():
+        if launches[k] < per * n:
+            fail(f"{tag}: kernel {k} launched {launches[k]} times in {n} steps")
+    return dict(state=state, losses=losses, rows=rows, metrics=dict(
+        samples_per_s=n * BATCH / dt, ms_per_step=dt / n * 1e3,
+        tier_reads_thread_ms=float(np.sum(io["read"]) / n),
+        tier_writes_thread_ms=float(np.sum(io["write"]) / n),
+        warmup_steps=PS_HOST_WARMUP, timed_steps=n,
+        launches={k: launches[k] for k in HOST_PER_STEP},
+        last_loss=float(losses[-1])))
+
+
+def phase_ps_host(dev, data, bucket) -> dict:
+    """Phase 24, ``[ps-host]``: the W&D bench recipe with
+    ``parameter_server=True, vocab_cache_size=0`` (the host-target regime:
+    tables never on the card) over its 8 batches, once on host tiers and
+    once on 2 table servers, both tiers holding the same seeded rows of
+    the run's ids before step 0: losses, every tier's rows and the dense
+    parameters equal bit for bit.  ``segsum_sorted`` at this path's shape
+    (batch 0's [624000, 17] bf16 gradient through its ``perm``) against
+    its plain version and a float64 sum."""
+    wd_model, opts = wd_recipe()
+    model = WideDeepModel(dataclasses.replace(wd_model.config,
+                                              parameter_server=True))
+    batches = [data.get_batch(s) for s in range(len(data))]
+    union = np.unique(np.concatenate([b["ids"].ravel() for b in batches])
+                      ).astype(np.int64)
+    rng = np.random.default_rng(24)
+    rows0 = {n: rng.normal(0, 0.01, (union.size, spec.emb_dim)).astype(np.float32)
+             for n, (_p, spec) in model.table_specs.items()}
+    _uq, _uidx, perm, uidx_sorted = sort_ids(batches[0]["ids"].reshape(-1)
+                                             .astype(np.int64))
+    d = sum(spec.emb_dim for _p, spec in model.table_specs.values())
+    gen = torch.Generator(device=dev).manual_seed(24)
+    kern = check_sorted(dev, gen, ("ps-host", torch.from_numpy(uidx_sorted).to(dev),
+                                   torch.from_numpy(perm).to(dev), perm.size, d,
+                                   bucket))
+    root = tempfile.mkdtemp(prefix="mrec_ps_host_")
+    try:
+        host = ps_host_run("ps-host", dev, model, opts, batches, bucket, union,
+                           rows0, root)
+        with table_servers(PS_SERVERS, root) as addrs:
+            srv = ps_host_run("ps-host", dev, model, opts, batches, bucket,
+                              union, rows0, root, remote_addrs=addrs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same_losses = np.array_equal(host["losses"], srv["losses"])
+    same_rows = all(np.array_equal(host["rows"][k], srv["rows"][k])
+                    for k in host["rows"])
+    same_dense = all(torch.equal(x, y) for (_a, x), (_b, y) in zip(
+        flatten_params(host["state"].params), flatten_params(srv["state"].params)))
+    out = dict(host_tiers=host["metrics"], servers=srv["metrics"],
+               bucket=bucket, union_ids=int(union.size), segsum_sorted=kern,
+               bit_identical_losses=same_losses, bit_identical_rows=same_rows,
+               bit_identical_dense=same_dense,
+               launches=srv["metrics"]["launches"])
+    rec_log("ps-host", json.dumps(out))
+    if not (same_losses and same_rows and same_dense):
+        fail(f"ps-host: servers differ from host tiers (losses {same_losses}, "
+             f"rows {same_rows}, dense {same_dense})")
+    return out
+
+
+def tb_recipe():
+    """The TB-scale point's model (built with vocab = the cache's rows,
+    feature-major tables) and optimizers (examples/train_terabyte.py)."""
+    cfg = WideDeepConfig(
+        batch_size=BATCH, field_size=FIELDS, vocab_size=TB_CACHE_ROWS,
+        emb_dim=TB_EMB, deep_layer_dim=TB_LAYERS, sparse=True,
+        table_layout="feature_major")
+    return WideDeepModel(cfg), (optim.ftrl(loss_scale=cfg.loss_scale),
+                                optim.lazy_adam(loss_scale=cfg.loss_scale))
+
+
+def tb_batches(n, seed=25) -> list:
+    """zipf(1.1) ids over the 900M virtual vocab, weights uniform in
+    [0.5, 1.5) (examples/train_terabyte.py:92-100)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = (rng.zipf(TB_ZIPF, (BATCH, FIELDS)).astype(np.int64) - 1) % TB_VIRTUAL
+        out.append({"ids": ids,
+                    "wts": rng.uniform(0.5, 1.5, ids.shape).astype(np.float32),
+                    "label": rng.integers(0, 2, (BATCH, 1)).astype(np.float32)})
+    return out
+
+
+def tb_kernels(dev, model, batch0) -> dict:
+    """gather_rows, segsum_sorted, adam_cols and ftrl_cols at the TB
+    point's launch shapes on batch 0 (its slots from a fresh LRU, as the
+    adapter's first step gives them), each against its plain version."""
+    slots = LruCache(TB_CACHE_ROWS).lookup(batch0["ids"].reshape(-1))[0]
+    host = make_batch_sort(FIELDS, minimal=True)(
+        {"ids": slots.reshape(BATCH, FIELDS).astype(np.int32)})
+    gen = torch.Generator(device=dev).manual_seed(25)
+    cases = {c["name"]: c for c in table_launches(dev, model, host)}
+    deep, wide = cases["deep"], cases["wide"]
+    res = {f"gather_rows_{n}": check_gather_launch(dev, gen, "ps-tb", c, 0)
+           for n, c in cases.items()}
+    res["ftrl_cols"] = check_ftrl_launch(dev, gen, "ps-tb", wide, 0, plain=True)
+    res["adam_cols"] = check_adam_cols(
+        "ps-tb deep", dev, gen, deep["shape"], deep["fold"], deep["cols"],
+        deep["sub"], torch.float32, eps=1e-8, loss_scale=1024.0)
+    torch.cuda.empty_cache()
+    res["segsum_sorted"] = check_sorted(
+        dev, gen, ("ps-tb", torch.from_numpy(host["uidx_sorted"]).to(dev),
+                   torch.from_numpy(host["perm"]).to(dev), BATCH * FIELDS,
+                   deep["width"], deep["cols"].numel()))
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ps_tb(dev) -> dict:
+    """Phase 25, ``[ps-tb]``: the TB-scale capability point (BASELINE.md:14,
+    examples/train_terabyte.py): W&D, virtual vocab 900M x emb 240 behind
+    a 4.6M-row cache on the card (feature-major tables, FTRL + LazyAdam,
+    1024-512-256-128), batch 16,000 x 39 zipf(1.1) ids, its tiers on 2
+    table servers capped at 512 MB of RAM per table: first the four cache
+    kernels at this width on batch 0, then 2 warm-up and 6 timed serial
+    steps (counters set to 0 just before the timed ones), ``flush_all``,
+    and the rows of 10,000 resident ids read back from the servers equal
+    to the arena's in every tier."""
+    model, opts = tb_recipe()
+    batches = tb_batches(TB_WARMUP + TB_STEPS)
+    uniques = [np.unique(b["ids"]).size for b in batches]
+    kern = tb_kernels(dev, model, batches[0])
+    root = tempfile.mkdtemp(prefix="mrec_ps_tb_")
+    try:
+        with table_servers(PS_SERVERS, root, ram_mb=TB_RAM_MB) as addrs:
+            adapter = CachedTrainingAdapter(
+                model, virtual_vocab=TB_VIRTUAL, cache_rows=TB_CACHE_ROWS,
+                max_swap=max(uniques) + 8, remote_addrs=addrs)
+            state = init_train_state(model, 0, *opts, device=dev)
+            arena_gb = arena_mb(model, state) / 1e3
+            state, serial = cache_serial("ps-tb", model, opts, state, batches,
+                                         adapter, uniques, TB_WARMUP)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            adapter.flush_all(state)
+            flush_ms = (time.perf_counter() - t0) * 1e3
+            items = list(adapter._shadow.items())
+            pick = np.random.default_rng(25).choice(len(items), TB_CHECK_IDS,
+                                                    replace=False)
+            ids = np.array([items[i][0] for i in pick], np.int64)
+            slots = np.array([items[i][1] for i in pick], np.int64)
+            same = True
+            for name, (path, spec) in model.table_specs.items():
+                key = "/".join(path)
+                st = state.opt_w if key in state.opt_w else state.opt_d
+                for tname, tier in adapter.tiers[name].items():
+                    leaf = (state.params[path[0]][path[1]] if tname == "param"
+                            else st[key][tname])
+                    same &= np.array_equal(tier.read(ids), read_rows(
+                        spec, leaf, slots).float().cpu().numpy())
+            stats = {f"{n}.{t}": tier.stats() for n, tiers in adapter.tiers.items()
+                     for t, tier in tiers.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row_bytes = sum(t.dim * 4 for tiers in adapter.tiers.values()
+                    for t in tiers.values())
+    read_s = (serial["prepare_ms"] - serial["lru_lookup_ms"]) / 1e3
+    ssd = sum(s for _r, s in stats["deep.param"])
+    out = dict(
+        virtual_table_gb=TB_VIRTUAL * TB_EMB * 4 / 1e9, arena_gb=arena_gb,
+        cache_rows=TB_CACHE_ROWS, servers=PS_SERVERS, ram_mb_per_table=TB_RAM_MB,
+        distinct_ids_per_step=uniques, serial=serial, flush_all_ms=flush_ms,
+        loopback_rows_per_s=serial["loads_per_step"] / read_s,
+        loopback_mb_per_step=serial["loads_per_step"] * row_bytes / 1e6,
+        loopback_mb_per_s=serial["loads_per_step"] * row_bytes / 1e6 / read_s,
+        server_stats_ram_ssd=stats, flush_then_read_equals_card=bool(same),
+        ids_checked=TB_CHECK_IDS, kernels=kern,
+        reduced=(f"RAM cap {TB_RAM_MB} MB per table per server, not 10 GB, "
+                 f"so that the spill runs within {TB_WARMUP + TB_STEPS} "
+                 f"steps; {TB_WARMUP + TB_STEPS} steps, not an epoch"))
+    rec_log("ps-tb", json.dumps(out))
+    if not same:
+        fail("ps-tb: rows read back from the servers differ from the arena's")
+    if ssd <= 0 or arena_gb < 13.0:
+        fail(f"ps-tb: SSD rows {ssd}, arenas {arena_gb:.2f} GB")
+    return out
+
+
+def phase_ps_dyn(dev, dyn) -> dict:
+    """Phase 26, ``[ps-dyn]``: ``[dyn-wd]``'s recipe (``WideDeepConfig()``
+    dynamic, capacity 200,000, admission at 2, the same keys) with the
+    distributed hash store on 2 table servers, 20 steps through
+    ``RecModel.online_train`` with ``EvictionCallback`` every 5 steps
+    (eviction after 8 idle steps) and an incremental export; a local
+    ``NativeHashStore`` fed the same keys at the same points: equal
+    admitted and evicted key sets at every eviction and at the end."""
+    cfg = WideDeepConfig(dynamic_embedding=True, sparse=True)
+    model = WideDeepModel(cfg)
+    opts = (optim.ftrl(loss_scale=cfg.loss_scale),
+            optim.lazy_adam(loss_scale=cfg.loss_scale))
+    rm = RecModel(model, *opts, jit=True, device=dev)
+    rng = np.random.default_rng(21)
+    raw = [{"ids": hashed_keys(rng), "wts": np.ones((BATCH, FIELDS), np.float32),
+            "label": rng.integers(0, 2, (BATCH, 1)).astype(np.float32)}
+           for _ in range(PS_DYN_STEPS)]
+    local = HashStore(cfg.vocab_size, permit_threshold=2,
+                      evict_threshold=PS_DYN_EVICT)
+    root = Path(tempfile.mkdtemp(prefix="mrec_ps_dyn_"))
+    evictions, lookup_ms = [], []
+    try:
+        with table_servers(PS_SERVERS, root) as addrs:
+            adapter = DynamicEmbeddingAdapter(
+                cfg.vocab_size, permit_filter_value=2,
+                evict_filter_value=PS_DYN_EVICT, seed=0, remote_addrs=addrs)
+            store = adapter.store
+            store_evict = store.evict
+
+            def keys_of(s):
+                return set(s.items()[0].tolist())
+
+            def checked_evict():
+                kr, kl = keys_of(store), keys_of(local)
+                freed = store_evict()
+                local.evict()
+                ar, al = keys_of(store), keys_of(local)
+                if kr != kl or ar != al or kr - ar != kl - al:
+                    fail("ps-dyn: admitted or evicted keys differ from the "
+                         "local store's")
+                evictions.append(len(kr - ar))
+                return freed
+
+            store.evict = checked_evict
+
+            def stream():
+                for b in raw:
+                    local.lookup_or_insert(b["ids"].reshape(-1))
+                    t = time.perf_counter()
+                    out = adapter.transform_batch(b)
+                    lookup_ms.append((time.perf_counter() - t) * 1e3)
+                    yield out
+
+            ev = EvictionCallback(adapter, model.table_specs,
+                                  every_steps=PS_DYN_EVERY,
+                                  export_path=root / "incremental.npz")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            rm.train_step.reset_counts()
+            t0 = time.perf_counter()
+            rm.online_train(stream(), callbacks=[ev], dataset_sink_mode=False)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = real_launches(rm.train_step)
+            admitted = keys_of(store)
+            same_end = admitted == keys_of(local)
+            exported = int(np.load(root / "incremental.npz")["__keys__"].size)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = dict(
+        steps=PS_DYN_STEPS, samples_per_s=PS_DYN_STEPS * BATCH / dt,
+        ms_per_step=dt / PS_DYN_STEPS * 1e3,
+        dyn_wd_ms_per_step=dyn["ms_per_step"],
+        remote_lookup_ms=float(np.mean(lookup_ms)), admitted_keys=len(admitted),
+        evicted_keys_per_call=evictions, exported_keys=exported,
+        same_keys_as_local_store=bool(same_end), captures=rm.train_step.captures,
+        launches={k: launches[k] for k in WD_PER_STEP},
+        cut=f"evict after {PS_DYN_EVICT} idle steps every {PS_DYN_EVERY} "
+            f"steps ([dyn-wd]: 20 and 10), so that {PS_DYN_STEPS} steps evict")
+    rec_log("ps-dyn", json.dumps(out))
+    if not same_end or not sum(evictions):
+        fail(f"ps-dyn: final keys equal {same_end}, evictions {evictions}")
+    if rm.train_step.captures != 1:
+        fail(f"ps-dyn: {rm.train_step.captures} captures (expected 1)")
+    for k, per in WD_PER_STEP.items():
+        if launches[k] < per * PS_DYN_STEPS:
+            fail(f"ps-dyn: kernel {k} launched {launches[k]} times")
+    return out
+
+
+def phase_ps(dev, host_cache, dyn) -> dict:
+    """Phases 23-26: ``[ps-cache]``, ``[ps-host]``, ``[ps-tb]``,
+    ``[ps-dyn]`` (PS mode)."""
+    t0 = time.perf_counter()
+    path = remote.server_binary_path()
+    log(f"[ps-build] {path} in {time.perf_counter() - t0:.1f} s (g++)")
+    out = {"cache": phase_ps_cache(dev, host_cache)}
+    data, bucket, _host0 = wd_setup()
+    out["host"] = phase_ps_host(dev, data, bucket)
+    torch.cuda.empty_cache()
+    out["tb"] = phase_ps_tb(dev)
+    torch.cuda.empty_cache()
+    out["dyn"] = phase_ps_dyn(dev, dyn)
+    torch.cuda.empty_cache()
+    log(f"[ps-time] phases 23-26 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3890,10 +4386,15 @@ def main() -> int:
     files = phase_files(dev)
     ob = phase_outbrain_files(dev)
     online = phase_online_kafka(dev)
+    ps = phase_ps(dev, cache, dyn)
     by_path = {"cache": cache["wd"]["serial"]["launches"],
                "dynamic": dyn["launches"], "files": files["launches"],
                "online": online["launches_all"],
-               "outbrain-files": ob["launches"]}
+               "outbrain-files": ob["launches"],
+               "ps-cache": ps["cache"]["wd"]["serial"]["launches"],
+               "ps-host": ps["host"]["launches"],
+               "ps-tb": ps["tb"]["serial"]["launches"],
+               "ps-dyn": ps["dyn"]["launches"]}
 
     launches = {**main_path["launches"],
                 **{k: mt_path["launches"][k] for k in MT_PER_STEP

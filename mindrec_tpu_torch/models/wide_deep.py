@@ -71,21 +71,22 @@ class WideDeepModel:
 
     def __init__(self, config: WideDeepConfig):
         c = config
-        if c.parameter_server:
-            raise NotImplementedError(
-                "PS mode is not ported yet (ROADMAP.md section 1 item 8)")
         # the cache (vocab_cache_size) and dynamic-embedding regimes leave
         # the model as it is: train/cached.py and train/dynamic.py carry
-        # them (the model is built with vocab_size = cache rows / capacity)
+        # them (the model is built with vocab_size = cache rows / capacity).
+        # PS mode without the cache declares host tables, which
+        # train/host_target.py trains (the reference's CPU-target lookup)
+        target = ("host" if c.parameter_server and c.vocab_cache_size == 0
+                  else "device")
         self.config = c
         self.wide_spec = EmbeddingTableSpec(
             vocab_size=c.vocab_size, emb_dim=1, name="wide_embedding",
-            sparse=c.sparse, init_args=c.init_args, dtype=c.table_dtype,
-            layout=c.table_layout,
+            sparse=c.sparse, target=target, init_args=c.init_args,
+            dtype=c.table_dtype, layout=c.table_layout,
         )
         self.deep_spec = EmbeddingTableSpec(
             vocab_size=c.vocab_size, emb_dim=c.emb_dim, name="deep_embedding",
-            slice_mode=c.deep_table_slice_mode, sparse=c.sparse,
+            slice_mode=c.deep_table_slice_mode, sparse=c.sparse, target=target,
             init_args=c.init_args, dtype=c.table_dtype, layout=c.table_layout,
         )
         dims = [c.field_size * c.emb_dim, *c.deep_layer_dim, 1]
@@ -99,23 +100,21 @@ class WideDeepModel:
             "deep": (("deep", "table"), self.deep_spec),
         }
 
-    def init(self, generator: torch.Generator, device="cuda") -> dict:
-        """Random parameters (N(0, 0.01) MLP, tables per their spec)."""
+    def init(self, generator: torch.Generator, device="cuda",
+             tables: bool = True) -> dict:
+        """Random parameters (N(0, 0.01) MLP, tables per their spec);
+        ``tables=False`` leaves the tables out, never building them (the
+        host-target regime's dense state)."""
         def normal(*shape):
             return 0.01 * torch.randn(shape, generator=generator,
                                       dtype=torch.float32, device=device)
 
         mlp = [{"w": normal(i, o), "b": normal(o)} for i, o in self.mlp_dims]
-        return {
-            "wide": {
-                "table": self.wide_spec.init_table(generator, device),
-                "bias": normal(1),
-            },
-            "deep": {
-                "table": self.deep_spec.init_table(generator, device),
-                "mlp": mlp,
-            },
-        }
+        wide = {"table": self.wide_spec.init_table(generator, device)} if tables else {}
+        wide["bias"] = normal(1)
+        deep = {"table": self.deep_spec.init_table(generator, device)} if tables else {}
+        deep["mlp"] = mlp
+        return {"wide": wide, "deep": deep}
 
     def _mlp(self, mlp_params, x, train=False, rng=None):
         c = self.config

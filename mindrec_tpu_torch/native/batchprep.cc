@@ -1,7 +1,7 @@
 // Host-side batch prep: stable radix sort of (id, position) pairs +
 // unique extraction, the C++ core of make_batch_sort.
 //
-// A copy of mindrec_tpu/native/batchprep.cc (the port keeps its own, and
+// A copy of the JAX package's native/batchprep.cc (the port keeps its own, and
 // builds it with g++ at first use: native/batchprep.py).  The per-batch
 // prep the sparse train step needs (sort positions by id, inverse
 // permutation, padded unique ids, position->unique maps) is one C call

@@ -1,6 +1,6 @@
 """ctypes binding of the native host batch prep (``batchprep.cc``).
 
-Port of ``mindrec_tpu/native/batchprep.py``.  The library is built from
+Port of the JAX package's ``native/batchprep.py``.  The library is built from
 this directory's ``batchprep.cc`` by ``g++`` at first use (never at
 import) into ``mindrec_tpu_torch/_build/batchprep-<hash>/`` (listed in
 ``.gitignore``), where the hash covers the source and the flags, so a

@@ -1,6 +1,8 @@
-"""Build a native host library of the port with g++ at first use.
+"""Build a native host library or program of the port with g++ at first
+use.
 
-Every C++ library under ``mindrec_tpu_torch/native`` is compiled into
+Every C++ library under ``mindrec_tpu_torch/native`` (and the table
+server, a program) is compiled into
 ``mindrec_tpu_torch/_build/<stem>-<hash>/`` (listed in ``.gitignore``),
 where the hash covers the sources and the flags: a changed source
 rebuilds, an unchanged one is reused.  A failed build raises with the
@@ -19,6 +21,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 BUILD_ROOT = HERE.parent / "_build"
 SHARED_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+PROGRAM_FLAGS = ("-O3", "-std=c++17", "-pthread")
 
 
 def build_dir(stem: str, srcs, flags=SHARED_FLAGS, root=None) -> Path:
@@ -51,3 +54,10 @@ def build_library(stem: str, src: Path, lib_name: str, headers=(),
                            f"(rc {r.returncode}):\n{r.stdout}")
     os.replace(tmp, lib)  # atomic: concurrent builds each land whole
     return lib
+
+
+def build_program(stem: str, src: Path, name: str, headers=(),
+                  root=None) -> Path:
+    """:func:`build_library` for an executable (no ``-shared``, with
+    ``-pthread``); returns the program's path."""
+    return build_library(stem, src, name, headers, PROGRAM_FLAGS, root)

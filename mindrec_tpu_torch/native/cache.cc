@@ -1,6 +1,6 @@
 // Device-cache manager for the hierarchical embedding cache.
 //
-// A copy of mindrec_tpu/native/cache.cc (the port keeps its own and
+// A copy of the JAX package's native/cache.cc (the port keeps its own and
 // builds it with g++ at first use: ops/cache.py).  The host-side
 // equivalent of the reference's engine-side embedding cache
 // (control surface: vocab_cache_size in nn.EmbeddingLookup /

@@ -2,7 +2,7 @@
 // MapParameter-equivalent (see hashstore.py for semantics; reference
 // control surface: mindspore_rec/ops/embedding.py:136-149).
 //
-// A copy of mindrec_tpu/native/hashstore.cc (the port keeps its own and
+// A copy of the JAX package's native/hashstore.cc (the port keeps its own and
 // builds it with g++ at first use: native/hashstore.py).
 //
 // Open-addressing (linear probing, power-of-two buckets) int64-key table

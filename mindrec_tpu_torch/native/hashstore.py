@@ -1,6 +1,6 @@
 """Host-side hash embedding store (the reference's ``MapParameter``).
 
-Port of ``mindrec_tpu/native/hashstore.py``: maps arbitrary int64
+Port of the JAX package's ``native/hashstore.py``: maps arbitrary int64
 feature keys to dense slots of a fixed-capacity arena, with admission
 and eviction:
 

@@ -1,6 +1,6 @@
 // Host-side hash embedding store implementation, included by
-// hashstore.cc (ctypes C ABI).  A copy of mindrec_tpu/native/
-// hashstore_impl.h.  See hashstore.cc header for semantics.
+// hashstore.cc (ctypes C ABI) and table_server.cc (the distributed store
+// of PS mode).  A copy of the JAX package's native/hashstore_impl.h.  See hashstore.cc header for semantics.
 //
 // One change: the bucket table grows.  It holds every key seen, pending
 // ones included, and the reference sizes it once at 2 x capacity: a

@@ -15,6 +15,9 @@ spill):
 * the swap itself is two device index ops, in place: gather the
   evicted rows out, then scatter the loaded rows in.
 
+With ``remote_addrs`` the tiers live in table-server processes instead
+(``ops/remote.py``: PS mode).
+
 There is no silent fallback: :func:`LruCache` builds the native LRU or
 raises; the Python LRU (the plain version) is reached only by asking
 for it (``prefer_native=False``).  Each :class:`HostTier` keeps one
@@ -26,6 +29,7 @@ that materialises rows hands out the same first vectors again).
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from collections import OrderedDict
 from pathlib import Path
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from mindrec_tpu_torch.native import build as native_build
+from mindrec_tpu_torch.ops.remote import RemoteTier
 
 SRC = Path(__file__).resolve().parents[1] / "native" / "cache.cc"
 LIB_NAME = "libmindrec_cache.so"
@@ -267,6 +272,26 @@ class HostTier:
             self._ssd.flush()
 
 
+def make_tier(name: str, dim: int, vocab_size: int, init_std: float = 0.01,
+              init_bias: float = 0.0, *, remote_addrs=None,
+              ram_bytes: int | None = None, spill_dir: str | None = None,
+              seed: int = 0):
+    """One tier of a table: a :class:`RemoteTier` named ``name`` on the
+    ``remote_addrs`` servers, else a :class:`HostTier`.  Unseen rows are
+    ``init_bias + init_std * N(0, 1)``: the servers' per-id draw, or the
+    host tier's generator (``init_std`` must then be 0 or 0.01)."""
+    if remote_addrs:
+        return RemoteTier(remote_addrs, name, dim, init_std=init_std,
+                          seed=seed, init_bias=init_bias)
+    if init_std not in (0.0, 0.01):
+        raise ValueError(f"a host tier draws N(0, 0.01) or a constant, not "
+                         f"std {init_std}")
+    init = None if init_std else (
+        lambda n: np.full((n, dim), init_bias, np.float32))
+    return HostTier(vocab_size, dim, ram_bytes, spill_dir, init_fn=init,
+                    seed=seed)
+
+
 def cache_swap(arena: torch.Tensor, evict_slots: torch.Tensor,
                load_slots: torch.Tensor, load_rows: torch.Tensor):
     """In-place device swap of a row-major arena: -> (arena, evicted).
@@ -280,38 +305,33 @@ def cache_swap(arena: torch.Tensor, evict_slots: torch.Tensor,
     return arena, evicted
 
 
-def _no_remote():
-    return NotImplementedError(
-        "remote tiers (remote_addrs=) belong to PS mode, which is not "
-        "ported yet (ROADMAP.md section 1 item 8)")
-
-
 class CachedEmbeddingTable:
     """Glue object: ties an LRU manager to host tiers for one table.
 
     ``state_names`` adds row-aligned companion tiers (e.g. m, v) that
     swap together with the parameter rows.  The arena has one extra
-    scratch row (index ``cache_rows``) absorbing pad slots."""
+    scratch row (index ``cache_rows``) absorbing pad slots.
+    ``remote_addrs`` ("host:port" table servers) puts every tier on the
+    servers (:class:`~mindrec_tpu_torch.ops.remote.RemoteTier`: the param
+    tier ``table_name`` with the servers' N(0, 0.01) init, each state
+    tier ``table_name.<state>`` zero; the RAM cap and spill are the
+    servers'); ``ram_bytes`` and ``spill_dir`` then go unused."""
 
     def __init__(self, vocab_size: int, dim: int, cache_rows: int,
                  max_swap: int, ram_bytes: int | None = None,
                  spill_dir: str | None = None, state_names=(), seed: int = 0,
                  remote_addrs=None, table_name: str = "emb"):
-        if remote_addrs:
-            raise _no_remote()
-        del table_name  # names a remote table
         self.vocab_size = vocab_size
         self.dim = dim
         self.cache_rows = cache_rows
         self.max_swap = max_swap
         self.lru = LruCache(cache_rows)
-        self.param_tier = HostTier(vocab_size, dim, ram_bytes, spill_dir,
-                                   seed=seed)
-        self.state_tiers = {
-            name: HostTier(vocab_size, dim, ram_bytes, spill_dir,
-                           init_fn=lambda n, d=dim: np.zeros((n, d), np.float32))
-            for name in state_names
-        }
+        tier = functools.partial(make_tier, dim=dim, vocab_size=vocab_size,
+                                 remote_addrs=remote_addrs, ram_bytes=ram_bytes,
+                                 spill_dir=spill_dir, seed=seed)
+        self.param_tier = tier(table_name)
+        self.state_tiers = {name: tier(f"{table_name}.{name}", init_std=0.0)
+                            for name in state_names}
         self.dummy_slot = cache_rows
         # id -> slot mirror of the LRU's resident set (the native LRU has
         # no iteration API); flush_all walks it

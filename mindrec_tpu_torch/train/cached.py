@@ -19,9 +19,13 @@ dirty rows flow back out with their optimizer state.
 * the evicted rows go to a pinned host buffer by ``non_blocking``
   copies on the current stream, followed by an event;
   :meth:`~CachedTrainingAdapter.writeback` waits for that event alone
-  (never the whole device) and writes the rows to per-table host tiers:
+  (never the whole device) and writes the rows to per-table tiers:
   param rows with N(0, 0.01) lazy init, FTRL ``accum`` with its 1.0
-  init, everything else zero.
+  init, everything else zero.  The tiers are host tiers (RAM cap + SSD
+  spill) or, with ``remote_addrs``, table servers (``ops/remote.py``:
+  PS mode), the tiers named ``<table>`` and ``<table>.<state>`` as the
+  reference names them, so either package's worker reads the other's
+  rows.
 
 Per-step protocol (:func:`cached_train_step`)::
 
@@ -33,12 +37,15 @@ Per-step protocol (:func:`cached_train_step`)::
 
 :class:`AsyncCachedTrainer` runs the host chain (``writeback(b)`` then
 ``prepare(b + 1)``) on a worker thread in the same order, so it is bit
-for bit the serial protocol.  Remote tiers (``remote_addrs``) are PS
-mode and raise (``ROADMAP.md`` section 1 item 8).
+for bit the serial protocol.  Every tier read and write runs on the
+thread that calls ``prepare`` or ``writeback`` (or on the io pool while
+``prepare`` waits, one task per tier), so no tier's socket is used from
+two threads at once.
 """
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -47,7 +54,7 @@ import numpy as np
 import torch
 
 from mindrec_tpu_torch.data.criteo import STAGING_LOCK, to_device
-from mindrec_tpu_torch.ops.cache import HostTier, LruCache, _no_remote
+from mindrec_tpu_torch.ops.cache import LruCache, make_tier
 from mindrec_tpu_torch.ops.embedding import read_rows, write_rows
 from mindrec_tpu_torch.train.step import _get, is_wide_key
 
@@ -73,8 +80,10 @@ class CachedTrainingAdapter:
     the full vocab; ``cache_rows``: rows resident on the card per table
     (the reference's ``vocab_cache_size``); ``max_swap``: the per-step
     swap budget; ``ram_bytes`` / ``spill_dir``: the :class:`HostTier`
-    knobs; ``io_workers``: threads for the per-tier reads of
-    :meth:`prepare` (default one per tier)."""
+    knobs; ``remote_addrs``: "host:port" table servers holding the tiers
+    instead (``RemoteTier``, which ignores the two knobs);
+    ``io_workers``: threads for the per-tier reads of :meth:`prepare`
+    (default one per tier)."""
 
     FTRL_ACCUM_INIT = 1.0
 
@@ -82,8 +91,6 @@ class CachedTrainingAdapter:
                  max_swap: int, ram_bytes: int | None = None,
                  spill_dir: str | None = None, remote_addrs=None,
                  seed: int = 0, io_workers: int | None = None):
-        if remote_addrs:
-            raise _no_remote()
         self.model = model
         self.cache_rows = cache_rows
         self.max_swap = max_swap
@@ -94,14 +101,14 @@ class CachedTrainingAdapter:
         for name, (path, spec) in model.table_specs.items():
             states = ("accum", "linear") if is_wide_key("/".join(path)) else ("m", "v")
             self.tables[name] = (path, spec)
-            tiers = {"param": HostTier(virtual_vocab, spec.emb_dim, ram_bytes,
-                                       spill_dir, seed=seed)}
+            tier = functools.partial(
+                make_tier, dim=spec.emb_dim, vocab_size=virtual_vocab,
+                remote_addrs=remote_addrs, ram_bytes=ram_bytes,
+                spill_dir=spill_dir, seed=seed)
+            tiers = {"param": tier(name)}
             for s in states:
-                bias = self.FTRL_ACCUM_INIT if s == "accum" else 0.0
-                tiers[s] = HostTier(
-                    virtual_vocab, spec.emb_dim, ram_bytes, spill_dir,
-                    init_fn=lambda n, b=bias, d=spec.emb_dim: np.full(
-                        (n, d), b, np.float32))
+                tiers[s] = tier(f"{name}.{s}", init_std=0.0, init_bias=(
+                    self.FTRL_ACCUM_INIT if s == "accum" else 0.0))
             self.tiers[name] = tiers
         n_tiers = sum(len(t) for t in self.tiers.values())
         self._io = ThreadPoolExecutor(max_workers=io_workers or max(n_tiers, 1),
@@ -221,7 +228,9 @@ class CachedTrainingAdapter:
     # -- checkpoint ----------------------------------------------------
 
     def flush_all(self, state) -> None:
-        """Write every resident row (params + optimizer state) to the tiers."""
+        """Write every resident row (params + optimizer state) to the tiers:
+        a table's tiers are read from the device here, then written side by
+        side on the io pool (one task per tier)."""
         if not self._shadow:
             return
         ids = np.fromiter(self._shadow.keys(), np.int64)
@@ -229,10 +238,14 @@ class CachedTrainingAdapter:
         for name, (path, spec) in self.tables.items():
             key = "/".join(map(str, path))
             opt_state = state.opt_w if key in state.opt_w else state.opt_d
+            futs = []
             for tname, tier in self.tiers[name].items():
                 leaf = (_get(state.params, path) if tname == "param"
                         else opt_state[key][tname])
-                tier.write(ids, read_rows(spec, leaf, slots).float().cpu().numpy())
+                rows = read_rows(spec, leaf, slots).float().cpu().numpy()
+                futs.append(self._io.submit(tier.write, ids, rows))
+            for f in futs:
+                f.result()
         for tiers in self.tiers.values():
             for t in tiers.values():
                 t.flush()

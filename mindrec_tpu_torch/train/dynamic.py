@@ -21,8 +21,9 @@ training loop, as the reference's dynamic-embedding mode (W&D with
   :meth:`~DynamicEmbeddingAdapter.import_tables` give the incremental
   (key-wise) checkpoint of live features.
 
-The distributed hash store (``remote_addrs``) is PS mode and raises
-(``ROADMAP.md`` section 1 item 8).
+With ``remote_addrs`` the map is the distributed hash store
+(:class:`~mindrec_tpu_torch.ops.remote.RemoteHashStore`, PS mode): one
+mapping sharded over table servers, shared by every worker.
 """
 
 from __future__ import annotations
@@ -31,28 +32,34 @@ import numpy as np
 
 from mindrec_tpu_torch.native.hashstore import HashStore
 from mindrec_tpu_torch.ops.embedding import read_rows, write_rows
+from mindrec_tpu_torch.ops.remote import RemoteHashStore
 from mindrec_tpu_torch.train.step import _get
 
 
 class DynamicEmbeddingAdapter:
     """One instance serves all tables that share the id space (the
     Criteo models' wide and deep tables share ids).  ``store`` injects
-    any object with the hash store's methods."""
+    any object with the hash store's methods; ``remote_addrs``
+    ("host:port" table servers) makes it the distributed store named
+    ``table_name`` on them."""
 
     def __init__(self, capacity: int, permit_filter_value: int = 1,
                  evict_filter_value: int = 0x7FFFFFFF, seed: int = 0,
                  store=None, remote_addrs=None, table_name: str = "dyn"):
         if permit_filter_value < 1 or evict_filter_value < 1:
             raise ValueError("filter thresholds must be >= 1")
-        if remote_addrs and store is None:
-            raise NotImplementedError(
-                "the distributed hash store (remote_addrs=) belongs to PS "
-                "mode, which is not ported yet (ROADMAP.md section 1 item 8)")
-        del table_name  # names a remote table
         self.capacity = capacity
-        self.store = store if store is not None else HashStore(
-            capacity=capacity, permit_threshold=permit_filter_value,
-            evict_threshold=evict_filter_value)
+        if store is not None:
+            self.store = store
+        elif remote_addrs:
+            self.store = RemoteHashStore(
+                remote_addrs, table_name, capacity,
+                permit_threshold=permit_filter_value,
+                evict_threshold=evict_filter_value)
+        else:
+            self.store = HashStore(
+                capacity=capacity, permit_threshold=permit_filter_value,
+                evict_threshold=evict_filter_value)
         self.dummy_slot = capacity  # the model is built with vocab_size=capacity
         self._rng = np.random.default_rng(seed)
 

@@ -300,10 +300,17 @@ def _keep_unless(finite, new, old):
 def _supported(model, sparse, row_layout):
     """Raise NotImplementedError for every branch this port lacks."""
     for name, (_path, spec) in model.table_specs.items():
-        if spec.slice_mode != "none" or spec.target != "device":
+        if spec.target == "host":
             raise NotImplementedError(
-                f"table {name}: sharded or host tables are not ported yet "
-                f"(slice_mode={spec.slice_mode!r}, target={spec.target!r})"
+                f"table {name} lives on the host (target='host': "
+                f"parameter_server=True without vocab_cache_size); the "
+                f"device step does not train it: use "
+                f"train/host_target.py:HostTargetAdapter"
+            )
+        if spec.slice_mode != "none":
+            raise NotImplementedError(
+                f"table {name}: sharded tables are not ported yet "
+                f"(slice_mode={spec.slice_mode!r})"
             )
     if not sparse:
         return

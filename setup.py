@@ -31,8 +31,9 @@ setup(
         "mindrec_tpu.native": ["*.so", "*.cc", "Makefile"],
         # CUDA sources of the PyTorch port, built at first use
         "mindrec_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
-        # the port's native batch prep, built by g++ at first use
-        "mindrec_tpu_torch.native": ["*.cc"],
+        # the port's native libraries and table server (PS mode), built
+        # by g++ at first use
+        "mindrec_tpu_torch.native": ["*.cc", "*.h"],
         # the port's C++ inference client, built by g++ at first use
         "mindrec_tpu_torch.serving": ["*.cc"],
     },

@@ -12,6 +12,7 @@ tiers' ``_init_fn`` attribute.
 """
 
 import functools
+import socket
 import threading
 import time
 
@@ -47,6 +48,13 @@ def _interpret_kernels():
     stream_update.INTERPRET = True
     yield
     stream_update.INTERPRET = False
+
+
+def _dead_addr() -> str:
+    """A localhost address nothing listens on."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
 
 
 def port_lrus(capacity):
@@ -242,8 +250,9 @@ def test_cached_embedding_table_round_trip(tmp_path):
                                   [truth[i] for i in ids])
     np.testing.assert_array_equal(tab.state_tiers["m"].read(ids)[:, 0], ids)
     assert tab.param_tier.ssd_rows_used > 0
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cache.CachedEmbeddingTable(10, 4, 4, 4, remote_addrs=["h:1"])
+    # remote tiers (PS mode) connect to their servers when built
+    with pytest.raises(ConnectionRefusedError):
+        cache.CachedEmbeddingTable(10, 4, 4, 4, remote_addrs=[_dead_addr()])
 
 
 # ---------------------------------------------------------------------------
@@ -488,8 +497,8 @@ def test_async_trainer_dead_worker_raises_at_once(tmp_path):
 
 def test_cached_edges(tmp_path):
     """An id past the RAM cap lands in the spill file; a batch with more
-    distinct ids than the cache raises; remote tiers raise naming PS
-    mode's item."""
+    distinct ids than the cache raises; remote tiers connect to their
+    servers when built, so a dead address raises there."""
     model = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(**{
         **_cfg(64, "auto"), "deep_layer_dim": (16,)}))
     opts = (optim.ftrl(loss_scale=1.0), optim.lazy_adam(loss_scale=1.0))
@@ -509,19 +518,22 @@ def test_cached_edges(tmp_path):
         virtual_vocab=V, cache_rows=8, max_swap=64)
     with pytest.raises(RuntimeError, match="thrash"):
         small.prepare({"ids": np.arange(B * F, dtype=np.int64).reshape(B, F)})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cached.CachedTrainingAdapter(model, V, 64, 64, remote_addrs=["h:1"])
+    with pytest.raises(ConnectionRefusedError):
+        cached.CachedTrainingAdapter(model, V, 64, 64,
+                                     remote_addrs=[_dead_addr()])
 
 
 def test_wide_deep_regimes_build():
     """The cache and dynamic regimes build the plain model (the adapters
-    carry them); PS mode still raises."""
+    carry them); PS mode builds host tables without the cache and device
+    tables with it."""
     kw = _cfg(64, "auto")
-    for extra in ({"vocab_cache_size": 32}, {"dynamic_embedding": True}):
+    for extra in ({"vocab_cache_size": 32}, {"dynamic_embedding": True},
+                  {"vocab_cache_size": 32, "parameter_server": True}):
         m = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(**{**kw, **extra}))
-        assert m.deep_spec.vocab_size == 64
-    with pytest.raises(NotImplementedError, match="item 8"):
-        wide_deep.WideDeepModel(wide_deep.WideDeepConfig(**kw, parameter_server=True))
+        assert m.deep_spec.vocab_size == 64 and m.deep_spec.target == "device"
+    m = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(**kw, parameter_server=True))
+    assert m.deep_spec.target == m.wide_spec.target == "host"
 
 
 def test_rec_model_drives_the_cache_regime(tmp_path):

@@ -1539,3 +1539,107 @@ def test_device_prep_captured_step_equals_host_prep_on_card(cuda_device):
     torch.cuda.synchronize()
     for x, y in zip(_state_tensors(sh), _state_tensors(sd)):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# PS mode on the card: the host-target regime and remote tiers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_host_target_kernel_equals_plain_on_card(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """The host-target step (``parameter_server=True``) with its
+    expansion's backward through ``segsum_sorted`` against the same steps
+    with the plain version, from one dense state and the same tier rows:
+    losses rtol 1e-5, every touched tier row and dense parameter rtol
+    1e-4, atol 1e-6; one kernel launch per step."""
+    from mindrec_tpu_torch.data.criteo import SyntheticCriteo
+    from mindrec_tpu_torch.models import wide_deep
+    from mindrec_tpu_torch.train import host_target, optim
+    from mindrec_tpu_torch.train.step import flatten_params
+
+    B, F, V = 1024, 39, 50_000
+    model = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(
+        batch_size=B, field_size=F, vocab_size=V, emb_dim=16,
+        deep_layer_dim=(256, 256), sparse=True, parameter_server=True))
+    opts = (optim.ftrl(loss_scale=1024.0), optim.lazy_adam(loss_scale=1024.0))
+    data = SyntheticCriteo(B, F, V, seed=4, fields="criteo")
+    batches = [data.get_batch(s) for s in range(4)]
+    rng = np.random.default_rng(0)
+    init = {"wide": rng.normal(0, 0.01, (V, 1)).astype(np.float32),
+            "deep": rng.normal(0, 0.01, (V, 16)).astype(np.float32)}
+    runs = {}
+    for use in ("kernel", "plain"):
+        if use == "plain":
+            monkeypatch.setattr(host_target, "segsum_sorted", segsum_sorted_plain)
+        ad = host_target.HostTargetAdapter(model, V, 32768, *opts,
+                                           spill_dir=str(tmp_path / use))
+        for n, rows in init.items():
+            ad.tiers[n]["param"].write(np.arange(V), rows)
+        state = host_target.init_dense_state(model, 0, *opts,
+                                              device=cuda_device)
+        kernels.reset_launches()
+        losses = []
+        for b in batches:
+            state, (_lw, ld) = ad.train_step(state, b)
+            losses.append(float(ld))
+        launches = kernels.LAUNCHES["segsum_sorted"]
+        touched = np.unique(np.concatenate([b["ids"].ravel() for b in batches]))
+        runs[use] = (losses, launches, {
+            (n, t): tier.read(touched) for n, tiers in ad.tiers.items()
+            for t, tier in tiers.items()},
+            [t.float().cpu() for _k, t in flatten_params(state.params)])
+    (lk, nk, rk, dk), (lp, np_, rp, dp) = runs["kernel"], runs["plain"]
+    assert nk == len(batches) and np_ == 0
+    np.testing.assert_allclose(lk, lp, rtol=1e-5)
+    for k in rk:
+        np.testing.assert_allclose(rk[k], rp[k], rtol=1e-4, atol=1e-6,
+                                   err_msg=str(k))
+    for x, y in zip(dk, dp):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cached_remote_serial_equals_pipelined_on_card(cuda_device, tmp_path):
+    """A small cache-mode W&D over one table server: the serial protocol
+    and ``AsyncCachedTrainer`` from one state give the same state and the
+    same rows on the server, bit for bit (each run on its own server)."""
+    from mindrec_tpu_torch.ops import remote
+    from mindrec_tpu_torch.train.cached import (
+        AsyncCachedTrainer, CachedTrainingAdapter, cached_train_step,
+    )
+    from mindrec_tpu_torch.train.step import make_train_step
+
+    results = []
+    for mode in ("serial", "async"):
+        model, opts, _, state, batches = _cache_recipe(
+            cuda_device, tmp_path / mode, cache_rows=200)
+        proc = remote.launch_table_server(ram_mb=0, spill_dir=str(tmp_path))
+        try:
+            adapter = CachedTrainingAdapter(
+                model, virtual_vocab=4000, cache_rows=200,
+                max_swap=64 * 8 + 8, remote_addrs=[proc.addr])
+            step = make_train_step(model, *opts, jit=True)
+            if mode == "serial":
+                for b in batches:
+                    state, _ = cached_train_step(adapter, step, state, b)
+            else:
+                tr = AsyncCachedTrainer(adapter, step, state)
+                for b in batches:
+                    tr.step(b)
+                state = tr.finish()
+            adapter.flush_all(state)
+            touched = np.unique(np.concatenate([b["ids"].ravel() for b in batches]))
+            rows = {(n, t): adapter.tiers[n][t].read(touched)
+                    for n in adapter.tiers for t in adapter.tiers[n]}
+            ssd = sum(s for t in adapter.tiers["deep"].values()
+                      for _r, s in t.stats())
+        finally:
+            remote.stop_table_server(proc.addr, proc)
+        assert ssd > 0 and step.captures == 1
+        results.append((rows, [t.clone() for t in _state_tensors(state)]))
+    for k in results[0][0]:
+        np.testing.assert_array_equal(results[0][0][k], results[1][0][k])
+    for x, y in zip(results[0][1], results[1][1]):
+        assert torch.equal(x, y)

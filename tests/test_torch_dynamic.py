@@ -8,6 +8,8 @@ State is made once in JAX and carried over by ``convert.state_from_jax``;
 the JAX step runs its streamed Pallas path in interpret mode.
 """
 
+import socket
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -147,8 +149,11 @@ def test_admission_to_the_dummy_slot(kind):
     assert store.lookup_or_insert(np.array([99]), force=True)[0] == -1
     with pytest.raises(ValueError):
         DynamicEmbeddingAdapter(4, permit_filter_value=0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DynamicEmbeddingAdapter(4, remote_addrs=["h:1"])
+    with socket.socket() as sock:  # the distributed store connects when built
+        sock.bind(("127.0.0.1", 0))
+        dead = f"127.0.0.1:{sock.getsockname()[1]}"
+    with pytest.raises(ConnectionRefusedError):
+        DynamicEmbeddingAdapter(4, remote_addrs=[dead])
 
 
 # ---------------------------------------------------------------------------

@@ -348,7 +348,17 @@ def test_convert_round_trip_keeps_dtypes():
 def test_port_imports_no_jax():
     """Neither the package nor chip_smoke.py imports jax or mindrec_tpu:
     by source text, and by the modules a fresh interpreter has loaded
-    after importing every module of the package and the script."""
+    after importing every module of the package and the script.  No file
+    of either names the JAX package's native directory or its table
+    server's binary (the port builds and runs its own server)."""
+    port = REPO / "mindrec_tpu_torch"
+    for f in [REPO / "chip_smoke.py", *sorted(
+            p for p in port.rglob("*") if p.is_file()
+            and "_build" not in p.relative_to(port).parts
+            and p.suffix in (".py", ".cc", ".h", ".cu", ".cuh"))]:
+        text = f.read_text()
+        for name in ("mindrec_tpu/native", "mindrec_table_server"):
+            assert name not in text, f"{f} names {name}"
     files = sorted((REPO / "mindrec_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     for f in files:
