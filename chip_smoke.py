@@ -251,7 +251,27 @@ Phases (any failure exits non-zero):
 26. ``[ps-dyn]``: phase 16's recipe over the distributed hash store on 2
     servers, 20 steps, eviction after 8 idle steps every 5 (so that 20
     steps evict), the admitted and evicted key sets equal to a local
-    ``NativeHashStore`` fed the same keys at every eviction.
+    ``NativeHashStore`` fed the same keys at every eviction;
+27. ``[generic-wd]``: the W&D bench recipe on the generic path
+    (``use_pallas=False``, captured; it launches no kernel) for 3 steps
+    beside the streamed step from one state, both fed float32 rows: the
+    first losses equal, later ones within rtol 1e-4, the touched rows
+    within the optimizers' drift bounds (``adam_drift_bound``,
+    ``ftrl_drift_bound``); ms/step of the generic and the streamed step
+    at the recipe in turns; DeepFM's ``row_layout=False`` on row_packed
+    tables warns and takes the generic path (1 + 3 steps);
+28. ``[generic-dyn]``: the yaml recipe (batch 16000, vocab 200,000, emb
+    80) with ``dynamic_embedding=True, sparse=False`` (plain specs,
+    reference fault 9) through the hash adapter for 5 captured steps
+    against the same model on feature-major tables on the generic path:
+    first losses equal, later within rtol 1e-4, rows within the drift
+    bounds, some rows changed;
+29. ``[drivers]``: every driver of ``mindrec_tpu_torch/examples`` as a
+    subprocess on the card (the standalone and dynamic-embedding
+    launchers, the latter with ``--save_graphs``, ``train_criteo
+    --sparse 1`` with checkpoints and its launches counted,
+    ``eval_criteo`` on its checkpoint, ``train_outbrain``, ``train_terabyte``, ``online_train``,
+    ``accuracy_run``): each exits 0; loss, AUC and wall time printed.
 
 Every kernel and every library call is timed by replaying a CUDA graph
 of 10 calls (device time, no host work between the launches); the plain
@@ -272,6 +292,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import resource
 import shutil
 import subprocess
@@ -307,7 +328,7 @@ from mindrec_tpu_torch.models.wide_deep import WideDeepConfig, WideDeepModel
 from mindrec_tpu_torch.native.hashstore import HashStore
 from mindrec_tpu_torch.ops import kernels, prng, remote
 from mindrec_tpu_torch.ops.cache import LruCache
-from mindrec_tpu_torch.ops.embedding import read_rows
+from mindrec_tpu_torch.ops.embedding import from_storage, read_rows, to_storage
 from mindrec_tpu_torch.ops.kernels import _build
 from mindrec_tpu_torch.ops.kernels.fused import (
     fused_adam_gather, fused_adam_gather_plain, fused_ftrl_gather,
@@ -1064,12 +1085,17 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
     )
     res["segsum_unsorted"]["presence_ms"] = graph_ms(
         lambda: segsum_unsorted(ones, seg, n_out))
+    # one library call for the counts: index_add_ of float32 ones
+    # (torch.bincount reads its size on the host, so no graph takes it)
+    ones_f, lib_counts = torch.ones(n, device=dev), torch.zeros(n_out, device=dev)
+    res["segsum_unsorted"]["presence_library_ms"] = graph_ms(
+        lambda: lib_counts.index_add_(0, seg_l, ones_f))
     # the ones and ids read once, the [1, n_out] counts written once
     res["segsum_unsorted"]["presence_bound_ms"] = bound(
         n * 2 + n * 4 + n_out * 4, n)[0]
     log("[kernel] segsum_unsorted ([1.7M, 128] bf16 -> [128, 2048])",
         json.dumps(res["segsum_unsorted"]))
-    del g, gf, lib_out, ones
+    del g, gf, lib_out, ones, ones_f, lib_counts
 
     # -- sorted segsum of the three sorted groups, through their perm ----
     for case in sorted_cases(dev, mt=(host0, buckets)):
@@ -4316,6 +4342,407 @@ def phase_ps(dev, host_cache, dyn) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 27-29: the generic sparse path and the drivers
+# ---------------------------------------------------------------------------
+
+GENERIC_STEPS = 3
+DYN_GENERIC_STEPS = 5
+YAML_WIDTH = ["--batch_size", "16000", "--vocab_size", "200000",
+              "--emb_dim", "80", "--deep_layer_dim", "[1024, 512, 256, 128]"]
+
+
+def adam_drift_bound(opt, steps) -> float:
+    """Most two LazyAdam runs from one weight can differ after ``steps``
+    steps, whatever their gradients: at step t, v_t >= (1-b2) b2^(t-k)
+    g_k^2 for every k, so |m_t| / sqrt(v_t) <= t (1-b1) / sqrt((1-b2)
+    b2^t), and each run moves a weight by at most lr_t times that per
+    step (x 1.01 for bf16 moments, rounded to 2**-8).  Two runs whose
+    per-id gradient sums differ only by rounding agree far closer where a
+    sum is not itself at rounding level; where it is, the sign of Adam's
+    step may flip, which this bound covers."""
+    h = opt.hyper
+    b1, b2, lr = h["b1"], h["b2"], h["learning_rate"]
+    total = 0.0
+    for t in range(1, steps + 1):
+        lr_t = lr * (1 - b2**t) ** 0.5 / (1 - b1**t)
+        total += lr_t * t * (1 - b1) / ((1 - b2) * b2**t) ** 0.5
+    return 2.0 * total * 1.01
+
+
+def ftrl_drift_bound(opt, steps, w0_max) -> float:
+    """Most two FTRL runs from one weight can differ after ``steps``
+    steps: with linear 0 and accumulator n0 at the start, the first step
+    gives w1 = ((sqrt(n1) - sqrt(n0)) w0 - lr g) / sqrt(n1), within
+    |w0| + lr of w0, and each later step moves w by lr g_t / sqrt(n_t)
+    <= lr (n_t >= g_t^2), or sets it to 0 (|linear| <= l1) from at most
+    |w0| + t lr; l2 only shrinks |w|."""
+    lr = opt.hyper["learning_rate"]
+    return 2.0 * (w0_max + steps * lr) * 1.0001
+
+
+def touched_rows(model, state, before) -> dict:
+    """Per table: the logical rows whose weights changed against
+    ``before`` (bool [padded_vocab])."""
+    out = {}
+    for name, (path, spec) in model.table_specs.items():
+        a = from_storage(spec, state.params[path[0]][path[1]]).float()
+        b = from_storage(spec, before[name]).float()
+        out[name] = (a != b).any(dim=1)
+    return out
+
+
+def table_errs(model, sa, sb, rows) -> dict:
+    """Per table: max |a - b| over the given logical rows, and how many
+    elements differ by more than 1e-6."""
+    out = {}
+    for name, (path, spec) in model.table_specs.items():
+        a = from_storage(spec, sa.params[path[0]][path[1]]).float()[rows[name]]
+        b = from_storage(spec, sb.params[path[0]][path[1]]).float()[rows[name]]
+        d = (a - b).abs()
+        out[name] = dict(max_abs_err=float(d.max()) if d.numel() else 0.0,
+                         above_1e6=int((d > 1e-6).sum()), elements=d.numel())
+    return out
+
+
+def turns_ms(tag, dev, model, opts, batches, kinds, warmup=2, steps=5) -> dict:
+    """ms/step of each (name, step_kw) of ``kinds``, captured, in turns
+    (a, b, b, a), each from a fresh state, host clock between fences."""
+    ms = {name: [] for name, _kw in kinds}
+    order = [kinds[0], kinds[1], kinds[1], kinds[0]]
+    for name, kw in order:
+        state = init_train_state(model, 0, *opts, device=dev)
+        step = make_train_step(model, *opts, jit=True, **kw)
+        for i in range(warmup):
+            state, _l = step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, (_lw, ld) = step(state, batches[(warmup + i) % len(batches)])
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) / steps * 1e3)
+        if not bool(torch.isfinite(ld)):
+            fail(f"{tag}: {name} loss {float(ld)}")
+        del state, step
+        torch.cuda.empty_cache()
+    log(f"[{tag}-turns] captured ms/step in turns ({SMI}): " + ", ".join(
+        f"{name} {v:.3f}" for name, _kw in order for v in [ms[name].pop(0)]))
+    return ms
+
+
+def phase_generic_wd(dev) -> dict:
+    """Phase 27, ``[generic-wd]``: the W&D bench recipe on the generic
+    path (``use_pallas=False``), captured, beside the streamed step from
+    one state for 3 steps on raw batches (both sort on the card).  The
+    streamed step runs with ``matmul_dtype=float32`` here, so both feed
+    the model the same float32 rows: the first losses are equal, later
+    ones differ by the update's rounding (rtol 1e-4), and the touched
+    rows stay within the optimizers' drift bounds (``adam_drift_bound``,
+    ``ftrl_drift_bound``).  Then ms/step of the generic and the streamed
+    step at the recipe (bf16 rows) in turns, the counters set to 0
+    around the generic steps (it launches no kernel), and DeepFM's
+    ``row_layout=False`` on row_packed tables: the reference's warning
+    and fallback to the generic path."""
+    model, opts = wd_recipe()
+    data = SyntheticCriteo(BATCH, FIELDS, VOCAB, steps=GENERIC_STEPS + 4,
+                           seed=27, fields="criteo")
+    batches = [to_device(data.get_batch(s), dev) for s in range(len(data))]
+    sg = init_train_state(model, 0, *opts, device=dev)
+    ss = init_train_state(model, 0, *opts, device=dev)
+    before = {name: sg.params[p[0]][p[1]].clone()
+              for name, (p, _s) in model.table_specs.items()}
+    gen = make_train_step(model, *opts, use_pallas=False, jit=True)
+    streamed = make_train_step(model, *opts, jit=True,
+                               matmul_dtype=torch.float32)
+    kernels.reset_launches()
+    gen.reset_counts()
+    lg = []
+    for b in batches[:GENERIC_STEPS]:
+        sg, (_w, ld) = gen(sg, b)
+        lg.append(float(ld))
+    torch.cuda.synchronize()
+    launches = real_launches(gen)
+    ls = []
+    for b in batches[:GENERIC_STEPS]:
+        ss, (_w, ld) = streamed(ss, b)
+        ls.append(float(ld))
+    rows = touched_rows(model, sg, before)
+    rows_s = touched_rows(model, ss, before)
+    errs = table_errs(model, sg, ss, {n: rows[n] | rows_s[n] for n in rows})
+    w0 = float(from_storage(model.wide_spec, before["wide"]).abs().max())
+    bounds = {"deep": adam_drift_bound(opts[1], GENERIC_STEPS),
+              "wide": ftrl_drift_bound(opts[0], GENERIC_STEPS, w0)}
+    out = dict(losses_generic=lg, losses_streamed_f32=ls, table_errs=errs,
+               bounds=bounds, touched_rows={n: int(r.sum()) for n, r in rows.items()},
+               same_touched={n: bool(torch.equal(rows[n], rows_s[n]))
+                             for n in rows},
+               generic_launches={k: v for k, v in launches.items() if v})
+    log("[generic-wd]", json.dumps(out))
+    if not (np.isfinite(lg).all() and lg[0] == ls[0]):
+        fail(f"generic-wd: first losses differ or not finite: {lg} {ls}")
+    if not np.allclose(lg, ls, rtol=1e-4, atol=0):
+        fail(f"generic-wd: losses {lg} against the streamed step's {ls}")
+    for name, e in errs.items():
+        if e["max_abs_err"] > bounds[name]:
+            fail(f"generic-wd: {name} touched rows differ by "
+                 f"{e['max_abs_err']} > {bounds[name]}")
+    if any(launches.values()):
+        fail(f"generic-wd: the generic path launched kernels {launches}")
+    del sg, ss, gen, streamed
+    torch.cuda.empty_cache()
+    out["ms"] = turns_ms("generic-wd", dev, model, opts, batches,
+                         [("generic", {"use_pallas": False}),
+                          ("streamed", {})])
+
+    fm_model, fm_opts = deepfm_recipe("auto")
+    import warnings as _w
+
+    with _w.catch_warnings(record=True) as caught:
+        _w.simplefilter("always")
+        fm_step = make_train_step(fm_model, *fm_opts, row_layout=False,
+                                  jit=True)
+    warned = any("falling back to the generic path" in str(c.message)
+                 for c in caught)
+    state = init_train_state(fm_model, 0, *fm_opts, device=dev)
+    fm_batches = [to_device(SyntheticCriteo(BATCH, FIELDS, FM_VOCAB, seed=28,
+                                            fields="criteo").get_batch(i), dev)
+                  for i in range(4)]
+    fm = timed_steps("generic-deepfm-row_layout=False", fm_step, state,
+                     fm_batches, BATCH, {}, warmup=1, steps=3)
+    fm["warned"] = warned
+    out["deepfm_fallback"] = fm
+    if not warned or fm_step.step.__name__ != "step_generic":
+        fail("generic-wd: DeepFM row_layout=False on row_packed tables did "
+             "not warn and fall back to the generic path")
+    del state, fm_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_generic_dyn(dev) -> dict:
+    """Phase 28, ``[generic-dyn]``: the yaml recipe (batch 16000, vocab
+    200,000, emb 80, 1024-512-256-128) with ``dynamic_embedding=True,
+    sparse=False``: plain row-major specs, which the sparse step trains
+    on the generic path (the reference trains NaN here: section 3,
+    reference fault 9), 5 captured steps through the hash adapter,
+    against the oracle: the same model on feature-major tables
+    (``sparse=True``), the same generic path, its tables carried over by
+    the layout helpers.  Both take the same float32 rows: the first
+    losses are equal, the later ones within rtol 1e-4 (the updates' per-id
+    sums in another order), the touched rows within the drift bounds."""
+    cfg = WideDeepConfig(dynamic_embedding=True)
+    plain = WideDeepModel(cfg)
+    fm = WideDeepModel(dataclasses.replace(cfg, sparse=True,
+                                           table_layout="feature_major"))
+    opts = (optim.ftrl(loss_scale=cfg.loss_scale),
+            optim.lazy_adam(loss_scale=cfg.loss_scale))
+    sp = init_train_state(plain, 0, *opts, device=dev)
+    so = init_train_state(fm, 0, *opts, device=dev)
+    for name, (path, spec) in plain.table_specs.items():
+        key, fspec = "/".join(path), fm.table_specs[name][1]
+        conv = lambda x: to_storage(fspec, from_storage(spec, x))  # noqa: E731
+        so.params[path[0]][path[1]].copy_(conv(sp.params[path[0]][path[1]]))
+        st_p = sp.opt_w if key in sp.opt_w else sp.opt_d
+        st_o = so.opt_w if key in so.opt_w else so.opt_d
+        for k, v in st_p[key].items():
+            if v.dim() == 2:
+                st_o[key][k].copy_(conv(v))
+    tables = {"/".join(p) for p, _s in plain.table_specs.values()}
+    for (k, a), (_k, b) in zip(flatten_params(sp.params),
+                               flatten_params(so.params)):
+        if k not in tables:
+            b.copy_(a)  # the dense parameters: one start for both
+    before = {name: sp.params[p[0]][p[1]].clone()
+              for name, (p, _s) in plain.table_specs.items()}
+    step_p = make_train_step(plain, *opts, jit=True)
+    step_o = make_train_step(fm, *opts, use_pallas=False, jit=True)
+    if step_p.step.__name__ != "step_generic":
+        fail(f"generic-dyn: plain specs took {step_p.step.__name__}")
+    ad_p, ad_o = (DynamicEmbeddingAdapter(cfg.vocab_size, seed=0)
+                  for _ in range(2))
+    rng = np.random.default_rng(28)
+    raw = [{"ids": hashed_keys(rng), "wts": np.ones((BATCH, FIELDS), np.float32),
+            "label": rng.integers(0, 2, (BATCH, 1)).astype(np.float32)}
+           for _ in range(DYN_GENERIC_STEPS)]
+    lp, lo, ms_p, ms_o = [], [], [], []
+    kernels.reset_launches()
+    step_p.reset_counts()
+    for b in raw:
+        bp = to_device(ad_p.transform_batch(b), dev)
+        bo = to_device(ad_o.transform_batch(b), dev)
+        for step, st, bb, losses, ms in ((step_p, "p", bp, lp, ms_p),
+                                         (step_o, "o", bo, lo, ms_o)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if st == "p":
+                sp, (_w, ld) = step(sp, bb)
+            else:
+                so, (_w, ld) = step(so, bb)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(ld))
+    launches = real_launches(step_p)
+    rows = touched_rows(plain, sp, before)
+    errs = {}
+    for name, (path, spec) in plain.table_specs.items():
+        a = from_storage(spec, sp.params[path[0]][path[1]]).float()[rows[name]]
+        b = from_storage(fm.table_specs[name][1],
+                         so.params[path[0]][path[1]]).float()[rows[name]]
+        d = (a - b).abs()
+        errs[name] = dict(max_abs_err=float(d.max()) if d.numel() else 0.0,
+                          above_1e6=int((d > 1e-6).sum()), elements=d.numel())
+    w0 = float(from_storage(plain.wide_spec, before["wide"]).abs().max())
+    bounds = {"deep": adam_drift_bound(opts[1], DYN_GENERIC_STEPS),
+              "wide": ftrl_drift_bound(opts[0], DYN_GENERIC_STEPS, w0)}
+    out = dict(losses_plain=lp, losses_feature_major=lo, table_errs=errs,
+               bounds=bounds, touched_rows={n: int(r.sum()) for n, r in rows.items()},
+               ms_plain=ms_p, ms_feature_major=ms_o, smi=SMI,
+               launches={k: v for k, v in launches.items() if v})
+    log("[generic-dyn]", json.dumps(out))
+    if not (np.isfinite(lp).all() and lp[0] == lo[0]):
+        fail(f"generic-dyn: losses {lp} against the oracle's {lo}")
+    if not np.allclose(lp, lo, rtol=1e-4, atol=0):
+        fail(f"generic-dyn: losses {lp} against the oracle's {lo}")
+    if min(int(r.sum()) for r in rows.values()) == 0:
+        fail("generic-dyn: no table row changed (reference fault 9)")
+    for name, e in errs.items():
+        if e["max_abs_err"] > bounds[name]:
+            fail(f"generic-dyn: {name} rows differ by {e['max_abs_err']} > "
+                 f"{bounds[name]}")
+    del sp, so, step_p, step_o
+    torch.cuda.empty_cache()
+    return out
+
+
+# train_criteo in a subprocess that prints its kernels' real launches:
+# every CapturedStep made is kept, and its recorded launches (counted at
+# capture) are taken out and its replays' added, as real_launches does
+DRIVER_LAUNCHES = (
+    "import json, sys\n"
+    "from mindrec_tpu_torch.examples import train_criteo\n"
+    "from mindrec_tpu_torch.ops import kernels\n"
+    "from mindrec_tpu_torch.train import step\n"
+    "made, init = [], step.CapturedStep.__init__\n"
+    "def keep(self, *a, **k):\n"
+    "    init(self, *a, **k)\n"
+    "    made.append(self)\n"
+    "step.CapturedStep.__init__ = keep\n"
+    "kernels.reset_launches()\n"
+    "train_criteo.main(sys.argv[1:])\n"
+    "real = dict(kernels.LAUNCHES)\n"
+    "for c in made:\n"
+    "    for k in real:\n"
+    "        real[k] += c.replayed.get(k, 0) - c.recorded.get(k, 0)\n"
+    "print('[launches] ' + json.dumps(real), flush=True)\n"
+)
+
+
+def run_driver(tag, cmd, cwd, env, timeout=300) -> dict:
+    """Run one driver as a subprocess on the card; -> its exit code, wall
+    time, the last loss and the AUC it printed, and its output's tail."""
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    wall = time.perf_counter() - t0
+    out = r.stdout + r.stderr
+    loss = auc = launches = None
+    for line in out.splitlines():
+        m = re.search(r'(?:deep_loss is|loss_d=|"loss": )\s*([-+0-9.eE]+)', line)
+        if m:
+            loss = float(m.group(1))
+        if "'auc': " in line:
+            auc = float(line.split("'auc': ")[1].split(",")[0].split("}")[0])
+        if '"auc": ' in line:
+            auc = float(line.split('"auc": ')[1].split(",")[0].split("}")[0])
+        if line.startswith("[launches] "):
+            launches = json.loads(line[len("[launches] "):])
+    res = dict(rc=r.returncode, wall_s=wall, last_loss_printed=loss, auc=auc,
+               launches=launches)
+    log(f"[drivers] {tag} rc {r.returncode} wall {wall:.1f} s loss {loss} "
+        f"auc {auc} ({SMI})")
+    for line in out.splitlines():
+        if line.startswith(("dumped IR", "final metrics", "EvalCallBack",
+                            "[mindrec]", "dynamic-embedding regime",
+                            "online stream", "flushed")):
+            log(f"[drivers] {tag}: {line[:300]}")
+    if r.returncode != 0:
+        log(out[-3000:])
+        fail(f"drivers: {tag} exited {r.returncode}")
+    return res
+
+
+def phase_drivers(dev) -> dict:
+    """Phase 29, ``[drivers]``: each driver of ``mindrec_tpu_torch/examples``
+    as a subprocess on the card, at the yaml's width for the Criteo
+    drivers (batch 16000, vocab 200,000, emb 80, 1024-512-256-128), 10
+    steps (the drivers print the loss every 10) and 10 eval batches:
+    the standalone launcher (dense), ``train_criteo --sparse 1`` (kernels
+    1-3; its real launches counted in the subprocess, with checkpoints),
+    the dynamic-embedding launcher (plain specs, the generic path) with
+    ``--save_graphs`` (the CUDA graph as DOT), ``eval_criteo`` on the
+    sparse run's checkpoint,
+    ``train_outbrain --synthetic``, ``train_terabyte`` at its small
+    default, ``online_train`` with its in-process producer and a short
+    ``accuracy_run``.  Each must exit 0; its loss, AUC and wall time are
+    printed."""
+    root = Path(tempfile.mkdtemp(prefix="mrec_drivers_"))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MR_")}
+    repo = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHON"] = sys.executable
+    py = [sys.executable, "-m"]
+    ex = Path(repo) / "mindrec_tpu_torch" / "examples"
+    short = ["--epochs", "1", "--steps_per_epoch", "10"]
+    out = {}
+    try:
+        out["standalone"] = run_driver(
+            "run_standalone_train.sh", ["bash", str(ex / "run_standalone_train.sh"),
+                                        *YAML_WIDTH, *short], root, env)
+        out["sparse"] = run_driver(
+            "train_criteo --sparse 1",
+            [sys.executable, "-c", DRIVER_LAUNCHES, "--sparse", "1",
+             *YAML_WIDTH, *short, "--ckpt_interval", "10"], root, env)
+        for k, per in WD_PER_STEP.items():
+            if (out["sparse"]["launches"] or {}).get(k, 0) < per * 10:
+                fail(f"drivers: train_criteo --sparse 1 launched {k} "
+                     f"{(out['sparse']['launches'] or {}).get(k)} times")
+        out["dynamic"] = run_driver(
+            "run_dynamic_embedding_train.sh --save_graphs",
+            ["bash", str(ex / "run_dynamic_embedding_train.sh"), *YAML_WIDTH,
+             *short, "--save_graphs"], root, env)
+        dot = root / "graphs" / "train_step.cuda_graph.dot"
+        out["dynamic"]["cuda_graph_dot_bytes"] = (dot.stat().st_size
+                                                  if dot.exists() else 0)
+        if not out["dynamic"]["cuda_graph_dot_bytes"]:
+            fail("drivers: --save_graphs wrote no CUDA graph")
+        out["eval"] = run_driver(
+            "eval_criteo", [*py, "mindrec_tpu_torch.examples.eval_criteo",
+                            "--ckpt", "ckpt", "--sparse", "1", *YAML_WIDTH,
+                            *short], root, env)
+        if out["eval"]["auc"] != out["sparse"]["auc"]:
+            fail(f"drivers: eval_criteo AUC {out['eval']['auc']} differs from "
+                 f"the training run's final {out['sparse']['auc']}")
+        out["outbrain"] = run_driver(
+            "train_outbrain --synthetic",
+            [*py, "mindrec_tpu_torch.examples.train_outbrain", "--synthetic",
+             "--steps_per_epoch", "10"], root, env)
+        out["terabyte"] = run_driver(
+            "train_terabyte", [*py, "mindrec_tpu_torch.examples.train_terabyte"],
+            root, env)
+        out["online"] = run_driver(
+            "online_train", [*py, "mindrec_tpu_torch.examples.online_train",
+                             "--batch-size", "16000", "--emb-dim", "80",
+                             "--steps", "10"], root, env)
+        out["accuracy"] = run_driver(
+            "accuracy_run", [*py, "mindrec_tpu_torch.examples.accuracy_run",
+                             "--train-batches", "4", "--eval-batches", "2",
+                             "--epochs", "2", "--eval-every", "1"], root, env)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec_log("drivers-summary", json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4387,6 +4814,12 @@ def main() -> int:
     ob = phase_outbrain_files(dev)
     online = phase_online_kafka(dev)
     ps = phase_ps(dev, cache, dyn)
+    torch.cuda.empty_cache()
+    t_gen = time.perf_counter()
+    generic = phase_generic_wd(dev)
+    gdyn = phase_generic_dyn(dev)
+    drivers = phase_drivers(dev)
+    log(f"[time] phases 27-29 {time.perf_counter() - t_gen:.1f} s")
     by_path = {"cache": cache["wd"]["serial"]["launches"],
                "dynamic": dyn["launches"], "files": files["launches"],
                "online": online["launches_all"],
@@ -4394,7 +4827,10 @@ def main() -> int:
                "ps-cache": ps["cache"]["wd"]["serial"]["launches"],
                "ps-host": ps["host"]["launches"],
                "ps-tb": ps["tb"]["serial"]["launches"],
-               "ps-dyn": ps["dyn"]["launches"]}
+               "ps-dyn": ps["dyn"]["launches"],
+               "generic-wd": generic["generic_launches"],
+               "generic-dyn": gdyn["launches"],
+               "drivers-sparse": drivers["sparse"]["launches"]}
 
     launches = {**main_path["launches"],
                 **{k: mt_path["launches"][k] for k in MT_PER_STEP

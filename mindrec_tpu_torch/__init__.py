@@ -25,6 +25,12 @@ Ported so far:
   (``io/onnx.py``, ``serving/onnx_ref.py``), ``serving/records2bin.py``
   and the profiler hooks and speed-of-light floor
   (``utils/profiling.py``);
+* the generic sparse path (``make_train_step(use_pallas=False)``,
+  ``ops/sparse.py``, the optimizers' ``update_rows`` / ``update_cols``;
+  any FTRL ``lr_power``, plain row-major specs, ``donate=False``), the
+  config loader (``config.py``, no PyYAML) and the drivers and
+  single-card launchers (``examples/``, ``python -m
+  mindrec_tpu_torch.examples.<name>``);
 * the sparse train step on one device (``train/step.py``) in both
   streamed formulations (``row_layout=True`` for one or several id
   groups of row_packed or feature-major tables, with the tiny-vocab

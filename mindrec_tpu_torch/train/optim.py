@@ -1,12 +1,24 @@
 """Optimizers for recommender training: FTRL, Adam/LazyAdam, SGD.
 
 Port of ``mindrec_tpu/train/optim.py``.  Each optimizer is an
-:class:`Optimizer` with ``init_leaf(p) -> state`` and a dense
-``update_leaf(g, state, p) -> (p', state')``; ``kind`` and ``hyper``
-expose the rule to the row-sparse update kernels
-(``ops/kernels/update_rows.py``), whose plain versions call the same
-``adam_math`` / ``ftrl_math`` below, so the optimizer arithmetic has one
-implementation.  Gradients arrive multiplied by the loss scale and are
+:class:`Optimizer` with ``init_leaf(p) -> state``, a dense
+``update_leaf(g, state, p) -> (p', state')`` and the sparse updates of
+the generic step, ``update_rows(grad_rows, row_ids, state, table)`` and
+``update_cols(grad_cols, col_ids, touch, state, table)``; ``kind`` and
+``hyper`` expose the rule to the update kernels
+(``ops/kernels/update_rows.py``, ``update_cols.py``), whose plain
+versions call the same ``adam_math`` / ``ftrl_math`` below, so the
+optimizer arithmetic has one implementation.
+
+The sparse updates read and write only the rows (columns) they are
+given, **in place**, and return ``(table, state')``.  Elements where
+``touch`` is False keep their weight and state (the reference's
+``where(touch, new, old)``).  ``live`` (a bool per slot, the real slots
+of a padded unique list, a prefix) keeps the fill slots from writing
+their own values, so a fill id that is also a live row cannot undo that
+row's update (the reference's fault at ``ADVICE.md:3``): each fill slot
+repeats a live slot, id, gradient and all, so every duplicate write is
+the same value and the scatter stays deterministic, with no host read.  Gradients arrive multiplied by the loss scale and are
 divided by it here (reference ``sens`` semantics).
 
 Defaults are the reference's: FTRL lr 5e-2, l1 = l2 = 1e-8, initial
@@ -29,6 +41,47 @@ class Optimizer:
     update_leaf: Callable[..., tuple[torch.Tensor, Any]]
     kind: str = "custom"
     hyper: dict = dataclasses.field(default_factory=dict)
+    # update_rows(grad_rows [U, D], row_ids [U], state, table, touch=None,
+    #             live=None); update_cols(grad_cols [Dp, U], col_ids [U],
+    #             touch [Dp, U] bool, state, table, live=None)
+    update_rows: Callable[..., tuple[torch.Tensor, Any]] | None = None
+    update_cols: Callable[..., tuple[torch.Tensor, Any]] | None = None
+
+
+def live_sources(live: torch.Tensor) -> torch.Tensor:
+    """For slots whose live ones are a prefix: each slot's source slot,
+    itself if live, else live slot ``i % count`` (slot 0 when none is
+    live).  A fill slot that takes its source's id, gradient and touch
+    computes and writes exactly its source's value, so the duplicate
+    writes agree (the scatter stays deterministic) and spread over the
+    live rows rather than all landing on one."""
+    n = live.shape[0]
+    slots = torch.arange(n, device=live.device)
+    count = live.sum().clamp(min=1)
+    return torch.where(live, slots, torch.remainder(slots, count))
+
+
+def _masked_update(axis, rule, grads, ids, touch, live, table, bufs):
+    """Apply ``rule(grads, table_old, *bufs_old) -> (table', *bufs')``
+    to the rows (``axis`` 0) or columns (``axis`` 1) ``ids`` of
+    ``table`` and of its state tensors ``bufs``, in place, keeping the
+    elements where ``touch`` is False.  ``live`` marks the real slots, a
+    prefix; a fill slot repeats a live slot (:func:`live_sources`)."""
+    if live is not None:
+        src = live_sources(live)
+        ids = ids.index_select(0, src)
+        grads = grads.index_select(axis, src)
+        if touch is not None and touch.shape[axis] == src.shape[0]:
+            touch = touch.index_select(axis, src)
+    idx = ids.long()
+    targets = (table, *bufs)
+    olds = [t.index_select(axis, idx) for t in targets]
+    news = rule(grads, *olds)
+    for t, old, new in zip(targets, olds, news):
+        val = new.to(t.dtype)
+        if touch is not None:
+            val = torch.where(touch, val, old)
+        t.index_copy_(axis, idx, val)
 
 
 def ftrl_math(g, accum, linear, w, *, learning_rate, l1, l2, inv_scale,
@@ -98,8 +151,23 @@ def ftrl(
         )
         return w.to(p.dtype), {"accum": a, "linear": lin}
 
+    def rule(g, w, a, lin):
+        return ftrl_math(g, a, lin, w, learning_rate=learning_rate, l1=l1,
+                         l2=l2, inv_scale=inv_scale, lr_power=lr_power)
+
+    def update_rows(grad_rows, row_ids, state, table, touch=None, live=None):
+        _masked_update(0, rule, grad_rows, row_ids, touch, live, table,
+                       (state["accum"], state["linear"]))
+        return table, state
+
+    def update_cols(grad_cols, col_ids, touch, state, table, live=None):
+        _masked_update(1, rule, grad_cols, col_ids, touch, live, table,
+                       (state["accum"], state["linear"]))
+        return table, state
+
     return Optimizer(
-        init_leaf, update_leaf, kind="ftrl",
+        init_leaf, update_leaf, kind="ftrl", update_rows=update_rows,
+        update_cols=update_cols,
         hyper={
             "learning_rate": learning_rate, "l1": l1, "l2": l2,
             "initial_accum": initial_accum, "lr_power": lr_power,
@@ -136,8 +204,27 @@ def adam(
         return w.to(p.dtype), {"m": m.to(state_dtype), "v": v.to(state_dtype),
                                "step": step}
 
+    def sparse_update(axis, grads, ids, touch, live, state, table):
+        step = state["step"] + 1
+        lr_t = adam_lr_t(step, learning_rate=learning_rate, b1=b1, b2=b2)
+
+        def rule(g, w, m, v):
+            return adam_math(g, m, v, w, lr_t, b1=b1, b2=b2, eps=eps,
+                             inv_scale=inv_scale)
+
+        _masked_update(axis, rule, grads, ids, touch, live, table,
+                       (state["m"], state["v"]))
+        return table, {"m": state["m"], "v": state["v"], "step": step}
+
+    def update_rows(grad_rows, row_ids, state, table, touch=None, live=None):
+        return sparse_update(0, grad_rows, row_ids, touch, live, state, table)
+
+    def update_cols(grad_cols, col_ids, touch, state, table, live=None):
+        return sparse_update(1, grad_cols, col_ids, touch, live, state, table)
+
     return Optimizer(
-        init_leaf, update_leaf, kind="adam",
+        init_leaf, update_leaf, kind="adam", update_rows=update_rows,
+        update_cols=update_cols,
         hyper={
             "learning_rate": learning_rate, "b1": b1, "b2": b2, "eps": eps,
             "loss_scale": loss_scale, "state_dtype": state_dtype,
@@ -160,7 +247,19 @@ def sgd(learning_rate: float = 1e-2, loss_scale: float = 1.0) -> Optimizer:
         new = p.float() - learning_rate * g.float() * inv_scale
         return new.to(p.dtype), state
 
+    def rule(g, w):
+        return (w.float() - learning_rate * g.float() * inv_scale,)
+
+    def update_rows(grad_rows, row_ids, state, table, touch=None, live=None):
+        _masked_update(0, rule, grad_rows, row_ids, touch, live, table, ())
+        return table, state
+
+    def update_cols(grad_cols, col_ids, touch, state, table, live=None):
+        _masked_update(1, rule, grad_cols, col_ids, touch, live, table, ())
+        return table, state
+
     return Optimizer(
-        init_leaf, update_leaf, kind="sgd",
+        init_leaf, update_leaf, kind="sgd", update_rows=update_rows,
+        update_cols=update_cols,
         hyper={"learning_rate": learning_rate, "loss_scale": loss_scale},
     )

@@ -70,7 +70,8 @@ class RecModel:
       metrics: dict name -> Metric; default ``{"auc": AUCMetric()}``.
       seed: parameter init seed.
       jit: capture the train step in a CUDA graph on the card.
-      donate: the step updates the state in place (False raises).
+      donate: the step updates the state in place; False runs it on a
+        copy and leaves the state passed in as it was.
       unique_bucket: an int or :class:`AdaptiveBucket` bound on distinct
         ids per batch; ``train(dataset_sink_mode=True)`` then treats the
         dataset as raw host batches and runs prep pool -> staging ->
@@ -398,8 +399,10 @@ class RecModel:
         for batch in dataset:
             probs, labels = self.eval_step(
                 self.state.params, self._tensors(batch) if own else batch)
-            probs = probs.float().cpu().numpy()
-            labels = labels.float().cpu().numpy()
+            # a replaced eval step (a regime's adapter) may hand back
+            # the host batch's labels as they came
+            probs = _host(probs).astype(np.float32)
+            labels = _host(labels).astype(np.float32)
             for m in metrics.values():
                 # metrics may declare extra batch columns (the grouped
                 # MAP@12 needs display_id) via a `needs` attribute
@@ -480,7 +483,10 @@ def _takes_device_batches(fn) -> bool:
 
 
 def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
 
 
 def _close(it) -> None:

@@ -66,20 +66,47 @@ expansion:
 5. split per table, fold-masked and padded back to ``Dp`` sublanes, they
    update the tables with ``adam_cols`` / ``ftrl_cols`` (kernels).
 
+``use_pallas=False`` is the reference's generic path, framework ops
+over any id groups and every layout (``mindrec_tpu/train/step.py``
+``sparse_step``'s generic backend):
+
+1. per table, each position's row: ``packed_gather`` of row_packed
+   storage, a column take of feature-major storage (folded tables masked
+   to the owning sublane), a row gather of plain row-major specs (the
+   reference takes columns of those, ``jnp.take(table, cols, axis=1)``,
+   and trains NaN: section 3, reference fault 9);
+2. the model's forward and backward from those rows, and the dense
+   parameters' update;
+3. per table, the gradients summed per distinct id
+   (:func:`~mindrec_tpu_torch.ops.sparse.unique_pad` and
+   :func:`~mindrec_tpu_torch.ops.sparse.segment_sum_rows`) and the
+   optimizer's masked sparse update: row_packed tables through two
+   unique passes (logical ids, then storage rows, each id's sum placed
+   in its lanes), feature-major tables from touch-augmented gradients
+   (``update_cols``), plain specs by rows (``update_rows``).  Fill slots
+   of the padded unique lists never write their own values
+   (``train/optim.py``), so a fill id that is a live row cannot drop
+   that row's update (``ADVICE.md:3``).
+
+It honours any FTRL ``lr_power``; the streamed branches fix it at -0.5
+and raise otherwise (the reference's streamed kernels ignore it:
+section 3, reference fault 10).  It makes no host read, so ``jit=True``
+captures it like the streamed steps.
+
 The sparse steps update the tables and their optimizer state **in
 place** and return a new :class:`TrainState` that shares them: the state
-passed in must not be used again (the reference donates it).  With
-``use_kernels=False`` they call the kernels' plain versions directly on
-any device (the reference for the kernels on the card).  The generic
-sparse path without the streamed kernels, sharded or host-resident
-tables and non-sparse table specs under ``sparse=True`` raise
-``NotImplementedError``; so does ``row_layout=False`` for a multi-group
-model or a row_packed table (the reference drops those to its generic
-path).
+passed in must not be used again (the reference donates it), unless the
+step is built with ``donate=False``, which runs it on a copy.  With
+``use_kernels=False`` the streamed branches call the kernels' plain
+versions directly on any device (the reference for the kernels on the
+card).  Sharded and host-resident tables raise ``NotImplementedError``
+(ROADMAP.md section 1 item 9; ``train/host_target.py`` trains host
+tables).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -95,15 +122,21 @@ from mindrec_tpu_torch.ops.kernels.segsum import (
     segsum_unsorted, segsum_unsorted_plain,
 )
 from mindrec_tpu_torch.ops.kernels.update_cols import (
-    AUG, adam_cols, adam_cols_plain, ftrl_cols, ftrl_cols_plain,
+    AUG, adam_cols, adam_cols_plain, expand_touch, ftrl_cols, ftrl_cols_plain,
     make_aug_grads,
 )
 from mindrec_tpu_torch.ops.kernels.update_rows import (
     adam_rows, adam_rows_plain, ftrl_rows, ftrl_rows_plain,
 )
-from mindrec_tpu_torch.train.optim import Optimizer, adam_lr_t
+from mindrec_tpu_torch.ops.sparse import segment_sum_rows, unique_pad
+from mindrec_tpu_torch.train.optim import Optimizer, adam_lr_t, live_sources
 
 SENTINEL = 2**31 - 2  # padded unique slot: past every vocab
+_LR_POWER_MSG = (
+    "the streamed updates fix FTRL's lr_power at -0.5 (the reference's "
+    "streamed kernels ignore it: ROADMAP.md section 3, reference fault "
+    "10); build the step with use_pallas=False, the generic path, which "
+    "takes any lr_power")
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +244,7 @@ def _packed_table_update(opt: Optimizer, g_cols, rows_sorted, sub_sorted,
                        "step": step}
     if opt.kind == "ftrl":
         if h["lr_power"] != -0.5:
-            raise NotImplementedError("row updates fix lr_power at -0.5")
+            raise NotImplementedError(_LR_POWER_MSG)
         fn = ftrl_rows if use_kernels else ftrl_rows_plain
         fn(table, leaf_state["accum"], leaf_state["linear"], rows_sorted,
            sub_sorted, g_sel, learning_rate=h["learning_rate"], l1=h["l1"],
@@ -264,7 +297,7 @@ def _streamed_table_update(opt: Optimizer, grads_aug, cols, leaf_state, table,
                        "step": step}
     if opt.kind == "ftrl":
         if h["lr_power"] != -0.5:
-            raise NotImplementedError("column updates fix lr_power at -0.5")
+            raise NotImplementedError(_LR_POWER_MSG)
         fn = ftrl_cols if use_kernels else ftrl_cols_plain
         fn(table, leaf_state["accum"], leaf_state["linear"], cols, grads_aug,
            learning_rate=h["learning_rate"], l1=h["l1"], l2=h["l2"], **kw)
@@ -297,8 +330,9 @@ def _keep_unless(finite, new, old):
     return new
 
 
-def _supported(model, sparse, row_layout):
-    """Raise NotImplementedError for every branch this port lacks."""
+def _supported(model):
+    """Raise NotImplementedError for the tables this port does not train
+    on the device."""
     for name, (_path, spec) in model.table_specs.items():
         if spec.target == "host":
             raise NotImplementedError(
@@ -310,35 +344,38 @@ def _supported(model, sparse, row_layout):
         if spec.slice_mode != "none":
             raise NotImplementedError(
                 f"table {name}: sharded tables are not ported yet "
-                f"(slice_mode={spec.slice_mode!r})"
+                f"(slice_mode={spec.slice_mode!r}; ROADMAP.md section 1 "
+                f"item 9)"
             )
-    if not sparse:
-        return
+
+
+def _generic_branch(model, row_layout, use_pallas) -> bool:
+    """Whether the sparse step takes the generic path: asked for
+    (``use_pallas=False``), or the reference's fallbacks, row_packed
+    tables under ``row_layout=False`` (with a warning) and plain
+    row-major specs.  A multi-group model under ``row_layout=False``
+    raises unless ``use_pallas`` is False, as in the reference."""
+    if use_pallas is False:
+        return True
     groups = getattr(model, "table_groups", None)
+    specs = [spec for _p, spec in model.table_specs.values()]
     if not row_layout and groups and (len(groups) > 1
                                       or "_default" not in groups):
         raise NotImplementedError(
-            "row_layout=False handles single-id-group models; multi-group "
-            "models stream with row_layout=True (the reference's other "
-            "choice, its generic path, is not ported)"
+            "the feature-major streamed path (row_layout=False) handles "
+            "single-id-group models; multi-group models stream with "
+            "row_layout=True (the default) or take use_pallas=False"
         )
-    for name, (_path, spec) in model.table_specs.items():
-        if not row_layout and spec.row_packed:
-            raise NotImplementedError(
-                f"table {name}: row_layout=False streams feature-major "
-                f"tables, but this one is row_packed (the default layout); "
-                f"build the model with table_layout='feature_major' (the "
-                f"reference drops to its generic path here, which is not "
-                f"ported)"
-            )
-        if not spec.sparse:
-            # the reference trains these (dynamic_embedding over plain
-            # row-major tables) on its generic path only
-            raise NotImplementedError(
-                f"table {name}: the sparse step over non-sparse (plain "
-                f"row-major) table specs is the generic path, not ported "
-                f"yet (ROADMAP.md section 1 item 3)"
-            )
+    if not row_layout and any(spec.row_packed for spec in specs):
+        warnings.warn(
+            "row_layout=False streams feature-major [Dp, Vc] tables, but "
+            "this model stores row_packed tables (the default layout); "
+            "falling back to the generic path: build specs with "
+            "table_layout='feature_major' to use the streamed "
+            "formulation", stacklevel=3,
+        )
+        return True
+    return any(not spec.sparse for spec in specs)
 
 
 def _id_bound(table_specs, names) -> int:
@@ -457,6 +494,7 @@ def make_train_step(
     tiny_vocab: int = 2048,
     jit: bool = False,
     donate: bool = True,
+    use_pallas: bool | None = None,
 ):
     """Build ``step(state, batch) -> (state, (loss_w, loss_d))``.
 
@@ -486,21 +524,30 @@ def make_train_step(
     and ``tiny_vocab`` (both ``row_layout=True`` parameters, as in the
     reference).
 
+    ``use_pallas``: the sparse step's branch.  False takes the generic
+    path (module docstring).  None and True take the streamed branches,
+    whose kernels run on the card and whose plain versions run on the
+    CPU; they fall back to the generic path, as the reference does, for
+    row_packed tables under ``row_layout=False`` (with a warning) and for
+    plain row-major specs.  The reference's None picks its generic path
+    on the CPU, because its streamed kernels target the TPU; the port's
+    kernels have plain versions on the CPU, so None keeps the streamed
+    branches on every device.
+
     ``jit=True`` (the reference's ``jax.jit``): on a CUDA state the step
     is captured once per batch signature in a CUDA graph and replayed
     (:class:`CapturedStep`); on the CPU it is the eager step.
-    ``donate``: the sparse steps update the tables in place, and a
-    captured step every leaf, so the state passed in is always donated;
-    ``donate=False`` raises."""
-    if not donate:
-        raise NotImplementedError(
-            "the port's step updates the state in place (it is donated); "
-            "donate=False is not ported")
+    ``donate``: the steps update the state passed in (the sparse steps
+    their tables in place, a captured step every leaf); ``donate=False``
+    runs the step on a copy and leaves the state passed in as it was, bit
+    for bit (a captured step copies it into a state of its own, replays
+    there and returns a copy)."""
     cfg = model.config
     if sparse is None:
         sparse = bool(getattr(cfg, "sparse", False)
                       or getattr(cfg, "dynamic_embedding", False))
-    _supported(model, sparse, row_layout)
+    _supported(model)
+    generic = bool(sparse) and _generic_branch(model, row_layout, use_pallas)
     sens = float(loss_scale if loss_scale is not None
                  else getattr(cfg, "loss_scale", 1.0))
     table_specs = model.table_specs
@@ -512,6 +559,11 @@ def make_train_step(
     table_groups = getattr(model, "table_groups", None) or {
         "_default": {"keys": ("ids",), "tables": tuple(table_specs)}
     }
+    if sparse and not generic:
+        for key, (name, _path, _spec) in table_keys.items():
+            opt = opt_w if is_wide_key(key) else opt_d
+            if opt.kind == "ftrl" and opt.hyper["lr_power"] != -0.5:
+                raise NotImplementedError(f"table {name}: {_LR_POWER_MSG}")
     layouts = _group_layouts(table_specs, table_groups, tiny_vocab)
     segsum = segsum_sorted if use_kernels else segsum_sorted_plain
     unsorted = segsum_unsorted if use_kernels else segsum_unsorted_plain
@@ -677,15 +729,9 @@ def make_train_step(
                 {k: torch.where(finite, g, 0.0) for k, g in dense_grads.items()},
                 [torch.where(finite, g, 0.0) for g in g_deltas])
 
-    def finish(state, dense_grads, col_grads, cols, subs, touch_mask, losses,
-               rng, finite=None):
-        """The shared tail: dense updates, then each table's lazy update
-        from its summed gradients (``_finish_sparse`` of the reference).
-        ``finite`` (the guard's flag) gates every table's touches and
-        selects every dense leaf and optimizer state: where it is False
-        all keep their values and only ``step`` and the key ``rng``
-        advance (the reference's ``_guard``)."""
-        params = state.params
+    def dense_updates(state, dense_grads, finite):
+        """Every leaf but the sparse step's tables takes its optimizer's
+        dense update; -> (params, opt_w state, opt_d state)."""
         opt_w_state, opt_d_state = dict(state.opt_w), dict(state.opt_d)
 
         def dense_update(key, leaf):
@@ -697,7 +743,19 @@ def make_train_step(
             states[key] = _keep_unless(finite, st, states[key])
             return _keep_unless(finite, p2, leaf)
 
-        new_params = map_leaves(dense_update, params)
+        return map_leaves(dense_update, state.params), opt_w_state, opt_d_state
+
+    def finish(state, dense_grads, col_grads, cols, subs, touch_mask, losses,
+               rng, finite=None):
+        """The shared tail: dense updates, then each table's lazy update
+        from its summed gradients (``_finish_sparse`` of the reference).
+        ``finite`` (the guard's flag) gates every table's touches and
+        selects every dense leaf and optimizer state: where it is False
+        all keep their values and only ``step`` and the key ``rng``
+        advance (the reference's ``_guard``)."""
+        params = state.params
+        new_params, opt_w_state, opt_d_state = dense_updates(
+            state, dense_grads, finite)
         for key, (name, path, spec) in table_keys.items():
             wide = is_wide_key(key)
             states = opt_w_state if wide else opt_d_state
@@ -824,12 +882,135 @@ def make_train_step(
         finite, dense_grads, _ = guard(dense_grads, [])
         return finish(state, dense_grads, {}, {}, {}, {}, losses, rng, finite)
 
+    group_of = {t: g for g, info in table_groups.items() for t in info["tables"]}
+
+    def generic_rows(params, ids_g):
+        """Each table's row at each position, [N, lanes], before fold
+        masks: a take of its storage in its layout."""
+        rows, flats = {}, {}
+        for name, (path, spec) in table_specs.items():
+            table = _get(params, path)
+            flat = ids_g[group_of[name]].reshape(-1)
+            flats[name] = flat
+            if spec.row_packed:
+                r = packed_gather(spec, table, flat)
+            elif spec.feature_major:
+                cols = (torch.div(flat, spec.fold, rounding_mode="floor")
+                        if spec.fold > 1 else flat)
+                r = table.index_select(1, cols.long()).T
+            else:  # plain row-major specs: rows, not columns (fault 9)
+                r = table.index_select(0, flat.long())
+            rows[name] = r.detach().requires_grad_(True)
+        return rows, flats
+
+    def generic_table_update(opt, g, flat, leaf_state, table, spec, finite):
+        """The masked sparse update of one table from its per-position
+        gradients ``g`` [N, lanes], in place; -> (table, leaf state)."""
+        if opt.update_rows is None:
+            raise ValueError(f"the generic path needs an optimizer with "
+                             f"sparse updates (kind={opt.kind})")
+        n = flat.numel()
+        slots = torch.arange(n, device=flat.device)
+        g = g.float()
+        ok = None if finite is None else finite.reshape(1, 1)
+        if spec.row_packed:
+            # 1) sum per logical id; 2) fold logical siblings into their
+            # unique storage rows.  Distinct logical ids own distinct
+            # (row, lane) places, so the reference's second segment sum
+            # adds each to zeros: a scatter places it exactly
+            uq = unique_pad(flat, n, spec.padded_vocab - 1)
+            summed = segment_sum_rows(g, uq.inverse, n)  # [n, dim]
+            # each fill slot repeats a live id (and its sum), so the
+            # scatters below write agreeing duplicates
+            src = live_sources(slots < uq.count)
+            ids_l = uq.ids.index_select(0, src)
+            summed = summed.index_select(0, src)
+            p, d = spec.pack, spec.emb_dim
+            sub = torch.remainder(ids_l, p).long()
+            uq_r = unique_pad(torch.div(ids_l, p, rounding_mode="floor"), n,
+                              table.shape[0] - 1)
+            inv = uq_r.inverse.long()
+            g_rows = summed.new_zeros((n, p, d))
+            g_rows[inv, sub] = summed
+            t_rows = torch.zeros((n, p), dtype=torch.bool, device=g.device)
+            t_rows.index_put_((inv, sub), torch.ones(
+                (), dtype=torch.bool, device=g.device))  # no host scalar
+            lanes = table.shape[1] - p * d
+            g_rows = g_rows.reshape(n, p * d)
+            touch = t_rows.repeat_interleave(d, dim=1)
+            if lanes:  # lanes past pack * dim: never touched
+                g_rows = torch.cat([g_rows, g_rows.new_zeros((n, lanes))], 1)
+                touch = torch.cat([touch, touch.new_zeros((n, lanes))], 1)
+            if ok is not None:
+                touch = touch & ok
+            return opt.update_rows(g_rows, uq_r.ids, leaf_state, table,
+                                   touch=touch, live=slots < uq_r.count)
+        if spec.feature_major:
+            fold = spec.fold
+            cols = torch.div(flat, fold, rounding_mode="floor") if fold > 1 else flat
+            sub = torch.remainder(flat, fold) if fold > 1 else None
+            g_aug = make_aug_grads(g.T, sub)  # [Dp + 8, N]
+            uq = unique_pad(cols, n, table.shape[1] - 1)
+            summed = segment_sum_rows(g_aug.T, uq.inverse, n).T  # [Dp + 8, n]
+            dp = table.shape[0]
+            touch = expand_touch(summed[dp:], dp, spec.emb_dim, fold)
+            if ok is not None:
+                touch = touch & ok
+            return opt.update_cols(summed[:dp], uq.ids, touch, leaf_state,
+                                   table, live=slots < uq.count)
+        uq = unique_pad(flat, n, spec.padded_vocab - 1)
+        summed = segment_sum_rows(g, uq.inverse, n)
+        return opt.update_rows(summed, uq.ids, leaf_state, table, touch=ok,
+                               live=slots < uq.count)
+
+    def step_generic(state: TrainState, batch):
+        """The generic path (``use_pallas=False``, module docstring)."""
+        rng, sub = prng.split(state.rng)
+        ids_g = {g: _group_ids(batch, info["keys"])
+                 for g, info in table_groups.items()}
+        rows_in, flats = generic_rows(state.params, ids_g)
+        names = list(rows_in)
+
+        def rows_of(rp):
+            rows = {}
+            for name, r in zip(names, rp):
+                spec = table_specs[name][1]
+                if spec.fold > 1:
+                    sub_f = torch.remainder(flats[name], spec.fold)
+                    r = r * _fold_mask_rows(r.shape[1], spec.emb_dim, sub_f,
+                                            r.dtype)
+                else:
+                    r = r[:, : spec.emb_dim]  # drop sublane padding
+                rows[name] = r.reshape(*ids_g[group_of[name]].shape[:2], -1)
+            return rows
+
+        dense_grads, g_rows, losses = run_model(
+            state.params, batch["label"], [rows_in[n] for n in names],
+            lambda p, rp: call_rows(p, rows_of(rp), batch, sub))
+        finite, dense_grads, g_rows = guard(dense_grads, g_rows)
+        new_params, opt_w_state, opt_d_state = dense_updates(
+            state, dense_grads, finite)
+        grads_of = dict(zip(names, g_rows))
+        for key, (name, path, spec) in table_keys.items():
+            opt, states = ((opt_w, opt_w_state) if is_wide_key(key)
+                           else (opt_d, opt_d_state))
+            _t, st = generic_table_update(
+                opt, grads_of[name], flats[name], states[key],
+                _get(state.params, path), spec, finite)
+            states[key] = _keep_unless(finite, st, states[key])
+        return TrainState(new_params, opt_w_state, opt_d_state,
+                          state.step + 1, rng), losses
+
     if not sparse:
         step = step_dense
+    elif generic:
+        step = step_generic
     else:
         step = step_rows if row_layout else step_cols
     step.takes_device_batches = True  # RecModel stages batches for it
-    return CapturedStep(step) if jit else step
+    if jit:
+        return CapturedStep(step, donate=donate)
+    return step if donate else _non_donating(step)
 
 
 # ---------------------------------------------------------------------------
@@ -850,6 +1031,23 @@ def _state_key(state: TrainState) -> tuple:
     caching allocator may hand a new state an old one's addresses)."""
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.stride())
                  for t in _state_tensors(state))
+
+
+def _clone_state(state: TrainState) -> TrainState:
+    """A copy of every tensor of the state."""
+    def copy(_key, x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    return TrainState(*(map_leaves(copy, x) for x in state))
+
+
+def _non_donating(step):
+    """``step`` run on a copy of the state (``donate=False``)."""
+    def run(state: TrainState, batch):
+        return step(_clone_state(state), batch)
+
+    run.takes_device_batches = True
+    return run
 
 
 def _step_in_place(step, state: TrainState, batch):
@@ -884,6 +1082,11 @@ class CapturedStep:
     replayed again.  A capture that fails raises: it never falls back to
     the eager step.
 
+    ``donate=False``: the caller's state is copied into a state the
+    captured step owns (cloned at the first call and whenever the shapes
+    change), the graph replays on that one, and the call returns a copy
+    of it; the state passed in is left as it was.
+
     A kernel wrapper counts its launch when the graph is captured, not on
     each replay.  Since :meth:`reset_counts`, ``recorded`` sums what the
     captures counted (launches put into graphs, not run) and ``replayed``
@@ -893,8 +1096,10 @@ class CapturedStep:
 
     takes_device_batches = True  # RecModel stages batches for it
 
-    def __init__(self, step):
+    def __init__(self, step, donate: bool = True):
         self.step = step
+        self.donate = donate
+        self._own = None  # donate=False: the state the graphs run on
         self._graphs = {}  # batch signature -> entry, for the live state
         self._state = None
         self._state_key = None
@@ -912,7 +1117,23 @@ class CapturedStep:
 
     def __call__(self, state: TrainState, batch):
         if state.step.device.type != "cuda":
-            return self.step(state, batch)
+            return self.step(state if self.donate else _clone_state(state),
+                             batch)
+        if not self.donate:
+            own = self._own
+            spec = [(t.shape, t.dtype, t.device)
+                    for t in _state_tensors(state)]
+            if own is None or spec != [(t.shape, t.dtype, t.device)
+                                       for t in _state_tensors(own)]:
+                own = self._own = _clone_state(state)
+            else:
+                for dst, src in zip(_state_tensors(own), _state_tensors(state)):
+                    dst.copy_(src)
+            _same, losses = self._donated(own, batch)
+            return _clone_state(own), losses
+        return self._donated(state, batch)
+
+    def _donated(self, state: TrainState, batch):
         if state is not self._state:
             key = _state_key(state)
             if key != self._state_key:

@@ -8,11 +8,12 @@ Port of ``mindrec_tpu/utils/profiling.py``:
   (``<output_path>/trace.json``, readable by ``chrome://tracing`` and
   Perfetto);
 * :func:`step_annotation`: a named range ``<name>#<step>`` in that trace;
+* :func:`dump_ir`: the reference's ``save_graphs`` dump, here a listing
+  of one step's operators and, on the card, the captured step's CUDA
+  graph as DOT;
 * :func:`sparse_step_floor`: the analytic lower bound on the sparse
   train step's time from static byte and FLOP counts, the reference's
   model with this card's constants.
-
-Not ported yet: ``dump_ir`` (``ROADMAP.md`` section 1 item 10).
 """
 
 from __future__ import annotations
@@ -67,6 +68,87 @@ def profile(output_path: str = "./profiler_data"):
 def step_annotation(name: str, step: int):
     """A per-step range in the trace, named ``<name>#<step>``."""
     return torch.profiler.record_function(f"{name}#{step}")
+
+
+def _copy_args(x):
+    """Tensors (inside tuples, lists, dicts) copied; the rest shared."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _copy_args(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_copy_args(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_copy_args(v) for v in x)
+    return x
+
+
+def _on_card(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.is_cuda
+    if isinstance(x, dict):
+        return any(_on_card(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return any(_on_card(v) for v in x)
+    return False
+
+
+def dump_ir(fn, *example_args, path: str = "./graphs", name: str = "jit_fn",
+            **example_kwargs) -> dict:
+    """The port's ``save_graphs``: what one call ``fn(*example_args)``
+    runs, written under ``path``; returns the file paths by kind.
+
+    * ``ops``: ``<name>.ops.txt``, the operators and kernels of one call
+      as ``torch.profiler`` counts them (calls and time of each), on
+      every device;
+    * ``cuda_graph`` (arguments on the card): ``<name>.cuda_graph.dot``,
+      the call captured in a CUDA graph with
+      ``torch.cuda.CUDAGraph.enable_debug_mode`` and written by
+      ``debug_dump`` (a DOT file of the graph's kernel and copy nodes).
+      The graph is built with ``keep_graph=True``: without it, PyTorch
+      2.11 frees the captured graph when it instantiates it, and
+      ``debug_dump`` then writes nothing.
+
+    The calls run on copies of the arguments, so a step that updates its
+    state in place leaves the caller's state as it was.  A
+    :class:`~mindrec_tpu_torch.train.step.CapturedStep` is dumped through
+    the step it captures (a graph is not captured inside another)."""
+    from mindrec_tpu_torch.train.step import CapturedStep
+
+    inner = fn.step if isinstance(fn, CapturedStep) else fn
+    out = Path(path)
+    out.mkdir(parents=True, exist_ok=True)
+    card = _on_card((example_args, example_kwargs))
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    args, kwargs = _copy_args((example_args, example_kwargs))
+    with torch.profiler.profile(activities=acts) as prof:
+        inner(*args, **kwargs)
+        if card:
+            torch.cuda.synchronize()
+    ops = out / f"{name}.ops.txt"
+    sort = "cuda_time_total" if card else "cpu_time_total"
+    ops.write_text(prof.key_averages().table(sort_by=sort, row_limit=-1))
+    files = {"ops": str(ops)}
+    if card:
+        args, kwargs = _copy_args((example_args, example_kwargs))
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.enable_debug_mode()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # a warm-up on the copies
+            inner(*_copy_args(args), **_copy_args(kwargs))
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            inner(*args, **kwargs)
+        dot = out / f"{name}.cuda_graph.dot"
+        graph.debug_dump(str(dot))
+        if not dot.exists() or dot.stat().st_size == 0:
+            raise RuntimeError(f"CUDAGraph.debug_dump wrote nothing to {dot}")
+        files["cuda_graph"] = str(dot)
+        del graph
+    return files
 
 
 # ---------------------------------------------------------------------------

@@ -473,17 +473,25 @@ def test_colpath_plain_step_equals_kernel_step_on_cpu():
 
 
 def test_colpath_guards():
-    """``row_layout=False`` raises for a multi-group model and for
-    row_packed tables, naming the layout; and for unique ids trimmed to a
-    bucket, which only the row-layout path takes."""
+    """``row_layout=False`` raises for a multi-group model unless
+    ``use_pallas=False`` (as the reference); on row_packed tables it warns,
+    naming the layout, and falls back to the generic path (as the
+    reference; ``tests/test_torch_generic.py`` holds that path to it); and
+    it raises for unique ids trimmed to a bucket, which only the
+    row-layout path takes."""
     mt = multitable.MultiTableWideDeepModel(
         multitable.MultiTableConfig(sparse=True))
     with pytest.raises(NotImplementedError, match="single-id-group"):
         make_train_step(mt, optim.ftrl(), optim.adam(), row_layout=False)
+    fn = make_train_step(mt, optim.ftrl(), optim.adam(), row_layout=False,
+                         use_pallas=False)
+    assert fn.__name__ == "step_generic"
     packed = deepfm.DeepFMModel(deepfm.DeepFMConfig(
         **{**FM, "table_layout": "auto"}))
-    with pytest.raises(NotImplementedError, match="feature_major"):
-        make_train_step(packed, optim.adam(), optim.adam(), row_layout=False)
+    with pytest.warns(UserWarning, match="feature_major"):
+        fn = make_train_step(packed, optim.adam(), optim.adam(),
+                             row_layout=False)
+    assert fn.__name__ == "step_generic"
     *_, tm, ts, to = _setup("deepfm")
     fn = make_train_step(tm, *to, row_layout=False)
     hb = make_batch_sort(F, minimal=True)(

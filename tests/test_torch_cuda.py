@@ -11,6 +11,8 @@ numpy inputs) live here; ``tests/test_torch_edge_cases.py`` and
 version against the JAX kernel or the float64 sum.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -940,6 +942,49 @@ def test_captured_step_equals_eager_on_card(cuda_device, kind):
     assert cap.captures == (2 if kind == "wd" else 1)
     assert cap.replays == len(batches) - cap.captures
     assert cap.replayed and all(n > 0 for n in cap.replayed.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["wd", "multitable", "plain", "no-donate"])
+def test_generic_captured_step_equals_eager_on_card(cuda_device, kind):
+    """The generic path (``use_pallas=False``) captured in a CUDA graph
+    gives the eager step's losses and state bit for bit: row_packed W&D
+    (through a regrow of the prep keys it ignores: a new signature), the
+    multitable model's feature-major groups, plain row-major specs
+    (``dynamic_embedding`` without ``sparse``) and ``donate=False``, which
+    leaves the caller's state as it was."""
+    from mindrec_tpu_torch.models import wide_deep
+    from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+
+    model, opts, batches = _small_recipe(
+        "multitable" if kind == "multitable" else "wd", cuda_device)
+    if kind == "plain":
+        model = wide_deep.WideDeepModel(dataclasses.replace(
+            model.config, sparse=False, dynamic_embedding=True))
+        assert not model.deep_spec.sparse
+    donate = kind != "no-donate"
+    se = init_train_state(model, 3, *opts, device=cuda_device)
+    sc = init_train_state(model, 3, *opts, device=cuda_device)
+    eager = make_train_step(model, *opts, use_pallas=False)
+    cap = make_train_step(model, *opts, use_pallas=False, jit=True,
+                          donate=donate)
+    assert cap.step.__name__ == "step_generic"
+    orig, keep = sc, [x.clone() for x in _state_tensors(sc)]
+    for b in batches:
+        se, le = eager(se, b)
+        out, lc = cap(sc, b)
+        assert (out is sc) == donate
+        sc = out
+        for x, y in zip(le, lc):
+            assert torch.equal(x, y) and torch.isfinite(x).all()
+    torch.cuda.synchronize()
+    for x, y in zip(_state_tensors(se), _state_tensors(sc)):
+        assert torch.equal(x, y)
+    if not donate:  # the first state passed in is as it was
+        for x, y in zip(keep, _state_tensors(orig)):
+            assert torch.equal(x, y)
+    assert cap.captures == (1 if kind == "multitable" else 2)
+    assert cap.replays == len(batches) - cap.captures
 
 
 @pytest.mark.cuda

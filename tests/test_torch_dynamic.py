@@ -27,7 +27,9 @@ from mindrec_tpu_torch import convert
 from mindrec_tpu_torch.data.criteo import to_device
 from mindrec_tpu_torch.models import wide_deep
 from mindrec_tpu_torch.native import hashstore
-from mindrec_tpu_torch.ops.embedding import HashEmbeddingLookup, read_rows
+from mindrec_tpu_torch.ops.embedding import (
+    HashEmbeddingLookup, from_storage, read_rows, to_storage,
+)
 from mindrec_tpu_torch.train import optim
 from mindrec_tpu_torch.train.callbacks import EvictionCallback
 from mindrec_tpu_torch.train.dynamic import DynamicEmbeddingAdapter
@@ -399,12 +401,41 @@ def test_eviction_callback_in_online_train(tmp_path):
 def test_dynamic_step_selection():
     """``make_train_step(sparse=None)`` takes ``dynamic_embedding`` as the
     sparse step; over non-sparse (plain row-major) specs that is the
-    reference's generic path, which raises naming its item."""
+    reference's generic path.  Through the adapter, two steps on plain
+    specs equal the same model on row_packed tables (``sparse=True``) on
+    the generic path, from one state: losses within rtol 1e-6, the
+    logical tables within rtol 1e-5 / atol 1e-7 (per-id sums of the same
+    gradients in another order).  The reference trains NaN here (section
+    3, reference fault 9; ``tests/test_torch_generic.py``)."""
     _jm, tm, _jo, to, _js = _pair()
     assert make_train_step(tm, *to).__name__ == "step_rows"
-    plain = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(
-        batch_size=B, field_size=F, vocab_size=CAP, emb_dim=D,
-        deep_layer_dim=(16,), dynamic_embedding=True))
-    assert not plain.deep_spec.sparse
-    with pytest.raises(NotImplementedError, match="item 3"):
-        make_train_step(plain, *to)
+    kw = dict(batch_size=B, field_size=F, vocab_size=CAP, emb_dim=D,
+              deep_layer_dim=(16,), dynamic_embedding=True, loss_scale=1.0)
+    plain = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(**kw))
+    packed = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(**kw,
+                                                              sparse=True))
+    assert not plain.deep_spec.sparse and packed.deep_spec.row_packed
+    step = make_train_step(plain, *to)
+    assert step.__name__ == "step_generic"
+    oracle = make_train_step(packed, *to, use_pallas=False)
+    sp = init_train_state(plain, 0, *to, device="cpu")
+    tables = {name: from_storage(spec, _leaf(sp.params, "/".join(path)))
+              for name, (path, spec) in plain.table_specs.items()}
+    so = init_train_state(packed, 0, *to, device="cpu")
+    for name, (path, spec) in packed.table_specs.items():
+        so.params[path[0]][path[1]].copy_(to_storage(spec, tables[name]))
+    ada, adb = (DynamicEmbeddingAdapter(CAP, seed=5) for _ in range(2))
+    rng = np.random.default_rng(2)
+    for keys in _key_stream(2, seed=7):
+        b = {"ids": keys, "wts": rng.normal(size=(B, F)).astype(np.float32),
+             "label": rng.integers(0, 2, (B, 1)).astype(np.float32)}
+        sp, (_, la) = step(sp, to_device(ada.transform_batch(b), "cpu"))
+        so, (_, lb) = oracle(so, to_device(adb.transform_batch(b), "cpu"))
+        assert np.isfinite(float(la))
+        np.testing.assert_allclose(float(la), float(lb), rtol=1e-6)
+    for name, (path, spec) in plain.table_specs.items():
+        got = _leaf(sp.params, "/".join(path))
+        want = from_storage(packed.table_specs[name][1],
+                            _leaf(so.params, "/".join(path)))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-7, err_msg=name)

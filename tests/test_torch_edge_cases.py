@@ -195,20 +195,25 @@ def test_fused_edge_cases_match_pallas(case, table_dtype, opt):
     reference compares only inside); the state unchanged when the update
     list is all sentinels.
 
-    The reference runs with its dots pinned to full float32 precision
-    (``jax.default_matmul_precision("highest")``): its one-hot gather of
-    the updated table multiplies values that are not exact in bf16, and
-    XLA's CPU dot at its default precision sometimes rounds them like
-    bf16 under loaded parallel workers (two FTRL cases at fold 8 failed
-    so in one loaded 6-worker run and pass alone); no tolerance above
-    covers a bf16 rounding."""
+    The reference gets its own copy of the state.  ``jnp.asarray`` of a
+    numpy view of a torch tensor may alias its memory (on the CPU, when
+    the buffer happens to be 64-byte aligned), and JAX runs the
+    reference asynchronously, so the port's in-place update could change
+    the reference's inputs before the reference read them: it then
+    applied the update a second time.  That was the failure seen in
+    loaded 6-worker runs (fold-8 cases, at random, errors up to 2.3
+    relative; with the port run first on purpose, the aliased reference
+    leaves a float64 oracle of the update while the port stays on it); it
+    depended on the heap's alignment, so a case passed alone.
+    The dots stay pinned to full float32 precision
+    (``jax.default_matmul_precision("highest")``)."""
     _id, kind, fold = case
     c = fused_edge_case(kind, fold)
     state, hyper, lr_t = fused_edge_state(c, opt, table_dtype)
     before = [x.clone() for x in state]
     # the reference's fused kernels take float32 tables: a bfloat16 table
-    # runs there as its float32 widening
-    ref_state = [jnp.asarray(x.float().numpy()) for x in state]
+    # runs there as its float32 widening; a copy, never the port's memory
+    ref_state = [jnp.asarray(np.array(x.float().numpy())) for x in state]
     ref_args = [jnp.asarray(c["cols"]), jnp.asarray(c["aug"])]
     kw = dict(fold=fold, tile=128, chunk=64, matmul_dtype=jnp.float32,
               interpret=True, **hyper)

@@ -36,6 +36,7 @@ from mindrec_tpu_torch import RecModel, convert
 from mindrec_tpu_torch.data import (
     kafka_stub, kafka_wire, preprocess, streaming, wire,
 )
+from mindrec_tpu_torch.data.criteo import SyntheticCriteo, to_device
 from mindrec_tpu_torch.data.outbrain import SyntheticOutbrain
 from mindrec_tpu_torch.data.pipeline import AdaptiveBucket
 from mindrec_tpu_torch.models import multitable, wide_deep
@@ -221,20 +222,32 @@ def test_online_train_errors_exhaustion_and_stop():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"wire": object(), "donate": False}, NotImplementedError),
+    ({"wire": object(), "donate": False}, None),
     ({"prep_placement": "device", "unique_bucket": 64, "donate": False},
-     NotImplementedError),
-    ({"input_recipe": "auto", "donate": False}, NotImplementedError),
+     None),
+    ({"input_recipe": "auto", "donate": False}, None),
     ({"prep_placement": "disk"}, ValueError),
     ({"input_recipe": "fast"}, ValueError),
-    ({"donate": False}, NotImplementedError),
+    ({"donate": False}, None),
 ])
 def test_unported_options_raise(kw, exc):
-    """Only ``donate=False`` is still not ported; the wire, device prep
-    and the auto recipe are (they build, below), and raise with it."""
+    """Bad option values raise.  ``donate=False`` builds wherever the
+    reference's does, with the wire, device prep and the auto recipe too,
+    and its step leaves the state passed in as it was."""
     _jm, _jo, tm, _to = _wd_setup()
-    with pytest.raises(exc):
-        RecModel(tm, device="cpu", **kw)
+    if exc is not None:
+        with pytest.raises(exc):
+            RecModel(tm, device="cpu", **kw)
+        return
+    rm = RecModel(tm, device="cpu", **kw)
+    if "unique_bucket" in kw:
+        return  # its step takes device-prepped batches
+    before = [x.clone() for x in _state_tensors(rm.state)]
+    b = SyntheticCriteo(32, 4, 50_000, seed=1).get_batch(0)
+    state, _losses = rm.train_step(rm.state, to_device(b, "cpu"))
+    assert state is not rm.state and int(state.step) == 1
+    for x, y in zip(before, _state_tensors(rm.state)):
+        assert torch.equal(x, y)
 
 
 def test_ported_input_options_build():

@@ -7,6 +7,7 @@ whose packed update drops rows at some vocab sizes).  State is made
 once in JAX and carried into the port by ``convert.state_from_jax``.
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -236,6 +237,10 @@ def test_check_overflow_keeps_state():
     ({"multitable": True, "sparse": True}, {"row_layout": False}),  # groups
 ])
 def test_unported_branches_raise(change, ctor_kw):
+    """Sharded tables (item 9) and a multi-group model on the
+    feature-major streamed path raise.  Row_packed tables under
+    ``row_layout=False`` warn and take the generic path, as the
+    reference does (``tests/test_torch_generic.py`` holds it)."""
     change = dict(change)
     if change.pop("multitable", False):
         model = multitable.MultiTableWideDeepModel(
@@ -243,6 +248,11 @@ def test_unported_branches_raise(change, ctor_kw):
     else:
         model = wide_deep.WideDeepModel(
             wide_deep.WideDeepConfig(**{**KW, **change}))
+    if not change:
+        with pytest.warns(UserWarning, match="generic path"):
+            fn = make_train_step(model, optim.ftrl(), optim.adam(), **ctor_kw)
+        assert fn.__name__ == "step_generic"
+        return
     with pytest.raises(NotImplementedError):
         make_train_step(model, optim.ftrl(), optim.adam(), **ctor_kw)
 
@@ -350,8 +360,19 @@ def test_port_imports_no_jax():
     by source text, and by the modules a fresh interpreter has loaded
     after importing every module of the package and the script.  No file
     of either names the JAX package's native directory or its table
-    server's binary (the port builds and runs its own server)."""
+    server's binary (the port builds and runs its own server).  The
+    package's launch scripts and yaml files name neither jax nor the JAX
+    package, and their commands run the port's own drivers, never a
+    file under the reference's ``examples/``."""
     port = REPO / "mindrec_tpu_torch"
+    for f in sorted([*port.rglob("*.sh"), *port.rglob("*.yaml")]):
+        text = f.read_text()
+        assert not re.search(r"\bjax\b", text), f"{f} names jax"
+        assert not re.search(r"\bmindrec_tpu\b(?!_torch)", text), \
+            f"{f} names the JAX package"
+        for line in text.splitlines():
+            if not line.lstrip().startswith("#"):
+                assert "examples/" not in line, f"{f}: {line}"
     for f in [REPO / "chip_smoke.py", *sorted(
             p for p in port.rglob("*") if p.is_file()
             and "_build" not in p.relative_to(port).parts

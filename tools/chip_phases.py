@@ -7,7 +7,8 @@ kernels, and print what ``chip_smoke.py`` prints for them::
 
 Phases: ``cache`` (15), ``dynamic`` (16), ``files`` (17-20),
 ``outbrain`` (21), ``online`` (22), ``ps`` (23-26: PS mode, which
-compares itself with phases 15 and 16's results, so it runs them first).
+compares itself with phases 15 and 16's results, so it runs them first),
+``generic`` (27-28: the generic sparse path), ``drivers`` (29).
 Exits non-zero without a card or when a phase fails.
 """
 
@@ -22,7 +23,8 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("cache", "dynamic", "files", "outbrain", "online", "ps")
+PHASES = ("cache", "dynamic", "files", "outbrain", "online", "ps",
+          "generic", "drivers")
 
 
 def main(names) -> int:
@@ -51,6 +53,10 @@ def main(names) -> int:
         t = time.perf_counter()
         if name == "ps":
             out[name] = cs.phase_ps(dev, out["cache"], out["dynamic"])
+        elif name == "generic":
+            out[name] = (cs.phase_generic_wd(dev), cs.phase_generic_dyn(dev))
+        elif name == "drivers":
+            out[name] = cs.phase_drivers(dev)
         else:
             fn = {"cache": cs.phase_cache, "dynamic": cs.phase_dynamic,
                   "files": cs.phase_files, "outbrain": cs.phase_outbrain_files,
