@@ -271,7 +271,26 @@ Phases (any failure exits non-zero):
     launchers, the latter with ``--save_graphs``, ``train_criteo
     --sparse 1`` with checkpoints and its launches counted,
     ``eval_criteo`` on its checkpoint, ``train_outbrain``, ``train_terabyte``, ``online_train``,
-    ``accuracy_run``): each exits 0; loss, AUC and wall time printed.
+    ``accuracy_run``): each exits 0; loss, AUC and wall time printed;
+30. ranks of a (data, model) mesh sharing the card over gloo
+    (``parallel/launch.py`` spawns ``parallel/jobs.py``; a failed or
+    late rank fails the phase), each run held against the one-rank run
+    of the same 3 global batches of the W&D bench recipe (eager, the
+    recipe's bucket): losses within rtol 1e-5 at every step, the largest
+    difference of the merged deep table, m, v, wide table and MLP, each
+    rank's ms/step (gloo's host copies, no speed of multi-GPU training),
+    every collective's bytes per step below a quarter of the deep
+    table's, the path's kernels launched on every rank at every step:
+    ``[sharded-wd]`` (4 ranks, 2 x 2, deep table row-sliced
+    ``[16, 5.86M/2]`` per rank), ``[sharded-ckpt]`` (its sliced files
+    restored onto one rank, merged, and onto a (1, 2) mesh, bit for bit
+    against the whole state rank 0 gathered), ``[dp-wd]`` (2 x 1,
+    row_packed) and ``[sharded-col]`` (1 x 2, column slice) in one spawn,
+    ``[sharded-driver]`` (``run_distribute_train.sh 2 --mesh_model 2`` at
+    the yaml's width, both ranks' final AUC equal), and
+    ``[shard-kernels]``: kernels 1, 3, 6 and 8 against their plain
+    versions at a rank's shapes (clipped ids, a run-time lane offset,
+    injected unique ids).
 
 Every kernel and every library call is timed by replaying a CUDA graph
 of 10 calls (device time, no host work between the launches); the plain
@@ -349,6 +368,9 @@ from mindrec_tpu_torch.ops.kernels.update_rows import (
 )
 from mindrec_tpu_torch.io import checkpoint
 from mindrec_tpu_torch.io.onnx import export_onnx
+from mindrec_tpu_torch.ops import sharded_stream
+from mindrec_tpu_torch.parallel import jobs, launch
+from mindrec_tpu_torch.parallel import mesh as pmesh
 from mindrec_tpu_torch.serving import client, records2bin
 from mindrec_tpu_torch.serving.onnx_ref import OnnxModel
 from mindrec_tpu_torch.train import optim
@@ -566,7 +588,8 @@ def sorted_cases(dev, wd=None, mt=None) -> list:
              n_out) for tag, k, d, h, n_out in spec]
 
 
-def check_sorted(dev, gen, case, dtype=torch.bfloat16, timed=True) -> dict:
+def check_sorted(dev, gen, case, dtype=torch.bfloat16, timed=True,
+                 gaps=False) -> dict:
     """segsum_sorted on random [rows, d] batch-order gradients read
     through ``perm``, as the step passes them (``case`` as
     :func:`sorted_cases` gives it), against a float64 sum of ``g[perm]``
@@ -578,15 +601,17 @@ def check_sorted(dev, gen, case, dtype=torch.bfloat16, timed=True) -> dict:
     that a row ``perm`` repeats (the compacted stream's pads repeat row
     0) is added once.
     Bound: each row of ``g`` that ``perm`` reads once (the pads' row 0
-    once), ``perm`` and ``uidx`` once, ``out`` once."""
+    once), ``perm`` and ``uidx`` once, ``out`` once.  ``gaps``: ``uidx``
+    skips ids (``segsum_sorted(gaps=True)`` zeroes ``out`` first)."""
     tag, uidx, perm, rows, d, n_out = case
     g = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
-    got = segsum_sorted(g, uidx, n_out, perm=perm)
+    got = segsum_sorted(g, uidx, n_out, perm=perm, gaps=gaps)
     g_sorted = g[perm.long()]
     err, rel = check_segsum(f"segsum_sorted ({tag})", got,
                             segsum_sorted_plain(g, uidx, n_out, perm),
                             g_sorted, uidx, n_out)
-    if not torch.equal(segsum_sorted(g, uidx, n_out, perm=perm), got):
+    if not torch.equal(segsum_sorted(g, uidx, n_out, perm=perm, gaps=gaps),
+                       got):
         fail(f"segsum_sorted ({tag}) is not deterministic")
     del got, g_sorted
     runs = torch.unique_consecutive(uidx, return_counts=True)[1]
@@ -608,7 +633,8 @@ def check_sorted(dev, gen, case, dtype=torch.bfloat16, timed=True) -> dict:
     lib_out = torch.zeros((n_out, d), device=dev)
     out.update(
         rows_read=int(read.numel()),
-        ms=graph_ms(lambda: segsum_sorted(g, uidx, n_out, perm=perm)),
+        ms=graph_ms(lambda: segsum_sorted(g, uidx, n_out, perm=perm,
+                                          gaps=gaps)),
         plain_ms=cuda_ms(lambda: segsum_sorted_plain(g, uidx, n_out, perm), 5),
         bound_ms=t_b, bound_by=by,
         library_ms=graph_ms(lambda: lib_out.index_add_(0, seg, g_lib)),
@@ -622,9 +648,9 @@ def check_sorted(dev, gen, case, dtype=torch.bfloat16, timed=True) -> dict:
 def check_sorted_edges(dev, gen) -> None:
     """segsum_sorted at the edge cases of ``tests/test_torch_cuda.py``
     (no positions; a hot id over more than 100 chunks of 256; all
-    distinct; ids below 0 and past n_out; D 1, 13, 128, 256; identity,
-    reversed, random and compacted ``perm``), bf16 and float32, held as
-    at the step's shapes."""
+    distinct; ids below 0 and past n_out; ids that skip, with
+    ``gaps=True``; D 1, 13, 17, 128, 256; identity, reversed, random and
+    compacted ``perm``), bf16 and float32, held as at the step's shapes."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from test_torch_cuda import SEGSUM_SORTED_CASES, segsum_sorted_case
 
@@ -633,7 +659,8 @@ def check_sorted_edges(dev, gen) -> None:
         case = (case_id, torch.from_numpy(uidx).to(dev),
                 torch.from_numpy(perm).to(dev), g.shape[0], d, n_out)
         for dt in (torch.float32, torch.bfloat16):
-            check_sorted(dev, gen, case, dt, timed=False)
+            check_sorted(dev, gen, case, dt, timed=False,
+                         gaps=pattern == "gaps")
     log(f"[check] segsum_sorted at {len(SEGSUM_SORTED_CASES)} edge cases x "
         f"(f32, bf16): float64 tolerance, plain version, deterministic")
 
@@ -4743,6 +4770,313 @@ def phase_drivers(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 30: ranks of a (data, model) mesh sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 3
+SHARD_JOBS = "mindrec_tpu_torch.parallel.jobs:train_on_mesh"
+# what each path must launch on every rank at every step
+SHARD_KERNELS = {
+    "sharded-wd": ("segsum_sorted", "ftrl_rows", "adam_cols", "gather_rows"),
+    "dp-wd": ("segsum_sorted", "adam_rows", "ftrl_rows"),
+    "sharded-col": ("segsum_sorted", "ftrl_rows", "adam_cols", "gather_rows"),
+}
+
+
+def shard_spec(mode, data, model, bucket, root, tag) -> dict:
+    """The W&D bench recipe (``wd_recipe``) as a ``parallel/jobs.py``
+    spec: the deep table sliced per ``mode`` over a ``data x model``
+    mesh, eager steps at the recipe's bucket on SyntheticCriteo batches
+    0-2 (the ranks make them from the seed), the sliced checkpoint under
+    ``root``."""
+    cfg = dict(batch_size=BATCH, field_size=FIELDS, vocab_size=VOCAB,
+               emb_dim=EMB, deep_layer_dim=[1024] * 7,
+               use_mixed_precision=True, sparse=True, loss_scale=1024.0,
+               deep_table_slice_mode=mode)
+    return {"data": data, "model": model, "device": "cuda",
+            "net": {"name": "wide_deep", "config": cfg},
+            "opt_w": {"kind": "ftrl", "loss_scale": 1024.0},
+            "opt_d": {"kind": "lazy_adam", "loss_scale": 1024.0,
+                      "state_dtype": "bfloat16"},
+            "seed": 0, "step": {"unique_bucket": bucket},
+            "batches": {"synthetic": {"vocab": VOCAB, "fields": FIELDS,
+                                      "batch": BATCH, "steps": SHARD_STEPS,
+                                      "kind": "criteo", "seed": 0}},
+            "out": str(root / tag)}
+
+
+def shard_reference(dev, spec) -> tuple:
+    """The spec's model on one rank (no mesh: the sliced table whole, in
+    the same layout), the same eager step on the same global batches;
+    -> (state, losses, ms per step)."""
+    model = jobs.build_net(spec["net"])
+    ow, od = jobs.build_opt(spec["opt_w"]), jobs.build_opt(spec["opt_d"])
+    state = init_train_state(model, spec["seed"], ow, od, device=dev)
+    step = make_train_step(model, ow, od, **spec["step"])
+    losses, ms = [], []
+    for b in jobs.load_batches(spec["batches"]):
+        b = to_device(b, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, (lw, ld) = step(state, b)
+        losses.append((float(lw), float(ld)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, ms
+
+
+# The largest difference each part of the merged mesh state may show
+# against the one-rank state after SHARD_STEPS steps, from the readings
+# on the card (difference; largest value): the tables take the CPU
+# tests' atol (deep 2.0e-7; 0.058, wide 0; 0.053); m and v about 3.5x
+# theirs (2.9e-11; 1.0e-8 and 2.7e-20; 4.4e-18), 1-2% of their largest
+# values; the bf16 MLP about twice its reading (4.6e-5; 0.051).
+SHARD_DIFF_LIMITS = {"deep_table": 1e-6, "m": 1e-10, "v": 1e-19,
+                     "wide_table": 1e-6, "mlp": 1e-4}
+
+
+def shard_compare(tag, spec, recs, ref) -> dict:
+    """Hold a mesh run (every rank's record) against its one-rank run:
+    losses within rtol 1e-5 at every step (alike on every rank), the
+    merged sliced checkpoint's tables, moments and MLP beside the
+    one-rank state within ``SHARD_DIFF_LIMITS`` (largest differences and
+    magnitudes printed), every collective of every step below a quarter
+    of the deep table's bytes, and the path's kernels launched on every
+    rank at every step."""
+    state, losses, ref_ms = ref
+    for r in recs:
+        if r["losses"] != recs[0]["losses"]:
+            fail(f"[{tag}] rank {r['rank']} losses {r['losses']} differ from "
+                 f"rank 0's {recs[0]['losses']}")
+    got = np.asarray(recs[0]["losses"])
+    if not np.allclose(got, np.asarray(losses), rtol=1e-5, atol=0):
+        fail(f"[{tag}] losses {got.tolist()} differ from the one-rank run's "
+             f"{losses} beyond rtol 1e-5")
+    model = jobs.build_net(spec["net"])
+    deep = model.deep_spec
+    table_bytes = int(np.prod(deep.storage_shape)) * 4
+    colls = [max(b for *_, b in step) for r in recs for step in r["collectives"]]
+    if max(colls) >= table_bytes / 4:
+        fail(f"[{tag}] a collective moved {max(colls)} bytes, >= a quarter "
+             f"of the deep table's {table_bytes}")
+    for r in recs:
+        for i, la in enumerate(r["launches"]):
+            missing = [k for k in SHARD_KERNELS[tag] if not la.get(k)]
+            if missing:
+                fail(f"[{tag}] rank {r['rank']} step {i} launched no {missing}")
+    merged = checkpoint.merge_sliced([r["path"] for r in recs], state)
+    a, b = dict(checkpoint.flatten_state(merged)), dict(
+        checkpoint.flatten_state(state))
+    diff, size = {}, {}
+    for name, keys in (("deep_table", [".params/deep/table"]),
+                       ("m", [".opt_d/deep/table/m"]),
+                       ("v", [".opt_d/deep/table/v"]),
+                       ("wide_table", [".params/wide/table"]),
+                       ("mlp", [k for k in b if k.startswith(".params/deep/mlp")])):
+        diff[name] = max((a[k].float() - b[k].float()).abs().max().item()
+                         for k in keys)
+        size[name] = max(b[k].float().abs().max().item() for k in keys)
+    del merged, a, b
+    over = {k: (d, SHARD_DIFF_LIMITS[k]) for k, d in diff.items()
+            if not d <= SHARD_DIFF_LIMITS[k]}
+    if over:
+        fail(f"[{tag}] the merged state differs from the one-rank state "
+             f"beyond its limits (difference, limit): {over}")
+    launches = {}
+    for r in recs:
+        for la in r["launches"]:
+            for k, n in la.items():
+                launches[k] = launches.get(k, 0) + n
+    out = dict(
+        mesh=[spec["data"], spec["model"]], losses=recs[0]["losses"],
+        one_rank_losses=losses, max_abs_diff=diff,
+        diff_limits=SHARD_DIFF_LIMITS, max_abs_value=size,
+        ms_per_step_by_rank={r["rank"]: r["ms"] for r in recs},
+        one_rank_ms_per_step=ref_ms,
+        collective_bytes_per_step={
+            r["rank"]: [[(op, ax, nb) for op, ax, nb in st]
+                        for st in r["collectives"]] for r in recs[:1]},
+        max_collective_bytes=max(colls), quarter_table_bytes=table_bytes / 4,
+        launches_by_rank={r["rank"]: r["launches"] for r in recs},
+        launches=launches)
+    log(f"[{tag}] {json.dumps(out)} ({SMI}; gloo host copies on one card: "
+        f"no speed of multi-GPU training)")
+    return out
+
+
+def shard_ckpt(recs, like) -> dict:
+    """``[sharded-ckpt]``: the 4 ranks' sliced files restored onto one
+    rank (``restore_checkpoint`` of every file) and merged
+    (``merge_sliced``), each bit for bit equal to the whole state rank 0
+    gathered and saved unsliced; and restored onto the blocks of a
+    (1, 2) mesh, bit for bit the whole state's slices."""
+    paths = [r["path"] for r in recs]
+    t0 = time.perf_counter()
+    whole = checkpoint.restore_checkpoint(recs[0]["unsliced"], like)
+    want = dict(checkpoint.flatten_state(whole))
+    out = {}
+    for how, fn in (("restore_one_rank", checkpoint.restore_checkpoint),
+                    ("merge_sliced", checkpoint.merge_sliced)):
+        got = dict(checkpoint.flatten_state(fn(paths, like)))
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        if bad:
+            fail(f"[sharded-ckpt] {how} differs from the unsliced state at {bad}")
+        out[how] = "bit for bit"
+        del got
+    model = jobs.build_net(shard_spec("table_row_slice", 1, 2, 0, Path("."), "")["net"])
+    for r in range(2):
+        mesh = pmesh.Mesh(1, 2, rank=r)
+        model.mesh = mesh
+        pls = pmesh.state_placements(whole, model, mesh)
+        got = checkpoint.restore_checkpoint(
+            paths, pmesh.shard_train_state(whole, model, mesh), shardings=pls)
+        blk = pls.params["deep"]["table"].index
+        if not (torch.equal(got.params["deep"]["table"],
+                            whole.params["deep"]["table"][blk])
+                and torch.equal(got.opt_d["deep/table"]["m"],
+                                whole.opt_d["deep/table"]["m"][blk])):
+            fail(f"[sharded-ckpt] restore onto rank {r} of (1, 2) differs")
+        del got
+    out["restore_onto_1x2"] = "bit for bit"
+    out["files_mb"] = sum(os.path.getsize(p) for p in paths) / 1e6
+    out["s"] = time.perf_counter() - t0
+    log(f"[sharded-ckpt] {json.dumps(out)} ({SMI})")
+    return out
+
+
+def shard_kernels(dev, gen, bucket, data) -> None:
+    """Kernels 1, 3, 6 and 8 against their plain versions at a rank's
+    shapes of ``[sharded-wd]`` / ``[sharded-col]`` on batch 0: the
+    global unique columns clipped to model rank 1's block of the
+    row-sliced deep table (-1 below, past ``Vc/2`` above; ``gather_rows``
+    into lanes 1..16, ``adam_cols`` with bf16 m/v), ``gather_rows`` of
+    the column-sliced block ``[8, Vc]`` at the run-time lane offset
+    ``1 + 8`` of model rank 1, ``segsum_sorted`` of data rank 1's own
+    sorted positions at their places in the global unique order
+    (``sharded_stream.local_segments``, steps with gaps), and
+    ``ftrl_rows`` of the replicated wide table at the global unique
+    slots; each timed beside its bound."""
+    b0 = data.get_batch(0)
+    ids = torch.from_numpy(b0["ids"]).to(dev).reshape(-1)
+    uq = torch.unique(ids).int()
+    if uq.numel() > bucket:
+        fail(f"[shard-kernels] {uq.numel()} distinct ids > bucket {bucket}")
+    uq = torch.cat([uq, uq.new_full((bucket - uq.numel(),), SENTINEL)])
+    spec = WideDeepModel(WideDeepConfig(
+        vocab_size=VOCAB, emb_dim=EMB, sparse=True,
+        deep_table_slice_mode="table_row_slice")).deep_spec
+    dp, vc = spec.storage_shape
+    cols = sharded_stream.owned_cols(uq, vc // 2, 1)
+    res = {}
+    res["gather_rows"] = check_gather_launch(
+        dev, gen, "sharded-wd", dict(name="deep, model rank 1 of 2",
+                                     shape=(dp, vc // 2), cols=cols, off=1,
+                                     width=128, fold=1), per_10=10)
+    res["gather_rows_col"] = check_gather_launch(
+        dev, gen, "sharded-col", dict(name="deep sublanes 8..15",
+                                      shape=(dp // 2, vc), cols=uq, off=1 + 8,
+                                      width=128, fold=1), per_10=10)
+    res["adam_cols"] = check_adam_cols(
+        "sharded-wd deep, model rank 1 of 2", dev, gen, (dp, vc // 2), 1,
+        cols, None, torch.bfloat16, eps=1e-8, loss_scale=1024.0)
+    n_l = ids.numel() // 2  # data rank 1's positions
+    uidx, perm = sharded_stream.local_segments(ids[n_l:], uq)
+    res["segsum_sorted"] = check_sorted(
+        dev, gen, ("sharded-wd data rank 1, global order", uidx, perm, n_l,
+                   17, bucket), gaps=True)
+    # the replicated wide table: rows of the global unique slots
+    pack, n_rows = 128, 47104
+    rows = torch.div(uq, pack, rounding_mode="floor")
+    sub = torch.remainder(uq, pack)
+    base = [0.01 * torch.randn((n_rows, 128), generator=gen, device=dev),
+            1.0 + torch.rand((n_rows, 128), generator=gen, device=dev),
+            0.1 * torch.randn((n_rows, 128), generator=gen, device=dev)]
+    gs = 10.0 * torch.randn((bucket, 1), generator=gen, device=dev)
+    a, b = [x.clone() for x in base], [x.clone() for x in base]
+    hyper = dict(dim=1, pack=pack, loss_scale=1024.0)
+    ftrl_rows(*a, rows, sub, gs, **hyper)
+    ftrl_rows_plain(*b, rows, sub, gs, **hyper)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    valid = int((rows < n_rows).sum())
+    t_b, by = bound(bucket * 8 + valid * (4 + 2 * 12), valid * 16)
+    res["ftrl_rows"] = dict(max_abs_err=max_errs(zip(a, b))[0],
+                            ms=graph_ms(lambda: ftrl_rows(*a, rows, sub, gs, **hyper)),
+                            bound_ms=t_b, bound_by=by)
+    log("[shard-kernels]", json.dumps(res), f"({SMI})")
+
+
+def phase_sharded(dev, gen, data, bucket) -> dict:
+    """Phase 30: training on a (data, model) mesh of ranks that share the
+    card over gloo (``parallel/jobs.py`` spawned by ``parallel/launch.py``;
+    each rank a process with a hard time limit, a rank's failure fails
+    the phase), each mesh run held against the one-rank run of the same
+    global batches: ``[sharded-wd]`` (4 ranks, 2 x 2, the deep table
+    row-sliced, then ``[sharded-ckpt]`` on its sliced checkpoint),
+    ``[dp-wd]`` (2 x 1, row_packed tables) and ``[sharded-col]`` (1 x 2,
+    column slice) in one spawn of 2 ranks, ``[sharded-driver]``
+    (``run_distribute_train.sh 2`` at the yaml's width with
+    ``--mesh_model 2``), and the kernels at the ranks' shapes."""
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="mrec_sharded_"))
+    out = {}
+    try:
+        specs = {"sharded-wd": shard_spec("table_row_slice", 2, 2, bucket,
+                                          root, "wd"),
+                 "dp-wd": shard_spec("none", 2, 1, bucket, root, "dp"),
+                 "sharded-col": shard_spec("table_column_slice", 1, 2, bucket,
+                                           root, "col")}
+        specs["sharded-wd"]["unsliced"] = str(root / "whole")
+        refs = {}
+        for tag, spec in specs.items():
+            refs[tag] = shard_reference(dev, spec)
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res4, _ = launch.run_job(SHARD_JOBS, specs["sharded-wd"], 4,
+                                 timeout=150)
+        t2 = time.perf_counter()
+        res2, _ = launch.run_job(
+            SHARD_JOBS, {"runs": [specs["dp-wd"], specs["sharded-col"]]}, 2,
+            timeout=120)
+        t3 = time.perf_counter()
+        log(f"[time] spawns: 4 ranks {t2 - t1:.1f} s, 2 ranks {t3 - t2:.1f} s")
+        out["sharded-wd"] = shard_compare("sharded-wd", specs["sharded-wd"],
+                                          res4, refs["sharded-wd"])
+        out["sharded-ckpt"] = shard_ckpt(res4, refs["sharded-wd"][0])
+        for i, tag in enumerate(("dp-wd", "sharded-col")):
+            out[tag] = shard_compare(tag, specs[tag], [r[i] for r in res2],
+                                     refs[tag])
+        del refs
+        torch.cuda.empty_cache()
+        env = {k: v for k, v in os.environ.items() if not k.startswith("MR_")}
+        repo = str(Path(__file__).resolve().parent)
+        env.update(PYTHONPATH=repo + os.pathsep + env.get("PYTHONPATH", ""),
+                   PYTHON=sys.executable,
+                   MR_SCHED_PORT=str(launch.free_port()))
+        ex = Path(repo) / "mindrec_tpu_torch" / "examples"
+        drv = run_driver(
+            "run_distribute_train.sh 2 --mesh_model 2",
+            ["bash", str(ex / "run_distribute_train.sh"), "2", *YAML_WIDTH,
+             "--sparse", "1", "--mesh_model", "2", "--deep_table_slice_mode",
+             "table_row_slice", "--epochs", "1", "--steps_per_epoch", "3"],
+            root, env, timeout=150)
+        logs = [(root / "dp_logs" / f"worker_{i}.log").read_text()
+                for i in range(2)]
+        finals = [line for t in logs for line in t.splitlines()
+                  if line.startswith("final metrics")]
+        if len(finals) != 2 or finals[0] != finals[1]:
+            fail(f"[sharded-driver] ranks' final metrics {finals}")
+        drv["final"] = finals[0]
+        log(f"[sharded-driver] {json.dumps(drv)} ({SMI})")
+        out["sharded-driver"] = drv
+        shard_kernels(dev, gen, bucket, data)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[time] phase 30 {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4820,6 +5154,8 @@ def main() -> int:
     gdyn = phase_generic_dyn(dev)
     drivers = phase_drivers(dev)
     log(f"[time] phases 27-29 {time.perf_counter() - t_gen:.1f} s")
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(dev, gen, data, bucket)
     by_path = {"cache": cache["wd"]["serial"]["launches"],
                "dynamic": dyn["launches"], "files": files["launches"],
                "online": online["launches_all"],
@@ -4830,7 +5166,8 @@ def main() -> int:
                "ps-dyn": ps["dyn"]["launches"],
                "generic-wd": generic["generic_launches"],
                "generic-dyn": gdyn["launches"],
-               "drivers-sparse": drivers["sparse"]["launches"]}
+               "drivers-sparse": drivers["sparse"]["launches"],
+               **{p: sharded[p]["launches"] for p in SHARD_KERNELS}}
 
     launches = {**main_path["launches"],
                 **{k: mt_path["launches"][k] for k in MT_PER_STEP

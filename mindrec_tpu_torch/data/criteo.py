@@ -263,13 +263,12 @@ class PrefetchToDevice:
     ``record_stream`` for the consumer's stream, so the allocator does
     not hand its memory out again while the consumer may still use it.
     An exception of the source or of the staging surfaces in the
-    consumer, in order.  ``sharding`` (multi-GPU) is not ported yet."""
+    consumer, in order.  ``sharding``: a mesh (``parallel/mesh.py``);
+    each rank stages only its data slice of each batch
+    (``shard_batch``)."""
 
     def __init__(self, it, depth: int = 2, sharding=None, device="cuda"):
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharded staging is not ported yet (ROADMAP.md section 1 "
-                "item 9)")
+        self.sharding = sharding
         self.it = iter(it)
         self.depth = depth
         self.device = torch.device(device)
@@ -284,6 +283,10 @@ class PrefetchToDevice:
         self._thread.start()
 
     def _stage(self, batch):
+        if self.sharding is not None:
+            from mindrec_tpu_torch.parallel.mesh import shard_batch
+
+            batch = shard_batch(batch, self.sharding)
         return stage_batch(batch, self.device, self.stream)
 
     def _put(self, item) -> bool:

@@ -33,8 +33,10 @@ Port of ``mindrec_tpu/data/pipeline.py``:
   step (``RecModel``'s fused step).
 
 Steady-state throughput = max(step, prep / workers, host->device copy).
-Sharded staging (``sharding=``) is not ported (``ROADMAP.md`` section 1
-item 9) and raises ``NotImplementedError``.
+Sharded staging (``sharding=`` a mesh, ``parallel/mesh.py``): prep runs
+on the global batch (so ``uq_ids`` is the global unique vector), then
+each rank stages only its data slice (``shard_batch``); with superbatch
+staging or the wire it raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import threading
 import numpy as np
 
 from mindrec_tpu_torch.data.criteo import PrefetchToDevice
+from mindrec_tpu_torch.parallel.mesh import shard_batch
 from mindrec_tpu_torch.train.step import BucketOverflow, make_batch_sort
 
 
@@ -234,7 +237,8 @@ class SparseInputPipeline:
       device: True stages each batch onto the current CUDA device with
         :class:`PrefetchToDevice` (tensors); False yields the numpy
         dicts (host-side consumers and CPU tests).
-      sharding: sharded staging; not ported (raises).
+      sharding: a :class:`~mindrec_tpu_torch.parallel.mesh.Mesh`: each
+        rank stages (or yields) its data slice of each prepped batch.
       minimal: drop ``sorted_ids``/``inv`` from the prep output (the
         step never reads them).
       on_grow: callable(new_bucket) invoked after a re-bucket.
@@ -269,10 +273,18 @@ class SparseInputPipeline:
                  wire=None, host_prep: bool = True, audit_every: int = 16,
                  decode: bool = True, superbatch: int = 1,
                  unstack: bool = True, pad_tail: bool = False):
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharded staging (sharding=) is not ported yet (ROADMAP.md "
-                "section 1 item 9)")
+        if superbatch > 1 and sharding is not None:
+            # staged supergroups are [k, B, ...]: a per-batch slice would
+            # cut the group axis instead (the reference's guard)
+            raise ValueError(
+                "superbatch>1 stages stacked [k, B, ...] arrays; a "
+                "per-batch sharding would shard the group axis; use "
+                "superbatch=1 with sharding, or shard after unstacking"
+            )
+        if wire is not None and sharding is not None:
+            raise ValueError(
+                "the wire packs whole batches; sharded staging slices "
+                "decoded batches: take wire=None with sharding")
         if not unstack and (superbatch <= 1 or decode):
             raise ValueError(
                 "unstack=False yields staged supergroups for fused "
@@ -302,6 +314,7 @@ class SparseInputPipeline:
         self.superbatch = int(superbatch)
         self.unstack = unstack
         self.pad_tail = bool(pad_tail)
+        self.sharding = sharding
         self._decode = wire.decoder() if wire is not None and decode else None
         self._lock = threading.Lock()
         self._make_prep()
@@ -369,6 +382,9 @@ class SparseInputPipeline:
         prep = self._prep_supervised if self.policy is not None else self._prep
         src = iter(HostPrepPool(self.source, prep, self.workers, self.depth))
         counts = None
+        if self.sharding is not None:  # this rank's slice travels
+            mesh = self.sharding
+            src = (shard_batch(b, mesh) for b in src)
         if self.superbatch > 1:
             src = _stack_groups(src, self.superbatch, self.pad_tail)
             if self.pad_tail and self.device:

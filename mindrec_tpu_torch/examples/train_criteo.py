@@ -14,10 +14,17 @@ placement regimes are the reference's: the card cache over host or
 remote tiers (``vocab_cache_size``), host-resident tables
 (``parameter_server`` without the cache), the hash dynamic vocabulary
 (``dynamic_embedding``); with ``MR_SERVER_HOSTS`` set their tiers or hash
-store live on table servers (``run_ps_train.sh``).  One process trains on
-one card: several workers (``MR_WORKER_NUM`` > 1), ``--mesh_model`` > 1,
-``deep_table_slice_mode`` other than ``none`` and ``field_slice`` shard
-over several cards and raise (ROADMAP.md section 1 item 9).
+store live on table servers (``run_ps_train.sh``).
+
+Several ranks (``MR_WORKER_NUM`` > 1 with the ``MR_*`` bootstrap,
+``run_distribute_train.sh``; the backend from ``MR_BACKEND``) form a
+(data, model) mesh with ``--mesh_model`` model ranks: the deep table is
+sliced per ``deep_table_slice_mode`` (DeepFM's and DCN's table per
+``table_slice_mode``), ``field_slice`` lays the fields out so each model
+rank's block holds its part of them (``data/field_slice.py``, Wide&Deep
+on a model axis > 1), and the other ranks train data-parallel.  Each
+rank saves its sliced checkpoint file.  The placement regimes above stay
+on one worker: on a mesh they raise (ROADMAP.md section 1 item 9).
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh_model", type=int, default=1,
-                    help="model-parallel axis size (> 1: item 9)")
+                    help="model-parallel axis size of the ranks' mesh")
     ap.add_argument("--enable_profiling", action="store_true",
                     help="torch.profiler trace around training")
     ap.add_argument("--profiler_path", default="./profiler_data")
@@ -73,27 +80,58 @@ def parse_args(argv=None):
     return ap.parse_known_args(argv)
 
 
-def check_single_card(mesh_model: int, cfg=None) -> None:
-    """Raise for the options that shard over several cards (item 9)."""
-    if mesh_model > 1:
-        raise NotImplementedError(
-            f"--mesh_model {mesh_model} shards tables over several cards "
-            f"({ITEM9})")
-    if int(os.environ.get("MR_WORKER_NUM", "1") or 1) > 1:
-        raise NotImplementedError(
-            f"MR_WORKER_NUM={os.environ['MR_WORKER_NUM']}: several worker "
-            f"processes train data-parallel ({ITEM9})")
-    if cfg is None:
+def check_regimes(cfg, mesh) -> None:
+    """Raise for the placement regimes a mesh does not train yet: several
+    workers over table servers, the card cache, host tables and the hash
+    vocabulary stay on one worker (item 9)."""
+    if mesh is None:
         return
-    if getattr(cfg, "deep_table_slice_mode", "none") != "none":
+    for key in ("vocab_cache_size", "parameter_server", "dynamic_embedding"):
+        if getattr(cfg, key, 0):
+            raise NotImplementedError(
+                f"{key} on a mesh of {mesh.size} ranks: the placement "
+                f"regimes train on one worker ({ITEM9})")
+    if os.environ.get("MR_SERVER_HOSTS"):
         raise NotImplementedError(
-            f"deep_table_slice_mode={cfg.deep_table_slice_mode!r} shards the "
-            f"deep table ({ITEM9})")
-    if getattr(cfg, "field_slice", False):
-        raise NotImplementedError(f"field_slice shards the fields ({ITEM9})")
+            f"several workers over one set of table servers ({ITEM9})")
 
 
-def build(model_name: str, cfg):
+def field_slice_layout(cfg, mesh):
+    """``field_slice``: -> (the Wide&Deep config's field count and vocab,
+    a host batch transform) laying each field part on its model rank's
+    block of the row-sliced deep table (``data/field_slice.py``)."""
+    from mindrec_tpu_torch.data.field_slice import (
+        compute_manual_shape, equalized_layout, pad_fields, remap_ids,
+    )
+
+    if mesh is None or mesh.model < 2:
+        raise ValueError("field_slice lays the fields over the model axis: "
+                         "take --mesh_model > 1 over several ranks")
+    ms = compute_manual_shape(cfg.field_size, cfg.vocab_size, mesh.model)
+    rows, vocab = equalized_layout(ms)
+
+    def transform(batch):
+        ids, wts = pad_fields(batch["ids"], batch["wts"], ms)
+        return {**batch, "ids": remap_ids(ids, ms, rows).astype(np.int32),
+                "wts": wts}
+
+    return ms.target_column, vocab, transform
+
+
+class _Mapped:
+    """A re-iterable dataset with ``fn`` applied to each batch."""
+
+    def __init__(self, data, fn):
+        self.data, self.fn = data, fn
+
+    def __iter__(self):
+        return (self.fn(b) for b in self.data)
+
+    def __len__(self):
+        return len(self.data)
+
+
+def build(model_name: str, cfg, mesh=None):
     """-> (model, its config, opt_w, opt_d), as the reference builds them."""
     from mindrec_tpu_torch.train import optim
 
@@ -117,7 +155,7 @@ def build(model_name: str, cfg):
         opt_d = (optim.lazy_adam(loss_scale=mcfg.loss_scale)
                  if (mcfg.sparse or mcfg.dynamic_embedding)
                  else optim.adam(loss_scale=mcfg.loss_scale))
-        return WideDeepModel(mcfg), mcfg, opt_w, opt_d
+        return WideDeepModel(mcfg, mesh=mesh), mcfg, opt_w, opt_d
     if model_name == "deepfm":
         from mindrec_tpu_torch.models.deepfm import DeepFMConfig, DeepFMModel
 
@@ -129,12 +167,12 @@ def build(model_name: str, cfg):
         opt_w = optim.ftrl(loss_scale=mcfg.loss_scale)
         opt_d = optim.adam(learning_rate=mcfg.learning_rate,
                            eps=mcfg.epsilon, loss_scale=mcfg.loss_scale)
-        return DeepFMModel(mcfg), mcfg, opt_w, opt_d
+        return DeepFMModel(mcfg, mesh=mesh), mcfg, opt_w, opt_d
     from mindrec_tpu_torch.models.dcn import DCNConfig, DCNModel
 
     mcfg = DCNConfig(batch_size=cfg.batch_size, field_size=cfg.field_size,
                      vocab_size=cfg.vocab_size)
-    return (DCNModel(mcfg), mcfg, optim.ftrl(),
+    return (DCNModel(mcfg, mesh=mesh), mcfg, optim.ftrl(),
             optim.adam(learning_rate=mcfg.learning_rate,
                        loss_scale=mcfg.loss_scale))
 
@@ -142,23 +180,38 @@ def build(model_name: str, cfg):
 def main(argv=None) -> dict:
     """Train, evaluate, and return the final metrics."""
     args, rest = parse_args(argv)
-    check_single_card(args.mesh_model)
 
     from mindrec_tpu_torch import RecModel
-    from mindrec_tpu_torch.config import get_config
+    from mindrec_tpu_torch.config import Config, get_config
     from mindrec_tpu_torch.data.criteo import (
         PackedCriteoDataset, SyntheticCriteo, to_device,
     )
-    from mindrec_tpu_torch.parallel.dist import initialize_from_env
+    from mindrec_tpu_torch.parallel.dist import initialize_from_env, rank_device
+    from mindrec_tpu_torch.parallel.mesh import make_mesh, shard_batch
     from mindrec_tpu_torch.train.callbacks import (
         EvalCallback, LossCallback, TimeMonitor,
     )
-    device = args.device
     cfg = get_config(args.config, rest)
-    check_single_card(args.mesh_model, cfg)
-    topo = initialize_from_env(device=device)
+    topo = initialize_from_env(device=args.device)
     print(f"topology: {topo}", flush=True)
-    model, mcfg, opt_w, opt_d = build(args.model, cfg)
+    if topo["process_count"] > 1:
+        import torch.distributed as tdist
+
+        print(f"backend: {tdist.get_backend()}", flush=True)
+    device = rank_device(args.device)
+    mesh = None
+    if args.mesh_model > 1 or topo["process_count"] > 1:
+        mesh = make_mesh(model=args.mesh_model)
+    check_regimes(cfg, mesh)
+    remap, cfg0 = None, cfg
+    if getattr(cfg, "field_slice", False):
+        if args.model != "wide_deep":
+            raise ValueError("field_slice lays out the Wide&Deep deep table")
+        fields, vocab, remap = field_slice_layout(cfg, mesh)
+        cfg = Config({**cfg.to_dict(), "field_size": fields,
+                      "vocab_size": vocab,
+                      "deep_table_slice_mode": "table_row_slice"})
+    model, mcfg, opt_w, opt_d = build(args.model, cfg, mesh)
 
     if args.unique_bucket and (
         getattr(cfg, "vocab_cache_size", 0)
@@ -290,12 +343,17 @@ def main(argv=None) -> dict:
     def make_data(train: bool):
         if cfg.dataset_type == "packed":
             sub = "train" if train else "test"
-            return PackedCriteoDataset(Path(cfg.data_path) / sub,
+            data = PackedCriteoDataset(Path(cfg.data_path) / sub,
                                        cfg.batch_size)
-        return SyntheticCriteo(
-            cfg.batch_size, cfg.field_size, cfg.vocab_size,
-            steps=cfg.steps_per_epoch, seed=1 if train else 999,
-        )
+        else:
+            # the data's own field count and vocab: field_slice lays them
+            # out anew
+            src = cfg if remap is None else cfg0
+            data = SyntheticCriteo(
+                cfg.batch_size, src.field_size, src.vocab_size,
+                steps=cfg.steps_per_epoch, seed=1 if train else 999,
+            )
+        return data if remap is None else _Mapped(data, remap)
 
     callbacks = [
         LossCallback(cfg.loss_file_name, per_print_times=10),
@@ -315,9 +373,16 @@ def main(argv=None) -> dict:
             latest_checkpoint, restore_checkpoint,
         )
 
-        path, _ck_step = latest_checkpoint(args.ckpt_dir,
-                                           rank=topo["process_index"])
-        if path:
+        path, ck_step = latest_checkpoint(args.ckpt_dir,
+                                          rank=topo["process_index"])
+        if path and mesh is not None:  # every rank's sliced file
+            paths = [str(Path(args.ckpt_dir) / f"ckpt-{ck_step:010d}-r{r}.npz")
+                     for r in range(mesh.size)]
+            rm.state = restore_checkpoint(paths, rm.state,
+                                          shardings=rm.shardings)
+            print(f"resumed from {path} (step {int(rm.state.step)})",
+                  flush=True)
+        elif path:
             rm.state = restore_checkpoint(path, rm.state)
             print(f"resumed from {path} (step {int(rm.state.step)})",
                   flush=True)
@@ -342,6 +407,8 @@ def main(argv=None) -> dict:
             b0 = dict(next(iter(make_data(train=True))))
             if dump_ids is not None:  # adapter regimes: any in-arena ids
                 b0["ids"] = (np.asarray(b0["ids"]) % dump_ids).astype(np.int32)
+            if mesh is not None:
+                b0 = shard_batch(b0, mesh)
             files = dump_ir(dump_step, rm.state, to_device(b0, rm.device),
                             path=args.graphs_path, name="train_step")
             print(f"dumped IR: {files}", flush=True)

@@ -14,15 +14,15 @@ Usage::
 
 Real data are TFRecords written by
 ``mindrec_tpu_torch.data.outbrain.write_outbrain_tfrecords``.
-``--mesh_model`` > 1 shards the emb128 table over several cards and
-raises (ROADMAP.md section 1 item 9).
+``--mesh_model`` > 1 row-slices the emb128 table over the model axis of
+a mesh of the launched ranks (``MR_*`` env, one process per rank, e.g.
+``run_distribute_train.sh``'s bootstrap); the other ranks form the data
+axis.
 """
 
 from __future__ import annotations
 
 import argparse
-
-from mindrec_tpu_torch.examples import ITEM9
 
 
 def main(argv=None) -> dict:
@@ -48,10 +48,6 @@ def main(argv=None) -> dict:
                     "prep pool -> staging; tiny-vocab groups skip sorting)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh_model > 1:
-        raise NotImplementedError(
-            f"--mesh_model {args.mesh_model} row-slices the emb128 table "
-            f"over several cards ({ITEM9})")
 
     from mindrec_tpu_torch import RecModel
     from mindrec_tpu_torch.data.outbrain import (
@@ -60,7 +56,8 @@ def main(argv=None) -> dict:
     from mindrec_tpu_torch.models.multitable import (
         MultiTableConfig, MultiTableWideDeepModel,
     )
-    from mindrec_tpu_torch.parallel.dist import initialize_from_env
+    from mindrec_tpu_torch.parallel.dist import initialize_from_env, rank_device
+    from mindrec_tpu_torch.parallel.mesh import make_mesh
     from mindrec_tpu_torch.train import optim
     from mindrec_tpu_torch.train.callbacks import (
         EvalCallback, LossCallback, TimeMonitor,
@@ -72,8 +69,13 @@ def main(argv=None) -> dict:
     cfg = MultiTableConfig(
         batch_size=args.batch_size, emb_128_size=args.emb128_size,
         deep_layer_dim=tuple(args.deep_layers), sparse=args.sparse,
+        emb128_slice_mode=("table_row_slice" if args.mesh_model > 1
+                           else "none"),
     )
-    model = MultiTableWideDeepModel(cfg)
+    mesh = None
+    if args.mesh_model > 1 or topo["process_count"] > 1:
+        mesh = make_mesh(model=args.mesh_model)
+    model = MultiTableWideDeepModel(cfg, mesh=mesh)
     opt_w = optim.ftrl(learning_rate=cfg.ftrl_lr, l1=5e-4, l2=5e-4,
                        initial_accum=0.1, loss_scale=cfg.loss_scale)
     opt_d = (optim.lazy_adam if cfg.sparse else optim.adam)(
@@ -81,7 +83,7 @@ def main(argv=None) -> dict:
     rm = RecModel(
         model, opt_w, opt_d,
         metrics={"auc": AUCMetric(), "map12": GroupedMapMetric(k=12)},
-        host_prep=args.host_prep, device=args.device,
+        host_prep=args.host_prep, device=rank_device(args.device),
     )
 
     def make_data(train: bool):

@@ -28,10 +28,17 @@ Dtypes as the reference writes them:
   of a JAX key.  Either side reads the other's key as words of its own
   generator; the streams differ.
 
-Restore merges ``@@shard(...)`` entries, so a reference checkpoint saved
-sliced across devices restores whole.  Saving sliced (sharded tables)
-and restoring onto shardings are not ported (``ROADMAP.md`` section 1
-item 9).
+Sliced checkpoints: on a mesh (``parallel/mesh.py``) each rank holds its
+block of the sliced tables.  ``save_checkpoint(..., force_sliced=True,
+shardings=state_placements(...))`` writes each block as
+``{key}@@shard(slice(a, b, None), ...)`` with the global shape in the
+index, the reference's entries, and the replicated leaves whole, one file
+per rank (``process_index``).  Restore merges the ``@@shard`` entries of
+the files it is given, so a reference checkpoint saved sliced across
+devices restores whole; with ``shardings=`` it cuts each leaf to the
+block of another mesh (the reference's strategy-checkpoint reload,
+``models/wide_deep/eval.py:84-105``).  :func:`merge_sliced` merges every
+rank's file into one whole state.
 """
 
 from __future__ import annotations
@@ -47,12 +54,6 @@ import torch
 
 RNG_KEY = ".rng"
 _BF16_BITS = np.dtype("V2")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: sharded tables need multi-GPU "
-        f"(ROADMAP.md section 1 item 9)")
 
 
 # ---------------------------------------------------------------------------
@@ -115,7 +116,17 @@ def _host_numpy(key: str, t) -> np.ndarray:
     return arr
 
 
-def _snapshot(state, force_sliced: bool) -> tuple[dict, dict]:
+def _placements(shardings) -> dict:
+    """flat key -> Placement of the sliced leaves of a placement tree."""
+    from mindrec_tpu_torch.parallel.mesh import Placement
+
+    if shardings is None:
+        return {}
+    return {k: pl for k, pl in flatten_state(shardings)
+            if isinstance(pl, Placement)}
+
+
+def _snapshot(state, force_sliced: bool, shardings=None) -> tuple[dict, dict]:
     """Copy the state to host memory of its own NOW: the captured step
     overwrites every leaf in place, so nothing may still be read from the
     card when this returns.  Card leaves are copied synchronously into
@@ -123,15 +134,24 @@ def _snapshot(state, force_sliced: bool) -> tuple[dict, dict]:
     there).  Pinned buffers would copy faster, but the writer thread
     would then free them, and freeing pinned memory queries CUDA events,
     which can invalidate a graph being captured on the training thread;
-    this way no CUDA call runs off the training thread."""
-    if force_sliced:
-        raise _not_ported("saving sliced checkpoints (force_sliced=True)")
+    this way no CUDA call runs off the training thread.
+
+    ``force_sliced`` with ``shardings`` (a placement tree of the state,
+    ``parallel.mesh.state_placements``): each leaf with a placement is
+    written as this rank's block, the reference's sliced entry."""
+    pls = _placements(shardings) if force_sliced else {}
     arrays, index = {}, {}
     for key, leaf in flatten_state(state):
         if isinstance(leaf, torch.Tensor):
             leaf = leaf.detach().to("cpu", copy=True)
-        arrays[key] = _host_numpy(key, leaf)
-        index[key] = {"global_shape": list(arrays[key].shape), "sliced": False}
+        arr = _host_numpy(key, leaf)
+        pl = pls.get(key)
+        if pl is None:
+            arrays[key] = arr
+            index[key] = {"global_shape": list(arr.shape), "sliced": False}
+        else:
+            arrays[f"{key}@@shard{pl.key()}"] = arr
+            index[key] = {"global_shape": list(pl.global_shape), "sliced": True}
     return arrays, index
 
 
@@ -163,12 +183,14 @@ def _write(directory: Path, prefix: str, rank: int, step: int, arrays: dict,
 def save_checkpoint(directory: str | os.PathLike, state, step: int,
                     prefix: str = "ckpt", keep_max: int | None = None,
                     process_index: int | None = None,
-                    force_sliced: bool = False) -> str:
+                    force_sliced: bool = False, shardings=None) -> str:
     """Save a state (a ``TrainState`` or any nest of dicts, lists and
-    NamedTuples of tensors).  Returns the written file's path."""
+    NamedTuples of tensors).  Returns the written file's path.  A rank of
+    a mesh saves sliced: ``force_sliced=True``, ``shardings`` its
+    placement tree and ``process_index`` its rank."""
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
-    arrays, index = _snapshot(state, force_sliced)
+    arrays, index = _snapshot(state, force_sliced, shardings)
     return _write(directory, prefix, process_index or 0, step, arrays, index,
                   keep_max)
 
@@ -191,13 +213,14 @@ class AsyncCheckpointer:
 
     def save(self, directory: str | os.PathLike, state, step: int,
              prefix: str = "ckpt", keep_max: int | None = None,
-             process_index: int | None = None, force_sliced: bool = False):
+             process_index: int | None = None, force_sliced: bool = False,
+             shardings=None):
         """Snapshot now, write in the background.  Returns a future whose
         ``.result()`` is the written path."""
         self.wait_until_finished()
         directory = Path(directory)
         directory.mkdir(parents=True, exist_ok=True)
-        arrays, index = _snapshot(state, force_sliced)
+        arrays, index = _snapshot(state, force_sliced, shardings)
         self._pending = self._pool.submit(
             _write, directory, prefix, process_index or 0, step, arrays,
             index, keep_max)
@@ -310,8 +333,9 @@ def _merge_shards(zs, key: str, global_shape) -> np.ndarray:
     return out
 
 
-def _restore(zs, like):
+def _restore(zs, like, shardings=None):
     index = json.loads(str(zs[0]["__index__"]))
+    pls = _placements(shardings)
     leaves = []
     for key, leaf in flatten_state(like):
         info = index.get(key)
@@ -321,18 +345,29 @@ def _restore(zs, like):
             arr = _merge_shards(zs, key, tuple(info["global_shape"]))
         else:
             arr = zs[0][key]
+        if key in pls:
+            arr = arr[pls[key].index]
         leaves.append(_like(arr, leaf, key))
     return _rebuild(like, iter(leaves))
 
 
-def restore_checkpoint(path: str | os.PathLike, like, shardings=None):
+def restore_checkpoint(path, like, shardings=None):
     """A new state with ``like``'s structure, each leaf a new tensor with
     the template leaf's device and dtype (a resumed ``RecModel`` sets
-    ``rm.state = restore_checkpoint(path, rm.state)``)."""
-    if shardings is not None:
-        raise _not_ported("restoring onto shardings (shardings=)")
-    with np.load(path, allow_pickle=False) as z:
-        return _restore([z], like)
+    ``rm.state = restore_checkpoint(path, rm.state)``).
+
+    ``path``: one file, or a list of files (every rank's of a sliced
+    save, whose ``@@shard`` entries merge).  ``shardings``: a placement
+    tree (``parallel.mesh.state_placements``) of a mesh to restore onto:
+    each placed leaf becomes this rank's block of it, which may be
+    another mesh than the one that saved."""
+    paths = [path] if isinstance(path, (str, os.PathLike)) else list(path)
+    zs = [np.load(p, allow_pickle=False) for p in paths]
+    try:
+        return _restore(zs, like, shardings)
+    finally:
+        for z in zs:
+            z.close()
 
 
 def merge_sliced(paths: list[str], like):

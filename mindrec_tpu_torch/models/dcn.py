@@ -20,8 +20,10 @@ config fields that the forward never reads (the forward takes ``train``
 and ``rng`` like the other models' and ignores them).
 ``use_one_hot_embeddings`` looks the rows up as a one-hot
 ``[B*F, padded_vocab]`` product with a dense table (``torch.matmul``,
-bf16 under mixed precision), as the reference's XLA dot does.  Sharded
-tables (``table_slice_mode``) are not ported and raise.
+bf16 under mixed precision), as the reference's XLA dot does.
+``table_slice_mode`` slices the table over the model axis of ``mesh``
+(``parallel/mesh.py``): the lookup (one-hot or not) reads this rank's
+block and sums over ``model``.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from typing import Sequence
 import torch
 
 from mindrec_tpu_torch.models.wide_deep import ACTS, sigmoid_cross_entropy
-from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, lookup
+from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, lookup, sharded
+from mindrec_tpu_torch.parallel.mesh import sum_over
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,17 +68,14 @@ class DCNModel:
 
     WIDE_KEYS = ()
 
-    def __init__(self, config: DCNConfig):
+    def __init__(self, config: DCNConfig, mesh=None):
         c = config
-        if c.table_slice_mode != "none":
-            raise NotImplementedError(
-                f"sharded tables are not ported yet "
-                f"(table_slice_mode={c.table_slice_mode!r})"
-            )
+        self.mesh = mesh  # table_slice_mode splits the table over its model axis
         self.config = c
         self.emb_spec = EmbeddingTableSpec(
             vocab_size=c.vocab_size, emb_dim=c.emb_dim, name="dcn_embedding",
-            sparse=c.sparse, init_args=c.init_args,
+            slice_mode=c.table_slice_mode, sparse=c.sparse,
+            init_args=c.init_args,
         )
         self.input_size = c.field_size * c.emb_dim
         dims = [self.input_size, *c.deep_layer_dim]
@@ -146,12 +146,22 @@ class DCNModel:
             dtype = (torch.bfloat16 if c.use_mixed_precision
                      else torch.float32)
             flat = ids.reshape(-1, 1).long()
+            split = sharded(self.emb_spec, self.mesh)
+            m = self.mesh.axis_index("model") if split else 0
+            if split and c.table_slice_mode == "table_row_slice":
+                flat = flat - m * table.shape[0]  # this rank's rows
             oh = (flat == torch.arange(table.shape[0], device=flat.device)
                   ).to(dtype)  # ids outside the table give zero rows
             rows_flat = torch.matmul(oh, table.to(dtype)).float()
+            if split and c.table_slice_mode == "table_column_slice":
+                w = rows_flat.shape[1]
+                rows_flat = torch.nn.functional.pad(
+                    rows_flat, (m * w, c.emb_dim - (m + 1) * w))
+            if split:
+                rows_flat = sum_over(rows_flat, "model", self.mesh)
             rows = {"emb": rows_flat.reshape(*ids.shape, c.emb_dim)}
         else:
-            rows = {"emb": lookup(self.emb_spec, table, ids)}
+            rows = {"emb": lookup(self.emb_spec, table, ids, self.mesh)}
         return self.apply_rows(params, rows, wts, train, rng)
 
     def apply_batch(self, params, batch, train=False, rng=None):

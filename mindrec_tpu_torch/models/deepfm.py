@@ -17,8 +17,9 @@ No parameter path contains "wide", so ``train/step.py`` routes every
 parameter to the deep optimizer (the reference's single-Adam recipe).
 The reference sums over fields with a tiled-identity matmul, a layout
 trick of its hardware; here the field sum is a float32 ``sum`` over the
-field axis, the same value.  Sharded tables (``table_slice_mode``) are
-not ported and raise.
+field axis, the same value.  ``table_slice_mode`` slices ``fm_v`` over
+the model axis of ``mesh`` (``parallel/mesh.py``): its lookups and l2
+term read this rank's block and sum over ``model``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ import torch
 
 from mindrec_tpu_torch.models.wide_deep import ACTS, sigmoid_cross_entropy
 from mindrec_tpu_torch.ops import prng
-from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, lookup
+from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, lookup, sharded
+from mindrec_tpu_torch.parallel.mesh import sum_over
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,13 +66,9 @@ class DeepFMModel:
 
     WIDE_KEYS = ()
 
-    def __init__(self, config: DeepFMConfig):
+    def __init__(self, config: DeepFMConfig, mesh=None):
         c = config
-        if c.table_slice_mode != "none":
-            raise NotImplementedError(
-                f"sharded tables are not ported yet "
-                f"(table_slice_mode={c.table_slice_mode!r})"
-            )
+        self.mesh = mesh  # table_slice_mode splits fm_v over its model axis
         self.config = c
         self.w_spec = EmbeddingTableSpec(
             vocab_size=c.vocab_size, emb_dim=1, name="fm_w", sparse=c.sparse,
@@ -78,6 +76,7 @@ class DeepFMModel:
         )
         self.v_spec = EmbeddingTableSpec(
             vocab_size=c.vocab_size, emb_dim=c.emb_dim, name="fm_v",
+            slice_mode=c.table_slice_mode,
             sparse=c.sparse, init_args=c.init_args, dtype=c.table_dtype,
             layout=c.table_layout,
         )
@@ -144,7 +143,7 @@ class DeepFMModel:
     def apply(self, params, ids, wts, train=False, rng=None):
         """Forward with the lookups inside: ``ids``, ``wts`` [B, F]."""
         rows = {
-            name: lookup(spec, params[path[0]][path[1]], ids)
+            name: lookup(spec, params[path[0]][path[1]], ids, self.mesh)
             for name, (path, spec) in self.table_specs.items()
         }
         return self.apply_rows(params, rows, wts, train, rng)
@@ -165,9 +164,10 @@ class DeepFMModel:
         ce = torch.mean(sigmoid_cross_entropy(logits, label))
         if self.config.sparse:
             return ce, ce
+        v2 = torch.sum(torch.square(params["fm"]["table"].float()))
+        if sharded(self.v_spec, self.mesh):
+            v2 = sum_over(v2, "model", self.mesh)
         l2 = 0.5 * (
-            torch.sum(torch.square(params["linear"]["table"].float()))
-            + torch.sum(torch.square(params["fm"]["table"].float()))
-        )
+            torch.sum(torch.square(params["linear"]["table"].float())) + v2)
         loss = ce + self.config.l2_coef * l2
         return loss, loss

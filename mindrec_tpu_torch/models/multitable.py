@@ -88,8 +88,9 @@ class MultiTableConfig:
 class MultiTableWideDeepModel:
     WIDE_KEYS = ("wide",)
 
-    def __init__(self, config: MultiTableConfig):
+    def __init__(self, config: MultiTableConfig, mesh=None):
         c = config
+        self.mesh = mesh  # emb128_slice_mode splits emb128 over its model axis
         self.config = c
         self._pool_cache = {}  # device -> _make_pool_matrix(device)
 
@@ -278,7 +279,8 @@ class MultiTableWideDeepModel:
         ids["emb64_multi"] = ids["w64_multi"] = multi_ids
         rows = {}
         for name, (path, spec) in self.table_specs.items():
-            rows[name] = lookup(spec, params[path[0]][path[1]], ids[name])
+            rows[name] = lookup(spec, params[path[0]][path[1]], ids[name],
+                                self.mesh)
         return self.apply_rows_batch(params, rows, batch, train, rng)
 
     def apply_batch(self, params, batch, train=False, rng=None):

@@ -18,6 +18,9 @@ rule and ``sigmoid_cross_entropy``.
   the step's key (``ops/prng.py``);
 * loss: mean sigmoid cross-entropy; the deep side adds
   ``l2_coef * sum(table^2) / 2`` unless sparse or PS.
+* ``mesh`` (``parallel/mesh.py``): with ``deep_table_slice_mode`` the
+  deep table is this rank's block; the lookups and the l2 term read it
+  per shard and sum over ``model``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from typing import Sequence
 import torch
 
 from mindrec_tpu_torch.ops import prng
-from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, lookup
+from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, lookup, sharded
+from mindrec_tpu_torch.parallel.mesh import sum_over
 
 ACTS = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh}
 
@@ -69,8 +73,9 @@ class WideDeepModel:
 
     WIDE_KEYS = ("wide",)
 
-    def __init__(self, config: WideDeepConfig):
+    def __init__(self, config: WideDeepConfig, mesh=None):
         c = config
+        self.mesh = mesh
         # the cache (vocab_cache_size) and dynamic-embedding regimes leave
         # the model as it is: train/cached.py and train/dynamic.py carry
         # them (the model is built with vocab_size = cache rows / capacity).
@@ -149,7 +154,7 @@ class WideDeepModel:
     def apply(self, params, ids, wts, train=False, rng=None):
         """Forward with the lookups inside: ``ids``, ``wts`` [B, F]."""
         rows = {
-            name: lookup(spec, params[path[0]][path[1]], ids)
+            name: lookup(spec, params[path[0]][path[1]], ids, self.mesh)
             for name, (path, spec) in self.table_specs.items()
         }
         return self.apply_rows(params, rows, wts, train, rng)
@@ -172,6 +177,8 @@ class WideDeepModel:
         if self.config.no_l2loss:
             return ce, ce
         l2 = 0.5 * torch.sum(torch.square(params["deep"]["table"].float()))
+        if sharded(self.deep_spec, self.mesh):
+            l2 = sum_over(l2, "model", self.mesh)
         return ce, ce + self.config.l2_coef * l2
 
 

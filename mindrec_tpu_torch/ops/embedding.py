@@ -4,8 +4,9 @@ Port of the parts of ``mindrec_tpu/ops/embedding.py`` that the steps
 need: :class:`EmbeddingTableSpec` (layout arithmetic), ``_init_rows``,
 ``to_storage`` / ``from_storage``, the row_packed ``packed_gather`` /
 ``packed_expand``, the lookup of every layout with the ``max_norm``
-clip (:func:`lookup`, the reference's ``EmbeddingLookup.__call__``),
-logical row reads and in-place writes in every layout (:func:`read_rows`,
+clip (:func:`lookup`, the reference's ``EmbeddingLookup.__call__``;
+:class:`EmbeddingLookup` with a mesh), the slice modes' partition specs
+(:meth:`EmbeddingTableSpec.partition_spec`), logical row reads and in-place writes in every layout (:func:`read_rows`,
 :func:`write_rows`) and the dynamic-vocabulary lookup
 (:class:`HashEmbeddingLookup`).  Storage
 layouts are bit-identical to the reference, so tables convert between
@@ -20,6 +21,13 @@ the two packages by a plain copy (``convert.py``).
   sublanes ``[(i % fold) * emb_dim, (i % fold + 1) * emb_dim)`` of
   column ``i // fold``; sublanes past ``emb_dim`` (``fold == 1``) are
   zero padding.
+
+A table with a ``slice_mode`` on a mesh (``parallel/mesh.py``) keeps one
+block per model rank: ``table_row_slice`` splits the vocab axis
+(``[Dp, Vc/M]`` feature-major, ``[Vp/M, D]`` row-major),
+``table_column_slice`` the feature axis; row_packed storage does not
+shard (the reference's rule).  :func:`lookup` on a mesh reads the ids
+this rank owns, zeros elsewhere, and sums the parts over ``model``.
 """
 
 from __future__ import annotations
@@ -141,6 +149,27 @@ class EmbeddingTableSpec:
             return (self.padded_dim, self.padded_vocab // self.fold)
         return (self.padded_vocab, self.emb_dim)
 
+    def partition_spec(self) -> tuple:
+        """Mesh axis (or None) of each storage dimension: the shard
+        descriptor of ``parallel/mesh.py`` (the reference's
+        ``PartitionSpec``)."""
+        if self.row_packed:
+            if self.slice_mode != "none":
+                raise ValueError(
+                    "row_packed layout does not shard; use feature_major "
+                    f"for slice_mode={self.slice_mode!r}")
+            return (None, None)
+        row, col = ("model", None)
+        if self.feature_major:  # the vocab axis is dim 1
+            row, col = col, row
+        if self.slice_mode == "table_row_slice":
+            return (row, col)
+        if self.slice_mode == "table_column_slice":
+            return (col, row)
+        if self.slice_mode == "none":
+            return (None, None)
+        raise ValueError(f"unknown slice_mode: {self.slice_mode}")
+
     def init_table(self, generator: torch.Generator, device) -> torch.Tensor:
         """Random table in storage layout: drawn in the logical
         ``[padded_vocab, emb_dim]`` shape, dummy and padding rows zero."""
@@ -220,14 +249,94 @@ def from_storage(spec: EmbeddingTableSpec, storage: torch.Tensor) -> torch.Tenso
     return storage[: spec.emb_dim].T
 
 
+def sharded(spec: EmbeddingTableSpec, mesh) -> bool:
+    """Whether ``spec``'s table is split over ``mesh``'s model axis."""
+    return (mesh is not None and mesh.model > 1
+            and spec.slice_mode != "none")
+
+
+def _owned_storage_rows(spec, table, flat, mesh) -> torch.Tensor:
+    """This rank's part of each id's storage row ``[n, lanes]`` (``Dp``
+    sublanes feature-major, ``emb_dim`` row-major): the block's values
+    where the rank owns them, zeros elsewhere."""
+    m, nm = mesh.axis_index("model"), mesh.model
+    fm = spec.feature_major
+    lanes = spec.padded_dim if fm else spec.emb_dim
+    keys = torch.div(flat, spec.fold, rounding_mode="floor") if fm else flat
+    if spec.slice_mode == "table_row_slice":
+        vl = table.shape[1] if fm else table.shape[0]
+        local = keys - m * vl
+        own = (local >= 0) & (local < vl)
+        idx = torch.where(own, local, 0).long()
+        rows = (table.index_select(1, idx).T if fm
+                else torch.nn.functional.embedding(idx, table))
+        return rows * own[:, None].to(rows.dtype)
+    # column slice: every rank reads every id, its lanes of the row
+    rows = (table.index_select(1, keys.long()).T if fm
+            else torch.nn.functional.embedding(keys.long(), table))
+    w = rows.shape[1]
+    pad = (m * w, lanes - (m + 1) * w)
+    assert w * nm == lanes, (w, nm, lanes)
+    return torch.nn.functional.pad(rows, pad)
+
+
+class _ShardedRows(torch.autograd.Function):
+    """Storage rows of a sliced table: the forward reads the ids this
+    rank owns (zeros elsewhere) and sums the parts over ``model``; the
+    backward adds the owned positions' gradient into the local block.
+    Every rank of a model row holds the same downstream, so the gradient
+    needs no collective here; the step sums it over ``data``."""
+
+    @staticmethod
+    def forward(ctx, table, flat, spec, mesh):
+        from mindrec_tpu_torch.parallel.mesh import all_reduce
+
+        ctx.save_for_backward(table, flat)
+        ctx.spec, ctx.mesh = spec, mesh
+        return all_reduce(_owned_storage_rows(spec, table, flat, mesh),
+                          "model", mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, flat = ctx.saved_tensors
+        with torch.enable_grad():
+            t = table.detach().requires_grad_(True)
+            part = _owned_storage_rows(ctx.spec, t, flat, ctx.mesh)
+            (gt,) = torch.autograd.grad(part, t, g)
+        return gt, None, None, None
+
+
+def storage_rows(spec: EmbeddingTableSpec, table: torch.Tensor, flat,
+                 mesh=None) -> torch.Tensor:
+    """Each flat id's storage row ``[n, lanes]`` of a feature-major or
+    row-major table, whole or sliced over ``mesh`` (then this rank's
+    block; differentiable in it)."""
+    if sharded(spec, mesh):
+        return _ShardedRows.apply(table, flat, spec, mesh)
+    if spec.feature_major:
+        cols = torch.div(flat, spec.fold, rounding_mode="floor")
+        return table.index_select(1, cols.long()).T
+    return torch.nn.functional.embedding(flat.long(), table)
+
+
 def lookup(spec: EmbeddingTableSpec, table: torch.Tensor,
-           ids: torch.Tensor) -> torch.Tensor:
+           ids: torch.Tensor, mesh=None) -> torch.Tensor:
     """Rows of ``table`` (storage layout) for ``ids`` of any shape ->
     ``ids.shape + [emb_dim]`` (the reference's ``EmbeddingLookup``).
     Ids must lie in the table.  With ``spec.max_norm`` each row is
-    scaled by ``min(1, max_norm / max(norm, 1e-12))``."""
+    scaled by ``min(1, max_norm / max(norm, 1e-12))``.  A table sliced
+    over ``mesh`` is this rank's block (:class:`_ShardedRows`)."""
     flat = ids.reshape(-1)
-    if spec.row_packed:
+    if sharded(spec, mesh):
+        rows = storage_rows(spec, table, flat, mesh)
+        if spec.feature_major:
+            r, d = spec.fold, spec.emb_dim
+            g = rows[:, : r * d].reshape(-1, r, d)
+            sub = torch.remainder(flat, r).long()
+            out = g[torch.arange(g.shape[0], device=g.device), sub]
+        else:
+            out = rows
+    elif spec.row_packed:
         out = packed_gather(spec, table, flat)
     elif spec.feature_major:
         r, d = spec.fold, spec.emb_dim
@@ -282,6 +391,32 @@ def write_rows(spec: EmbeddingTableSpec, storage: torch.Tensor, ids,
     rows = torch.as_tensor(rows).to(storage.device, storage.dtype)
     storage[_row_index(spec, storage, ids)] = rows.reshape(-1, spec.emb_dim)
     return storage
+
+
+class EmbeddingLookup:
+    """A fixed-size table with its placement (the reference's
+    ``EmbeddingLookup``): :meth:`init` makes the table, whole or this
+    rank's block of it when ``spec`` slices over ``mesh``; calling it
+    gathers rows (:func:`lookup`)."""
+
+    def __init__(self, spec: EmbeddingTableSpec, mesh=None):
+        self.spec = spec
+        self.mesh = mesh
+
+    def init(self, generator: torch.Generator, device="cuda") -> torch.Tensor:
+        """The table drawn whole (so every placement holds the same
+        values), then cut to this rank's block."""
+        table = self.spec.init_table(generator, device)
+        if sharded(self.spec, self.mesh):
+            from mindrec_tpu_torch.parallel.mesh import placement
+
+            pl = placement(tuple(table.shape), self.spec.partition_spec(),
+                           self.mesh)
+            table = pl.take(table).contiguous()
+        return table
+
+    def __call__(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        return lookup(self.spec, table, ids, self.mesh)
 
 
 class HashEmbeddingLookup:

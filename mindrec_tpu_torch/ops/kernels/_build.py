@@ -8,13 +8,16 @@ where the hash covers the sources and the flags, so a changed source
 rebuilds and an unchanged one is reused.  ``-Xptxas=-v`` output
 (registers, spills) is kept in ``build.log`` beside the library.
 
-The entry points return a ``cudaError_t``; :func:`check` raises on any
-non-zero code.  Nothing here runs at import time.
+Ranks started together (``parallel/launch.py``) build under a file lock
+on ``_build/.lock``: the first builds, the others wait and load its
+library.  The entry points return a ``cudaError_t``; :func:`check`
+raises on any non-zero code.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -68,11 +71,21 @@ def build_dir() -> Path:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` (in parallel) and link; returns the library
-    path.  Reuses a library already built from the same sources."""
+    path.  Reuses a library already built from the same sources; one
+    process at a time builds (a file lock)."""
     out = build_dir()
     lib = out / LIB_NAME
     if lib.exists():
         return lib
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_ROOT / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists():  # another process built it while we waited
+            return lib
+        return _build_locked(out, lib)
+
+
+def _build_locked(out: Path, lib: Path) -> Path:
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = []

@@ -40,9 +40,10 @@ _ARGS = [
 
 
 def segsum_sorted_plain(g: torch.Tensor, uidx_sorted: torch.Tensor,
-                        n_out: int, perm: torch.Tensor | None = None
-                        ) -> torch.Tensor:
-    """Plain PyTorch version (``g[perm]``, then ``index_add_`` in float32)."""
+                        n_out: int, perm: torch.Tensor | None = None,
+                        gaps: bool = False) -> torch.Tensor:
+    """Plain PyTorch version (``g[perm]``, then ``index_add_`` in float32;
+    it takes any steps, so ``gaps`` changes nothing)."""
     if perm is not None:
         g = g[perm.long()]
     keep = (uidx_sorted >= 0) & (uidx_sorted < n_out)
@@ -53,16 +54,20 @@ def segsum_sorted_plain(g: torch.Tensor, uidx_sorted: torch.Tensor,
 
 
 def segsum_sorted(g: torch.Tensor, uidx_sorted: torch.Tensor, n_out: int,
-                  perm: torch.Tensor | None = None) -> torch.Tensor:
+                  perm: torch.Tensor | None = None,
+                  gaps: bool = False) -> torch.Tensor:
     """``out[:, u] = sum(g[perm[i], :] for uidx_sorted[i] == u)`` -> [D, n_out].
 
     ``g``: [R, D] bfloat16 or float32 (D <= 256), the rows in batch
     order; ``perm``: [N] int32 or int64, sorted position -> row of ``g``
     (values in [0, R); N may be less than R), or None for the identity
-    (then R == N); ``uidx_sorted``: [N] int32.  CPU tensors take
-    :func:`segsum_sorted_plain`; CUDA tensors launch the kernel, which
-    reads the rows through ``perm`` (no gather in front of it) and returns
-    the transposed view of a row-major [n_out, D] array.  The values of
+    (then R == N); ``uidx_sorted``: [N] int32, non-decreasing by steps of
+    0 or 1, or by any steps with ``gaps=True`` (the kernel writes no row
+    of an id it skips inside its range, so ``out`` is zeroed first).
+    CPU tensors take :func:`segsum_sorted_plain`; CUDA tensors launch
+    the kernel, which reads the rows through ``perm`` (no gather in front
+    of it) and returns the transposed view of a row-major [n_out, D]
+    array.  The values of
     ``perm`` are not checked on the card (that would synchronise): one
     outside [0, R) reads out of bounds, where the plain version raises.
     The step's ``perm`` is in range by construction."""
@@ -91,7 +96,8 @@ def segsum_sorted(g: torch.Tensor, uidx_sorted: torch.Tensor, n_out: int,
             "sizes must fit int32")
     require_contiguous(_NAME, g=g, uidx_sorted=uidx_sorted,
                        **({} if perm is None else {"perm": perm}))
-    out = torch.empty((n_out, d), dtype=torch.float32, device=g.device)
+    out = (torch.zeros if gaps else torch.empty)(
+        (n_out, d), dtype=torch.float32, device=g.device)
     partial = torch.empty(
         _build.scratch_len("mr_segsum_sorted_partial_len", n, d),
         dtype=torch.float32, device=g.device)

@@ -24,6 +24,7 @@ dropout off or inject the reference's masks.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -45,10 +46,10 @@ def _hash(key: torch.Tensor, counters: torch.Tensor) -> torch.Tensor:
     return _mix(_mix(counters ^ key[0]) ^ key[1])
 
 
-def _counters(n: int, device) -> torch.Tensor:
-    if n > M32:
-        raise ValueError(f"{n} draws exceed the 2**32 counters of a key")
-    return torch.arange(n, dtype=torch.int64, device=device)
+def _counters(n: int, device, start: int = 0) -> torch.Tensor:
+    if start + n > M32:
+        raise ValueError(f"{start + n} draws exceed the 2**32 counters of a key")
+    return torch.arange(start, start + n, dtype=torch.int64, device=device)
 
 
 def key(seed: int, device="cuda") -> torch.Tensor:
@@ -65,18 +66,42 @@ def split(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return w[:2], w[2:]
 
 
-def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+def bernoulli(key: torch.Tensor, p: float, shape, offset: int = 0) -> torch.Tensor:
     """Bool tensor of ``shape``, each element True with probability
-    ``p`` (to 2**-32)."""
+    ``p`` (to 2**-32).  ``offset``: the draws start at that counter, so a
+    block of a larger draw is drawn alone."""
     shape = tuple(shape)
-    bits = _hash(key, _counters(math.prod(shape), key.device))
+    n = math.prod(shape)
+    bits = _hash(key, _counters(n, key.device, offset))
     return (bits < int(p * 2**32)).reshape(shape)
+
+
+_first_row = 0  # batch_rows: the first row of this rank's batch slice
+
+
+@contextlib.contextmanager
+def batch_rows(first: int):
+    """Inside, :func:`dropout` draws the rows of a global batch from
+    row ``first`` on: a data rank of a mesh, holding rows ``[first,
+    first + B_local)``, draws the masks those rows get in the global
+    batch."""
+    global _first_row
+    old, _first_row = _first_row, int(first)
+    try:
+        yield
+    finally:
+        _first_row = old
 
 
 def dropout(h: torch.Tensor, keep_prob: float, key: torch.Tensor) -> torch.Tensor:
     """Inverted dropout: ``where(keep, h / keep_prob, 0)`` in ``h``'s
-    type, ``keep`` drawn by :func:`bernoulli`.  ``keep_prob`` is rounded
-    to ``h``'s type first, as the reference divides by a weakly typed
-    scalar (a 0-dim CPU operand: no host read, nothing to stage)."""
-    keep = bernoulli(key, keep_prob, h.shape)
+    type, ``keep`` drawn by :func:`bernoulli` (from :func:`batch_rows`'s
+    row on).  ``keep_prob`` is rounded to ``h``'s type first, as the
+    reference divides by a weakly typed scalar (a 0-dim CPU operand: no
+    host read, nothing to stage)."""
+    if _first_row:
+        keep = bernoulli(key, keep_prob, h.shape,
+                         _first_row * math.prod(h.shape[1:]))
+    else:
+        keep = bernoulli(key, keep_prob, h.shape)
     return torch.where(keep, h / torch.tensor(keep_prob, dtype=h.dtype), 0.0)

@@ -33,6 +33,9 @@ class RunContext:
     net_outputs: Any = None
     train_state: Any = None
     rank_id: int = 0
+    # on a mesh: the state's placement tree (parallel/mesh.py), for
+    # sliced checkpoints
+    shardings: Any = None
     _stop: bool = field(default=False, repr=False)
 
     def request_stop(self):
@@ -91,7 +94,8 @@ class CallbackManager(Callback):
 
 
 class LossCallback(Callback):
-    """Print / append the per-step wide and deep losses with the rank id;
+    """Print / append the per-step wide and deep losses with the rank id
+    (rank 0 only: on a mesh every rank's losses are the global batch's);
     raises on a NaN or Inf loss.  Reading a loss waits for its step."""
 
     def __init__(self, loss_file: Optional[str] = None, per_print_times: int = 1):
@@ -115,6 +119,8 @@ class LossCallback(Callback):
             bad = not np.isfinite(loss)
         if bad:
             raise ValueError(f"loss is NaN or Inf at step {ctx.cur_step_num}: {msg}")
+        if ctx.rank_id != 0:
+            return
         print(f"[rank {ctx.rank_id}] {msg}", flush=True)
         if self.loss_file:
             with open(self.loss_file, "a") as f:
@@ -122,7 +128,8 @@ class LossCallback(Callback):
 
 
 class EvalCallback(Callback):
-    """Run eval at each epoch end and append the AUC to an eval log."""
+    """Run eval at each epoch end (every rank: eval gathers over the
+    mesh) and append the AUC to an eval log (rank 0)."""
 
     def __init__(self, rec_model, dataset, eval_file: Optional[str] = None):
         self.rec_model = rec_model
@@ -135,6 +142,8 @@ class EvalCallback(Callback):
         auc = metrics.get("auc")
         self.history.append(auc)
         msg = f"epoch: {ctx.epoch_num}, auc: {auc}"
+        if ctx.rank_id != 0:
+            return
         print(msg, flush=True)
         if self.eval_file:
             with open(self.eval_file, "a") as f:
@@ -205,7 +214,8 @@ class TimeMonitor(Callback):
                 f"floor (hbm {self.floor['hbm_ms']} ms + mxu "
                 f"{self.floor['mxu_ms']} ms)"
             )
-        print(line, flush=True)
+        if getattr(ctx, "rank_id", 0) == 0:  # callers may pass no context
+            print(line, flush=True)
 
 
 def _global_step(ctx: RunContext) -> int:
@@ -224,7 +234,10 @@ class CheckpointCallback(Callback):
     before the next step and writes the file on a background thread
     (``io/checkpoint.py:AsyncCheckpointer``); the callback can be used
     again in later ``train`` / ``online_train`` calls.  Resume with
-    ``rm.state = restore_checkpoint(path, rm.state)``."""
+    ``rm.state = restore_checkpoint(path, rm.state)``.  On a mesh (the
+    context's ``shardings``) each rank saves its sliced file
+    ``-r<rank>``; resume with ``restore_checkpoint(every rank's file,
+    rm.state, shardings=rm.shardings)``."""
 
     def __init__(self, directory: str, prefix: str = "ckpt",
                  save_steps: int = 100, keep_max: int = 5,
@@ -243,7 +256,9 @@ class CheckpointCallback(Callback):
         from mindrec_tpu_torch.io import checkpoint
 
         kw = dict(step=_global_step(ctx), prefix=self.prefix,
-                  keep_max=self.keep_max)
+                  keep_max=self.keep_max, process_index=ctx.rank_id)
+        if ctx.shardings is not None:
+            kw.update(force_sliced=True, shardings=ctx.shardings)
         if not self.async_save:
             self.saved.append(checkpoint.save_checkpoint(
                 self.directory, ctx.train_state, **kw))

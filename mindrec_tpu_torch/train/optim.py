@@ -95,9 +95,13 @@ def ftrl_math(g, accum, linear, w, *, learning_rate, l1, l2, inv_scale,
     else:
         sq_new = torch.pow(accum_new, -lr_power)
         sq_old = torch.pow(accum.float(), -lr_power)
-    sigma = (sq_new - sq_old) / learning_rate
+    # a tensor divisor: on the card PyTorch turns division by a Python
+    # number into a product with its float32 reciprocal, which rounds
+    # apart from the kernels' division (and the CPU's)
+    lr = torch.full((), learning_rate, dtype=torch.float32, device=g.device)
+    sigma = (sq_new - sq_old) / lr
     linear_new = linear.float() + g - sigma * w32
-    quadratic = sq_new / learning_rate + 2.0 * l2
+    quadratic = sq_new / lr + 2.0 * l2
     w_new = torch.where(
         torch.abs(linear_new) > l1,
         (torch.sign(linear_new) * l1 - linear_new) / quadratic,

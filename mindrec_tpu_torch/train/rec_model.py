@@ -37,7 +37,15 @@ the card at a static ``unique_bucket``; ``input_recipe="auto"``
 measures the host->device link once and picks host prep, or device prep
 with the compact wire, superbatch staging and the fused step (one
 CUDA-graph replay per batch that slices, decodes and steps).
-Multi-GPU is ``ROADMAP.md`` section 1 item 9: ``rank_id`` is 0.
+On a mesh (the model's ``mesh``, ``parallel/mesh.py``, more than one
+rank) ``rank_id`` is the process group's rank and every rank runs the
+same ``RecModel`` on the same global batches: the state is initialised
+whole and cut to this rank's blocks (``shard_train_state``; its
+placement tree is ``shardings``), the step runs eagerly (``jit`` is
+turned off: graphs cannot capture gloo's host copies), each batch is
+cut to this rank's data slice before staging, ``eval`` gathers the
+predictions over ``data`` before the metrics, callbacks print on rank 0
+and ``CheckpointCallback`` saves one sliced file per rank.
 """
 
 from __future__ import annotations
@@ -50,6 +58,9 @@ import torch
 
 from mindrec_tpu_torch.data.criteo import PrefetchToDevice, to_device
 from mindrec_tpu_torch.data.pipeline import AdaptiveBucket, SparseInputPipeline
+from mindrec_tpu_torch.parallel.mesh import (
+    DATA_AXIS, all_gather, shard_batch, shard_train_state, state_placements,
+)
 from mindrec_tpu_torch.train import optim as optim_lib
 from mindrec_tpu_torch.train.callbacks import CallbackManager, RunContext
 from mindrec_tpu_torch.train.metrics import AUCMetric
@@ -151,6 +162,15 @@ class RecModel:
         self.input_recipe = input_recipe
         self._recipe_resolved = input_recipe != "auto"
         self.link = None  # (fixed ms per put, bytes/s) once measured
+        mesh = getattr(model, "mesh", None)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            jit = False  # the step on a mesh runs eagerly
+            if prep_placement != "host" or input_recipe != "none" or wire:
+                raise ValueError(
+                    "on a mesh batches take host prep (or none): device "
+                    "prep, the wire and input_recipe='auto' are one-card "
+                    "recipes")
         self._superbatch = 1
         self._fused = None  # (fused step, superbatch k)
         # with host prep the step sizes its unique buffer from the trimmed
@@ -164,7 +184,11 @@ class RecModel:
         self.eval_step = make_eval_step(model)
         self.state: TrainState = init_train_state(
             model, seed, self.opt_w, self.opt_d, device=self.device)
-        self.rank_id = 0
+        self.rank_id = self.mesh.rank if self.mesh is not None else 0
+        self.shardings = None  # the state's placement tree on a mesh
+        if self.mesh is not None:
+            self.shardings = state_placements(self.state, model, self.mesh)
+            self.state = shard_train_state(self.state, model, self.mesh)
 
     def _on_bucket_grow(self, new_bucket: int):
         """Device placement: the host audit grew the bucket; rebuild the
@@ -299,7 +323,8 @@ class RecModel:
         """Epoch-bounded training over a re-iterable dataset."""
         self._check_sink_mode_type(dataset_sink_mode)
         cb = CallbackManager(callbacks)
-        ctx = RunContext(rank_id=self.rank_id, train_state=self.state)
+        ctx = RunContext(rank_id=self.rank_id, train_state=self.state,
+                         shardings=self.shardings)
         cb.on_train_begin(ctx)
         step_num = 0
         for ep in range(1, epoch + 1):
@@ -356,7 +381,8 @@ class RecModel:
             dataset_sink_mode = False  # a CPU target runs without sink
 
         cb = CallbackManager(callbacks)
-        ctx = RunContext(rank_id=self.rank_id, train_state=self.state)
+        ctx = RunContext(rank_id=self.rank_id, train_state=self.state,
+                         shardings=self.shardings)
         cb.on_train_begin(ctx)
         step_num = 0
         it = iter(self._maybe_sink(train_dataset, dataset_sink_mode))
@@ -397,8 +423,13 @@ class RecModel:
             m.clear()
         own = _takes_device_batches(self.eval_step)
         for batch in dataset:
+            part = batch if self.mesh is None else shard_batch(batch, self.mesh)
             probs, labels = self.eval_step(
-                self.state.params, self._tensors(batch) if own else batch)
+                self.state.params, self._tensors(part) if own else part)
+            if self.mesh is not None:  # the global batch's predictions
+                probs, labels = (all_gather(torch.as_tensor(x).contiguous(),
+                                            DATA_AXIS, self.mesh)
+                                 for x in (probs, labels))
             # a replaced eval step (a regime's adapter) may hand back
             # the host batch's labels as they came
             probs = _host(probs).astype(np.float32)
@@ -421,6 +452,8 @@ class RecModel:
             )
 
     def _maybe_sink(self, dataset, sink: bool) -> Iterable:
+        if self.mesh is not None:
+            return self._mesh_sink(dataset, sink)
         if not sink or not _takes_device_batches(self.train_step):
             return iter(dataset)
         if not self._recipe_resolved:
@@ -460,6 +493,27 @@ class RecModel:
             return PrefetchToDevice(dataset, depth=2,
                                     device=self.state.step.device)
         return iter(dataset)
+
+
+    def _mesh_sink(self, dataset, sink: bool) -> Iterable:
+        """On a mesh: this rank's slice of each batch, host-prepped on the
+        global batch when the step takes prep, staged on the card in sink
+        mode."""
+        on_card = self.state.step.device.type == "cuda"
+        if self.host_prep:
+            groups = prep_groups(self.model)
+            return iter(SparseInputPipeline(
+                dataset, field_size=int(getattr(self.model.config,
+                                                "field_size", 0)),
+                policy=self.bucket_policy if groups is None else None,
+                groups=groups, workers=self.prep_workers,
+                device=on_card and sink, sharding=self.mesh,
+                audit_every=self.audit_every,
+            ))
+        if sink and on_card:
+            return PrefetchToDevice(dataset, depth=2, sharding=self.mesh,
+                                    device=self.state.step.device)
+        return (shard_batch(b, self.mesh) for b in dataset)
 
 
 def _fused_markers(pipe):

@@ -99,13 +99,45 @@ passed in must not be used again (the reference donates it), unless the
 step is built with ``donate=False``, which runs it on a copy.  With
 ``use_kernels=False`` the streamed branches call the kernels' plain
 versions directly on any device (the reference for the kernels on the
-card).  Sharded and host-resident tables raise ``NotImplementedError``
-(ROADMAP.md section 1 item 9; ``train/host_target.py`` trains host
-tables).
+card).  Host-resident tables raise ``NotImplementedError``
+(``train/host_target.py`` trains them).
+
+On a mesh (the model's ``mesh``, ``parallel/mesh.py``, more than one
+rank) each rank runs the step on its slice of the global batch
+(``shard_batch``; a :class:`~mindrec_tpu_torch.parallel.mesh.FullBatch`
+is sliced here) and its block of each sliced table (``shard_train_state``):
+
+* data parallelism: the loss is differentiated at ``1 / data`` of its
+  scale, so the dense gradients summed over ``data`` are those of the
+  global batch's mean; the losses returned are the global means; the
+  overflow guard's flag is the AND over every rank; dropout draws the
+  masks of the rank's rows of the global batch (``prng.batch_rows``);
+* the streamed branch (``row_layout=True``) takes the global unique
+  vector (host prep's ``uq_ids`` gathered over ``data``, or a sort of the
+  ids gathered over ``data``) and runs the kernels per shard
+  (``ops/sharded_stream.py``): row-sliced tables gather their owned
+  columns and sum the lanes over ``model``, column-sliced ones gather
+  their sublanes at a lane offset; the backward sums each data rank's
+  positions in the global unique order, then over ``data``; each table
+  updates its owned block; replicated tables update alike on every rank;
+* the generic path (``use_pallas=False`` and the reference's fallbacks,
+  with its warnings word for word: column slice at ``fold > 1``,
+  ``row_layout=False`` on a mesh, a mesh without a ``data`` axis)
+  gathers each table's position gradients over ``data`` and every rank
+  updates its block of it (its owned ids);
+* the dense step reads sliced tables through the sharded lookup
+  (``ops/embedding.py``) and sums every gradient over ``data``: a
+  replicated table's gradient travels whole, as in any data-parallel
+  dense step.
+
+A one-rank mesh keeps the plain path.  ``jit=True`` on a mesh raises
+``NotImplementedError``: CUDA graphs cannot capture gloo's host copies
+(ROADMAP.md section 1 item 9).
 """
 
 from __future__ import annotations
 
+import gc
 import warnings
 from typing import Any, NamedTuple
 
@@ -128,7 +160,12 @@ from mindrec_tpu_torch.ops.kernels.update_cols import (
 from mindrec_tpu_torch.ops.kernels.update_rows import (
     adam_rows, adam_rows_plain, ftrl_rows, ftrl_rows_plain,
 )
+from mindrec_tpu_torch.ops import sharded_stream as ss
+from mindrec_tpu_torch.ops.embedding import storage_rows
 from mindrec_tpu_torch.ops.sparse import segment_sum_rows, unique_pad
+from mindrec_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, FullBatch, all_gather, all_reduce, shard_batch,
+)
 from mindrec_tpu_torch.train.optim import Optimizer, adam_lr_t, live_sources
 
 SENTINEL = 2**31 - 2  # padded unique slot: past every vocab
@@ -270,14 +307,19 @@ def _packed_table_update(opt: Optimizer, g_cols, rows_sorted, sub_sorted,
 
 
 def _streamed_table_update(opt: Optimizer, grads_aug, cols, leaf_state, table,
-                           spec, use_kernels=True):
+                           spec, use_kernels=True, mesh=None):
     """Column-sparse optimizer update of a feature-major ``[Dp, Vc]``
     table, in place.
 
     ``grads_aug``: [Dp+8, U] touch-augmented summed gradients
     (``make_aug_grads``); ``cols``: [U] int32 sorted storage columns.
+    With ``mesh`` the table is this rank's block of a sliced table and
+    the update runs per shard (``ops/sharded_stream.py``).
     Returns (table, new leaf state)."""
     h = opt.hyper
+    if mesh is not None:
+        return _sharded_table_update(opt, grads_aug, cols, leaf_state, table,
+                                     spec, use_kernels, mesh)
     dp, vc = table.shape
     kw = dict(dim=spec.emb_dim, fold=spec.fold, loss_scale=h["loss_scale"])
     if opt.kind == "sgd":
@@ -303,6 +345,37 @@ def _streamed_table_update(opt: Optimizer, grads_aug, cols, leaf_state, table,
            learning_rate=h["learning_rate"], l1=h["l1"], l2=h["l2"], **kw)
         return table, leaf_state
     raise ValueError(f"feature-major update supports ftrl/adam/sgd "
+                     f"(kind={opt.kind})")
+
+
+def _sharded_table_update(opt: Optimizer, grads_aug, cols, leaf_state, table,
+                          spec, use_kernels, mesh):
+    """:func:`_streamed_table_update` of this rank's block of a row- or
+    column-sliced table: its owned columns (row slice) or its sublanes
+    of every column (column slice)."""
+    h = opt.hyper
+    col = spec.slice_mode == "table_column_slice"
+    kw = dict(loss_scale=h["loss_scale"], use_kernels=use_kernels)
+    if not col:
+        kw.update(dim=spec.emb_dim, fold=spec.fold)
+    if opt.kind == "adam":
+        step = leaf_state["step"] + 1
+        lr_t = adam_lr_t(step, learning_rate=h["learning_rate"], b1=h["b1"],
+                         b2=h["b2"])
+        fn = ss.adam_colsliced_sharded if col else ss.adam_cols_sharded
+        fn(mesh, table, leaf_state["m"], leaf_state["v"], cols, grads_aug,
+           lr_t, b1=h["b1"], b2=h["b2"], eps=h["eps"], **kw)
+        return table, {"m": leaf_state["m"], "v": leaf_state["v"],
+                       "step": step}
+    if opt.kind == "ftrl":
+        if h["lr_power"] != -0.5:
+            raise NotImplementedError(_LR_POWER_MSG)
+        fn = ss.ftrl_colsliced_sharded if col else ss.ftrl_cols_sharded
+        fn(mesh, table, leaf_state["accum"], leaf_state["linear"], cols,
+           grads_aug, learning_rate=h["learning_rate"], l1=h["l1"],
+           l2=h["l2"], **kw)
+        return table, leaf_state
+    raise ValueError(f"sharded streamed update supports ftrl/adam "
                      f"(kind={opt.kind})")
 
 
@@ -341,12 +414,57 @@ def _supported(model):
                 f"device step does not train it: use "
                 f"train/host_target.py:HostTargetAdapter"
             )
-        if spec.slice_mode != "none":
-            raise NotImplementedError(
-                f"table {name}: sharded tables are not ported yet "
-                f"(slice_mode={spec.slice_mode!r}; ROADMAP.md section 1 "
-                f"item 9)"
-            )
+
+
+def _mesh_of(model):
+    """The model's mesh when it has more than one rank, else None (a
+    one-rank mesh keeps the plain path)."""
+    mesh = getattr(model, "mesh", None)
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def _mesh_fallback(model, mesh, row_layout) -> tuple[bool, set]:
+    """The reference's fallbacks of the streamed branch on a mesh, with
+    its warnings: -> (take the generic path, the tables the streamed
+    branch shards)."""
+    specs = model.table_specs
+    model_shards = mesh.model if "model" in mesh.axis_names else 1
+    split = ({name for name, (_p, spec) in specs.items()
+              if spec.slice_mode != "none"} if model_shards > 1 else set())
+    if split:
+        def shardable(spec):
+            if spec.slice_mode == "table_row_slice":
+                return True
+            if spec.slice_mode == "table_column_slice":
+                dp = spec.storage_shape[0]
+                return (spec.fold == 1 and dp % model_shards == 0
+                        and dp // model_shards <= ss.MAX_SHARD_SUBLANES)
+            return False
+
+        unsupported = sorted(n for n in split if not shardable(specs[n][1]))
+        if unsupported or not row_layout:
+            warnings.warn(
+                "the streamed pallas path composes with a model mesh only "
+                "for table_row_slice / fold-1 table_column_slice tables "
+                f"under row_layout=True (unsupported: "
+                f"{unsupported or 'row_layout=False'}); falling back to "
+                "the generic sharded path (correct, bounded collectives, "
+                "but slower)", stacklevel=3)
+            return True, set()
+    if not row_layout:
+        warnings.warn(
+            "the feature-major streamed path (row_layout=False) is "
+            "single-device; falling back to the generic path on this "
+            f"{mesh.size}-device mesh", stacklevel=3)
+        return True, set()
+    if "data" not in mesh.axis_names:
+        warnings.warn(
+            f"mesh axes {tuple(mesh.axis_names)} lack 'data'; falling back "
+            "to the generic sharded path (build meshes with "
+            "parallel.mesh.make_mesh for the streamed composition)",
+            stacklevel=3)
+        return True, set()
+    return False, split
 
 
 def _generic_branch(model, row_layout, use_pallas) -> bool:
@@ -460,7 +578,9 @@ class _Group(NamedTuple):
     id_bound: int
 
 
-def _group_layouts(table_specs, table_groups, tiny_vocab):
+def _group_layouts(table_specs, table_groups, tiny_vocab, split=()):
+    """Per id group its :class:`_Group`; a group holding a table of
+    ``split`` (sliced over a mesh) is never tiny."""
     out = {}
     for g, info in table_groups.items():
         names = tuple(sorted(info["tables"],
@@ -475,7 +595,9 @@ def _group_layouts(table_specs, table_groups, tiny_vocab):
         out[g] = _Group(
             keys=tuple(info["keys"]), tables=names, offs=offs, lanes=lanes,
             width=max(128, -(-off // 128) * 128),
-            tiny=bound <= min(tiny_vocab, 2048), id_bound=bound,
+            tiny=(bound <= min(tiny_vocab, 2048)
+                  and not any(n in split for n in names)),
+            id_bound=bound,
         )
     return out
 
@@ -536,7 +658,8 @@ def make_train_step(
 
     ``jit=True`` (the reference's ``jax.jit``): on a CUDA state the step
     is captured once per batch signature in a CUDA graph and replayed
-    (:class:`CapturedStep`); on the CPU it is the eager step.
+    (:class:`CapturedStep`); on the CPU it is the eager step.  On a mesh
+    it raises (module docstring): build the step with ``jit=False``.
     ``donate``: the steps update the state passed in (the sparse steps
     their tables in place, a captured step every leaf); ``donate=False``
     runs the step on a copy and leaves the state passed in as it was, bit
@@ -547,7 +670,21 @@ def make_train_step(
         sparse = bool(getattr(cfg, "sparse", False)
                       or getattr(cfg, "dynamic_embedding", False))
     _supported(model)
+    mesh = _mesh_of(model)
+    if mesh is not None and jit:
+        raise NotImplementedError(
+            "a step on a mesh runs eagerly: build it with jit=False.  CUDA "
+            "graphs cannot capture gloo's host copies, and capture over "
+            "NCCL needs a card per rank (ROADMAP.md section 1 item 9)")
     generic = bool(sparse) and _generic_branch(model, row_layout, use_pallas)
+    split = set()  # tables the streamed branch runs per shard
+    if sparse and not generic and mesh is not None:
+        generic, split = _mesh_fallback(model, mesh, row_layout)
+    n_data = mesh.data if mesh is not None else 1
+    # the generic and dense paths read every sliced table per shard
+    sliced = ({n for n, (_p, spec) in model.table_specs.items()
+               if spec.slice_mode != "none"}
+              if mesh is not None and mesh.model > 1 else set())
     sens = float(loss_scale if loss_scale is not None
                  else getattr(cfg, "loss_scale", 1.0))
     table_specs = model.table_specs
@@ -564,7 +701,7 @@ def make_train_step(
             opt = opt_w if is_wide_key(key) else opt_d
             if opt.kind == "ftrl" and opt.hyper["lr_power"] != -0.5:
                 raise NotImplementedError(f"table {name}: {_LR_POWER_MSG}")
-    layouts = _group_layouts(table_specs, table_groups, tiny_vocab)
+    layouts = _group_layouts(table_specs, table_groups, tiny_vocab, split)
     segsum = segsum_sorted if use_kernels else segsum_sorted_plain
     unsorted = segsum_unsorted if use_kernels else segsum_unsorted_plain
     gather = gather_rows if use_kernels else gather_rows_plain
@@ -585,6 +722,25 @@ def make_train_step(
         ub = ub if ub is not None else uq_len
         return (int(ub) + 2047) // 2048 * 2048
 
+    def _mesh_sort_meta(batch, flat, pref):
+        """Sort metadata on a mesh: the GLOBAL unique vector (host prep's
+        ``uq_ids`` slices gathered over ``data``, or a sort of the ids
+        gathered over ``data``) and this rank's positions' unique
+        indices; the sorted-order keys are never read (the backward sorts
+        locally, ``ops/sharded_stream.py``)."""
+        if pref + "perm" in batch and batch[pref + "perm"].numel() != flat.numel():
+            raise ValueError(
+                "compacted host prep (kept_budget) is single-device: on a "
+                "mesh the backward orders positions by their raw ids")
+        if pref + "uq_ids" in batch:
+            uq = all_gather(batch[pref + "uq_ids"].reshape(-1).contiguous(),
+                            DATA_AXIS, mesh)
+            return None, uq, batch[pref + "uidx"].reshape(-1), None, uq.numel()
+        flat_all = all_gather(flat, DATA_AXIS, mesh)
+        _p, uq, uidx_all, _s, uq_len = _sort_meta({}, flat_all)
+        d, n = mesh.axis_index(DATA_AXIS), flat.numel()
+        return None, uq, uidx_all[d * n:(d + 1) * n], None, uq_len
+
     def forward_meta(params, batch):
         """Per group: sort metadata and the [ub, width] unique-row buffer
         (row_packed tables gathered first, then the feature-major tables
@@ -600,7 +756,8 @@ def make_train_step(
                 uidx_b = flat
             else:
                 pref = "" if g == "_default" else f"{g}:"
-                perm, uq, uidx_b, uidx_s, uq_len = _sort_meta(batch, flat, pref)
+                meta = _mesh_sort_meta if mesh is not None else _sort_meta
+                perm, uq, uidx_b, uidx_s, uq_len = meta(batch, flat, pref)
                 ub = bucket_of(g, uq_len)
                 if ub <= uq_len:
                     uq_b = uq[:ub]
@@ -625,13 +782,24 @@ def make_train_step(
                 parts.append(uq_b.new_zeros((ub, lay.width - used),
                                             dtype=torch.float32))
             buf = torch.cat(parts, dim=1)  # [ub, width]
+            # sliced tables first: their lanes are summed over the model
+            # axis while the lanes of the other feature-major tables are
+            # still zero
+            for mode, fn in (("table_row_slice", ss.gather_rows_sharded),
+                             ("table_column_slice", ss.gather_cols_sharded)):
+                names = [n for n in lay.tables if n in split
+                         and table_specs[n][1].slice_mode == mode]
+                if names:
+                    fn(mesh, [_get(params, table_specs[n][0]) for n in names],
+                       [cols[n] for n in names], [lay.offs[n] for n in names],
+                       buf, use_kernels=use_kernels)
             for name in lay.tables:
                 path, spec = table_specs[name]
-                if not spec.row_packed:
+                if not spec.row_packed and name not in split:
                     gather(_get(params, path), cols[name], buf, lay.offs[name])
             gdata[g] = dict(buf=buf, flat=flat, perm=perm, uidx_b=uidx_b,
                             uidx_s=uidx_s, ub=ub, cols=cols, subs=subs,
-                            shape=tuple(ids_g.shape[:2]))
+                            uq=uq_b, shape=tuple(ids_g.shape[:2]))
         return gdata
 
     def table_rows(gdata, rows_pos):
@@ -659,15 +827,30 @@ def make_train_step(
         for g, lay in layouts.items():
             gd = gdata[g]
             gpos = g_deltas[g].contiguous()
+            if mesh is not None:
+                # the sums travel over the data axis: only the tables' lanes
+                gpos = gpos[:, : sum(lay.lanes.values())].contiguous()
             if lay.tiny:
                 # no crossing: reduce batch-order gradients by raw id;
                 # presence counts keep absent ids untouched
-                g_uq_all = unsorted(gpos, gd["flat"], gd["ub"])
-                counts = unsorted(presence_ones(gd["flat"].numel(), gpos.device),
-                                  gd["flat"], gd["ub"])
+                ones = presence_ones(gd["flat"].numel(), gpos.device)
+                if mesh is not None:
+                    g_uq_all, counts = (
+                        ss.unsorted_segsum_sharded(mesh, x, gd["flat"], gd["ub"],
+                                                   use_kernels=use_kernels)
+                        for x in (gpos, ones))
+                else:
+                    g_uq_all = unsorted(gpos, gd["flat"], gd["ub"])
+                    counts = unsorted(ones, gd["flat"], gd["ub"])
                 present = (counts > 0).float()
                 for name in lay.tables:
                     touch_mask[name] = present
+            elif mesh is not None:
+                # each data rank sums its positions in the global unique
+                # order, then one sum over data
+                g_uq_all = ss.partial_segsum_sharded(
+                    mesh, gpos, gd["flat"], gd["uq"], gd["ub"],
+                    use_kernels=use_kernels)
             else:
                 # the sum reads the batch-order rows through perm: no
                 # gather in front of it
@@ -706,15 +889,23 @@ def make_train_step(
             return leaves[key]
 
         p_view = map_leaves(track, params)
-        with torch.enable_grad():
+        # a data rank draws its rows' dropout masks of the global batch
+        first = mesh.axis_index(DATA_AXIS) * label.shape[0] if mesh else 0
+        with torch.enable_grad(), prng.batch_rows(first):
             logits = forward(p_view, rows_pos)
             loss_w, loss_d = model.loss(p_view, logits, label)
             inputs = [*leaves.values(), *rows_pos]
-            grads = torch.autograd.grad(loss_d * sens, inputs, allow_unused=True)
+            # at 1/data of the scale: the sums over data are the global
+            # batch's gradients
+            grads = torch.autograd.grad(loss_d * (sens / n_data), inputs,
+                                        allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(inputs, grads)]
-        return (dict(zip(leaves, grads[: len(leaves)])), grads[len(leaves):],
-                (loss_w.detach(), loss_d.detach()))
+        losses = (loss_w.detach(), loss_d.detach())
+        if n_data > 1:  # the global batch's means
+            both = all_reduce(torch.stack(losses), DATA_AXIS, mesh) / n_data
+            losses = (both[0], both[1])
+        return dict(zip(leaves, grads[: len(leaves)])), grads[len(leaves):], losses
 
     def guard(dense_grads, g_deltas):
         """check_overflow: -> (finite, dense_grads, g_deltas), where
@@ -725,14 +916,36 @@ def make_train_step(
             return None, dense_grads, g_deltas
         finite = torch.stack([torch.isfinite(g).all()
                               for g in (*dense_grads.values(), *g_deltas)]).all()
+        if mesh is not None:  # every rank keeps or drops the step alike
+            f = finite.to(torch.int32).reshape(1)
+            for axis in (DATA_AXIS, MODEL_AXIS):
+                f = all_reduce(f, axis, mesh, op="min")
+            finite = f.reshape(()) > 0
         return (finite,
                 {k: torch.where(finite, g, 0.0) for k, g in dense_grads.items()},
                 [torch.where(finite, g, 0.0) for g in g_deltas])
+
+    def reduce_over_data(grads: dict) -> dict:
+        """Sum each gradient over ``data``, one collective per dtype."""
+        if n_data == 1 or not grads:
+            return grads
+        out = dict(grads)
+        for dt in {g.dtype for g in grads.values()}:
+            keys = [k for k, g in grads.items() if g.dtype == dt]
+            flat = all_reduce(torch.cat([grads[k].reshape(-1) for k in keys]),
+                              DATA_AXIS, mesh)
+            off = 0
+            for k in keys:
+                n = grads[k].numel()
+                out[k] = flat[off: off + n].view_as(grads[k])
+                off += n
+        return out
 
     def dense_updates(state, dense_grads, finite):
         """Every leaf but the sparse step's tables takes its optimizer's
         dense update; -> (params, opt_w state, opt_d state)."""
         opt_w_state, opt_d_state = dict(state.opt_w), dict(state.opt_d)
+        dense_grads = reduce_over_data(dense_grads)
 
         def dense_update(key, leaf):
             if key in table_keys:
@@ -781,6 +994,7 @@ def make_train_step(
                 _t, st = _streamed_table_update(
                     opt, g_aug.contiguous(), cols[name], states[key], table,
                     spec, use_kernels=use_kernels,
+                    mesh=mesh if name in split else None,
                 )
             states[key] = _keep_unless(finite, st, states[key])
         return TrainState(new_params, opt_w_state, opt_d_state,
@@ -892,7 +1106,10 @@ def make_train_step(
             table = _get(params, path)
             flat = ids_g[group_of[name]].reshape(-1)
             flats[name] = flat
-            if spec.row_packed:
+            if name in sliced:  # this rank's block, summed over model
+                with torch.no_grad():
+                    r = storage_rows(spec, table, flat, mesh)
+            elif spec.row_packed:
                 r = packed_gather(spec, table, flat)
             elif spec.feature_major:
                 cols = (torch.div(flat, spec.fold, rounding_mode="floor")
@@ -903,9 +1120,23 @@ def make_train_step(
             rows[name] = r.detach().requires_grad_(True)
         return rows, flats
 
-    def generic_table_update(opt, g, flat, leaf_state, table, spec, finite):
+    def owned(keys, n_local):
+        """(local index, owned flag) of global row/column ``keys`` in this
+        rank's row-sliced block of ``n_local``; unowned ones map to 0."""
+        local = keys - mesh.axis_index(MODEL_AXIS) * n_local
+        own = (local >= 0) & (local < n_local)
+        return torch.where(own, local, 0), own
+
+    def generic_table_update(opt, g, flat, leaf_state, table, spec, finite,
+                             shard=False):
         """The masked sparse update of one table from its per-position
-        gradients ``g`` [N, lanes], in place; -> (table, leaf state)."""
+        gradients ``g`` [N, lanes], in place; -> (table, leaf state).
+        ``shard``: ``table`` is this rank's block of a sliced table, which
+        updates its owned ids (row slice, gradients of the others zeroed
+        and untouched) or its lanes of every id (column slice)."""
+        row_slice = shard and spec.slice_mode == "table_row_slice"
+        col_slice = shard and spec.slice_mode == "table_column_slice"
+        m = mesh.axis_index(MODEL_AXIS) if shard else 0
         if opt.update_rows is None:
             raise ValueError(f"the generic path needs an optimizer with "
                              f"sparse updates (kind={opt.kind})")
@@ -950,17 +1181,34 @@ def make_train_step(
             cols = torch.div(flat, fold, rounding_mode="floor") if fold > 1 else flat
             sub = torch.remainder(flat, fold) if fold > 1 else None
             g_aug = make_aug_grads(g.T, sub)  # [Dp + 8, N]
+            if row_slice:  # unowned ids: no gradient, no touch
+                cols, own = owned(cols, table.shape[1])
+                g_aug = g_aug * own[None, :].to(g_aug.dtype)
             uq = unique_pad(cols, n, table.shape[1] - 1)
             summed = segment_sum_rows(g_aug.T, uq.inverse, n).T  # [Dp + 8, n]
-            dp = table.shape[0]
+            dp = spec.padded_dim
             touch = expand_touch(summed[dp:], dp, spec.emb_dim, fold)
+            g_sum = summed[:dp]
+            if col_slice:  # this rank's sublanes
+                dpl = table.shape[0]
+                g_sum, touch = (x[m * dpl:(m + 1) * dpl] for x in (g_sum, touch))
             if ok is not None:
                 touch = touch & ok
-            return opt.update_cols(summed[:dp], uq.ids, touch, leaf_state,
+            return opt.update_cols(g_sum, uq.ids, touch, leaf_state,
                                    table, live=slots < uq.count)
-        uq = unique_pad(flat, n, spec.padded_vocab - 1)
+        touch, ids = ok, flat
+        if row_slice:
+            ids, own = owned(flat, table.shape[0])
+            g = g * own[:, None].to(g.dtype)
+        if col_slice:
+            dl = table.shape[1]
+            g = g[:, m * dl:(m + 1) * dl]
+        uq = unique_pad(ids, n, table.shape[0] - 1)
         summed = segment_sum_rows(g, uq.inverse, n)
-        return opt.update_rows(summed, uq.ids, leaf_state, table, touch=ok,
+        if row_slice:  # rows no owned position names stay untouched
+            present = segment_sum_rows(own[:, None].float(), uq.inverse, n) > 0
+            touch = present if ok is None else present & ok
+        return opt.update_rows(summed, uq.ids, leaf_state, table, touch=touch,
                                live=slots < uq.count)
 
     def step_generic(state: TrainState, batch):
@@ -994,9 +1242,13 @@ def make_train_step(
         for key, (name, path, spec) in table_keys.items():
             opt, states = ((opt_w, opt_w_state) if is_wide_key(key)
                            else (opt_d, opt_d_state))
+            g, flat = grads_of[name], flats[name]
+            if n_data > 1:  # every position of the global batch, per rank
+                g = all_gather(g.contiguous(), DATA_AXIS, mesh)
+                flat = all_gather(flat.contiguous(), DATA_AXIS, mesh)
             _t, st = generic_table_update(
-                opt, grads_of[name], flats[name], states[key],
-                _get(state.params, path), spec, finite)
+                opt, g, flat, states[key], _get(state.params, path), spec,
+                finite, shard=name in sliced)
             states[key] = _keep_unless(finite, st, states[key])
         return TrainState(new_params, opt_w_state, opt_d_state,
                           state.step + 1, rng), losses
@@ -1007,10 +1259,23 @@ def make_train_step(
         step = step_generic
     else:
         step = step_rows if row_layout else step_cols
+    if mesh is not None:
+        step = _take_data_slice(step, mesh)
     step.takes_device_batches = True  # RecModel stages batches for it
     if jit:
         return CapturedStep(step, donate=donate)
     return step if donate else _non_donating(step)
+
+
+def _take_data_slice(step, mesh):
+    """``step`` on this data rank's slice of a :class:`FullBatch`."""
+    def run(state: TrainState, batch):
+        if isinstance(batch, FullBatch):
+            batch = shard_batch(dict(batch), mesh)
+        return step(state, batch)
+
+    run.__name__ = step.__name__
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -1170,9 +1435,18 @@ class CapturedStep:
             cur.wait_stream(side)
             before = dict(LAUNCHES)
             graph = torch.cuda.CUDAGraph()
-            # the input pipeline's staging thread waits while we capture
-            with STAGING_LOCK, torch.cuda.graph(graph):
-                out = _step_in_place(self.step, state, static)
+            # the input pipeline's staging thread waits while we capture,
+            # and no garbage collection runs: a collected CUDA graph
+            # destroys its executable, which invalidates a capture in
+            # progress (torch.cuda.graph collects once before capturing)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with STAGING_LOCK, torch.cuda.graph(graph):
+                    out = _step_in_place(self.step, state, static)
+            finally:
+                if collecting:
+                    gc.enable()
         per_replay = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                       if LAUNCHES[k] != before[k]}
         self._graphs[key] = (graph, static, out, per_replay)

@@ -192,12 +192,21 @@ def test_async_equals_sync(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """Sliced saves and restores onto shardings are ported
+    (``tests/test_torch_sliced_checkpoint.py``): ``force_sliced`` without
+    placements saves whole, as the reference does on one device, and a
+    placement tree of no sliced leaf restores whole.  A leaf whose shape
+    differs from the file's raises."""
     ts = _port_state(_jax_state("wd", state_dtype=jnp.float32))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        checkpoint.save_checkpoint(tmp_path, ts, step=0, force_sliced=True)
-    path = checkpoint.save_checkpoint(tmp_path, ts, step=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        checkpoint.restore_checkpoint(path, ts, shardings=object())
+    path = checkpoint.save_checkpoint(tmp_path, ts, step=0, force_sliced=True)
+    whole = checkpoint.save_checkpoint(tmp_path / "w", ts, step=0)
+    with np.load(path) as a, np.load(whole) as b:
+        assert a.files == b.files
+    back = checkpoint.restore_checkpoint(
+        path, ts, shardings=ts._replace(params=None, opt_w=None, opt_d=None,
+                                        step=None, rng=None))
+    torch.testing.assert_close(back.params["deep"]["table"],
+                               ts.params["deep"]["table"], rtol=0, atol=0)
     bad = ts._replace(step=torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match=r"\.step"):
         checkpoint.restore_checkpoint(path, bad)

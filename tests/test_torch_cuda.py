@@ -366,6 +366,8 @@ SEGSUM_SORTED_CASES = [
     ("d128-outside-random", 5003, 128, 700, "mixed", -5, "random"),
     ("d128-edges-identity", 6001, 128, 6144, "edges", 0, "identity"),
     ("d256-distinct-random", 4999, 256, 5120, "distinct", 0, "random"),
+    ("d17-gaps-random", 5003, 17, 20000, "gaps", 0, "random"),
+    ("d128-gaps-outside-identity", 5003, 128, 2000, "gaps", -7, "identity"),
 ]
 SEGSUM_SORTED_IDS = [c[0] for c in SEGSUM_SORTED_CASES]
 
@@ -373,12 +375,19 @@ SEGSUM_SORTED_IDS = [c[0] for c in SEGSUM_SORTED_CASES]
 def segsum_sorted_case(n, d, pattern, shift, kind):
     """(g [R, D] float32 in batch order, uidx_sorted [N] int32, perm [N])
     with ``g[perm]`` the sorted rows of :func:`segsum_cols_case` (whose
-    float32 sums are exact) and ids shifted by ``shift`` (below 0 when
-    negative).  ``perm``: ``identity`` (int64), ``reversed`` and
+    float32 sums are exact; pattern ``gaps``: its ``mixed`` runs, the ids
+    stepping by 1-4 and now and then by 50, as a mesh's data rank sums
+    its positions in the global unique order: ``gaps=True``) and ids
+    shifted by ``shift`` (below 0 when negative).  ``perm``: ``identity`` (int64), ``reversed`` and
     ``random`` (int32), ``compacted`` (int64: N of R = N + N // 3 + 1
     rows, in random order, the other rows never read)."""
-    g_sorted, uidx = segsum_cols_case(n, d, pattern)
+    g_sorted, uidx = segsum_cols_case(n, d, "mixed" if pattern == "gaps"
+                                      else pattern)
     rng = np.random.default_rng(n * 11 + d)
+    if pattern == "gaps":
+        steps = rng.integers(1, 5, size=int(uidx[-1]) + 1)
+        steps[rng.random(steps.size) < 0.02] = 50
+        uidx = (np.cumsum(steps) - steps[0])[uidx]
     rows = n + n // 3 + 1 if kind == "compacted" else n
     if kind == "identity":
         perm = np.arange(n, dtype=np.int64)
@@ -550,7 +559,8 @@ def test_segsum_sorted_edge_cases_on_card(cuda_device, case, dtype):
     u, p = _t(uidx).to(cuda_device), _t(perm).to(cuda_device)
     exact, _ = segsum_float64(g[perm], uidx, n_out)
     rows = _t(g).to(dt).to(cuda_device)
-    got = segsum_sorted(rows, u, n_out, perm=p)
+    gaps = pattern == "gaps"
+    got = segsum_sorted(rows, u, n_out, perm=p, gaps=gaps)
     assert got.shape == (d, n_out) and got.dtype == torch.float32
     for x in (got, segsum_sorted_plain(rows, u, n_out, p)):
         np.testing.assert_array_equal(x.cpu().numpy(), exact)
@@ -558,8 +568,8 @@ def test_segsum_sorted_edge_cases_on_card(cuda_device, case, dtype):
     rows = _t(rng.normal(size=g.shape).astype(np.float32)).to(dt)
     ref, tol = segsum_float64(rows.float().numpy()[perm], uidx, n_out)
     rows = rows.to(cuda_device)
-    got = segsum_sorted(rows, u, n_out, perm=p)
-    assert torch.equal(got, segsum_sorted(rows, u, n_out, perm=p))
+    got = segsum_sorted(rows, u, n_out, perm=p, gaps=gaps)
+    assert torch.equal(got, segsum_sorted(rows, u, n_out, perm=p, gaps=gaps))
     for x in (got, segsum_sorted_plain(rows, u, n_out, p)):
         assert (np.abs(x.cpu().numpy() - ref) <= tol).all()
     if n:
@@ -1688,3 +1698,114 @@ def test_cached_remote_serial_equals_pipelined_on_card(cuda_device, tmp_path):
         np.testing.assert_array_equal(results[0][0][k], results[1][0][k])
     for x, y in zip(results[0][1], results[1][1]):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the kernels at the per-shard inputs of a mesh (ops/sharded_stream.py)
+# ---------------------------------------------------------------------------
+
+
+def _shard_uq(rng, vc_global, n_uq, n_sent):
+    uq = np.sort(rng.choice(vc_global, size=n_uq, replace=False))
+    return np.concatenate([uq, np.full(n_sent, SENT)]).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_per_shard_kernels_match_plain_on_card(cuda_device, dtype):
+    """Each model rank's inputs: the global sorted unique columns clipped
+    to -1 below its block and past ``Vc_local`` above it (gather_rows,
+    adam_cols, ftrl_cols), gather_rows at a lane offset chosen at run
+    time (the column slice's ``off + m * Dp/M``), and segsum_sorted of a
+    data rank's own sorted ids at their places in the global unique
+    order (``local_segments``: steps with gaps, the skipped rows zero)."""
+    from mindrec_tpu_torch.ops import sharded_stream as ss
+    from mindrec_tpu_torch.parallel.mesh import Mesh
+
+    rng = np.random.default_rng(5)
+    dt = getattr(torch, dtype)
+    dp, vc, shards = 16, 4096, 4
+    vl = vc // shards
+    uq = _t(_shard_uq(rng, vc, 700, 90)).to(cuda_device)
+    for m in range(shards):
+        cols = ss.owned_cols(uq, vl, m)
+        assert (cols[:1] == -1).any() or m == 0
+        table = _t(rng.normal(size=(dp, vl)).astype(np.float32)).to(cuda_device, dt)
+        off = int(rng.integers(0, 64))
+        bufs = [torch.zeros((uq.numel(), 128), device=cuda_device)
+                for _ in range(2)]
+        gather_rows(table, cols, bufs[0], off)
+        gather_rows_plain(table, cols, bufs[1], off)
+        assert torch.equal(bufs[0], bufs[1])
+        # the owned columns are distinct: each sum is one gradient
+        g = rng.normal(size=(dp, uq.numel())) * 5.0
+        aug = make_aug_grads(_t(g.astype(np.float32)).to(cuda_device),
+                             None).contiguous()
+        lr = torch.tensor(1e-3, device=cuda_device)
+        st = [table.clone(), (table.float() * 0.1).to(dt),
+              (table.float().abs() * 0.01).to(dt)]
+        a, b = [x.clone() for x in st], [x.clone() for x in st]
+        adam_cols(*a, cols, aug, lr, dim=dp, fold=1)
+        adam_cols_plain(*b, cols, aug, lr, dim=dp, fold=1)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+        # the weights at the table's scale (100x the recipe's) and at the
+        # recipe's, as ftrl_cols_case makes them
+        accum = _t(0.1 + rng.uniform(size=(dp, vl)).astype(np.float32))
+        for scale in (1.0, 0.01):
+            a = [table.float() * scale, accum.to(cuda_device),
+                 table.float() * (10.0 * scale)]
+            b = [x.clone() for x in a]
+            ftrl_cols(*a, cols, aug, dim=dp, fold=1)
+            ftrl_cols_plain(*b, cols, aug, dim=dp, fold=1)
+            for x, y in zip(a, b):
+                torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+    one = Mesh(1, 1)  # no data group: the local partial sum alone
+    n_l = 3000
+    ids = _t(rng.choice(_shard_uq(rng, vc, 700, 0), size=n_l)).to(cuda_device)
+    uq_g = torch.unique(ids)
+    uq_b = torch.cat([uq_g, uq_g.new_full((1024 - uq_g.numel(),), SENT)]).int()
+    gpos = _t(rng.normal(size=(n_l, 17)).astype(np.float32)).to(cuda_device, dt)
+    got = ss.partial_segsum_sharded(one, gpos, ids, uq_b, 1024)
+    want = ss.partial_segsum_sharded(one, gpos, ids, uq_b, 1024,
+                                     use_kernels=False)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert (got[:, uq_g.numel():] == 0).all()
+    # half the positions against the whole unique vector: the segments
+    # the half does not touch are skipped, and their rows stay zero
+    half = ids[: n_l // 2]
+    uidx, perm = ss.local_segments(half, uq_b)
+    assert (torch.diff(uidx) > 1).any()
+    absent = ~torch.isin(uq_g, half)
+    assert absent.any()
+    got = segsum_sorted(gpos, uidx, 1024, perm=perm, gaps=True)
+    torch.testing.assert_close(
+        got, segsum_sorted_plain(gpos, uidx, 1024, perm), rtol=1e-5, atol=1e-5)
+    assert (got[:, :uq_g.numel()][:, absent] == 0).all()
+
+
+@pytest.mark.cuda
+def test_gloo_staging_round_trips_cuda_tensors(cuda_device):
+    """Under gloo a CUDA tensor travels through pinned host memory: a
+    one-rank group gives back every dtype bit for bit, on the card."""
+    import torch.distributed as tdist
+
+    from mindrec_tpu_torch.parallel import mesh as pm
+    from mindrec_tpu_torch.parallel.launch import free_port
+
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                             world_size=1, rank=0)
+    try:
+        mesh = pm.Mesh(1, 1, groups={"data": tdist.group.WORLD,
+                                     "model": tdist.group.WORLD})
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        for dt in (torch.float32, torch.bfloat16, torch.int32):
+            x = torch.randn((1000, 7), generator=gen, device=cuda_device)
+            x = (x * 1000).to(dt)
+            for out in (pm.all_reduce(x, "data", mesh),
+                        pm.all_gather(x, "model", mesh),
+                        pm.all_to_all(x, "model", mesh)):
+                assert out.device == x.device and out.dtype == dt
+                assert torch.equal(out, x)
+    finally:
+        tdist.destroy_process_group()

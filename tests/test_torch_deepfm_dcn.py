@@ -213,8 +213,20 @@ def test_dcn_cross_layer_and_one_hot():
     lambda: dcn.DCNModel(dcn.DCNConfig(table_slice_mode="table_row_slice")),
 ], ids=["deepfm_sliced", "dcn_sliced"])
 def test_unported_options_raise(make):
-    with pytest.raises(NotImplementedError):
-        make()
+    """Sliced tables are ported: the models build (the sliced table
+    feature-major, its partition spec naming the model axis) and train
+    on a mesh (``tests/test_torch_parallel.py``); what still raises is
+    capture on a mesh (``jit=True``: CUDA graphs cannot capture gloo's
+    host copies)."""
+    from mindrec_tpu_torch.parallel.mesh import Mesh
+
+    model = make()
+    (name, (_path, spec)), = [(n, ps) for n, ps in model.table_specs.items()
+                              if ps[1].slice_mode != "none"]
+    assert "model" in spec.partition_spec()
+    model.mesh = Mesh(2, 1)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        make_train_step(model, optim.ftrl(), optim.adam(), jit=True)
 
 
 @pytest.mark.parametrize("which", ["deepfm", "dcn"])

@@ -5,8 +5,11 @@ cache and host-target regimes, device prep, DeepFM, DCN), checkpoints,
 ``--resume``, ``FaultInjector``, ``--save_graphs`` and
 ``--enable_profiling``; ``eval_criteo`` on ``train_criteo``'s
 checkpoint; the Outbrain, TB-scale, online, Kafka-producer and accuracy
-drivers; the launch scripts through bash; and the options that shard
-over several cards, which raise naming ROADMAP.md section 1 item 9."""
+drivers; the launch scripts through bash; the multi-card branches
+(``run_distribute_train.sh`` with 4 gloo ranks on a (2, 2) mesh, sliced
+checkpoints and ``--resume``, ``field_slice``, the Outbrain driver on 2
+ranks) and what still raises naming ROADMAP.md section 1 item 9 (the
+placement regimes on several workers)."""
 
 import math
 import os
@@ -94,20 +97,90 @@ def test_train_criteo_fault_injector(monkeypatch):
     ([], {"MR_WORKER_NUM": "2"}),
 ], ids=["mesh_model", "table_slice", "field_slice", "workers"])
 def test_multi_card_options_raise_item_9(argv, env, monkeypatch):
+    """The multi-card options in one process: a model axis needs the
+    ranks to form it, field_slice needs a model axis, a sliced table
+    without a mesh trains whole, and MR_WORKER_NUM without a scheduler
+    joins no group.  What stays unported, the placement regimes on
+    several workers, raises naming item 9 (``test_distribute_launcher``)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if argv[:1] == ["--mesh_model"]:
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            train_criteo.main(TINY + argv)
+    elif argv[:1] == ["--field_slice"]:
+        with pytest.raises(ValueError, match="model axis"):
+            train_criteo.main(TINY + argv)
+    else:
+        assert _auc_ok(train_criteo.main(TINY + ["--sparse", "1"] + argv))
+    mesh = type("Mesh", (), {"size": 2})()
+    cfg = type("Cfg", (), {"vocab_cache_size": 1024})()
     with pytest.raises(NotImplementedError, match="section 1 item 9"):
-        train_criteo.main(TINY + argv)
+        train_criteo.check_regimes(cfg, mesh)
 
 
 def test_outbrain_driver_and_its_item_9_raise():
+    """One card, then 2 gloo ranks with the emb128 table row-sliced over
+    them; ``--mesh_model 2`` in one process has no ranks to slice over."""
     small = ["--device", "cpu", "--synthetic", "--batch_size", "32",
              "--steps_per_epoch", "2", "--emb128_size", "1000",
              "--deep_layers", "16", "8"]
     metrics = train_outbrain.main(small)
     assert _auc_ok(metrics) and 0.0 <= metrics["map12"] <= 1.0
-    with pytest.raises(NotImplementedError, match="section 1 item 9"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         train_outbrain.main(small + ["--mesh_model", "2"])
+    from mindrec_tpu_torch.parallel import launch
+
+    outs = launch.run_ranks(
+        [sys.executable, "-m", "mindrec_tpu_torch.examples.train_outbrain",
+         *small, "--mesh_model", "2"], 2, timeout=110,
+        env={**os.environ, "PYTHONPATH": str(REPO)})
+    finals = [line for o in outs for line in o.splitlines()
+              if line.startswith("final metrics")]
+    assert len(finals) == 2 and finals[0] == finals[1]
+
+
+def _distribute(n, *argv, timeout=200):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MR_")}
+    env.update(PYTHON=sys.executable, MR_SCHED_PORT=str(_port()))
+    return subprocess.run(["bash", str(LAUNCH / "run_distribute_train.sh"),
+                           str(n), *argv], env=env, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def _port():
+    from mindrec_tpu_torch.parallel.launch import free_port
+
+    return free_port()
+
+
+def test_distribute_launcher():
+    """``run_distribute_train.sh 4`` on the CPU: 4 gloo ranks, a (2, 2)
+    mesh with the deep table row-sliced, every rank's sliced checkpoint,
+    ``--resume`` from all of them, and the same final AUC on every rank;
+    ``field_slice`` on 2 ranks; a failing rank (the cache regime, still
+    item 9 on several workers) stops the others and the script fails."""
+    mesh = TINY + ["--sparse", "1", "--mesh_model", "2",
+                   "--deep_table_slice_mode", "table_row_slice",
+                   "--ckpt_interval", "2"]
+    r = _distribute(4, *mesh)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    logs = [Path(f"dp_logs/worker_{i}.log").read_text() for i in range(4)]
+    finals = {line for log in logs for line in log.splitlines()
+              if line.startswith("final metrics")}
+    assert len(finals) == 1
+    assert "'process_count': 4" in logs[0] and "backend: gloo" in logs[0]
+    assert sorted(p.name for p in Path("ckpt").iterdir()) == [
+        f"ckpt-0000000002-r{i}.npz" for i in range(4)]
+    r = _distribute(4, *mesh, "--resume")
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "resumed from ckpt/ckpt-0000000002-r3.npz (step 2)" in \
+        Path("dp_logs/worker_3.log").read_text()
+    r = _distribute(2, *TINY, "--sparse", "1", "--mesh_model", "2",
+                    "--field_slice", "true", "--vocab_size", "200000")
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    r = _distribute(2, *TINY, "--sparse", "1", "--vocab_cache_size", "1024")
+    assert r.returncode != 0
+    assert "section 1 item 9" in Path("dp_logs/worker_0.log").read_text()
 
 
 def test_terabyte_driver(capsys):

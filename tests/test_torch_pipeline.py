@@ -173,8 +173,27 @@ def test_pipeline_regrows_on_overflow():
     {"sharding": object()},
 ])
 def test_unported_pipeline_options_raise(kw):
-    """Sharded staging is multi-GPU (ROADMAP.md section 1 item 9); the
-    wire, device prep and superbatch staging are ported
-    (tests/test_torch_wire.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 9"):
-        SparseInputPipeline(iter([]), field_size=4, device=False, **kw)
+    """Sharded staging (``sharding=`` a mesh) is ported: each rank gets
+    its data slice of every prepped batch, the unique ids of the global
+    batch included.  It raises with superbatch staging (the reference's
+    guard: a per-batch slice would cut the group axis) and with the wire
+    (it packs whole batches); ``unstack=False`` keeps its own rule."""
+    from mindrec_tpu_torch.parallel.mesh import Mesh
+
+    kw = {**kw, "sharding": Mesh(2, 1, rank=1)}
+    errors = {"wire": "wire", "superbatch": "superbatch", "unstack": "unstack"}
+    for key, match in errors.items():
+        if key in kw:
+            with pytest.raises(ValueError, match=match):
+                SparseInputPipeline(iter([]), field_size=4, device=False, **kw)
+            return
+    rng = np.random.default_rng(0)
+    raw = [{"ids": rng.integers(0, 50, (8, 4)).astype(np.int32),
+            "label": np.arange(8, dtype=np.float32)[:, None]}]
+    (got,) = list(SparseInputPipeline(iter(raw), field_size=4, device=False,
+                                      **kw))
+    np.testing.assert_array_equal(got["ids"], raw[0]["ids"][4:])
+    np.testing.assert_array_equal(got["label"], raw[0]["label"][4:])
+    if kw.get("host_prep", True):  # rank 1's half of the global unique ids
+        want = make_batch_sort(4)(raw[0])["uq_ids"]
+        np.testing.assert_array_equal(got["uq_ids"], want[16:])

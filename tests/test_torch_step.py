@@ -237,10 +237,12 @@ def test_check_overflow_keeps_state():
     ({"multitable": True, "sparse": True}, {"row_layout": False}),  # groups
 ])
 def test_unported_branches_raise(change, ctor_kw):
-    """Sharded tables (item 9) and a multi-group model on the
-    feature-major streamed path raise.  Row_packed tables under
-    ``row_layout=False`` warn and take the generic path, as the
-    reference does (``tests/test_torch_generic.py`` holds it)."""
+    """A multi-group model on the feature-major streamed path raises.
+    Row_packed tables under ``row_layout=False`` warn and take the
+    generic path, as the reference does (``tests/test_torch_generic.py``
+    holds it).  A sliced table without a mesh takes the plain streamed
+    path, as in the reference; on a mesh capture raises
+    (``tests/test_torch_sharded_stream.py`` runs the mesh)."""
     change = dict(change)
     if change.pop("multitable", False):
         model = multitable.MultiTableWideDeepModel(
@@ -248,6 +250,16 @@ def test_unported_branches_raise(change, ctor_kw):
     else:
         model = wide_deep.WideDeepModel(
             wide_deep.WideDeepConfig(**{**KW, **change}))
+    if "deep_table_slice_mode" in change:
+        from mindrec_tpu_torch.parallel.mesh import Mesh
+
+        assert model.deep_spec.feature_major
+        fn = make_train_step(model, optim.ftrl(), optim.adam(), **ctor_kw)
+        assert fn.__name__ == "step_rows"
+        model.mesh = Mesh(2, 2)
+        with pytest.raises(NotImplementedError, match="item 9"):
+            make_train_step(model, optim.ftrl(), optim.adam(), jit=True)
+        return
     if not change:
         with pytest.warns(UserWarning, match="generic path"):
             fn = make_train_step(model, optim.ftrl(), optim.adam(), **ctor_kw)

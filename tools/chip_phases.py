@@ -8,7 +8,8 @@ kernels, and print what ``chip_smoke.py`` prints for them::
 Phases: ``cache`` (15), ``dynamic`` (16), ``files`` (17-20),
 ``outbrain`` (21), ``online`` (22), ``ps`` (23-26: PS mode, which
 compares itself with phases 15 and 16's results, so it runs them first),
-``generic`` (27-28: the generic sparse path), ``drivers`` (29).
+``generic`` (27-28: the generic sparse path), ``drivers`` (29),
+``sharded`` (30: ranks of a mesh sharing the card over gloo).
 Exits non-zero without a card or when a phase fails.
 """
 
@@ -24,7 +25,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 PHASES = ("cache", "dynamic", "files", "outbrain", "online", "ps",
-          "generic", "drivers")
+          "generic", "drivers", "sharded")
 
 
 def main(names) -> int:
@@ -57,6 +58,10 @@ def main(names) -> int:
             out[name] = (cs.phase_generic_wd(dev), cs.phase_generic_dyn(dev))
         elif name == "drivers":
             out[name] = cs.phase_drivers(dev)
+        elif name == "sharded":
+            data, bucket, _host0 = cs.wd_setup()
+            gen = torch.Generator(device=dev).manual_seed(0)
+            out[name] = cs.phase_sharded(dev, gen, data, bucket)
         else:
             fn = {"cache": cs.phase_cache, "dynamic": cs.phase_dynamic,
                   "files": cs.phase_files, "outbrain": cs.phase_outbrain_files,
