@@ -290,7 +290,23 @@ Phases (any failure exits non-zero):
     the yaml's width, both ranks' final AUC equal), and
     ``[shard-kernels]``: kernels 1, 3, 6 and 8 against their plain
     versions at a rank's shapes (clipped ids, a run-time lane offset,
-    injected unique ids).
+    injected unique ids);
+31. several workers, their ranks sharing the card over gloo (no time
+    here is a speed of several cards): ``[ps-workers]`` (2 table servers
+    and 2 PS workers, ``parallel/jobs.py:ps_worker``, in the cache
+    regime at the cache recipe with the global batch of 16,000 x 39
+    split over the workers, each over the ids it owns, 5 eager steps:
+    each worker's losses, row loads and every touched row the servers
+    hold equal its one-process run on host tiers bit for bit; ms/step,
+    ``prepare`` ms, rows and MB moved per step, kernels 1, 6, 7 and 8
+    launched on each worker at each step), ``[dist-online]``
+    (``run_dist_online_train.sh 2`` at ``dist_online_train.py``'s
+    default width over a spool written first, the MLP in float32, 6
+    steps: the final parameters within rtol 1e-5 / atol 1e-7 of one
+    rank's run of the global stream, per-rank checkpoints, kernels 1-3
+    launched every step on each rank) and ``[elastic]`` (``run_elastic_train.sh 2`` at the
+    yaml's width, a crash at step 3: exit 0 after one restart from the
+    step-2 checkpoint, the last global step past the crash).
 
 Every kernel and every library call is timed by replaying a CUDA graph
 of 10 calls (device time, no host work between the launches); the plain
@@ -5077,6 +5093,422 @@ def phase_sharded(dev, gen, data, bucket) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 31: several workers (PS workers over shared table servers,
+# distributed online training, the elastic wrapper); ranks share the card
+# over gloo
+# ---------------------------------------------------------------------------
+
+WORKERS, WORKER_STEPS = 2, 5
+PS_WORKER_JOB = "mindrec_tpu_torch.parallel.jobs:ps_worker"
+# what each path must launch on every worker at every step: the cache
+# regime's feature-major step (rows 1, 6, 7, 8), the row_packed data-
+# parallel step of the online path (rows 1-3)
+WORKER_KERNELS = {
+    "ps-workers": ("segsum_sorted", "adam_cols", "ftrl_cols", "gather_rows"),
+    "dist-online": ("segsum_sorted", "adam_rows", "ftrl_rows"),
+}
+# examples/dist_online_train.py's defaults: per-rank batch, fields, vocab,
+# width, MLP (bfloat16).
+ONLINE_BATCH, ONLINE_VOCAB, ONLINE_EMB = 1000, 200_000, 16
+ONLINE_LAYERS, ONLINE_STEPS = (1024, 512, 256, 128), 6
+# The float32 run's final parameters against one rank, every element:
+# the CPU test's rtol, atol 1e-7 (its 1e-8 one deep-table element of 3.2M
+# missed on the card, 3.0e-8 in 2 runs; the MLP 3.7e-9).
+ONLINE_F32_TOL = (1e-5, 1e-7)
+# The default run (bfloat16 MLP: each rank rounds its half of a weight
+# gradient to bf16 before the sum) against one rank, by part: the largest
+# difference, and the difference's norm over the norm of what training
+# moved (final - initial).  Each limit is the geometric mean, to one
+# digit, of the run's reading and a fault control's, one rank trained on
+# rank 0's half twice at every step (the other rank's gradient lost),
+# which must exceed a limit of every part.  Readings on the card (run;
+# control): deep table 2.0e-6, 0.030; 2.5e-5, 0.92.  Wide 4.7e-9,
+# 1.1e-9; 0.041, 0.49.  MLP 3.7e-4, 0.026; 2.4e-3, 1.47.
+ONLINE_BF16_LIMITS = {"deep_table": (7e-6, 0.2), "wide": (1e-5, 2e-5),
+                      "mlp": (9e-4, 0.2)}
+ELASTIC_CRASH, ELASTIC_STEPS = 3, 6
+
+
+def ps_workers_spec(dev, spill) -> dict:
+    """The cache recipe (``benchmarks/bench_cached.py:33-75``: 100M ids
+    behind 4.6M card rows, emb 16, 7x1024 bf16 MLP, zipf(1.3) ids,
+    feature-major tables) with its global batch of 16,000 x 39 split over
+    the workers, each drawing the quotients of the ids it owns
+    (``parallel/jobs.py:owned_batches``); eager steps."""
+    return {"vocab": CACHE_VIRTUAL, "cache_rows": CACHE_ROWS,
+            "batch": BATCH // WORKERS, "fields": FIELDS, "emb": EMB,
+            "layers": [1024] * 7, "steps": WORKER_STEPS, "workers": WORKERS,
+            "loss_scale": 1024.0, "mixed": True, "layout": "feature_major",
+            "traffic": "zipf", "zipf_a": 1.3, "seed": 100, "device": dev.type,
+            "ram_bytes": CACHE_RAM, "spill_dir": spill}
+
+
+def phase_ps_workers(dev, root) -> dict:
+    """``[ps-workers]``: 2 table servers and 2 workers (``launch.run_job``
+    of ``parallel/jobs.py:ps_worker``) in the cache regime; then each
+    worker's batches again in this process on host tiers: the losses, the
+    rows loaded and every touched row the servers hold (params and
+    optimizer state) must be equal, bit for bit; the path's kernels must
+    have launched on each worker at each step.  A third run of each
+    worker's batches with the plain versions (``use_kernels=False``)
+    holds rows 1, 6, 7 and 8 at these shapes, as ``phase_cache_kernels``
+    does: losses within rtol 1e-5, every touched tier row within rtol
+    1e-4 / atol 1e-6."""
+    t0 = time.perf_counter()
+    spec = ps_workers_spec(dev, None)
+    out = {"launches": {}}
+    with table_servers(PS_SERVERS, root) as addrs:
+        recs, _ = launch.run_job(PS_WORKER_JOB, {**spec, "servers": addrs},
+                                 WORKERS, timeout=240)
+        t1 = time.perf_counter()
+        for w, rec in enumerate(recs):
+            for s, got in enumerate(rec["launches"]):
+                miss = [k for k in WORKER_KERNELS["ps-workers"] if not got.get(k)]
+                if miss:
+                    fail(f"[ps-workers] worker {w} step {s + 1}: no launch of {miss}")
+                for k, v in got.items():
+                    out["launches"][k] = out["launches"].get(k, 0) + v
+            spill = tempfile.mkdtemp(dir=root)
+            oracle, touched, orec = jobs.build_and_train_ps(
+                {**spec, "spill_dir": spill}, w)
+            if rec["losses"] != orec["losses"] or rec["loaded"] != orec["loaded"]:
+                fail(f"[ps-workers] worker {w}: losses {rec['losses']} / loads "
+                     f"{rec['loaded']} against one process {orec['losses']} / "
+                     f"{orec['loaded']}")
+            rows = {}
+            for name, tiers in oracle.tiers.items():
+                for tname, tier in tiers.items():
+                    rt = remote.RemoteTier(addrs, name if tname == "param"
+                                           else f"{name}.{tname}", tier.dim,
+                                           init_std=0.0)
+                    got, want = rt.read(touched), tier.read(touched)
+                    rt.close()
+                    if not np.array_equal(got, want):
+                        fail(f"[ps-workers] worker {w} {name}.{tname}: server "
+                             f"rows differ from one process's (max "
+                             f"{float(np.abs(got - want).max()):.3g})")
+                    rows[name, tname] = want
+            del oracle
+            shutil.rmtree(spill, ignore_errors=True)
+            spill = tempfile.mkdtemp(dir=root)
+            plain, _touched, prec = jobs.build_and_train_ps(
+                {**spec, "spill_dir": spill, "use_kernels": False}, w)
+            if any(la.get(k) for la in prec["launches"]
+                   for k in WORKER_KERNELS["ps-workers"]):
+                fail(f"[ps-workers] worker {w}: the plain run launched "
+                     f"{prec['launches']}")
+            np.testing.assert_allclose(
+                np.asarray(prec["losses"]), np.asarray(orec["losses"]),
+                rtol=1e-5, atol=0, err_msg=f"[ps-workers] worker {w} losses, "
+                "plain versions against the kernels")
+            plain_diff = 0.0
+            for (name, tname), want in rows.items():
+                got = plain.tiers[name][tname].read(touched)
+                np.testing.assert_allclose(
+                    got, want, rtol=1e-4, atol=1e-6,
+                    err_msg=f"[ps-workers] worker {w} {name}.{tname}, plain "
+                    "versions against the kernels")
+                plain_diff = max(plain_diff, float(np.abs(got - want).max()))
+            del plain
+            moved = [(a + b) * rec["row_bytes"] / 1e6
+                     for a, b in zip(rec["loaded"], rec["evicted"])]
+            line = {"worker": w, "ms_per_step": rec["ms"],
+                    "prepare_ms": rec["prepare_ms"], "rows_loaded": rec["loaded"],
+                    "rows_evicted": rec["evicted"], "mb_moved": moved,
+                    "flush_ms": rec["flush_ms"], "touched_ids": rec["touched"],
+                    "one_process_ms": orec["ms"], "launches": rec["launches"],
+                    "losses_last": rec["losses"][-1], "server_rows": "equal",
+                    "plain_losses_last": prec["losses"][-1],
+                    "plain_tier_max_abs_diff": plain_diff}
+            log(f"[ps-workers] ({SMI}) {json.dumps(line)}")
+            out[f"worker{w}"] = line
+            shutil.rmtree(spill, ignore_errors=True)
+        t2 = time.perf_counter()
+    log(f"[ps-workers] spawn {t1 - t0:.1f} s, one-process runs (kernels, "
+        f"plain) {t2 - t1:.1f} s")
+    return out
+
+
+def online_stream(spool) -> list:
+    """Each rank's batches at the script's width, sent into a
+    ``FileChannel`` spool of one shard per rank; -> the global batches
+    (rank slices in rank order)."""
+    sender = streaming.FileChannel(spool, num_shards=WORKERS).sender()
+    rng = np.random.default_rng(31)
+    per_rank = [[] for _ in range(WORKERS)]
+    for _ in range(ONLINE_STEPS):
+        for r in range(WORKERS):
+            b = {"ids": rng.integers(0, ONLINE_VOCAB, (ONLINE_BATCH, FIELDS)
+                                     ).astype(np.int32),
+                 "wts": rng.uniform(0.5, 1.5, (ONLINE_BATCH, FIELDS)
+                                    ).astype(np.float32),
+                 "label": rng.integers(0, 2, (ONLINE_BATCH, 1)
+                                       ).astype(np.float32)}
+            per_rank[r].append(b)
+            sender.send(b, shard_id=r)
+    sender.close()
+    return [{k: np.concatenate([per_rank[r][i][k] for r in range(WORKERS)])
+             for k in per_rank[0][i]} for i in range(ONLINE_STEPS)]
+
+
+def online_params(state) -> dict:
+    """A copy of the parameters (the steps update them in place)."""
+    return {k: v.detach().float().cpu().numpy().copy()
+            for k, v in flatten_params(state.params)}
+
+
+def online_one_rank(dev, root, globals_, mixed: bool):
+    """One rank's run of the global stream from a state it saves first,
+    the MLP in bfloat16 (``mixed``) or float32.  -> (the saved state's
+    path, the initial and the final parameters, ms per step, and with
+    ``mixed`` the fault control's final parameters: the same state
+    trained on rank 0's half twice at every step, as if the other rank's
+    gradient were lost)."""
+    cfg = WideDeepConfig(batch_size=ONLINE_BATCH * WORKERS, field_size=FIELDS,
+                         vocab_size=ONLINE_VOCAB, emb_dim=ONLINE_EMB,
+                         deep_layer_dim=ONLINE_LAYERS, sparse=True,
+                         use_mixed_precision=mixed)
+    rm = RecModel(WideDeepModel(cfg), optim.ftrl(loss_scale=cfg.loss_scale),
+                  optim.lazy_adam(loss_scale=cfg.loss_scale), jit=False,
+                  device=dev)
+    init = checkpoint.save_checkpoint(root / f"init_{int(mixed)}", rm.state,
+                                      step=0)
+    first = online_params(rm.state)
+    lost = replace_state(rm.state) if mixed else None
+    ms = []
+    for gb in globals_:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rm.state, (_lw, ld) = rm.train_step(rm.state, rm._tensors(gb))
+        float(ld)
+        ms.append((time.perf_counter() - t) * 1e3)
+        if lost is not None:
+            half = {k: np.concatenate([v[:ONLINE_BATCH]] * WORKERS)
+                    for k, v in gb.items()}
+            lost, _ = rm.train_step(lost, rm._tensors(half))
+    return (init, first, online_params(rm.state), ms,
+            None if lost is None else online_params(lost))
+
+
+def online_part(key: str) -> str:
+    return ("mlp" if key.startswith("deep/mlp") else
+            "deep_table" if key.startswith("deep/") else "wide")
+
+
+def online_diff(got, want, first) -> dict:
+    """By part: [largest difference of ``got`` from ``want``, the norm of
+    that difference over the norm of ``want - first``]."""
+    out, sq, moved = {}, {}, {}
+    for k, w in want.items():
+        p = online_part(k)
+        d = got[k].astype(np.float64) - w
+        out[p] = max(out.get(p, 0.0), float(np.abs(d).max()))
+        sq[p] = sq.get(p, 0.0) + float((d * d).sum())
+        m = w.astype(np.float64) - first[k]
+        moved[p] = moved.get(p, 0.0) + float((m * m).sum())
+    return {p: [out[p], (sq[p] / moved[p]) ** 0.5 if moved[p] else float("inf")]
+            for p in out}
+
+
+def online_rank_checks(tag, root, logs, ckpt_dir) -> dict:
+    """Each rank drained the stream, launched rows 1-3 at every step and
+    kept checkpoints at steps 3 and 6; -> the launches summed over ranks."""
+    launches = {}
+    for i, text in enumerate(logs):
+        if f"({ONLINE_STEPS} steps)" not in text:
+            fail(f"[dist-online] {tag} rank {i} did not drain {ONLINE_STEPS} steps")
+        got = json.loads(text.split(f"rank {i}: kernel launches ")[1].splitlines()[0])
+        miss = [k for k in WORKER_KERNELS["dist-online"]
+                if got.get(k, 0) < ONLINE_STEPS]
+        if miss:
+            fail(f"[dist-online] {tag} rank {i} launched {got}: under one a "
+                 f"step of {miss}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        ckpts = sorted(p.name for p in (root / ckpt_dir / f"rank_{i}").iterdir())
+        if ckpts != [f"ckpt-{s:010d}-r{i}.npz" for s in (3, 6)]:
+            fail(f"[dist-online] {tag} rank {i} checkpoints {ckpts}")
+    return launches
+
+
+def online_kernels(dev, globals_) -> dict:
+    """Rows 1-3 at the online path's shapes against their plain versions:
+    ``kernel_vs_plain`` at the script's width on 3 global batches (each
+    rank's updates see the global unique ids) and on 3 rank halves (each
+    rank's positions), and ``segsum_sorted`` of rank 1's own positions at
+    their places in the global unique order (with gaps) as the data-
+    parallel step sums them (``sharded_stream.local_segments``)."""
+    opts = (optim.ftrl(loss_scale=1024.0), optim.lazy_adam(loss_scale=1024.0))
+    for n, tag in ((ONLINE_BATCH * WORKERS, "global batch"),
+                   (ONLINE_BATCH, "rank half")):
+        model = WideDeepModel(WideDeepConfig(
+            batch_size=n, field_size=FIELDS, vocab_size=ONLINE_VOCAB,
+            emb_dim=ONLINE_EMB, deep_layer_dim=ONLINE_LAYERS, sparse=True,
+            use_mixed_precision=True, loss_scale=1024.0))
+        kernels.reset_launches()
+        kernel_vs_plain(f"dist-online {tag}", dev, model, opts,
+                        [to_device({k: v[:n] for k, v in gb.items()}, dev)
+                         for gb in globals_[:3]])
+        miss = [k for k in WORKER_KERNELS["dist-online"]
+                if kernels.LAUNCHES[k] < 3]
+        if miss:
+            fail(f"[dist-online] kernel_vs_plain ({tag}) launched no {miss}")
+    ids = torch.from_numpy(globals_[0]["ids"]).to(dev).reshape(-1)
+    uq = torch.unique(ids).int()
+    n_l = ids.numel() // WORKERS
+    uidx, perm = sharded_stream.local_segments(ids[n_l:], uq)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    res = check_sorted(dev, gen, ("dist-online rank 1, global order", uidx,
+                                  perm, n_l, ONLINE_EMB + 1, uq.numel()),
+                       gaps=True)
+    log(f"[dist-online] segsum_sorted at rank 1's shape: {json.dumps(res)} ({SMI})")
+    return res
+
+
+def phase_dist_online(dev, root, env) -> dict:
+    """``[dist-online]``: ``run_dist_online_train.sh 2`` at the script's
+    defaults (the MLP in bfloat16) over a spool written first, both ranks
+    from one saved state; the final parameters against one rank's run of
+    the global stream from that state within ``ONLINE_BF16_LIMITS``,
+    which a fault control must exceed.  Then the same stream through the
+    script's ``main`` with a float32 MLP (``parallel/jobs.py:online_rank``)
+    within ``ONLINE_F32_TOL`` of one rank, and rows 1-3 at the path's
+    shapes against their plain versions (:func:`online_kernels`)."""
+    t0 = time.perf_counter()
+    globals_ = online_stream(root / "spool")
+    online_stream(root / "spool_f32")  # the same batches, read once each
+    init, first, want, ms, lost = online_one_rank(dev, root, globals_, True)
+    init32, _first, want32, ms32, _ = online_one_rank(dev, root, globals_,
+                                                      False)
+    ex = Path(__file__).resolve().parent / "mindrec_tpu_torch" / "examples"
+    width = ["--device", dev.type, "--batch-size", str(ONLINE_BATCH),
+             "--vocab", str(ONLINE_VOCAB), "--emb-dim", str(ONLINE_EMB),
+             "--deep-layers", *map(str, ONLINE_LAYERS), "--ckpt-interval", "3"]
+    t1 = time.perf_counter()
+    r = subprocess.run(
+        ["bash", str(ex / "run_dist_online_train.sh"), str(WORKERS),
+         str(root / "spool"), *width, "--init-state", init,
+         "--final-params", str(root / "final.npz")],
+        cwd=root, env={**env, "MR_SCHED_PORT": str(launch.free_port())},
+        capture_output=True, text=True, timeout=240)
+    wall = time.perf_counter() - t1
+    if r.returncode != 0:
+        log(r.stdout[-3000:])
+        fail(f"[dist-online] run_dist_online_train.sh exited {r.returncode}")
+    logs = [(root / "online_logs" / f"rank_{i}.log").read_text()
+            for i in range(WORKERS)]
+    launches = online_rank_checks("bf16", root, logs, "online_ckpt")
+    diff = online_diff(np.load(root / "final.npz"), want, first)
+    control = online_diff(lost, want, first)
+    t2 = time.perf_counter()
+    recs, outs = launch.run_job(
+        "mindrec_tpu_torch.parallel.jobs:online_rank",
+        {"device": dev.type, "config": {"use_mixed_precision": False},
+         "argv": ["--spool", str(root / "spool_f32"), *width,
+                  "--ckpt-dir", str(root / "online_ckpt_f32"),
+                  "--init-state", init32,
+                  "--final-params", str(root / "final_f32.npz")]},
+        WORKERS, timeout=240, env=env, cwd=root)
+    wall32 = time.perf_counter() - t2
+    launches32 = online_rank_checks("float32", root, outs, "online_ckpt_f32")
+    got32 = np.load(root / "final_f32.npz")
+    rtol, atol = ONLINE_F32_TOL
+    worst32, beyond32 = {}, {}
+    for k, w in want32.items():
+        worst32[k] = float(np.abs(got32[k] - w).max())
+        n = int((~np.isclose(got32[k], w, rtol=rtol, atol=atol)).sum())
+        if n:
+            beyond32[k] = n
+    res = {"launches": launches,  # the default run's, through the launcher
+           "bf16": {"wall_s": wall, "max_abs_diff_and_rel_norm": diff,
+                    "fault_control": control, "limits": ONLINE_BF16_LIMITS,
+                    "one_rank_ms": ms},
+           "float32": {"wall_s": wall32, "max_abs_diff": worst32,
+                       "beyond_tolerance": beyond32, "rtol": rtol,
+                       "atol": atol, "one_rank_ms": ms32,
+                       "launches": launches32, "steps": recs},
+           "drained": [line for t in logs + outs for line in t.splitlines()
+                       if "stream drained" in line]}
+    log(f"[dist-online] ({SMI}) {json.dumps(res)}")
+    res["kernels"] = online_kernels(dev, globals_)
+    log(f"[dist-online] {time.perf_counter() - t0:.1f} s")
+    over = {k: (d, ONLINE_BF16_LIMITS[k]) for k, d in diff.items()
+            if d[0] > ONLINE_BF16_LIMITS[k][0] or d[1] > ONLINE_BF16_LIMITS[k][1]}
+    if over:
+        fail(f"[dist-online] bfloat16 MLP: parts beyond their limits "
+             f"(largest difference and relative norm, limits): {over}")
+    blind = [k for k, d in control.items()
+             if d[0] <= ONLINE_BF16_LIMITS[k][0] and d[1] <= ONLINE_BF16_LIMITS[k][1]]
+    if blind:
+        fail(f"[dist-online] the fault control stays within the limits of "
+             f"{blind}: {control}")
+    if beyond32:
+        fail(f"[dist-online] float32 MLP: elements beyond rtol {rtol} / "
+             f"atol {atol} of one rank: {beyond32}")
+    return res
+
+
+def phase_elastic(dev, root, env) -> dict:
+    """``[elastic]``: ``run_elastic_train.sh 2`` at the yaml's width with a
+    crash at step 3 (once), checkpoints every 2 steps: the wrapper must
+    restart the trainer from the step-2 checkpoint and exit 0 at a global
+    step past the crash."""
+    ex = Path(__file__).resolve().parent / "mindrec_tpu_torch" / "examples"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        ["bash", str(ex / "run_elastic_train.sh"), "2", *YAML_WIDTH,
+         "--device", dev.type, "--epochs", "1", "--steps_per_epoch", str(ELASTIC_STEPS),
+         "--ckpt_dir", str(root / "ckpt")],
+        cwd=root, env={**env, "MINDREC_CRASH_AT_STEP": str(ELASTIC_CRASH),
+                       "MINDREC_CRASH_MARKER": str(root / "crashed_once"),
+                       "MR_CKPT_INTERVAL": "2"},
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    steps = sorted(int(p.name.split("-")[1]) for p in (root / "ckpt").glob("ckpt-*.npz"))
+    resumed = re.search(r"resumed from .*\(step (\d+)\)", r.stdout)
+    restarts = re.findall(r"restart \d+/\d+", r.stderr)
+    if r.returncode != 0 or not resumed or not steps or steps[-1] <= ELASTIC_CRASH:
+        log(r.stdout[-2000:] + r.stderr[-2000:])
+        fail(f"[elastic] rc {r.returncode}, restarts {restarts}, checkpoints "
+             f"at {steps}")
+    auc = re.findall(r"final metrics: \{'auc': ([0-9.eE+-]+)", r.stdout)
+    res = {"rc": r.returncode, "wall_s": wall, "restarts": restarts,
+           "resumed_step": int(resumed.group(1)), "last_global_step": steps[-1],
+           "final_auc": float(auc[-1]) if auc else None}
+    log(f"[elastic] ({SMI}) {json.dumps(res)}")
+    return res
+
+
+def phase_workers(dev, parts=("ps-workers", "dist-online", "elastic")) -> dict:
+    """Phase 31: ``[ps-workers]``, ``[dist-online]``, ``[elastic]``;
+    ``parts`` picks some of them."""
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="mrec_workers_"))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MR_", "MINDREC_CRASH"))}
+    repo = str(Path(__file__).resolve().parent)
+    env.update(PYTHONPATH=repo + os.pathsep + env.get("PYTHONPATH", ""),
+               PYTHON=sys.executable)
+    out = {}
+    try:
+        for tag, fn in (
+                ("ps-workers", lambda d: phase_ps_workers(dev, d)),
+                ("dist-online", lambda d: phase_dist_online(dev, d, env)),
+                ("elastic", lambda d: phase_elastic(dev, d, env))):
+            if tag not in parts:
+                continue
+            t = time.perf_counter()
+            (root / tag).mkdir()
+            out[tag] = fn(root / tag)
+            log(f"[time] [{tag}] {time.perf_counter() - t:.1f} s")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[time] phase 31 {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5156,6 +5588,8 @@ def main() -> int:
     log(f"[time] phases 27-29 {time.perf_counter() - t_gen:.1f} s")
     torch.cuda.empty_cache()
     sharded = phase_sharded(dev, gen, data, bucket)
+    torch.cuda.empty_cache()
+    workers = phase_workers(dev)
     by_path = {"cache": cache["wd"]["serial"]["launches"],
                "dynamic": dyn["launches"], "files": files["launches"],
                "online": online["launches_all"],
@@ -5167,7 +5601,8 @@ def main() -> int:
                "generic-wd": generic["generic_launches"],
                "generic-dyn": gdyn["launches"],
                "drivers-sparse": drivers["sparse"]["launches"],
-               **{p: sharded[p]["launches"] for p in SHARD_KERNELS}}
+               **{p: sharded[p]["launches"] for p in SHARD_KERNELS},
+               **{p: workers[p]["launches"] for p in WORKER_KERNELS}}
 
     launches = {**main_path["launches"],
                 **{k: mt_path["launches"][k] for k in MT_PER_STEP

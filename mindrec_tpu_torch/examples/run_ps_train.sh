@@ -1,9 +1,13 @@
 #!/bin/bash
-# PS-mode launch on one host: S table servers and one worker (the port's
-# counterpart of examples/run_ps_train.sh; several workers are ROADMAP.md
-# section 1 item 9).  The servers run parallel/ps.py:run_role
-# (MR_ROLE=MR_PSERVER), the worker train_criteo with MR_SERVER_HOSTS
-# pointing at them; the servers are stopped when the worker ends.
+# PS-mode launch on one host: S table servers and W workers (the port's
+# counterpart of examples/run_ps_train.sh).  The servers run
+# parallel/ps.py:run_role (MR_ROLE=MR_PSERVER), the workers train_criteo
+# with MR_SERVER_HOSTS pointing at them (S = 0: no servers, host tiers);
+# W > 1 workers join one process group (gloo on the CPU or when they share
+# a card; MR_BACKEND picks): the card cache trains one model per worker
+# over the ids it owns, host tables and the hash vocabulary one model
+# data-parallel (train_criteo.py's docstring).  The servers are stopped
+# when the workers end; the exit code is the first failing worker's.
 #
 # Usage: bash mindrec_tpu_torch/examples/run_ps_train.sh [SERVER_NUM] [WORKER_NUM] [train args...]
 # Pick the regime with train_criteo flags: --vocab_cache_size N (card
@@ -25,7 +29,7 @@ export MR_EMBEDDING_REMOTE_CACHE_MEMORY_SIZE=${MR_EMBEDDING_REMOTE_CACHE_MEMORY_
 
 rm -rf ps_logs && mkdir -p ps_logs
 servers=()
-trap 'kill "${servers[@]}" 2>/dev/null; wait "${servers[@]}" 2>/dev/null || true' EXIT
+trap '[ ${#servers[@]} -eq 0 ] || { kill "${servers[@]}" 2>/dev/null; wait "${servers[@]}" 2>/dev/null; } || true' EXIT
 for ((i = 0; i < MR_SERVER_NUM; i++)); do
   MR_ROLE=MR_PSERVER MR_SERVER_PORT=$((MR_SERVER_PORT_BASE + i)) \
     "$PY" -c "from mindrec_tpu_torch.parallel.ps import run_role; run_role()" \

@@ -23,8 +23,30 @@ sliced per ``deep_table_slice_mode`` (DeepFM's and DCN's table per
 ``table_slice_mode``), ``field_slice`` lays the fields out so each model
 rank's block holds its part of them (``data/field_slice.py``, Wide&Deep
 on a model axis > 1), and the other ranks train data-parallel.  Each
-rank saves its sliced checkpoint file.  The placement regimes above stay
-on one worker: on a mesh they raise (ROADMAP.md section 1 item 9).
+rank saves its sliced checkpoint file.  Packed data is read by data rank:
+each reads its own files (``num_shards`` = the data axis) at its slice of
+the batch, unless ``--unique_bucket`` sorts the global batch on every
+rank.
+
+The placement regimes on several workers (:func:`worker_layout`; with
+``MR_SERVER_HOSTS`` over one set of table servers, ``run_ps_train.sh S
+W``):
+
+* the card cache (``vocab_cache_size``) trains one model per worker, as
+  the reference builds it (without the mesh), each on its own stream
+  (synthetic data from a seed of its own, packed data from its own
+  files) over the ids it owns, ``id % W == rank`` (an id of another
+  worker's class is moved into the worker's own), so no two workers
+  train one row of the shared tiers: the contract of the reference's
+  ``tests/mp_scripts/ps_worker.py``.  Each worker saves its own
+  checkpoint file (``-r<rank>``) and spills into its own directory;
+* host tables (``parameter_server``) and the hash vocabulary
+  (``dynamic_embedding``) train one model data-parallel on the mesh
+  (``train/host_target.py``, ``train/dynamic.py``: every rank gathers
+  the global batch's ids; over servers rank 0 alone updates the rows or
+  asks the hash store).
+
+Each rank leaves the group when it is done (``parallel/dist.shutdown``).
 """
 
 from __future__ import annotations
@@ -36,8 +58,6 @@ import os
 from pathlib import Path
 
 import numpy as np
-
-from mindrec_tpu_torch.examples import ITEM9
 
 HERE = Path(__file__).resolve().parent
 
@@ -80,20 +100,37 @@ def parse_args(argv=None):
     return ap.parse_known_args(argv)
 
 
-def check_regimes(cfg, mesh) -> None:
-    """Raise for the placement regimes a mesh does not train yet: several
-    workers over table servers, the card cache, host tables and the hash
-    vocabulary stay on one worker (item 9)."""
-    if mesh is None:
-        return
-    for key in ("vocab_cache_size", "parameter_server", "dynamic_embedding"):
-        if getattr(cfg, key, 0):
-            raise NotImplementedError(
-                f"{key} on a mesh of {mesh.size} ranks: the placement "
-                f"regimes train on one worker ({ITEM9})")
-    if os.environ.get("MR_SERVER_HOSTS"):
-        raise NotImplementedError(
-            f"several workers over one set of table servers ({ITEM9})")
+def worker_layout(model_name: str, cfg, mesh) -> str:
+    """How the ranks share a run: ``"one"`` (a single process),
+    ``"replicas"`` (the card cache on several workers: one model per
+    worker over the ids it owns) or ``"data"`` (one model on the mesh:
+    data-parallel, with a model axis per ``--mesh_model``).  Packed data
+    in ``"replicas"`` raises: real ids cannot be moved into a worker's
+    class without W of them sharing one row."""
+    if mesh is None or mesh.size == 1:
+        return "one"
+    if model_name == "wide_deep" and getattr(cfg, "vocab_cache_size", 0) > 0:
+        if getattr(cfg, "dataset_type", "synthetic") == "packed":
+            raise ValueError(
+                "the card cache on several workers trains one model per "
+                "worker over the ids it owns (id % workers == rank): it would "
+                f"fold {mesh.size} distinct ids of the packed data into one "
+                "row (ROADMAP.md section 3, reference fault 11). Train packed "
+                "data on one worker, or in the host-table or hash regime")
+        return "replicas"
+    return "data"
+
+
+def own_ids(rank: int, workers: int):
+    """A batch transform mapping ids below ``vocab // workers`` one to one
+    onto worker ``rank``'s class of the vocab (``id * workers + rank``),
+    as the reference's ``ps_worker.py`` draws a worker's ids."""
+    def fn(batch):
+        ids = np.asarray(batch["ids"])
+        return {**batch,
+                "ids": (ids.astype(np.int64) * workers + rank).astype(ids.dtype)}
+
+    return fn
 
 
 def field_slice_layout(cfg, mesh):
@@ -186,8 +223,12 @@ def main(argv=None) -> dict:
     from mindrec_tpu_torch.data.criteo import (
         PackedCriteoDataset, SyntheticCriteo, to_device,
     )
-    from mindrec_tpu_torch.parallel.dist import initialize_from_env, rank_device
-    from mindrec_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from mindrec_tpu_torch.parallel.dist import (
+        initialize_from_env, rank_device, shutdown,
+    )
+    from mindrec_tpu_torch.parallel.mesh import (
+        DATA_AXIS, LocalBatch, make_mesh, shard_batch, state_placements,
+    )
     from mindrec_tpu_torch.train.callbacks import (
         EvalCallback, LossCallback, TimeMonitor,
     )
@@ -202,7 +243,9 @@ def main(argv=None) -> dict:
     mesh = None
     if args.mesh_model > 1 or topo["process_count"] > 1:
         mesh = make_mesh(model=args.mesh_model)
-    check_regimes(cfg, mesh)
+    layout = worker_layout(args.model, cfg, mesh)
+    rank, workers = topo["process_index"], topo["process_count"]
+    spill = "./emb_spill" if workers == 1 else f"./emb_spill/rank_{rank}"
     remap, cfg0 = None, cfg
     if getattr(cfg, "field_slice", False):
         if args.model != "wide_deep":
@@ -271,12 +314,13 @@ def main(argv=None) -> dict:
         # the reference passes donate=False: its swap returns new
         # buffers; the port's swap and step update the state in place
         rm = RecModel(model, opt_w, opt_d, device=device)
+        rm.rank_id = rank  # a worker's own checkpoint file
         adapter = CachedTrainingAdapter(
             model, virtual_vocab=cfg.vocab_size,
             cache_rows=cfg.vocab_cache_size,
             max_swap=cfg.batch_size * cfg.field_size + 8,
             ram_bytes=getattr(cfg, "host_ram_bytes", None) or None,
-            spill_dir="./emb_spill",
+            spill_dir=spill,
             remote_addrs=server_hosts or None,
         )
         dump_step, dump_ids = rm.train_step, cfg.vocab_cache_size
@@ -292,7 +336,9 @@ def main(argv=None) -> dict:
 
         rm.eval_step = cached_eval
         print(f"cache regime: {cfg.vocab_cache_size:,} card rows of "
-              f"{cfg.vocab_size:,} (remote={bool(server_hosts)})", flush=True)
+              f"{cfg.vocab_size:,} (remote={bool(server_hosts)})"
+              + (f", worker {rank} of {workers} over the ids it owns"
+                 if layout == "replicas" else ""), flush=True)
     elif args.model == "wide_deep" and getattr(cfg, "parameter_server", False):
         # host-target regime: the tables never reach the card
         from mindrec_tpu_torch.train.host_target import (
@@ -304,15 +350,18 @@ def main(argv=None) -> dict:
         # parameter_server=True declares the tables host-resident (and
         # drops their l2 term, as the reference's config rule does)
         model = rm.model = WideDeepModel(
-            dataclasses.replace(mcfg, parameter_server=True))
+            dataclasses.replace(mcfg, parameter_server=True), mesh=mesh)
         adapter = HostTargetAdapter(
             model, vocab_size=cfg.vocab_size,
             unique_bucket=cfg.batch_size * cfg.field_size,
             opt_w=opt_w, opt_d=opt_d,
             remote_addrs=server_hosts or None,
-            spill_dir=None if server_hosts else "./emb_spill",
+            spill_dir=None if server_hosts else spill,
+            mesh=mesh,
         )
         rm.state = init_dense_state(model, 0, opt_w, opt_d, device=device)
+        if rm.mesh is not None:  # the dense state: every leaf replicated
+            rm.shardings = state_placements(rm.state, model, rm.mesh)
         rm.train_step = adapter.train_step
         rm.eval_step = adapter.eval_step
         dump_step = None  # the step runs host row updates around the card
@@ -328,6 +377,7 @@ def main(argv=None) -> dict:
             evict_filter_value=(getattr(cfg, "evict_filter_value", 0)
                                 or 0x7FFFFFFF),
             remote_addrs=server_hosts or None,
+            mesh=mesh, device=device,
         )
         train0, eval0 = rm.train_step, rm.eval_step
         dump_ids = cfg.vocab_size
@@ -340,20 +390,38 @@ def main(argv=None) -> dict:
               f"(remote={bool(server_hosts)}, "
               f"step={getattr(train0, 'step', train0).__name__})", flush=True)
 
+    # packed data by data rank: each reads its own files at its slice of
+    # the batch (host prep sorts the global batch: every rank reads it)
+    local = rm.mesh is not None and not args.unique_bucket
+    n_data = rm.mesh.data if local else 1
+
     def make_data(train: bool):
         if cfg.dataset_type == "packed":
             sub = "train" if train else "test"
+            d = rm.mesh.axis_index(DATA_AXIS) if local else 0
             data = PackedCriteoDataset(Path(cfg.data_path) / sub,
-                                       cfg.batch_size)
+                                       cfg.batch_size // n_data,
+                                       num_shards=n_data, shard_id=d)
         else:
             # the data's own field count and vocab: field_slice lays them
-            # out anew
+            # out anew; a cache worker trains a stream of its own
             src = cfg if remap is None else cfg0
+            mine = layout == "replicas"  # ids below vocab / W, moved below
             data = SyntheticCriteo(
-                cfg.batch_size, src.field_size, src.vocab_size,
-                steps=cfg.steps_per_epoch, seed=1 if train else 999,
+                cfg.batch_size, src.field_size,
+                src.vocab_size // workers if mine else src.vocab_size,
+                steps=cfg.steps_per_epoch,
+                seed=(1 if train else 999) + (1000 * rank if mine else 0),
             )
-        return data if remap is None else _Mapped(data, remap)
+        if layout == "replicas":
+            data = _Mapped(data, own_ids(rank, workers))
+        if remap is not None:
+            data = _Mapped(data, remap)
+        # marked last: a transform returns a plain dict, which
+        # shard_batch would slice a second time
+        if local and cfg.dataset_type == "packed":
+            data = _Mapped(data, LocalBatch)
+        return data
 
     callbacks = [
         LossCallback(cfg.loss_file_name, per_print_times=10),
@@ -375,7 +443,7 @@ def main(argv=None) -> dict:
 
         path, ck_step = latest_checkpoint(args.ckpt_dir,
                                           rank=topo["process_index"])
-        if path and mesh is not None:  # every rank's sliced file
+        if path and rm.mesh is not None:  # every rank's sliced file
             paths = [str(Path(args.ckpt_dir) / f"ckpt-{ck_step:010d}-r{r}.npz")
                      for r in range(mesh.size)]
             rm.state = restore_checkpoint(paths, rm.state,
@@ -407,8 +475,8 @@ def main(argv=None) -> dict:
             b0 = dict(next(iter(make_data(train=True))))
             if dump_ids is not None:  # adapter regimes: any in-arena ids
                 b0["ids"] = (np.asarray(b0["ids"]) % dump_ids).astype(np.int32)
-            if mesh is not None:
-                b0 = shard_batch(b0, mesh)
+            if rm.mesh is not None:
+                b0 = shard_batch(b0, rm.mesh)
             files = dump_ir(dump_step, rm.state, to_device(b0, rm.device),
                             path=args.graphs_path, name="train_step")
             print(f"dumped IR: {files}", flush=True)
@@ -426,6 +494,8 @@ def main(argv=None) -> dict:
             print(f"profiler trace -> {trace}", flush=True)
     metrics = rm.eval(make_data(train=False))
     print(f"final metrics: {metrics}", flush=True)
+    if workers > 1:
+        shutdown()
     return metrics
 
 

@@ -56,7 +56,9 @@ def main(argv=None) -> dict:
     from mindrec_tpu_torch.models.multitable import (
         MultiTableConfig, MultiTableWideDeepModel,
     )
-    from mindrec_tpu_torch.parallel.dist import initialize_from_env, rank_device
+    from mindrec_tpu_torch.parallel.dist import (
+        initialize_from_env, rank_device, shutdown,
+    )
     from mindrec_tpu_torch.parallel.mesh import make_mesh
     from mindrec_tpu_torch.train import optim
     from mindrec_tpu_torch.train.callbacks import (
@@ -101,6 +103,8 @@ def main(argv=None) -> dict:
     rm.train(args.epochs, make_data(train=True), callbacks=callbacks)
     metrics = rm.eval(make_data(train=False))
     print(f"final metrics: {metrics}", flush=True)
+    if topo["process_count"] > 1:
+        shutdown()
     return metrics
 
 

@@ -93,6 +93,19 @@ def initialize_from_env(timeout_s: int = 300, device="cuda",
     }
 
 
+def shutdown() -> None:
+    """End this rank's part in the group once its work is done: a barrier,
+    so that no peer still talks to it, then ``destroy_process_group``.
+    Without it a rank's interpreter exits while gloo threads of its peers
+    still hold connections to it, and a rank can die with SIGABRT at
+    exit.  A no-op without a group.  Call it only on the way out of a
+    rank that succeeded: a rank that raises exits non-zero and its peers
+    are stopped by whoever started them."""
+    if tdist.is_initialized():
+        tdist.barrier()
+        tdist.destroy_process_group()
+
+
 def rank_device(device="cuda") -> torch.device:
     """This rank's device: under a joined group on the card, the card it
     was given (``rank % device_count``); else ``device`` as given."""

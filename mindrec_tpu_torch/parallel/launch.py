@@ -13,9 +13,10 @@ and writes what the function returns::
     python -m mindrec_tpu_torch.parallel.launch TARGET ARGS.json OUT_DIR
 
 ``FUNC(args)`` gets the decoded ``ARGS.json``; its return value is
-pickled to ``OUT_DIR/rank<r>.pkl``.  ``args["device"]`` (default
-``cuda``; ``cpu`` runs the group on the host) and ``args["backend"]``
-pick where the group runs.
+pickled to ``OUT_DIR/rank<r>.pkl``, and then the rank leaves the group
+(``dist.shutdown``: a barrier and ``destroy_process_group``).
+``args["device"]`` (default ``cuda``; ``cpu`` runs the group on the
+host) and ``args["backend"]`` pick where the group runs.
 """
 
 from __future__ import annotations
@@ -43,9 +44,10 @@ class RanksFailed(RuntimeError):
 
 
 def run_ranks(argv: list[str], world: int, timeout: float = 120.0,
-              env: dict | None = None) -> list[str]:
-    """Run ``argv`` as ranks ``0 .. world-1`` of one group; -> each
-    rank's output (stdout and stderr together).  Raises
+              env: dict | None = None, cwd=None) -> list[str]:
+    """Run ``argv`` as ranks ``0 .. world-1`` of one group (in ``cwd``,
+    default this process's); -> each rank's output (stdout and stderr
+    together).  Raises
     :class:`RanksFailed` when a rank fails or ``timeout`` seconds pass,
     after killing every rank still running.  Each rank runs PyTorch's CPU
     operators on one thread unless ``OMP_NUM_THREADS`` says otherwise:
@@ -60,7 +62,7 @@ def run_ranks(argv: list[str], world: int, timeout: float = 120.0,
             log = tempfile.TemporaryFile(mode="w+")
             logs.append(log)
             procs.append(subprocess.Popen(
-                argv, stdout=log, stderr=subprocess.STDOUT,
+                argv, stdout=log, stderr=subprocess.STDOUT, cwd=cwd,
                 env={**base, "MR_WORKER_ID": str(r)}))
         deadline = time.monotonic() + timeout
         failed = None
@@ -93,7 +95,7 @@ def run_ranks(argv: list[str], world: int, timeout: float = 120.0,
 
 
 def run_job(target: str, args: dict, world: int, timeout: float = 120.0,
-            env: dict | None = None) -> tuple[list, list[str]]:
+            env: dict | None = None, cwd=None) -> tuple[list, list[str]]:
     """Run ``target`` (``pkg.mod:FUNC`` or ``FILE.py:FUNC``) on ``world``
     ranks with ``args``;
     -> (each rank's return value, each rank's output)."""
@@ -105,7 +107,7 @@ def run_job(target: str, args: dict, world: int, timeout: float = 120.0,
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (root, env.get("PYTHONPATH", "")) if p)
         outs = run_ranks([sys.executable, "-m", "mindrec_tpu_torch.parallel.launch",
-                          target, str(spec), tmp], world, timeout, env)
+                          target, str(spec), tmp], world, timeout, env, cwd)
         results = []
         for r in range(world):
             with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
@@ -114,7 +116,7 @@ def run_job(target: str, args: dict, world: int, timeout: float = 120.0,
 
 
 def _main(target: str, args_path: str, out_dir: str) -> None:
-    from mindrec_tpu_torch.parallel.dist import initialize_from_env
+    from mindrec_tpu_torch.parallel.dist import initialize_from_env, shutdown
 
     args = json.loads(Path(args_path).read_text())
     topo = initialize_from_env(device=args.get("device", "cuda"),
@@ -133,6 +135,7 @@ def _main(target: str, args_path: str, out_dir: str) -> None:
     with open(tmp, "wb") as f:
         pickle.dump(result, f)
     os.replace(tmp, out)
+    shutdown()
 
 
 if __name__ == "__main__":

@@ -21,7 +21,7 @@ process group per mesh row (the ``model`` axis) and one per column (the
 same order.
 
 Collectives (:func:`all_reduce`, :func:`all_gather`, :func:`all_to_all`)
-take an axis and run over this rank's group of it; an axis of size 1 is
+take an axis (:func:`broadcast_host` runs over every rank) and run over this rank's group of it; an axis of size 1 is
 the identity.  Under gloo a CUDA tensor goes through pinned host memory
 (chosen by the group's backend); under NCCL it stays on the card.  Each
 call appends ``(op, axis, bytes)`` to :data:`COLLECTIVES`, the bytes
@@ -171,6 +171,38 @@ def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
     return out.to(x.device)
 
 
+def _host_collective(x: np.ndarray, device) -> torch.Tensor:
+    """A copy of a host array as the tensor a collective takes: on the
+    host under gloo, on ``device`` under NCCL."""
+    t = torch.from_numpy(np.array(x))
+    return t if tdist.get_backend() == "gloo" else t.to(device)
+
+
+def all_gather_host(x: np.ndarray, axis: str, mesh: Mesh, device="cpu") -> np.ndarray:
+    """:func:`all_gather` of a host array (``device``: where NCCL takes
+    it; gloo takes it on the host)."""
+    if mesh.groups.get(axis) is None:
+        return x
+    return all_gather(_host_collective(x, device), axis, mesh).cpu().numpy()
+
+
+def broadcast_host(x: np.ndarray, mesh: Mesh, device="cpu", src: int = 0) -> np.ndarray:
+    """Rank ``src``'s host array on every rank of the default group (equal
+    shapes and dtypes on every rank; ``x`` itself in one process)."""
+    if mesh.size == 1:
+        return x
+    t = _host_collective(x, device)
+    _log("broadcast", "world", t.numel() * t.element_size())
+    tdist.broadcast(t, src)
+    return t.cpu().numpy()
+
+
+def barrier(mesh: Mesh) -> None:
+    """Wait for every rank of the default group (none in one process)."""
+    if mesh.size > 1:
+        tdist.barrier()
+
+
 class _ModelSum(torch.autograd.Function):
     """Sum over ``axis`` whose gradient passes through unchanged: every
     rank of the axis holds the same downstream, so the gradient of the
@@ -309,13 +341,21 @@ class FullBatch(dict):
     full_batch=True)``); the step takes its own slice of it."""
 
 
+class LocalBatch(dict):
+    """A batch that already is this data rank's slice of the global batch
+    (each rank read its own shard of the data, or its own shard of a
+    stream); :func:`shard_batch` passes it through."""
+
+
 def shard_batch(batch: dict, mesh: Mesh, full_batch: bool = False) -> dict:
     """This data rank's contiguous slice of every key's dim 0 (all ranks
     of a model row get the same one).  ``full_batch=True`` is the
     reference's full-batch input mode: every rank gets the whole batch
-    (:class:`FullBatch`)."""
+    (:class:`FullBatch`).  A :class:`LocalBatch` is returned as it is."""
     if full_batch:
         return FullBatch(batch)
+    if isinstance(batch, LocalBatch):
+        return batch
     n, d = mesh.data, mesh.axis_index(DATA_AXIS)
     out = {}
     for k, v in batch.items():

@@ -24,6 +24,17 @@ training loop, as the reference's dynamic-embedding mode (W&D with
 With ``remote_addrs`` the map is the distributed hash store
 (:class:`~mindrec_tpu_torch.ops.remote.RemoteHashStore`, PS mode): one
 mapping sharded over table servers, shared by every worker.
+
+On a mesh (``mesh=``, ``parallel/mesh.py``) the ranks train one model
+data-parallel, so a key must get the same slot on every rank and the
+store must count each step of the cluster once:
+:meth:`~DynamicEmbeddingAdapter.transform_batch` takes this rank's slice
+of a batch, gathers the global batch's ids over ``data`` and returns the
+slots of its own slice.  Each rank's own store translates the global ids
+alike; a distributed store is asked by rank 0 alone, which broadcasts the
+slots (and :meth:`~DynamicEmbeddingAdapter.evict`'s freed slots), so the
+servers' admission counts and clock tick once per step of the cluster,
+as in one process.
 """
 
 from __future__ import annotations
@@ -33,6 +44,9 @@ import numpy as np
 from mindrec_tpu_torch.native.hashstore import HashStore
 from mindrec_tpu_torch.ops.embedding import read_rows, write_rows
 from mindrec_tpu_torch.ops.remote import RemoteHashStore
+from mindrec_tpu_torch.parallel.mesh import (
+    DATA_AXIS, all_gather_host, broadcast_host,
+)
 from mindrec_tpu_torch.train.step import _get
 
 
@@ -41,14 +55,21 @@ class DynamicEmbeddingAdapter:
     Criteo models' wide and deep tables share ids).  ``store`` injects
     any object with the hash store's methods; ``remote_addrs``
     ("host:port" table servers) makes it the distributed store named
-    ``table_name`` on them."""
+    ``table_name`` on them.  ``mesh``: the data-parallel ranks' mesh
+    (module docstring); ``device``: where NCCL takes the collectives'
+    host arrays."""
 
     def __init__(self, capacity: int, permit_filter_value: int = 1,
                  evict_filter_value: int = 0x7FFFFFFF, seed: int = 0,
-                 store=None, remote_addrs=None, table_name: str = "dyn"):
+                 store=None, remote_addrs=None, table_name: str = "dyn",
+                 mesh=None, device="cpu"):
         if permit_filter_value < 1 or evict_filter_value < 1:
             raise ValueError("filter thresholds must be >= 1")
         self.capacity = capacity
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = device
+        # a store every rank shares is asked by rank 0 alone
+        self.shared = bool(remote_addrs) and self.mesh is not None
         if store is not None:
             self.store = store
         elif remote_addrs:
@@ -66,9 +87,23 @@ class DynamicEmbeddingAdapter:
     # -- hot path ------------------------------------------------------
 
     def transform_batch(self, batch: dict) -> dict:
-        """Raw ids -> arena slots (host side, one step of the clock)."""
+        """Raw ids -> arena slots (host side, one step of the clock).  On
+        a mesh ``batch`` is this rank's slice of the global batch."""
         ids = np.asarray(batch["ids"])
-        slots = self.store.lookup_or_insert(ids.reshape(-1))
+        keys = ids.reshape(-1)
+        if self.mesh is not None:
+            keys = all_gather_host(keys.astype(np.int64), DATA_AXIS,
+                                   self.mesh, self.device)
+        if self.shared:
+            slots = (self.store.lookup_or_insert(keys) if self.mesh.rank == 0
+                     else np.zeros(keys.shape, np.int64))
+            slots = broadcast_host(np.asarray(slots, np.int64), self.mesh,
+                                   self.device)
+        else:
+            slots = self.store.lookup_or_insert(keys)
+        if self.mesh is not None:  # this rank's slice of the global slots
+            d = self.mesh.axis_index(DATA_AXIS)
+            slots = slots[d * ids.size: (d + 1) * ids.size]
         slots = np.where(slots < 0, self.dummy_slot, slots)
         out = dict(batch)
         out["ids"] = slots.reshape(ids.shape).astype(np.int32)
@@ -81,7 +116,19 @@ class DynamicEmbeddingAdapter:
 
         ``tables``: the model's ``table_specs`` dict or a list of
         ``(path, spec)`` pairs (the spec carries the storage layout)."""
-        freed = self.store.evict()
+        if self.mesh is not None and self.mesh.model > 1:
+            raise NotImplementedError(
+                "evict on a model axis: the tables are sliced; evict on "
+                "data-parallel ranks")
+        if self.shared:
+            freed = self.store.evict() if self.mesh.rank == 0 else None
+            n = broadcast_host(np.array([0 if freed is None else freed.size],
+                                        np.int64), self.mesh, self.device)
+            freed = broadcast_host(
+                np.zeros(int(n[0]), np.int64) if freed is None
+                else np.asarray(freed, np.int64), self.mesh, self.device)
+        else:
+            freed = self.store.evict()
         if freed.size == 0:
             return state, 0
         for path, spec in _norm_tables(tables):

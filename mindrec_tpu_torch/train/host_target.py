@@ -27,6 +27,17 @@ Per step (:meth:`HostTargetAdapter.train_step`):
 Every tier read and write runs on the calling thread or on the io pool
 while it waits, one task per tier, so no tier's socket is used from two
 threads at once.
+
+On a mesh (``mesh=``, ``parallel/mesh.py``) the ranks train one model
+data-parallel: each rank gets its slice of the global batch, gathers the
+global batch's ids over ``data`` (so every rank reads the same unique
+rows), runs the card's part on its own positions (the segment-sum of its
+positions only, at the global unique index) and sums the dense and row
+gradients over ``data`` in one collective, at 1/data of the loss scale
+each.  Every rank then holds the same row gradients: ranks with host
+tiers of their own each update theirs alike; over table servers, which
+every rank shares, rank 0 alone reads the optimizer state and writes the
+rows, and every rank waits for it before its next read.
 """
 
 from __future__ import annotations
@@ -41,6 +52,9 @@ from mindrec_tpu_torch.data.criteo import to_device
 from mindrec_tpu_torch.ops import prng
 from mindrec_tpu_torch.ops.cache import make_tier
 from mindrec_tpu_torch.ops.kernels.segsum import segsum_sorted
+from mindrec_tpu_torch.parallel.mesh import (
+    DATA_AXIS, all_gather_host, all_reduce, barrier,
+)
 from mindrec_tpu_torch.train.step import (
     BucketOverflow, TrainState, flatten_params, is_wide_key, map_leaves,
 )
@@ -77,16 +91,17 @@ class _ExpandRows(torch.autograd.Function):
     zero)."""
 
     @staticmethod
-    def forward(ctx, rows_stack, uidx, uidx_sorted, perm, dtype):
+    def forward(ctx, rows_stack, uidx, uidx_sorted, perm, dtype, gaps):
         ctx.save_for_backward(uidx_sorted, perm)
-        ctx.n_out = rows_stack.shape[0]
+        ctx.n_out, ctx.gaps = rows_stack.shape[0], gaps
         return rows_stack.to(dtype)[uidx]
 
     @staticmethod
     def backward(ctx, g):
         uidx_sorted, perm = ctx.saved_tensors
-        g_rows = segsum_sorted(g.contiguous(), uidx_sorted, ctx.n_out, perm).T
-        return g_rows, None, None, None, None
+        g_rows = segsum_sorted(g.contiguous(), uidx_sorted, ctx.n_out, perm,
+                               gaps=ctx.gaps).T
+        return g_rows, None, None, None, None, None
 
 
 def sort_ids(ids: np.ndarray):
@@ -116,14 +131,19 @@ class HostTargetAdapter:
     ``spill_dir``: the host tiers' knobs; ``remote_addrs``: "host:port"
     table servers holding the tiers instead (named ``host.<table>`` and
     ``host.<table>.<state>``, as the reference names them);
-    ``matmul_dtype``: the dtype the expanded rows enter the model in.
-    The device is the state's."""
+    ``matmul_dtype``: the dtype the expanded rows enter the model in;
+    ``mesh``: the data-parallel ranks' mesh (module docstring).  The
+    device is the state's."""
 
     def __init__(self, model, vocab_size: int, unique_bucket: int,
                  opt_w, opt_d, ram_bytes=None, spill_dir=None,
                  remote_addrs=None, seed: int = 0,
-                 matmul_dtype=torch.bfloat16):
+                 matmul_dtype=torch.bfloat16, mesh=None):
         self.model = model
+        self.mesh = mesh if mesh is not None and mesh.data > 1 else None
+        # over shared servers only rank 0 updates the rows
+        self.writer = self.mesh is None or not remote_addrs or mesh.rank == 0
+        self.shared = bool(remote_addrs) and self.mesh is not None
         self.bucket = unique_bucket
         self.opt_w, self.opt_d = opt_w, opt_d
         self.matmul_dtype = matmul_dtype
@@ -151,6 +171,18 @@ class HostTargetAdapter:
 
     # -- host side -----------------------------------------------------
 
+    def _global_ids(self, batch, dev):
+        """-> (the flat ids of the global batch, the slice of this rank's
+        positions in it, None in one process).  On a mesh every rank reads
+        and draws the global batch's rows in one order, so host tiers of
+        each rank's own stay alike."""
+        ids = np.asarray(batch["ids"], np.int64).reshape(-1)
+        if self.mesh is None:
+            return ids, None
+        d = self.mesh.axis_index(DATA_AXIS)
+        return (all_gather_host(ids, DATA_AXIS, self.mesh, dev),
+                slice(d * ids.size, (d + 1) * ids.size))
+
     def _rows_stack(self, uq: np.ndarray) -> tuple[np.ndarray, dict]:
         """The param rows of ``uq``: ``[bucket, sum(D)]`` with a zero tail,
         and each table's ``[uq.size, D]`` block."""
@@ -165,15 +197,16 @@ class HostTargetAdapter:
             off += d
         return stack, rows
 
-    def _expand(self, stack, uidx, perm, uidx_sorted, batch, dev, grad: bool):
+    def _expand(self, stack, uidx, perm, uidx_sorted, batch, dev, grad: bool,
+                gaps: bool = False):
         """Batch-order rows per table, ``[B, F, D]`` each (and the leaf to
-        differentiate)."""
+        differentiate); ``gaps``: ``uidx_sorted`` may skip unique ids."""
         t = to_device({"rows": stack, "uidx": uidx.astype(np.int64),
                        "perm": perm, "uidx_sorted": uidx_sorted}, dev)
         leaf = t["rows"].requires_grad_(grad)
         if grad:
             pos = _ExpandRows.apply(leaf, t["uidx"], t["uidx_sorted"],
-                                    t["perm"], self.matmul_dtype)
+                                    t["perm"], self.matmul_dtype, gaps)
         else:
             pos = leaf[t["uidx"]]
         B, F = np.asarray(batch["wts"]).shape
@@ -189,25 +222,41 @@ class HostTargetAdapter:
         """``state`` holds only the dense parameters (tables absent);
         -> (state', (loss_w, loss_d)), the losses device tensors."""
         dev = state.step.device
-        ids = np.asarray(batch["ids"], np.int64).reshape(-1)
+        n_data = 1 if self.mesh is None else self.mesh.data
+        ids, local = self._global_ids(batch, dev)
         uq, uidx, perm, uidx_sorted = sort_ids(ids)
         stack, w_rows = self._rows_stack(uq)
         # the state rows are not needed until the card is done
         futs = {(name, s): self._io.submit(tier.read, uq)
                 for name, tiers in self.tiers.items()
-                for s, tier in tiers.items() if s != "param"}
+                for s, tier in tiers.items() if s != "param" and self.writer}
+        if local is not None:  # this rank's positions at their global index
+            uidx = uidx[local]
+            perm = np.argsort(uidx, kind="stable").astype(np.int32)
+            uidx_sorted = uidx[perm]
 
         flat = flatten_params(state.params)
         leaves = {k: p.detach().requires_grad_(True) for k, p in flat}
         params = map_leaves(lambda k, _p: leaves[k], state.params)
         rows_leaf, rows = self._expand(stack, uidx, perm, uidx_sorted, batch,
-                                       dev, grad=True)
+                                       dev, grad=True, gaps=n_data > 1)
         tb = to_device({k: batch[k] for k in ("wts", "label")}, dev)
         logits = self.model.apply_rows(params, rows, tb["wts"], train=True)
         lw, ld = self.model.loss(params, logits, tb["label"])
         sens = float(getattr(self.model.config, "loss_scale", 1.0))
-        grads = torch.autograd.grad(ld * sens, [*leaves.values(), rows_leaf],
+        grads = torch.autograd.grad(ld * (sens / n_data),
+                                    [*leaves.values(), rows_leaf],
                                     allow_unused=True)
+        if n_data > 1:  # the global batch's gradients and mean losses
+            grads = [torch.zeros_like(x) if g is None else g
+                     for g, x in zip(grads, [*leaves.values(), rows_leaf])]
+            sizes = [g.numel() for g in grads]
+            summed = all_reduce(torch.cat([g.reshape(-1).float() for g in grads]
+                                          + [torch.stack([lw, ld]).detach()]),
+                                DATA_AXIS, self.mesh)
+            parts = summed.split(sizes + [2])
+            grads = [p.view_as(g).to(g.dtype) for p, g in zip(parts, grads)]
+            lw, ld = parts[-1] / n_data
 
         # dense updates on the card (ordinary leaf updates)
         opt_w, opt_d = dict(state.opt_w), dict(state.opt_d)
@@ -223,6 +272,8 @@ class HostTargetAdapter:
         g_rows = grads[-1][: uq.size].double().cpu().numpy()
         writes, off = [], 0
         for name, (_path, spec, opt) in self.tables.items():
+            if not self.writer:
+                continue
             d = spec.emb_dim
             g = g_rows[:, off: off + d]
             off += d
@@ -243,6 +294,8 @@ class HostTargetAdapter:
                        for t, r in zip(names, out)]
         for f in writes:
             f.result()
+        if self.shared:  # no rank reads rows before rank 0 has written them
+            barrier(self.mesh)
         state = state._replace(params=params2, opt_w=opt_w, opt_d=opt_d,
                                step=state.step + 1)
         return state, (lw.detach(), ld.detach())
@@ -257,9 +310,11 @@ class HostTargetAdapter:
     def eval_step(self, dense_params, batch):
         """(probs, labels) with the rows read from the tiers."""
         dev = flatten_params(dense_params)[0][1].device
-        ids = np.asarray(batch["ids"], np.int64).reshape(-1)
+        ids, uidx_local = self._global_ids(batch, dev)
         uq, uidx, perm, uidx_sorted = sort_ids(ids)
         stack, _ = self._rows_stack(uq)
+        if uidx_local is not None:  # this rank's positions
+            uidx = uidx[uidx_local]
         _, rows = self._expand(stack, uidx, perm, uidx_sorted, batch, dev,
                                grad=False)
         wts = to_device({"wts": batch["wts"]}, dev)["wts"]

@@ -8,9 +8,10 @@ checkpoint; the Outbrain, TB-scale, online, Kafka-producer and accuracy
 drivers; the launch scripts through bash; the multi-card branches
 (``run_distribute_train.sh`` with 4 gloo ranks on a (2, 2) mesh, sliced
 checkpoints and ``--resume``, ``field_slice``, the Outbrain driver on 2
-ranks) and what still raises naming ROADMAP.md section 1 item 9 (the
-placement regimes on several workers)."""
+ranks) and how the placement regimes share a run on several workers
+(``worker_layout``)."""
 
+import ast
 import math
 import os
 import pickle
@@ -100,8 +101,11 @@ def test_multi_card_options_raise_item_9(argv, env, monkeypatch):
     """The multi-card options in one process: a model axis needs the
     ranks to form it, field_slice needs a model axis, a sliced table
     without a mesh trains whole, and MR_WORKER_NUM without a scheduler
-    joins no group.  What stays unported, the placement regimes on
-    several workers, raises naming item 9 (``test_distribute_launcher``)."""
+    joins no group.  The placement regimes, which raised naming item 9
+    on several workers until they were ported, now say how the workers
+    share the run (``worker_layout``): the card cache one model per
+    worker, host tables and the hash vocabulary one model on the mesh
+    (``tests/test_torch_ps_workers.py`` runs them on 2 workers)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     if argv[:1] == ["--mesh_model"]:
@@ -114,8 +118,15 @@ def test_multi_card_options_raise_item_9(argv, env, monkeypatch):
         assert _auc_ok(train_criteo.main(TINY + ["--sparse", "1"] + argv))
     mesh = type("Mesh", (), {"size": 2})()
     cfg = type("Cfg", (), {"vocab_cache_size": 1024})()
-    with pytest.raises(NotImplementedError, match="section 1 item 9"):
-        train_criteo.check_regimes(cfg, mesh)
+    assert train_criteo.worker_layout("wide_deep", cfg, mesh) == "replicas"
+    cfg.dataset_type = "packed"  # real ids: W of them would share a row
+    with pytest.raises(ValueError, match="reference fault 11"):
+        train_criteo.worker_layout("wide_deep", cfg, mesh)
+    assert train_criteo.worker_layout("deepfm", cfg, mesh) == "data"
+    for key in ("parameter_server", "dynamic_embedding"):
+        cfg = type("Cfg", (), {"vocab_cache_size": 0, key: True})()
+        assert train_criteo.worker_layout("wide_deep", cfg, mesh) == "data"
+    assert train_criteo.worker_layout("wide_deep", cfg, None) == "one"
 
 
 def test_outbrain_driver_and_its_item_9_raise():
@@ -153,12 +164,13 @@ def _port():
     return free_port()
 
 
-def test_distribute_launcher():
+def test_distribute_launcher(monkeypatch):
     """``run_distribute_train.sh 4`` on the CPU: 4 gloo ranks, a (2, 2)
     mesh with the deep table row-sliced, every rank's sliced checkpoint,
     ``--resume`` from all of them, and the same final AUC on every rank;
-    ``field_slice`` on 2 ranks; a failing rank (the cache regime, still
-    item 9 on several workers) stops the others and the script fails."""
+    ``field_slice`` on 2 ranks; a failing rank (an injected crash at the
+    first step: the rank that fails first stops the others, which would
+    wait for it in their collectives) and the script fails."""
     mesh = TINY + ["--sparse", "1", "--mesh_model", "2",
                    "--deep_table_slice_mode", "table_row_slice",
                    "--ckpt_interval", "2"]
@@ -178,9 +190,11 @@ def test_distribute_launcher():
     r = _distribute(2, *TINY, "--sparse", "1", "--mesh_model", "2",
                     "--field_slice", "true", "--vocab_size", "200000")
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
-    r = _distribute(2, *TINY, "--sparse", "1", "--vocab_cache_size", "1024")
+    monkeypatch.setenv("MINDREC_CRASH_AT_STEP", "1")
+    r = _distribute(2, *TINY, "--sparse", "1")
     assert r.returncode != 0
-    assert "section 1 item 9" in Path("dp_logs/worker_0.log").read_text()
+    assert "simulated crash at step 1" in "".join(
+        Path(f"dp_logs/worker_{i}.log").read_text() for i in range(2))
 
 
 def test_terabyte_driver(capsys):
@@ -243,3 +257,69 @@ def test_launch_scripts(script, tmp_path):
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert "final metrics" in r.stdout
+
+
+def _packed_files(root: Path) -> None:
+    """Packed rows of 1000 samples: ``root/two/{train,test}`` holds one
+    file per data rank (2 rows each), ``root/one/{train,test}`` one file of
+    the same rows interleaved (rank 0's row i, rank 1's row i, ...), the
+    global batches of 2000 that the ranks' halves make in rank order."""
+    rng = np.random.default_rng(5)
+
+    def rows(n):  # n packed rows of 1000 samples
+        return {"ids": rng.integers(0, 2000, (n, 1000, 39)).astype(np.int32),
+                "wts": rng.uniform(0.5, 1.5, (n, 1000, 39)).astype(np.float32),
+                "label": rng.integers(0, 2, (n, 1000)).astype(np.float32)}
+
+    for sub in ("train", "test"):
+        parts = [rows(2), rows(2)]  # rank 0's file, rank 1's file
+        for name in ("two", "one"):
+            (root / name / sub).mkdir(parents=True)
+        for r, p in enumerate(parts):
+            np.savez(root / "two" / sub / f"part-{r:05d}.npz", **p)
+        np.savez(root / "one" / sub / "part-00000.npz", **{
+            k: np.stack([parts[r][k][i] for i in range(2) for r in range(2)])
+            for k in parts[0]})
+
+
+def _rank_finals(argv, world: int) -> list[dict]:
+    """``train_criteo`` on ``world`` gloo ranks: each rank's final metrics."""
+    from mindrec_tpu_torch.parallel import launch
+
+    outs = launch.run_ranks(
+        [sys.executable, "-m", "mindrec_tpu_torch.examples.train_criteo",
+         *argv], world, timeout=110, env={**os.environ, "PYTHONPATH": str(REPO)})
+    return [ast.literal_eval(line.split(":", 1)[1].strip())
+            for o in outs for line in o.splitlines()
+            if line.startswith("final metrics")]
+
+
+def test_packed_data_by_data_rank(tmp_path):
+    """``--dataset_type packed`` on 2 ranks: each data rank reads its own
+    files (``num_shards`` = the data axis) at its half of the batch, so
+    the global batch is the ranks' batches in rank order and the run ends
+    where one process ends on those global batches."""
+    _packed_files(tmp_path)
+    argv = TINY + ["--sparse", "1", "--batch_size", "2000",
+                   "--dataset_type", "packed"]
+    finals = _rank_finals(argv + ["--data_path", str(tmp_path / "two")], 2)
+    assert len(finals) == 2 and finals[0] == finals[1]
+    one = train_criteo.main(argv + ["--data_path", str(tmp_path / "one")])
+    assert finals[0]["auc"] == pytest.approx(one["auc"], rel=1e-6)
+
+
+def test_packed_field_slice_by_data_rank(tmp_path):
+    """``--field_slice`` on packed data over a (2, 2) mesh: each data rank
+    reads its own files, and the batch it trains stays its half of the
+    global batch through the field layout's transform (a transformed
+    batch that lost its mark would be halved again).  The run ends where
+    a (1, 2) mesh, one data rank, ends on the same global batches."""
+    _packed_files(tmp_path)
+    argv = TINY + ["--sparse", "1", "--batch_size", "2000",
+                   "--dataset_type", "packed", "--mesh_model", "2",
+                   "--field_slice", "true", "--vocab_size", "200000"]
+    four = _rank_finals(argv + ["--data_path", str(tmp_path / "two")], 4)
+    assert len(four) == 4 and all(f == four[0] for f in four)
+    two = _rank_finals(argv + ["--data_path", str(tmp_path / "one")], 2)
+    assert len(two) == 2 and two[0] == two[1]
+    assert four[0]["auc"] == pytest.approx(two[0]["auc"], rel=1e-6)

@@ -9,7 +9,9 @@ Phases: ``cache`` (15), ``dynamic`` (16), ``files`` (17-20),
 ``outbrain`` (21), ``online`` (22), ``ps`` (23-26: PS mode, which
 compares itself with phases 15 and 16's results, so it runs them first),
 ``generic`` (27-28: the generic sparse path), ``drivers`` (29),
-``sharded`` (30: ranks of a mesh sharing the card over gloo).
+``sharded`` (30: ranks of a mesh sharing the card over gloo),
+``workers`` (31: PS workers over shared servers, distributed online
+training, the elastic wrapper).
 Exits non-zero without a card or when a phase fails.
 """
 
@@ -25,7 +27,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 PHASES = ("cache", "dynamic", "files", "outbrain", "online", "ps",
-          "generic", "drivers", "sharded")
+          "generic", "drivers", "sharded", "workers")
 
 
 def main(names) -> int:
@@ -58,6 +60,8 @@ def main(names) -> int:
             out[name] = (cs.phase_generic_wd(dev), cs.phase_generic_dyn(dev))
         elif name == "drivers":
             out[name] = cs.phase_drivers(dev)
+        elif name == "workers":
+            out[name] = cs.phase_workers(dev)
         elif name == "sharded":
             data, bucket, _host0 = cs.wd_setup()
             gen = torch.Generator(device=dev).manual_seed(0)
