@@ -290,7 +290,16 @@ Phases (any failure exits non-zero):
     the yaml's width, both ranks' final AUC equal), and
     ``[shard-kernels]``: kernels 1, 3, 6 and 8 against their plain
     versions at a rank's shapes (clipped ids, a run-time lane offset,
-    injected unique ids);
+    injected unique ids); beside each mesh run's eager steps each rank
+    runs the captured step (CUDA graphs cut at every collective) from a
+    copy of its block, in turns (eager, captured, captured, eager), and
+    ``[*-captured]`` holds it to the eager run bit for bit (losses,
+    every leaf), with the same collectives per step, the path's kernels
+    launched at every step (``real_launches``), graphs per capture and
+    ms/step captured and eager per rank; ``[mesh-dense-captured]``
+    (1 x 2, the deep table row-sliced) and ``[mesh-generic-captured]``
+    (2 x 1, ``use_pallas=False``) do the same at the yaml's width, and
+    ``[sharded-driver]``'s ranks run captured through ``RecModel``;
 31. several workers, their ranks sharing the card over gloo (no time
     here is a speed of several cards): ``[ps-workers]`` (2 table servers
     and 2 PS workers, ``parallel/jobs.py:ps_worker``, in the cache
@@ -408,7 +417,7 @@ from mindrec_tpu_torch.utils.profiling import (
 from mindrec_tpu_torch.train.step import (
     SENTINEL, CapturedStep, TrainState, _group_layouts, _state_tensors,
     flatten_params, init_train_state, make_batch_sort, make_eval_step,
-    make_train_step, map_leaves, prep_groups,
+    make_train_step, map_leaves, prep_groups, real_launches,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -942,17 +951,6 @@ def timed_steps(tag, step, state, batches, batch_size, per_step,
         log(f"[profile] {tag} device busy share "
             f"{busy / out['ms_per_step']:.3f} of the unprofiled "
             f"{out['ms_per_step']:.3f} ms/step")
-    return out
-
-
-def real_launches(step) -> dict:
-    """Kernel launches since the counters were set to 0.  A captured
-    step's wrappers count their launches when a graph is captured, so its
-    recorded launches are taken out and its replays' launches added."""
-    out = dict(kernels.LAUNCHES)
-    if isinstance(step, CapturedStep):
-        for k in out:
-            out[k] += step.replayed.get(k, 0) - step.recorded.get(k, 0)
     return out
 
 
@@ -4822,6 +4820,80 @@ def shard_spec(mode, data, model, bucket, root, tag) -> dict:
             "out": str(root / tag)}
 
 
+def shard_turns(spec, first: int, later=(True, True, False)) -> list:
+    """``spec``'s eager run (index ``first`` of the spawn's runs), then
+    one run per entry of ``later`` (captured if True) from a fresh copy
+    of the rank's block, each held on the rank to the first run's final
+    state (``equal_to``): by default eager, captured, captured, eager."""
+    return [spec] + [{**spec, "step": {**spec["step"], "jit": jit},
+                      "out": None, "unsliced": None, "equal_to": first}
+                     for jit in later]
+
+
+def yaml_mesh_spec(kind) -> dict:
+    """The yaml's width (batch 16000 x 39, vocab 200,000, emb 80,
+    1024-512-256-128, bf16) on 2 ranks: ``dense`` the dense step over the
+    deep table row-sliced on a 1 x 2 mesh, ``generic`` the generic sparse
+    path (``use_pallas=False``) data-parallel on 2 x 1."""
+    dense = kind == "dense"
+    cfg = dict(batch_size=BATCH, field_size=FIELDS, vocab_size=200_000,
+               emb_dim=80, deep_layer_dim=[1024, 512, 256, 128],
+               use_mixed_precision=True, sparse=not dense, loss_scale=1024.0,
+               deep_table_slice_mode="table_row_slice" if dense else "none")
+    return {"data": 1 if dense else 2, "model": 2 if dense else 1,
+            "device": "cuda", "net": {"name": "wide_deep", "config": cfg},
+            "opt_w": {"kind": "ftrl", "loss_scale": 1024.0},
+            "opt_d": {"kind": "lazy_adam", "loss_scale": 1024.0},
+            "seed": 0, "step": {} if dense else {"use_pallas": False},
+            "batches": {"synthetic": {"vocab": 200_000, "fields": FIELDS,
+                                      "batch": BATCH, "steps": SHARD_STEPS,
+                                      "kind": "criteo", "seed": 0}}}
+
+
+def shard_captured(tag, turns, kernels_=()) -> dict:
+    """``turns[r]``: rank r's records of :func:`shard_turns`.  Every later
+    turn equals the first bit for bit on its rank (final state leaf by
+    leaf, losses), makes the same collectives and launches the same
+    kernels at every step; a captured turn captures once and replays
+    every later step; ``kernels_`` launch on every rank at every step.
+    -> graphs per capture, ms of each step per rank by turn (steps 2 on,
+    the first replay included; eager and captured in turns) and the
+    first captured turn's launches."""
+    ms, segments, launches = {}, {}, {}
+    for r, recs in enumerate(turns):
+        first = recs[0]
+        for i, rec in enumerate(recs):
+            if i and rec["differs"]:
+                fail(f"[{tag}-captured] rank {r} turn {i}: leaves differ "
+                     f"from the eager run's: {rec['differs']}")
+            for key in ("losses", "collectives", "launches"):
+                if rec[key] != first[key]:
+                    fail(f"[{tag}-captured] rank {r} turn {i}: {key} "
+                         f"{rec[key]} differ from the eager run's {first[key]}")
+            for j, la in enumerate(rec["launches"]):
+                missing = [k for k in kernels_ if not la.get(k)]
+                if missing:
+                    fail(f"[{tag}-captured] rank {r} turn {i} step {j} "
+                         f"launched no {missing}")
+            captured = "segments" in rec
+            if captured and (rec["captures"], rec["replays"]) != (
+                    1, SHARD_STEPS - 1):
+                fail(f"[{tag}-captured] rank {r} turn {i}: {rec['captures']} "
+                     f"captures, {rec['replays']} replays")
+            ms.setdefault(r, []).append(
+                ("captured" if captured else "eager", rec["ms"][1:]))
+        cap = next(rec for rec in recs if "segments" in rec)
+        segments[r] = cap["segments"]
+        for la in cap["launches"]:
+            for k, n in la.items():
+                launches[k] = launches.get(k, 0) + n
+    out = dict(equal="bit for bit", ms_per_step_turns=ms,
+               graphs_per_capture=segments, launches=launches)
+    log(f"[{tag}-captured] {json.dumps(out)} ({SMI}; gloo host copies on one "
+        f"card: no speed of multi-GPU training)")
+    return out
+
+
 def shard_reference(dev, spec) -> tuple:
     """The spec's model on one rank (no mesh: the sliced table whole, in
     the same layout), the same eager step on the same global batches;
@@ -5049,20 +5121,40 @@ def phase_sharded(dev, gen, data, bucket) -> dict:
             refs[tag] = shard_reference(dev, spec)
             torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        res4, _ = launch.run_job(SHARD_JOBS, specs["sharded-wd"], 4,
-                                 timeout=150)
+        res4, _ = launch.run_job(
+            SHARD_JOBS, {"runs": shard_turns(specs["sharded-wd"], 0)}, 4,
+            timeout=240)
         t2 = time.perf_counter()
-        res2, _ = launch.run_job(
-            SHARD_JOBS, {"runs": [specs["dp-wd"], specs["sharded-col"]]}, 2,
-            timeout=120)
+        # dp-wd and sharded-col in turns, then the yaml-width dense and
+        # generic steps, eager then captured
+        runs2, span = [], {}
+        for tag in ("dp-wd", "sharded-col", "mesh-dense", "mesh-generic"):
+            if tag in specs:
+                turns = shard_turns(specs[tag], len(runs2))
+            else:
+                turns = shard_turns(yaml_mesh_spec(tag.split("-")[1]),
+                                    len(runs2), (True,))
+            span[tag] = slice(len(runs2), len(runs2) + len(turns))
+            runs2 += turns
+        res2, _ = launch.run_job(SHARD_JOBS, {"runs": runs2}, 2, timeout=240)
         t3 = time.perf_counter()
         log(f"[time] spawns: 4 ranks {t2 - t1:.1f} s, 2 ranks {t3 - t2:.1f} s")
-        out["sharded-wd"] = shard_compare("sharded-wd", specs["sharded-wd"],
-                                          res4, refs["sharded-wd"])
-        out["sharded-ckpt"] = shard_ckpt(res4, refs["sharded-wd"][0])
-        for i, tag in enumerate(("dp-wd", "sharded-col")):
-            out[tag] = shard_compare(tag, specs[tag], [r[i] for r in res2],
-                                     refs[tag])
+        out["sharded-wd"] = shard_compare(
+            "sharded-wd", specs["sharded-wd"], [r[0] for r in res4],
+            refs["sharded-wd"])
+        out["sharded-wd"]["captured"] = shard_captured(
+            "sharded-wd", res4, SHARD_KERNELS["sharded-wd"])
+        out["sharded-ckpt"] = shard_ckpt([r[0] for r in res4],
+                                         refs["sharded-wd"][0])
+        for tag, sl in span.items():
+            turns = [r[sl] for r in res2]
+            if tag in specs:
+                out[tag] = shard_compare(tag, specs[tag], [t[0] for t in turns],
+                                         refs[tag])
+                out[tag]["captured"] = shard_captured(tag, turns,
+                                                      SHARD_KERNELS[tag])
+            else:
+                out[tag] = shard_captured(tag, turns)
         del refs
         torch.cuda.empty_cache()
         env = {k: v for k, v in os.environ.items() if not k.startswith("MR_")}
@@ -5084,6 +5176,11 @@ def phase_sharded(dev, gen, data, bucket) -> dict:
         if len(finals) != 2 or finals[0] != finals[1]:
             fail(f"[sharded-driver] ranks' final metrics {finals}")
         drv["final"] = finals[0]
+        caps = [line for t in logs for line in t.splitlines()
+                if line.startswith("captured step: ")]
+        if len(caps) != 2 or not all("1 captures, 2 replays" in c for c in caps):
+            fail(f"[sharded-driver] ranks' captured steps {caps}")
+        drv["captured"] = caps
         log(f"[sharded-driver] {json.dumps(drv)} ({SMI})")
         out["sharded-driver"] = drv
         shard_kernels(dev, gen, bucket, data)
@@ -5602,6 +5699,8 @@ def main() -> int:
                "generic-dyn": gdyn["launches"],
                "drivers-sparse": drivers["sparse"]["launches"],
                **{p: sharded[p]["launches"] for p in SHARD_KERNELS},
+               **{f"{p}-captured": sharded[p]["captured"]["launches"]
+                  for p in SHARD_KERNELS},
                **{p: workers[p]["launches"] for p in WORKER_KERNELS}}
 
     launches = {**main_path["launches"],

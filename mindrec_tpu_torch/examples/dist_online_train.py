@@ -68,7 +68,6 @@ def main(argv=None, **config):
     from mindrec_tpu_torch.data.streaming import FileChannel
     from mindrec_tpu_torch.io.checkpoint import restore_checkpoint
     from mindrec_tpu_torch.models.wide_deep import WideDeepConfig, WideDeepModel
-    from mindrec_tpu_torch.ops.kernels import LAUNCHES
     from mindrec_tpu_torch.parallel.dist import (
         initialize_from_env, rank_device, shutdown,
     )
@@ -77,7 +76,7 @@ def main(argv=None, **config):
     from mindrec_tpu_torch.train.callbacks import (
         CheckpointCallback, LossCallback, TimeMonitor,
     )
-    from mindrec_tpu_torch.train.step import flatten_params
+    from mindrec_tpu_torch.train.step import flatten_params, real_launches
 
     topo = initialize_from_env(device=args.device)
     world, rank = topo["process_count"], topo["process_index"]
@@ -121,9 +120,10 @@ def main(argv=None, **config):
     )
     print(f"rank {rank}: stream drained in {time.perf_counter() - t0:.1f}s "
           f"({int(rm.state.step)} steps)", flush=True)
-    # the steps on a mesh are eager: each launch of a kernel is counted
+    # a captured step's replays launch what its capture counted once
+    launches = real_launches(rm.train_step)
     print(f"rank {rank}: kernel launches "
-          f"{json.dumps({k: v for k, v in LAUNCHES.items() if v})}", flush=True)
+          f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
     if args.final_params and rank == 0:
         np.savez(args.final_params, **{
             k: v.detach().float().cpu().numpy()

@@ -4,6 +4,8 @@
 # process group through the MR_* bootstrap (parallel/dist.py) and train
 # on a (data, model) mesh; --mesh_model M makes M of them the model axis
 # (sliced tables with --deep_table_slice_mode), the rest the data axis.
+# On the card each rank replays its step as CUDA graphs cut at every
+# collective (RecModel's jit), as one card replays its captured step.
 #
 #   bash mindrec_tpu_torch/examples/run_distribute_train.sh 2 --device cpu
 #   bash mindrec_tpu_torch/examples/run_distribute_train.sh 4 --sparse 1 \

@@ -22,8 +22,11 @@ Several ranks (``MR_WORKER_NUM`` > 1 with the ``MR_*`` bootstrap,
 sliced per ``deep_table_slice_mode`` (DeepFM's and DCN's table per
 ``table_slice_mode``), ``field_slice`` lays the fields out so each model
 rank's block holds its part of them (``data/field_slice.py``, Wide&Deep
-on a model axis > 1), and the other ranks train data-parallel.  Each
-rank saves its sliced checkpoint file.  Packed data is read by data rank:
+on a model axis > 1), and the other ranks train data-parallel.  On the
+card each rank's step is captured as on one card (``RecModel``'s
+``jit``; its graphs cut at every collective) and a rank prints its
+captures and replays before its final metrics.  Each rank saves its
+sliced checkpoint file.  Packed data is read by data rank:
 each reads its own files (``num_shards`` = the data axis) at its slice of
 the batch, unless ``--unique_bucket`` sorts the global batch on every
 rank.
@@ -232,6 +235,7 @@ def main(argv=None) -> dict:
     from mindrec_tpu_torch.train.callbacks import (
         EvalCallback, LossCallback, TimeMonitor,
     )
+    from mindrec_tpu_torch.train.step import CapturedStep
     cfg = get_config(args.config, rest)
     topo = initialize_from_env(device=args.device)
     print(f"topology: {topo}", flush=True)
@@ -492,6 +496,10 @@ def main(argv=None) -> dict:
         if profiler is not None:
             trace = profiler.analyse()
             print(f"profiler trace -> {trace}", flush=True)
+    step = rm.train_step
+    if isinstance(step, CapturedStep) and step.captures:
+        print(f"captured step: {step.captures} captures, {step.replays} "
+              f"replays, graphs per capture {step.segments}", flush=True)
     metrics = rm.eval(make_data(train=False))
     print(f"final metrics: {metrics}", flush=True)
     if workers > 1:

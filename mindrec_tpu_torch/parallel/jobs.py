@@ -15,11 +15,14 @@ replaced.
 :func:`train_on_mesh` joins nothing itself (``launch`` has joined the
 group): it builds the mesh and the model from a JSON-able spec, makes the
 whole state (from a seed, or restored from a checkpoint file), cuts it to
-this rank's blocks, runs the eager step on the global batches it is given
-(each rank its data slice), and saves its sliced checkpoint file.  It
-returns, per step, the losses, the host-clock milliseconds, the kernel
-launches and the collectives' bytes (``parallel/mesh.py``), so a caller
-can hold the run against a one-rank run of the same batches.
+this rank's blocks, runs the step on the global batches it is given
+(each rank its data slice; eager, or captured with ``"jit": true`` among
+the step's arguments), and saves its sliced checkpoint file.  It returns,
+per step, the losses, the host-clock milliseconds, the kernel launches
+(``train/step.py:real_launches``) and the collectives' bytes
+(``parallel/mesh.py``), and for a captured step its captures, replays and
+graphs per capture (``segments``), so a caller can hold the run against a
+one-rank run of the same batches or against the eager step.
 
 A spec::
 
@@ -32,7 +35,13 @@ A spec::
                                             "batch": B, "steps": n}},
      "prep": false, "full_batch": false, "step": {...make_train_step...},
      "out": "directory for the sliced checkpoint" | None,
-     "unsliced": "directory where rank 0 saves the whole state" | None}
+     "unsliced": "directory where rank 0 saves the whole state" | None,
+     "equal_to": i | None}
+
+``equal_to`` (in a list of ``runs``): the index of an earlier run of the
+list whose final state this run's is compared with on the rank, leaf by
+leaf; the record's ``differs`` names the leaves that are not bit for bit
+equal.
 """
 
 from __future__ import annotations
@@ -134,13 +143,45 @@ def train_on_mesh(args: dict):
     run them in turn in this process; -> their records."""
     if "runs" in args:
         common = {k: v for k, v in args.items() if k != "runs"}
-        return [train_on_mesh({**common, **r}) for r in args["runs"]]
+        kept = {r["equal_to"] for r in args["runs"]
+                if r.get("equal_to") is not None}
+        recs, states = [], {}
+        for i, r in enumerate(args["runs"]):
+            rec, state = _run_on_mesh({**common, **r})
+            if r.get("equal_to") is not None:
+                rec["differs"] = _differing_leaves(states[r["equal_to"]], state)
+            if i in kept:
+                states[i] = state
+            del state
+            recs.append(rec)
+        return recs
+    return _run_on_mesh(args)[0]
+
+
+def _differing_leaves(a, b) -> list[str]:
+    """The checkpoint keys of the leaves of two states that are not bit
+    for bit equal."""
+    from mindrec_tpu_torch.io.checkpoint import flatten_state
+
+    want = dict(flatten_state(a))
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        return bool(np.array_equal(x, y))
+
+    return [k for k, x in flatten_state(b) if not same(x, want[k])]
+
+
+def _run_on_mesh(args: dict):
+    """One spec on this rank; -> (its record, its final state)."""
     from mindrec_tpu_torch.data.criteo import to_device
     from mindrec_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint
-    from mindrec_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from mindrec_tpu_torch.ops.kernels import reset_launches
     from mindrec_tpu_torch.parallel.dist import rank_device
     from mindrec_tpu_torch.train.step import (
-        init_train_state, make_batch_sort, make_train_step, prep_groups,
+        CapturedStep, init_train_state, make_batch_sort, make_train_step,
+        prep_groups, real_launches,
     )
 
     mesh = pm.make_mesh(args["data"], args["model"])
@@ -156,7 +197,8 @@ def train_on_mesh(args: dict):
     step_kw = dict(args.get("step", {}))
     if "matmul_dtype" in step_kw:
         step_kw["matmul_dtype"] = DTYPES[step_kw["matmul_dtype"]]
-    step = make_train_step(model, ow, od, jit=False, **step_kw)
+    step = make_train_step(model, ow, od, **step_kw)
+    captured = isinstance(step, CapturedStep)
     batches = load_batches(args["batches"])
     if args.get("prep"):
         cfg = model.config
@@ -164,7 +206,7 @@ def train_on_mesh(args: dict):
                                groups=prep_groups(model), native=False)
         batches = [prep(b) for b in batches]
     rec = {"rank": mesh.rank, "losses": [], "ms": [], "launches": [],
-           "collectives": []}
+           "collectives": [], "captures": 0, "replays": 0}
     for b in batches:
         if args.get("full_batch"):
             part = pm.FullBatch(to_device(b, dev))
@@ -174,13 +216,21 @@ def train_on_mesh(args: dict):
             torch.cuda.synchronize(dev)
         reset_launches()
         pm.reset_collectives()
+        if captured:
+            step.reset_counts()
         t0 = time.perf_counter()
         state, (lw, ld) = step(state, part)
         lw, ld = float(lw), float(ld)  # waits for the step
         rec["ms"].append((time.perf_counter() - t0) * 1e3)
         rec["losses"].append((lw, ld))
-        rec["launches"].append({k: v for k, v in LAUNCHES.items() if v})
+        rec["launches"].append({k: v for k, v in real_launches(step).items()
+                                if v})
         rec["collectives"].append(list(pm.COLLECTIVES))
+        if captured:
+            rec["captures"] += step.captures
+            rec["replays"] += step.replays
+    if captured:
+        rec["segments"] = step.segments
     if args.get("out"):
         rec["path"] = save_checkpoint(args["out"], state, int(state.step),
                                       process_index=mesh.rank,
@@ -190,7 +240,7 @@ def train_on_mesh(args: dict):
         if mesh.rank == 0:
             rec["unsliced"] = save_checkpoint(args["unsliced"], whole,
                                               int(state.step))
-    return rec
+    return rec, state
 
 
 # ---------------------------------------------------------------------------

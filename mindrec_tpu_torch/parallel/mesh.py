@@ -26,11 +26,23 @@ the identity.  Under gloo a CUDA tensor goes through pinned host memory
 (chosen by the group's backend); under NCCL it stays on the card.  Each
 call appends ``(op, axis, bytes)`` to :data:`COLLECTIVES`, the bytes
 this rank sends, so a run can show its collectives stay batch-scale.
+
+Inside :func:`recording` (a captured step, ``train/step.py:CapturedStep``)
+those three do not communicate: each hands the recorder a
+:class:`RecordedCollective`, a fixed source tensor, a fixed output
+tensor of the result's shape and dtype and a closure that computes the
+collective from the one into the other, and returns the output tensor.
+The capture cuts its graph there and runs the closure between two
+replays; the closure logs to :data:`COLLECTIVES` as the eager call does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+from typing import Callable, NamedTuple
+
 import numpy as np
 import torch
 import torch.distributed as tdist
@@ -121,6 +133,54 @@ def _log(op: str, axis: str, nbytes: int) -> None:
     COLLECTIVES.append((op, axis, int(nbytes)))
 
 
+class RecordedCollective(NamedTuple):
+    """A collective of a step being captured: at each replay ``run()``
+    computes it from ``src`` (which the graph before it wrote) into
+    ``out`` (which the graph after it reads), and logs it."""
+
+    op: str
+    axis: str
+    src: torch.Tensor
+    out: torch.Tensor
+    run: Callable[[], None]
+
+
+_RECORDING = threading.local()  # .cut: this thread's recorder, or None
+
+
+@contextlib.contextmanager
+def recording(cut: Callable[[RecordedCollective], None]):
+    """Record this thread's collectives instead of running them: each one
+    calls ``cut`` with its :class:`RecordedCollective` and returns its
+    ``out`` tensor."""
+    prev = getattr(_RECORDING, "cut", None)
+    _RECORDING.cut = cut
+    try:
+        yield
+    finally:
+        _RECORDING.cut = prev
+
+
+def _collective(op: str, axis: str, x: torch.Tensor, shape,
+                compute: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """The one dispatch point of the collectives: ``compute(src)`` (``src``
+    the contiguous ``x``) now, or recorded (:func:`recording`)."""
+    nbytes = x.numel() * x.element_size()
+    cut = getattr(_RECORDING, "cut", None)
+    if cut is None:
+        _log(op, axis, nbytes)
+        return compute(x.contiguous())
+    src = x.contiguous()
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+
+    def run() -> None:
+        _log(op, axis, nbytes)
+        out.copy_(compute(src))
+
+    cut(RecordedCollective(op, axis, src, out, run))
+    return out
+
+
 def all_reduce(x: torch.Tensor, axis: str, mesh: Mesh, op: str = "sum") -> torch.Tensor:
     """``op`` (sum, min or max) of ``x`` over ``axis``; returns a new
     tensor (``x`` itself when the axis has one rank)."""
@@ -129,14 +189,17 @@ def all_reduce(x: torch.Tensor, axis: str, mesh: Mesh, op: str = "sum") -> torch
         return x
     red = {"sum": tdist.ReduceOp.SUM, "min": tdist.ReduceOp.MIN,
            "max": tdist.ReduceOp.MAX}[op]
-    _log("all_reduce", axis, x.numel() * x.element_size())
-    if _through_host(x, group):
-        h = _to_host(x.contiguous())
-        tdist.all_reduce(h, op=red, group=group)
-        return h.to(x.device)
-    out = x.clone().contiguous()
-    tdist.all_reduce(out, op=red, group=group)
-    return out
+
+    def compute(src):
+        if _through_host(src, group):
+            h = _to_host(src)
+            tdist.all_reduce(h, op=red, group=group)
+            return h.to(src.device)
+        out = src.clone()
+        tdist.all_reduce(out, op=red, group=group)
+        return out
+
+    return _collective("all_reduce", axis, x, x.shape, compute)
 
 
 def all_gather(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
@@ -146,11 +209,15 @@ def all_gather(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
     if group is None:
         return x
     n = mesh.shape[axis]
-    _log("all_gather", axis, x.numel() * x.element_size())
-    src = _to_host(x.contiguous()) if _through_host(x, group) else x.contiguous()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    tdist.all_gather(parts, src, group=group)
-    return torch.cat(parts).to(x.device)
+
+    def compute(src):
+        s = _to_host(src) if _through_host(src, group) else src
+        parts = [torch.empty_like(s) for _ in range(n)]
+        tdist.all_gather(parts, s, group=group)
+        return torch.cat(parts).to(src.device)
+
+    return _collective("all_gather", axis, x, (n * x.shape[0], *x.shape[1:]),
+                       compute)
 
 
 def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
@@ -163,12 +230,14 @@ def all_to_all(x: torch.Tensor, axis: str, mesh: Mesh) -> torch.Tensor:
     n = mesh.shape[axis]
     if x.shape[0] % n:
         raise ValueError(f"all_to_all: dim 0 ({x.shape[0]}) must divide by {n}")
-    _log("all_to_all", axis, x.numel() * x.element_size())
-    host = _through_host(x, group)
-    src = _to_host(x.contiguous()) if host else x.contiguous()
-    out = torch.empty_like(src)
-    tdist.all_to_all_single(out, src, group=group)
-    return out.to(x.device)
+
+    def compute(src):
+        s = _to_host(src) if _through_host(src, group) else src
+        out = torch.empty_like(s)
+        tdist.all_to_all_single(out, s, group=group)
+        return out.to(src.device)
+
+    return _collective("all_to_all", axis, x, x.shape, compute)
 
 
 def _host_collective(x: np.ndarray, device) -> torch.Tensor:

@@ -41,9 +41,9 @@ On a mesh (the model's ``mesh``, ``parallel/mesh.py``, more than one
 rank) ``rank_id`` is the process group's rank and every rank runs the
 same ``RecModel`` on the same global batches: the state is initialised
 whole and cut to this rank's blocks (``shard_train_state``; its
-placement tree is ``shardings``), the step runs eagerly (``jit`` is
-turned off: graphs cannot capture gloo's host copies), each batch is
-cut to this rank's data slice before staging, ``eval`` gathers the
+placement tree is ``shardings``), the step is captured as on one card
+(``jit``; its graphs are cut at every collective), each batch is cut to
+this rank's data slice before staging, ``eval`` gathers the
 predictions over ``data`` before the metrics, callbacks print on rank 0
 and ``CheckpointCallback`` saves one sliced file per rank.
 """
@@ -80,7 +80,8 @@ class RecModel:
         the model config's loss scale.
       metrics: dict name -> Metric; default ``{"auc": AUCMetric()}``.
       seed: parameter init seed.
-      jit: capture the train step in a CUDA graph on the card.
+      jit: capture the train step in CUDA graphs on the card (on a mesh,
+        one graph between two collectives).
       donate: the step updates the state in place; False runs it on a
         copy and leaves the state passed in as it was.
       unique_bucket: an int or :class:`AdaptiveBucket` bound on distinct
@@ -165,7 +166,6 @@ class RecModel:
         mesh = getattr(model, "mesh", None)
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         if self.mesh is not None:
-            jit = False  # the step on a mesh runs eagerly
             if prep_placement != "host" or input_recipe != "none" or wire:
                 raise ValueError(
                     "on a mesh batches take host prep (or none): device "

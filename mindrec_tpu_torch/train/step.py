@@ -130,14 +130,17 @@ is sliced here) and its block of each sliced table (``shard_train_state``):
   replicated table's gradient travels whole, as in any data-parallel
   dense step.
 
-A one-rank mesh keeps the plain path.  ``jit=True`` on a mesh raises
-``NotImplementedError``: CUDA graphs cannot capture gloo's host copies
-(ROADMAP.md section 1 item 9).
+A one-rank mesh keeps the plain path.  ``jit=True`` on a mesh captures
+the step as on one card (:class:`CapturedStep`), cut at every collective:
+the graphs run on the card and each collective runs between two of them,
+so gloo's host copies (and NCCL's calls) stay outside every graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import itertools
 import warnings
 from typing import Any, NamedTuple
 
@@ -164,7 +167,8 @@ from mindrec_tpu_torch.ops import sharded_stream as ss
 from mindrec_tpu_torch.ops.embedding import storage_rows
 from mindrec_tpu_torch.ops.sparse import segment_sum_rows, unique_pad
 from mindrec_tpu_torch.parallel.mesh import (
-    DATA_AXIS, MODEL_AXIS, FullBatch, all_gather, all_reduce, shard_batch,
+    DATA_AXIS, MODEL_AXIS, FullBatch, all_gather, all_reduce, recording,
+    shard_batch,
 )
 from mindrec_tpu_torch.train.optim import Optimizer, adam_lr_t, live_sources
 
@@ -657,9 +661,9 @@ def make_train_step(
     branches on every device.
 
     ``jit=True`` (the reference's ``jax.jit``): on a CUDA state the step
-    is captured once per batch signature in a CUDA graph and replayed
-    (:class:`CapturedStep`); on the CPU it is the eager step.  On a mesh
-    it raises (module docstring): build the step with ``jit=False``.
+    is captured once per batch signature in CUDA graphs and replayed
+    (:class:`CapturedStep`; on a mesh one graph between two collectives);
+    on the CPU it is the eager step.
     ``donate``: the steps update the state passed in (the sparse steps
     their tables in place, a captured step every leaf); ``donate=False``
     runs the step on a copy and leaves the state passed in as it was, bit
@@ -671,11 +675,6 @@ def make_train_step(
                       or getattr(cfg, "dynamic_embedding", False))
     _supported(model)
     mesh = _mesh_of(model)
-    if mesh is not None and jit:
-        raise NotImplementedError(
-            "a step on a mesh runs eagerly: build it with jit=False.  CUDA "
-            "graphs cannot capture gloo's host copies, and capture over "
-            "NCCL needs a card per rank (ROADMAP.md section 1 item 9)")
     generic = bool(sparse) and _generic_branch(model, row_layout, use_pallas)
     split = set()  # tables the streamed branch runs per shard
     if sparse and not generic and mesh is not None:
@@ -1326,17 +1325,78 @@ def _step_in_place(step, state: TrainState, batch):
     return losses
 
 
+class _Captured(NamedTuple):
+    """One batch signature's capture: the step's graphs in capture order
+    (one memory pool), the collective recorded after each graph but the
+    last (``parallel/mesh.py``), the static batch and losses, and the
+    kernel launches one replay makes."""
+
+    graphs: list
+    cuts: list
+    static: dict
+    losses: tuple
+    per_replay: dict
+
+    def replay(self) -> None:
+        """Every graph and collective, strictly in capture order: a
+        graph's tensors freed in capture may back a later graph's."""
+        for graph, cut in itertools.zip_longest(self.graphs, self.cuts):
+            graph.replay()
+            if cut is not None:
+                cut.run()
+
+
+@contextlib.contextmanager
+def _capture_segments(graphs: list, cuts: list):
+    """Capture the calling thread's work into ``graphs``: a new graph, in
+    the first one's memory pool, after each collective, which is appended
+    to ``cuts`` (``mesh.recording``)."""
+    live = []  # the graph being captured
+
+    def begin():
+        g = torch.cuda.CUDAGraph()
+        g.capture_begin(pool=graphs[0].pool() if graphs else None)
+        graphs.append(g)
+        live.append(g)
+
+    def end():
+        live.pop().capture_end()
+
+    def cut(rec):
+        end()
+        cuts.append(rec)
+        begin()
+
+    begin()
+    try:
+        with recording(cut):
+            yield
+    finally:
+        if live:
+            end()
+
+
 class CapturedStep:
-    """The train step captured in a CUDA graph per batch signature (keys,
-    shapes, dtypes) and state, then replayed: the counterpart of the
-    reference's ``jax.jit(step, donate_argnums=(0,))``.
+    """The train step captured in CUDA graphs per batch signature (type,
+    keys, shapes, dtypes) and state, then replayed: the counterpart of
+    the reference's ``jax.jit(step, donate_argnums=(0,))``.
 
     The first call of a signature runs the step eagerly on a side stream
     (the warm-up: it builds the kernel library, asks the kernels' scratch
     sizes and makes every lazily cached tensor, and it is this batch's
-    real step), then captures one step into a ``torch.cuda.CUDAGraph``
-    over static copies of the batch.  Later calls copy the batch into the
-    static inputs and replay.  The graph updates the caller's
+    real step), then captures one step over static copies of the batch
+    (of the batch's own type, so a ``FullBatch`` is still sliced).  On one
+    device that is one ``torch.cuda.CUDAGraph``.  On a mesh every
+    collective of ``parallel/mesh.py`` ends one graph and starts the next
+    (``mesh.recording``): the graphs share one memory pool, every tensor
+    that crosses a cut (a collective's source and its output) is held
+    with them, and a replay runs graph 0, collective 0, graph 1, ... in
+    capture order, each collective from its fixed source into its fixed
+    output, eagerly between two replays (gloo through pinned host memory,
+    NCCL on the card).  A capture does not communicate, so the ranks stay
+    in step whichever of them captures: its warm-up makes the same
+    collectives as a replay.  Later calls copy the batch into the static
+    inputs and replay.  The graphs update the caller's
     :class:`TrainState` in place (every leaf keeps its address) and the
     returned losses are copies that the next replay does not overwrite.
     A bucket regrow is a new signature and gets one new capture; graphs
@@ -1349,15 +1409,16 @@ class CapturedStep:
 
     ``donate=False``: the caller's state is copied into a state the
     captured step owns (cloned at the first call and whenever the shapes
-    change), the graph replays on that one, and the call returns a copy
+    change), the graphs replay on that one, and the call returns a copy
     of it; the state passed in is left as it was.
 
-    A kernel wrapper counts its launch when the graph is captured, not on
+    A kernel wrapper counts its launch when a graph is captured, not on
     each replay.  Since :meth:`reset_counts`, ``recorded`` sums what the
     captures counted (launches put into graphs, not run) and ``replayed``
     what the replays launched, so the kernels' real launches are
-    ``LAUNCHES - recorded + replayed``.  On a CPU state the call is the
-    eager step."""
+    ``LAUNCHES - recorded + replayed`` (:func:`real_launches`);
+    ``segments`` gives the graphs of each signature held.  On a CPU state
+    the call is the eager step."""
 
     takes_device_batches = True  # RecModel stages batches for it
 
@@ -1365,15 +1426,21 @@ class CapturedStep:
         self.step = step
         self.donate = donate
         self._own = None  # donate=False: the state the graphs run on
-        self._graphs = {}  # batch signature -> entry, for the live state
+        self._graphs = {}  # batch signature -> _Captured, for the live state
         self._state = None
         self._state_key = None
         self.reset_counts()
 
     @property
     def graphs(self) -> int:
-        """Graphs held: one per batch signature of the live state."""
+        """Captures held: one per batch signature of the live state."""
         return len(self._graphs)
+
+    @property
+    def segments(self) -> list[int]:
+        """Graphs per capture held (1 without a mesh; on a mesh one more
+        than the step's collectives)."""
+        return [len(c.graphs) for c in self._graphs.values()]
 
     def reset_counts(self) -> None:
         self.captures = self.replays = 0
@@ -1405,19 +1472,18 @@ class CapturedStep:
                 self._graphs.clear()  # the replaced state's graphs
                 self._state_key = key
             self._state = state
-        sig = tuple((k, tuple(v.shape), v.dtype, str(v.device))
-                    for k, v in sorted(batch.items()))
-        entry = self._graphs.get(sig)
-        if entry is None:
+        sig = (type(batch), tuple((k, tuple(v.shape), v.dtype, str(v.device))
+                                  for k, v in sorted(batch.items())))
+        cap = self._graphs.get(sig)
+        if cap is None:
             return state, self._capture(sig, state, batch)
-        graph, static, losses, per_replay = entry
         for k, v in batch.items():
-            static[k].copy_(v)
-        graph.replay()
+            cap.static[k].copy_(v)
+        cap.replay()
         self.replays += 1
-        for k, n in per_replay.items():
+        for k, n in cap.per_replay.items():
             self.replayed[k] = self.replayed.get(k, 0) + n
-        return state, tuple(x.clone() for x in losses)
+        return state, tuple(x.clone() for x in cap.losses)
 
     def _capture(self, key, state, batch):
         from mindrec_tpu_torch.data.criteo import STAGING_LOCK
@@ -1426,7 +1492,7 @@ class CapturedStep:
         dev = state.step.device
         with torch.cuda.device(dev):
             cur = torch.cuda.current_stream(dev)
-            static = {k: v.clone() for k, v in batch.items()}
+            static = type(batch)({k: v.clone() for k, v in batch.items()})
             side = torch.cuda.Stream(dev)
             side.wait_stream(cur)
             with torch.cuda.stream(side):
@@ -1434,26 +1500,44 @@ class CapturedStep:
                                _step_in_place(self.step, state, static))
             cur.wait_stream(side)
             before = dict(LAUNCHES)
-            graph = torch.cuda.CUDAGraph()
+            graphs, cuts = [], []
             # the input pipeline's staging thread waits while we capture,
-            # and no garbage collection runs: a collected CUDA graph
-            # destroys its executable, which invalidates a capture in
-            # progress (torch.cuda.graph collects once before capturing)
+            # and no garbage collection runs until the last graph is
+            # captured: a collected CUDA graph destroys its executable,
+            # which invalidates a capture in progress
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with STAGING_LOCK, torch.cuda.graph(graph):
-                    out = _step_in_place(self.step, state, static)
+                with STAGING_LOCK:
+                    torch.cuda.synchronize(dev)
+                    torch.cuda.empty_cache()
+                    with torch.cuda.stream(side), _capture_segments(graphs, cuts):
+                        out = _step_in_place(self.step, state, static)
             finally:
                 if collecting:
                     gc.enable()
         per_replay = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                       if LAUNCHES[k] != before[k]}
-        self._graphs[key] = (graph, static, out, per_replay)
+        self._graphs[key] = _Captured(graphs, cuts, static, out, per_replay)
         self.captures += 1
         for k, n in per_replay.items():
             self.recorded[k] = self.recorded.get(k, 0) + n
         return losses
+
+
+def real_launches(step) -> dict:
+    """Kernel launches since the counters were set to 0
+    (``ops.kernels.reset_launches`` and, for a :class:`CapturedStep`,
+    its ``reset_counts``).  A captured step's wrappers count their
+    launches when a graph is captured, so its recorded launches are taken
+    out and its replays' launches added."""
+    from mindrec_tpu_torch.ops.kernels import LAUNCHES
+
+    out = dict(LAUNCHES)
+    if isinstance(step, CapturedStep):
+        for k in out:
+            out[k] += step.replayed.get(k, 0) - step.recorded.get(k, 0)
+    return out
 
 
 # ---------------------------------------------------------------------------

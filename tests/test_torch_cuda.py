@@ -1809,3 +1809,152 @@ def test_gloo_staging_round_trips_cuda_tensors(cuda_device):
                 assert torch.equal(out, x)
     finally:
         tdist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the captured step on a mesh: 2 gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_CAPTURE_STEPS = 5
+MESH_INF_STEP = 3  # this batch has an inf in data rank 0's slice
+
+
+def _mesh_recipe(args):
+    """A small W&D (the deep table row-sliced when the mesh has a model
+    axis) on this rank's (data, model) mesh, the rank's block of one
+    state, and the global host batches."""
+    from mindrec_tpu_torch.data.criteo import SyntheticCriteo
+    from mindrec_tpu_torch.models.wide_deep import WideDeepConfig, WideDeepModel
+    from mindrec_tpu_torch.parallel import mesh as pm
+    from mindrec_tpu_torch.parallel.dist import rank_device
+    from mindrec_tpu_torch.train import optim
+    from mindrec_tpu_torch.train.step import init_train_state
+
+    mesh = pm.make_mesh(args["data"], args["model"])
+    dev = rank_device("cuda")
+    cfg = WideDeepConfig(
+        batch_size=64, field_size=8, vocab_size=4096, emb_dim=16,
+        deep_layer_dim=(64, 32), sparse=True, loss_scale=1024.0,
+        use_mixed_precision=True,
+        deep_table_slice_mode=("table_row_slice" if args["model"] > 1
+                               else "none"))
+    model = WideDeepModel(cfg, mesh=mesh)
+    opts = (optim.ftrl(loss_scale=1024.0), optim.lazy_adam(loss_scale=1024.0))
+    state = pm.shard_train_state(
+        init_train_state(model, 0, *opts, device=dev), model, mesh)
+    data = SyntheticCriteo(64, 8, 4096, steps=MESH_CAPTURE_STEPS, seed=2,
+                           fields="criteo")
+    batches = [data.get_batch(i) for i in range(MESH_CAPTURE_STEPS)]
+    batches[MESH_INF_STEP]["wts"][1, 2] = np.inf
+    return mesh, dev, model, opts, state, batches
+
+
+def mesh_capture_job(args):
+    """Rank side of :func:`test_captured_mesh_step_equals_eager_on_card`:
+    from two copies of the rank's block, the eager guarded step on the
+    rank's slices and the captured one on whole batches (``FullBatch``,
+    sliced by the step); -> what the test checks."""
+    from mindrec_tpu_torch.data.criteo import to_device
+    from mindrec_tpu_torch.ops.kernels import reset_launches
+    from mindrec_tpu_torch.parallel import mesh as pm
+    from mindrec_tpu_torch.train.step import (
+        _clone_state, make_train_step, real_launches,
+    )
+
+    mesh, dev, model, opts, state, batches = _mesh_recipe(args)
+    out = {}
+    for kind in ("eager", "captured"):
+        st = _clone_state(state)
+        step = make_train_step(model, *opts, check_overflow=True,
+                               jit=kind == "captured")
+        rec = out[kind] = {"losses": [], "collectives": [], "launches": [],
+                           "kept_on_inf": None, "captures": 0}
+        for i, b in enumerate(batches):
+            part = (pm.FullBatch(to_device(b, dev)) if kind == "captured"
+                    else to_device(pm.shard_batch(b, mesh), dev))
+            before = [x.clone() for x in _state_tensors(st)]
+            pm.reset_collectives()
+            reset_launches()
+            if kind == "captured":
+                step.reset_counts()
+            st, (lw, ld) = step(st, part)
+            rec["losses"].append((float(lw), float(ld)))
+            rec["collectives"].append(list(pm.COLLECTIVES))
+            rec["launches"].append(
+                {k: v for k, v in real_launches(step).items() if v})
+            if kind == "captured":
+                rec["captures"] += step.captures
+            if i == MESH_INF_STEP:  # all but state.rng and state.step
+                rec["kept_on_inf"] = all(
+                    torch.equal(x, y) for x, y in
+                    zip(before[:-2], _state_tensors(st)[:-2]))
+        if kind == "captured":
+            rec["segments"] = step.segments
+            rec["equal_leaves"] = [
+                torch.equal(x, y) for x, y in
+                zip(_state_tensors(out["eager"]["state"]), _state_tensors(st))]
+        else:
+            rec["state"] = st
+    del out["eager"]["state"]
+    return out
+
+
+def mesh_capture_fails_job(args):
+    """Rank side of :func:`test_failed_mesh_capture_fails_the_spawn`: a
+    host read inside the step breaks its capture, which raises."""
+    from mindrec_tpu_torch.data.criteo import to_device
+    from mindrec_tpu_torch.parallel import mesh as pm
+    from mindrec_tpu_torch.train.step import CapturedStep, make_train_step
+
+    mesh, dev, model, opts, state, batches = _mesh_recipe(args)
+    inner = make_train_step(model, *opts)
+
+    def step_reading_the_host(st, batch):
+        st, losses = inner(st, batch)
+        float(losses[0])  # not allowed while a graph is captured
+        return st, losses
+
+    step = CapturedStep(step_reading_the_host)
+    for b in batches:
+        state, _ = step(state, to_device(pm.shard_batch(b, mesh), dev))
+    return {"captures": step.captures}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data,model", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_captured_mesh_step_equals_eager_on_card(cuda_device, data, model):
+    """2 gloo ranks on the card: the captured step (graphs cut at every
+    collective) equals the eager one bit for bit, losses and every leaf;
+    each replay makes the eager step's collectives and launches its
+    kernels; the inf batch is dropped on every rank as in eager; a
+    ``FullBatch`` is sliced by the captured step."""
+    from mindrec_tpu_torch.parallel import launch
+
+    res, _ = launch.run_job(f"{__file__}:mesh_capture_job",
+                            {"device": "cuda", "data": data, "model": model},
+                            2, timeout=240)
+    for r, o in enumerate(res):
+        e, c = o["eager"], o["captured"]
+        # the inf batch's losses are not finite: equal as arrays
+        np.testing.assert_array_equal(c["losses"], e["losses"], err_msg=str(r))
+        assert all(c["equal_leaves"]), (r, c["equal_leaves"])
+        assert c["collectives"] == e["collectives"], r
+        assert c["captures"] == 1 and c["segments"][0] > 1, (r, c["segments"])
+        for la in (*e["launches"], *c["launches"]):
+            assert {"segsum_sorted", "ftrl_rows"} <= set(la), (r, la)
+        assert c["launches"] == e["launches"], r
+        assert e["kept_on_inf"] and c["kept_on_inf"], r
+    np.testing.assert_array_equal(res[0]["captured"]["losses"],
+                                  res[1]["captured"]["losses"])
+
+
+@pytest.mark.cuda
+def test_failed_mesh_capture_fails_the_spawn(cuda_device):
+    """A capture that breaks raises on its rank (no eager step in its
+    place), and the launcher takes the group down."""
+    from mindrec_tpu_torch.parallel import launch
+
+    with pytest.raises(launch.RanksFailed, match="exited with"):
+        launch.run_job(f"{__file__}:mesh_capture_fails_job",
+                       {"device": "cuda", "data": 2, "model": 1}, 2,
+                       timeout=240)

@@ -25,7 +25,8 @@ from mindrec_tpu_torch.data.criteo import SyntheticCriteo, to_device
 from mindrec_tpu_torch.models import dcn, deepfm
 from mindrec_tpu_torch.train import optim
 from mindrec_tpu_torch.train.step import (
-    make_batch_sort, make_eval_step, make_train_step, param_keys,
+    CapturedStep, make_batch_sort, make_eval_step, make_train_step,
+    param_keys,
 )
 
 B, F, V = 64, 4, 4000
@@ -215,9 +216,8 @@ def test_dcn_cross_layer_and_one_hot():
 def test_unported_options_raise(make):
     """Sliced tables are ported: the models build (the sliced table
     feature-major, its partition spec naming the model axis) and train
-    on a mesh (``tests/test_torch_parallel.py``); what still raises is
-    capture on a mesh (``jit=True``: CUDA graphs cannot capture gloo's
-    host copies)."""
+    on a mesh (``tests/test_torch_parallel.py``), captured too
+    (``jit=True`` builds a ``CapturedStep``, cut at every collective)."""
     from mindrec_tpu_torch.parallel.mesh import Mesh
 
     model = make()
@@ -225,8 +225,8 @@ def test_unported_options_raise(make):
                               if ps[1].slice_mode != "none"]
     assert "model" in spec.partition_spec()
     model.mesh = Mesh(2, 1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_train_step(model, optim.ftrl(), optim.adam(), jit=True)
+    step = make_train_step(model, optim.ftrl(), optim.adam(), jit=True)
+    assert isinstance(step, CapturedStep)
 
 
 @pytest.mark.parametrize("which", ["deepfm", "dcn"])

@@ -236,15 +236,46 @@ def collectives_job(args):
     y = pm.sum_over(w * 2.0, "model", mesh)
     y.sum().backward()
     out["grad"], out["y"] = w.grad.tolist(), y.tolist()
+    # recorded, as a captured step records them: nothing travels until
+    # each closure runs, from the source's values at that time, into the
+    # output the recording returned
+    recs, logged = [], len(pm.COLLECTIVES)
+    with pm.recording(recs.append):
+        got = [pm.all_reduce(torch.zeros(3), "model", mesh),
+               pm.all_gather(torch.tensor([0, 0]), "model", mesh),
+               pm.all_to_all(torch.tensor([0, 0]), "model", mesh)]
+    out["recorded"] = dict(
+        returned=[g is rc.out for g, rc in zip(got, recs)],
+        ops=[(rc.op, rc.axis) for rc in recs],
+        logged_while_recording=len(pm.COLLECTIVES) - logged)
+    pm.reset_collectives()
+    runs = []
+    for shift in (5, 7):
+        recs[0].src.copy_(torch.full((3,), float(r + shift)))
+        recs[1].src.copy_(torch.tensor([r + shift, 10 * r + shift]))
+        recs[2].src.copy_(torch.tensor([100 * r + shift, 100 * r + shift + 1]))
+        ptrs = [rc.out.data_ptr() for rc in recs]
+        for rc in recs:
+            rc.run()
+        runs.append(dict(same_out=[p == rc.out.data_ptr()
+                                   for p, rc in zip(ptrs, recs)],
+                         values=[rc.out.tolist() for rc in recs]))
+    out["recorded"].update(runs=runs, log=list(pm.COLLECTIVES))
     return out
 
 
-def test_collectives_over_gloo():
-    """4 gloo ranks on the CPU: rank r sits at (r // 2, r % 2); each
-    collective runs over this rank's row or column and logs its bytes."""
+@pytest.fixture(scope="module")
+def gloo_ranks():
+    """One spawn of 4 gloo ranks on the CPU running :func:`collectives_job`."""
     res, _ = launch.run_job(f"{__file__}:collectives_job", {"device": "cpu"},
                             4, timeout=SPAWN_TIMEOUT)
-    for r, o in enumerate(res):
+    return res
+
+
+def test_collectives_over_gloo(gloo_ranks):
+    """4 gloo ranks on the CPU: rank r sits at (r // 2, r % 2); each
+    collective runs over this rank's row or column and logs its bytes."""
+    for r, o in enumerate(gloo_ranks):
         d, m = r // 2, r % 2
         assert tuple(o["at"]) == (d, m)
         assert o["data_sum"] == [float(m + m + 2)] * 3  # ranks m and 2 + m
@@ -258,6 +289,31 @@ def test_collectives_over_gloo():
         assert [b for *_, b in o["log"]] == [12, 12, 16, 16]
         assert o["grad"] == [2.0]
         assert o["y"] == [2.0 * ((2 * d + 1) + (2 * d + 2))]
+
+
+def test_recorded_collectives_over_gloo(gloo_ranks):
+    """The collectives recorded by a capture (``mesh.recording``), on the
+    2 ranks of each model row: each returns its fixed output and does
+    not communicate or log; after its source is changed in place, its
+    closure writes the new result into that same output (same
+    ``data_ptr``) and logs ``(op, axis, bytes)`` as the eager call does."""
+    for r, o in enumerate(gloo_ranks):
+        d, m = r // 2, r % 2
+        rec = o["recorded"]
+        assert rec["returned"] == [True] * 3
+        assert rec["ops"] == [("all_reduce", "model"), ("all_gather", "model"),
+                              ("all_to_all", "model")]
+        assert rec["logged_while_recording"] == 0
+        for shift, run in zip((5, 7), rec["runs"]):
+            assert run["same_out"] == [True] * 3
+            lo, hi = 2 * d, 2 * d + 1  # the model row's ranks
+            assert run["values"] == [
+                [float(lo + hi + 2 * shift)] * 3,
+                [lo + shift, 10 * lo + shift, hi + shift, 10 * hi + shift],
+                [100 * lo + shift + m, 100 * hi + shift + m]]
+        assert rec["log"] == [("all_reduce", "model", 12),
+                              ("all_gather", "model", 16),
+                              ("all_to_all", "model", 16)] * 2
 
 
 def test_spawn_kills_the_group_when_a_rank_fails():

@@ -8,10 +8,12 @@ one spawn of 4 gloo ranks.  Held, over 2 steps, within rtol 1e-5 (losses)
 and rtol 1e-5 / atol 1e-6 (tables, moments, FTRL state): the row-sliced
 and column-sliced Wide&Deep steps, the row-sliced step fed by host prep,
 the multitable model with ``emb128`` row-sliced, each also against the
-port's single-device run.  The byte counters of the collectives show
-every one of them below a quarter of the sliced table's bytes.  The
-reference's three fallbacks warn with its words, a one-rank mesh keeps
-the plain path and capture on a mesh raises.
+port's single-device run, and the row-sliced step built with
+``jit=True`` (on CPU tensors the eager step) bit for bit the eager one.
+The byte counters of the collectives show every one of them below a
+quarter of the sliced table's bytes.  The reference's three fallbacks
+warn with its words, a one-rank mesh keeps the plain path and
+``jit=True`` on a mesh builds a ``CapturedStep`` on every branch.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ from mindrec_tpu_torch.models import wide_deep
 from mindrec_tpu_torch.parallel import mesh as pm
 from mindrec_tpu_torch.parallel.jobs import save_batches
 from mindrec_tpu_torch.train import optim
-from mindrec_tpu_torch.train.step import init_train_state, make_train_step
+from mindrec_tpu_torch.train.step import (
+    CapturedStep, init_train_state, make_train_step,
+)
 from test_torch_mesh import (
     assert_states_close, check_losses, flat, jax_flat, jax_mesh, merged,
     save_state, single_run, spawn, state_from_jax,
@@ -141,6 +145,8 @@ def runs(tmp_path_factory):
     specs["host_prep"] = {**specs["row"], "prep": True,
                           "out": str(tmp / "host_prep")}
     ref["host_prep"] = ref["row"]
+    specs["row_jit"] = {**specs["row"], "step": {**F32, "jit": True},
+                        "out": str(tmp / "row_jit")}
     mls = MT["loss_scale"]
     jo = (jopt.ftrl(loss_scale=mls), jopt.lazy_adam(loss_scale=mls))
     init, want, losses = _jax_run(
@@ -165,10 +171,14 @@ def runs(tmp_path_factory):
         if name == "bytes":
             out[name] = dict(records=rec)
             continue
+        if name == "row_jit":  # held to the eager run, bit for bit
+            out[name] = dict(records=rec,
+                             mesh=flat(merged(rec, out["row"]["like"])))
+            continue
         single, s_losses = single_run(specs[name])
         out[name] = dict(records=rec, mesh=flat(merged(rec, single)),
                          single=flat(single), single_losses=s_losses,
-                         jax=ref[name])
+                         jax=ref[name], like=single)
     return out
 
 
@@ -197,6 +207,22 @@ def test_sharded_streamed_with_host_prep(runs):
     _check(runs["host_prep"])
     np.testing.assert_array_equal(runs["host_prep"]["records"][0]["losses"],
                                   runs["row"]["records"][0]["losses"])
+
+
+def test_captured_sharded_step_equals_eager(runs):
+    """``jit=True`` on the mesh (the eager step on CPU tensors): losses on
+    every rank and the merged state bit for bit the eager run's, so
+    within the tolerances above of the JAX package's jitted mesh step."""
+    got, want = runs["row_jit"], runs["row"]
+    for rec, ref in zip(got["records"], want["records"]):
+        assert rec["losses"] == ref["losses"]
+        assert rec["collectives"] == ref["collectives"]
+        assert rec["launches"] == ref["launches"]
+        assert rec["captures"] == rec["replays"] == 0
+    assert_states_close(got["mesh"], want["mesh"], rtol=0, atol=0)
+    jstate, jl = want["jax"]
+    check_losses(got["records"][0]["losses"], jl)
+    assert_states_close(got["mesh"], jstate)
 
 
 def test_multitable_sharded_matches_reference(runs):
@@ -285,13 +311,23 @@ def test_single_device_mesh_keeps_plain_path():
     assert_states_close(out[1][0], out[0][0], rtol=0, atol=0)
 
 
-def test_capture_on_a_mesh_raises():
-    """CUDA graphs cannot capture gloo's host copies: jit=True on a mesh
-    raises, naming the eager step and the roadmap item."""
-    model = wide_deep.WideDeepModel(wide_deep.WideDeepConfig(**_tuples(WD)),
-                                    mesh=pm.Mesh(2, 2))
-    with pytest.raises(NotImplementedError, match="jit=False.*item 9"):
-        make_train_step(model, optim.ftrl(), optim.lazy_adam(), jit=True)
+@pytest.mark.parametrize("branch,cfg,kw", [
+    ("step_rows", {}, {}),
+    ("step_generic", {}, {"use_pallas": False}),
+    ("step_dense", {"sparse": False}, {}),
+], ids=["streamed", "generic", "dense"])
+def test_capture_on_a_mesh_builds_a_captured_step(branch, cfg, kw):
+    """``jit=True`` on a (2, 2) mesh captures the streamed, the generic
+    and the dense step (``CapturedStep`` around the branch, its graphs
+    cut at every collective on the card); nothing builds an eager step
+    in its place."""
+    model = wide_deep.WideDeepModel(
+        wide_deep.WideDeepConfig(**_tuples({**WD, **cfg})), mesh=pm.Mesh(2, 2))
+    step = make_train_step(model, optim.ftrl(), optim.lazy_adam(), jit=True,
+                           **kw)
+    assert isinstance(step, CapturedStep)
+    assert step.step.__name__ == branch
+    assert step.graphs == 0 and step.segments == []
 
 
 def test_local_segments_in_global_order():

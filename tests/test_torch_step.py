@@ -30,8 +30,8 @@ from mindrec_tpu_torch.data.criteo import SyntheticCriteo, to_device
 from mindrec_tpu_torch.models import multitable, wide_deep
 from mindrec_tpu_torch.train import optim
 from mindrec_tpu_torch.train.step import (
-    BucketOverflow, make_batch_sort, make_eval_step, make_train_step,
-    param_keys,
+    BucketOverflow, CapturedStep, make_batch_sort, make_eval_step,
+    make_train_step, param_keys,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -241,7 +241,7 @@ def test_unported_branches_raise(change, ctor_kw):
     Row_packed tables under ``row_layout=False`` warn and take the
     generic path, as the reference does (``tests/test_torch_generic.py``
     holds it).  A sliced table without a mesh takes the plain streamed
-    path, as in the reference; on a mesh capture raises
+    path, as in the reference; on a mesh ``jit=True`` captures it
     (``tests/test_torch_sharded_stream.py`` runs the mesh)."""
     change = dict(change)
     if change.pop("multitable", False):
@@ -257,8 +257,9 @@ def test_unported_branches_raise(change, ctor_kw):
         fn = make_train_step(model, optim.ftrl(), optim.adam(), **ctor_kw)
         assert fn.__name__ == "step_rows"
         model.mesh = Mesh(2, 2)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            make_train_step(model, optim.ftrl(), optim.adam(), jit=True)
+        step = make_train_step(model, optim.ftrl(), optim.adam(), jit=True)
+        assert isinstance(step, CapturedStep)
+        assert step.step.__name__ == "step_rows"
         return
     if not change:
         with pytest.warns(UserWarning, match="generic path"):
