@@ -412,7 +412,7 @@ from mindrec_tpu_torch.train.host_target import (
 )
 from mindrec_tpu_torch.train.metrics import roc_auc
 from mindrec_tpu_torch.utils.profiling import (
-    profile, sparse_step_floor, step_annotation,
+    enable_spans, profile, sparse_step_floor, step_annotation,
 )
 from mindrec_tpu_torch.train.step import (
     SENTINEL, CapturedStep, TrainState, _group_layouts, _state_tensors,
@@ -2788,16 +2788,23 @@ class Annotate(Callback):
 
 def profile_check(rm, raw) -> dict:
     """``profile()`` around 3 captured W&D steps through ``RecModel.train``
-    (they replay the graph the restore captured): the Chrome trace must
-    exist and name the annotations and ``segsum_sorted``'s kernels."""
+    with the program's spans on (they replay the graph the restore
+    captured, without marks): the Chrome trace must exist and name the
+    annotations, the entry point's and the replay's spans and
+    ``segsum_sorted``'s kernels."""
     tmp = tempfile.mkdtemp(prefix="mrec-prof-")
     try:
         torch.cuda.synchronize()
-        with profile(tmp) as p:
-            rm.train(1, raw[:3], callbacks=[Annotate()])
-            torch.cuda.synchronize()
+        enable_spans(True)
+        try:
+            with profile(tmp) as p:
+                rm.train(1, raw[:3], callbacks=[Annotate()])
+                torch.cuda.synchronize()
+        finally:
+            enable_spans(False)
         text = Path(p.trace_path).read_text()
-        names = ["train_step#1", "train_step#3", "sorted_chunk_sum"]
+        names = ["train_step#1", "train_step#3", "train.step",
+                 "captured.replay", "sorted_chunk_sum"]
         found = {n: n in text for n in names}
         out = dict(trace_mb=len(text) / 1e6, found=found,
                    replays=rm.train_step.replays)

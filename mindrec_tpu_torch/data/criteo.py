@@ -25,6 +25,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from mindrec_tpu_torch.utils.profiling import span
+
 # Criteo-Kaggle categorical cardinalities (C1..C26)
 CRITEO_KAGGLE_CAT_CARDINALITIES = (
     1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
@@ -302,7 +304,9 @@ class PrefetchToDevice:
         try:
             with torch.cuda.device(self.device):
                 for batch in self.it:
-                    if not self._put(self._stage(batch)):
+                    with span("pipeline.stage"):
+                        staged = self._stage(batch)
+                    if not self._put(staged):
                         return
         except BaseException as e:  # surfaces in the consumer, in order
             self._put(e)
@@ -322,7 +326,8 @@ class PrefetchToDevice:
         return self
 
     def __next__(self):
-        item = self.q.get()
+        with span("pipeline.wait"):
+            item = self.q.get()
         if item is self._done:
             self._stop.set()
             raise StopIteration

@@ -51,6 +51,7 @@ import numpy as np
 from mindrec_tpu_torch.data.criteo import PrefetchToDevice
 from mindrec_tpu_torch.parallel.mesh import shard_batch
 from mindrec_tpu_torch.train.step import BucketOverflow, make_batch_sort
+from mindrec_tpu_torch.utils.profiling import span
 
 
 def round_bucket(n: int, quantum: int = 2048) -> int:
@@ -135,7 +136,7 @@ class HostPrepPool:
                 raw = next(it)
             except StopIteration:
                 return False
-            fut = ex.submit(self.prep, raw)
+            fut = ex.submit(_prep_in_span, self.prep, raw)
             fut.raw_batch = raw
             futs.append(fut)
             return True
@@ -147,7 +148,8 @@ class HostPrepPool:
             while futs:
                 fut = futs.popleft()
                 try:
-                    out = fut.result()
+                    with span("pipeline.wait"):
+                        out = fut.result()
                 except BaseException as e:
                     e.raw_batch = fut.raw_batch
                     raise
@@ -155,6 +157,11 @@ class HostPrepPool:
                 yield out
         finally:
             ex.shutdown(wait=False, cancel_futures=True)
+
+
+def _prep_in_span(prep, raw):
+    with span("pipeline.prep"):
+        return prep(raw)
 
 
 def _stack_groups(it, k: int, pad_tail: bool = False):

@@ -75,7 +75,8 @@ def parse_args(argv=None):
     ap.add_argument("--mesh_model", type=int, default=1,
                     help="model-parallel axis size of the ranks' mesh")
     ap.add_argument("--enable_profiling", action="store_true",
-                    help="torch.profiler trace around training")
+                    help="torch.profiler trace around training, with the "
+                    "program's spans on (utils/profiling.span)")
     ap.add_argument("--profiler_path", default="./profiler_data")
     ap.add_argument("--save_graphs", action="store_true",
                     help="dump one train step's operators and, on the card, "
@@ -487,14 +488,19 @@ def main(argv=None) -> dict:
 
     profiler = None
     if args.enable_profiling:
-        from mindrec_tpu_torch.utils.profiling import Profiler
+        from mindrec_tpu_torch.utils.profiling import (
+            Profiler, enable_spans, spans_enabled,
+        )
 
+        spans_were = spans_enabled()
+        enable_spans(True)  # before the train step's first capture
         profiler = Profiler(args.profiler_path)
     try:
         rm.train(cfg.epochs, make_data(train=True), callbacks=callbacks)
     finally:
         if profiler is not None:
             trace = profiler.analyse()
+            enable_spans(spans_were)
             print(f"profiler trace -> {trace}", flush=True)
     step = rm.train_step
     if isinstance(step, CapturedStep) and step.captures:

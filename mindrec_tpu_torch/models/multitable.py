@@ -36,6 +36,7 @@ import torch
 from mindrec_tpu_torch.models.wide_deep import ACTS, sigmoid_cross_entropy
 from mindrec_tpu_torch.ops import prng
 from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, lookup
+from mindrec_tpu_torch.utils.profiling import backward_span, span
 
 MULTI_FIELDS = (
     "doc_ad_category",
@@ -208,16 +209,21 @@ class MultiTableWideDeepModel:
     def _mlp(self, mlp_params, x, train=False, rng=None):
         c = self.config
         dtype = torch.bfloat16 if c.use_mixed_precision else torch.float32
-        h = x.to(dtype)
-        n = len(mlp_params)
-        for i, layer in enumerate(mlp_params):
-            if train and c.dropout_flag and c.keep_prob < 1.0 and rng is not None:
-                rng, sub = prng.split(rng)
-                h = prng.dropout(h, c.keep_prob, sub)
-            h = torch.matmul(h, layer["w"].to(dtype)) + layer["b"].to(dtype)
-            if i < n - 1:
-                h = self.act(h)
-        return h.float()
+        # the span's device time is the train step's MLP, forward and
+        # backward; an eval forward takes no gradient and marks nothing
+        with span("mlp", x.device if x.requires_grad else None):
+            h = x.to(dtype)
+            n = len(mlp_params)
+            for i, layer in enumerate(mlp_params):
+                if (train and c.dropout_flag and c.keep_prob < 1.0
+                        and rng is not None):
+                    rng, sub = prng.split(rng)
+                    h = prng.dropout(h, c.keep_prob, sub)
+                h = torch.matmul(h, layer["w"].to(dtype)) + layer["b"].to(dtype)
+                if i < n - 1:
+                    h = self.act(h)
+            backward_span("mlp", h, x)
+            return h.float()
 
     def apply_rows_batch(self, params, rows, batch, train=False, rng=None):
         """Forward from pre-gathered rows (the sparse step's entry).

@@ -17,6 +17,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from mindrec_tpu_torch.utils import profiling
+
 
 def _scalar(x) -> float:
     """A loss as a Python float (a tensor on any device, or numpy)."""
@@ -71,8 +73,9 @@ class CallbackManager(Callback):
         self.callbacks = list(callbacks or [])
 
     def _fan(self, name, ctx):
-        for cb in self.callbacks:
-            getattr(cb, name)(ctx)
+        with profiling.span("train.callbacks"):
+            for cb in self.callbacks:
+                getattr(cb, name)(ctx)
 
     def on_train_begin(self, ctx):
         self._fan("on_train_begin", ctx)
@@ -163,7 +166,13 @@ class TimeMonitor(Callback):
     analytic floor, in the reference's words.  The rate is the epoch's
     time per step, where the reference takes the median step time: on
     the card a step's host time is its enqueue, which can be shorter
-    than the floor itself."""
+    than the floor itself.
+
+    With the program's spans on (``utils/profiling.enable_spans``) on a
+    CUDA state, the line also gives each span's device ms per step over
+    the epoch, ``between_steps`` among them, from two
+    :func:`~mindrec_tpu_torch.utils.profiling.span_totals` readings (one
+    at each end of the epoch)."""
 
     def __init__(self, data_size: Optional[int] = None,
                  speed_of_light=None, batch_size: Optional[int] = None):
@@ -171,19 +180,30 @@ class TimeMonitor(Callback):
         self.step_times: list[float] = []
         self._epoch_t0 = None
         self._step_t0 = None
+        self._spans0 = None
         self.batch_size = batch_size
         self.floor = None
         if speed_of_light is not None:
             if isinstance(speed_of_light, dict):
                 self.floor = speed_of_light
             else:  # a model: the floor of its static shapes
-                from mindrec_tpu_torch.utils.profiling import sparse_step_floor
-
                 bs = batch_size or speed_of_light.config.batch_size
                 self.batch_size = bs
-                self.floor = sparse_step_floor(speed_of_light, bs)
+                self.floor = profiling.sparse_step_floor(speed_of_light, bs)
+
+    @staticmethod
+    def _card(ctx):
+        """The CUDA device of the context's state, or None."""
+        step = getattr(getattr(ctx, "train_state", None), "step", None)
+        if isinstance(step, torch.Tensor) and step.device.type == "cuda":
+            return step.device
+        return None
 
     def on_train_epoch_begin(self, ctx):
+        card = self._card(ctx)
+        self._spans0 = (profiling.span_totals(card)
+                        if card is not None and profiling.spans_enabled()
+                        else None)
         self._epoch_t0 = time.perf_counter()
         self.step_times = []
 
@@ -195,9 +215,9 @@ class TimeMonitor(Callback):
             self.step_times.append(time.perf_counter() - self._step_t0)
 
     def on_train_epoch_end(self, ctx):
-        step = getattr(getattr(ctx, "train_state", None), "step", None)
-        if isinstance(step, torch.Tensor) and step.device.type == "cuda":
-            torch.cuda.synchronize(step.device)
+        card = self._card(ctx)
+        if card is not None:
+            torch.cuda.synchronize(card)
         dt = time.perf_counter() - self._epoch_t0
         n = len(self.step_times) or 1
         line = (
@@ -214,6 +234,12 @@ class TimeMonitor(Callback):
                 f"floor (hbm {self.floor['hbm_ms']} ms + mxu "
                 f"{self.floor['mxu_ms']} ms)"
             )
+        if self._spans0 is not None and card is not None:
+            spans = profiling.per_step(profiling.span_totals(card),
+                                       self._spans0, len(self.step_times))
+            if spans:
+                line += ", device ms per step: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in spans.items())
         if getattr(ctx, "rank_id", 0) == 0:  # callers may pass no context
             print(line, flush=True)
 

@@ -68,6 +68,9 @@ from mindrec_tpu_torch.train.step import (
     CapturedStep, TrainState, init_train_state, make_eval_step,
     make_train_step, prep_groups,
 )
+from mindrec_tpu_torch.utils.profiling import span
+
+_END = object()  # the end of a batch iterator
 
 
 class RecModel:
@@ -332,11 +335,17 @@ class RecModel:
             cb.on_train_epoch_begin(ctx)
             it = self._maybe_sink(train_dataset, dataset_sink_mode)
             try:
-                for batch in it:
+                batches = iter(it)
+                while True:
+                    with span("train.next_batch"):
+                        batch = next(batches, _END)
+                    if batch is _END:
+                        break
                     step_num += 1
                     ctx.cur_step_num = step_num
                     cb.on_train_step_begin(ctx)
-                    losses = self._exec_step(batch)
+                    with span("train.step"):
+                        losses = self._exec_step(batch)
                     ctx.net_outputs = losses
                     ctx.train_state = self.state
                     cb.on_train_step_end(ctx)
@@ -393,15 +402,16 @@ class RecModel:
                 ctx.epoch_num = ep
                 cb.on_train_epoch_begin(ctx)
                 # one "epoch" of a stream = one sink iteration (one batch)
-                try:
-                    batch = next(it)
-                except StopIteration:
+                with span("train.next_batch"):
+                    batch = next(it, _END)
+                if batch is _END:
                     cb.on_train_epoch_end(ctx)
                     break
                 step_num += 1
                 ctx.cur_step_num = step_num
                 cb.on_train_step_begin(ctx)
-                losses = self._exec_step(batch)
+                with span("train.step"):
+                    losses = self._exec_step(batch)
                 ctx.net_outputs = losses
                 ctx.train_state = self.state
                 cb.on_train_step_end(ctx)

@@ -171,6 +171,7 @@ from mindrec_tpu_torch.parallel.mesh import (
     shard_batch,
 )
 from mindrec_tpu_torch.train.optim import Optimizer, adam_lr_t, live_sources
+from mindrec_tpu_torch.utils.profiling import span
 
 SENTINEL = 2**31 - 2  # padded unique slot: past every vocab
 _LR_POWER_MSG = (
@@ -873,12 +874,14 @@ def make_train_step(
         return model.apply_rows(p_view, rows, batch["wts"], train=True,
                                 rng=rng)
 
-    def run_model(params, label, rows_pos, forward):
-        """Forward and backward: ``forward(p_view, rows_pos) -> logits``
-        over the parameters (a sparse step's tables are reached through
-        the expanded rows ``rows_pos``, leaf tensors).  -> (gradients of
-        the other leaves by key, gradients of ``rows_pos`` in its order,
-        (loss_w, loss_d))."""
+    def run_model(params, label, rows_pos, forward, key):
+        """Forward and backward: ``forward(p_view, rows_pos, sub) ->
+        logits`` over the parameters (a sparse step's tables are reached
+        through the expanded rows ``rows_pos``, leaf tensors), ``sub`` the
+        dropout key split off ``key``.  -> (gradients of the other leaves
+        by key, gradients of ``rows_pos`` in its order, (loss_w, loss_d),
+        the state's next key)."""
+        dev = label.device
         leaves = {}  # dense parameters, tracked for autograd
 
         def track(key, leaf):
@@ -891,38 +894,45 @@ def make_train_step(
         # a data rank draws its rows' dropout masks of the global batch
         first = mesh.axis_index(DATA_AXIS) * label.shape[0] if mesh else 0
         with torch.enable_grad(), prng.batch_rows(first):
-            logits = forward(p_view, rows_pos)
-            loss_w, loss_d = model.loss(p_view, logits, label)
+            with span("forward", dev):
+                rng, sub = prng.split(key)
+                logits = forward(p_view, rows_pos, sub)
+                loss_w, loss_d = model.loss(p_view, logits, label)
             inputs = [*leaves.values(), *rows_pos]
-            # at 1/data of the scale: the sums over data are the global
-            # batch's gradients
-            grads = torch.autograd.grad(loss_d * (sens / n_data), inputs,
-                                        allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(inputs, grads)]
-        losses = (loss_w.detach(), loss_d.detach())
-        if n_data > 1:  # the global batch's means
-            both = all_reduce(torch.stack(losses), DATA_AXIS, mesh) / n_data
-            losses = (both[0], both[1])
-        return dict(zip(leaves, grads[: len(leaves)])), grads[len(leaves):], losses
+            with span("backward", dev):
+                # at 1/data of the scale: the sums over data are the
+                # global batch's gradients
+                grads = torch.autograd.grad(loss_d * (sens / n_data), inputs,
+                                            allow_unused=True)
+                grads = [torch.zeros_like(x) if g is None else g
+                         for x, g in zip(inputs, grads)]
+                losses = (loss_w.detach(), loss_d.detach())
+                if n_data > 1:  # the global batch's means
+                    both = all_reduce(torch.stack(losses), DATA_AXIS,
+                                      mesh) / n_data
+                    losses = (both[0], both[1])
+        return (dict(zip(leaves, grads[: len(leaves)])), grads[len(leaves):],
+                losses, rng)
 
-    def guard(dense_grads, g_deltas):
+    def guard(dense_grads, g_deltas, dev):
         """check_overflow: -> (finite, dense_grads, g_deltas), where
         ``finite`` is a bool scalar on the device (None without the
         guard) and the gradients are zeroed unless it holds, so no NaN
         reaches a kernel.  Nothing is read on the host."""
         if not check_overflow:
             return None, dense_grads, g_deltas
-        finite = torch.stack([torch.isfinite(g).all()
-                              for g in (*dense_grads.values(), *g_deltas)]).all()
-        if mesh is not None:  # every rank keeps or drops the step alike
-            f = finite.to(torch.int32).reshape(1)
-            for axis in (DATA_AXIS, MODEL_AXIS):
-                f = all_reduce(f, axis, mesh, op="min")
-            finite = f.reshape(()) > 0
-        return (finite,
-                {k: torch.where(finite, g, 0.0) for k, g in dense_grads.items()},
-                [torch.where(finite, g, 0.0) for g in g_deltas])
+        with span("update", dev):
+            finite = torch.stack([torch.isfinite(g).all() for g in
+                                  (*dense_grads.values(), *g_deltas)]).all()
+            if mesh is not None:  # every rank keeps or drops the step alike
+                f = finite.to(torch.int32).reshape(1)
+                for axis in (DATA_AXIS, MODEL_AXIS):
+                    f = all_reduce(f, axis, mesh, op="min")
+                finite = f.reshape(()) > 0
+            return (finite,
+                    {k: torch.where(finite, g, 0.0)
+                     for k, g in dense_grads.items()},
+                    [torch.where(finite, g, 0.0) for g in g_deltas])
 
     def reduce_over_data(grads: dict) -> dict:
         """Sum each gradient over ``data``, one collective per dtype."""
@@ -966,54 +976,64 @@ def make_train_step(
         all keep their values and only ``step`` and the key ``rng``
         advance (the reference's ``_guard``)."""
         params = state.params
-        new_params, opt_w_state, opt_d_state = dense_updates(
-            state, dense_grads, finite)
-        for key, (name, path, spec) in table_keys.items():
-            wide = is_wide_key(key)
-            states = opt_w_state if wide else opt_d_state
-            opt = opt_w if wide else opt_d
-            table = _get(params, path)
-            gate = touch_mask.get(name)
-            if finite is not None:  # no touch at all on overflow
-                f = finite.to(torch.float32).reshape(1, 1)
-                gate = f if gate is None else gate * f
-            if spec.row_packed:
-                u = cols[name].shape[0]
-                present = None if gate is None else (
-                    (gate > 0).to(torch.int32).expand(1, u).reshape(-1)
-                    .contiguous())
-                _t, st = _packed_table_update(
-                    opt, col_grads[name], cols[name], subs[name], states[key],
-                    table, spec, present=present, use_kernels=use_kernels,
-                )
-            else:
-                g_aug = make_aug_grads(col_grads[name], subs[name])
-                if gate is not None:  # absent ids of a tiny group: no touch
-                    g_aug = torch.cat([g_aug[:-AUG], g_aug[-AUG:] * gate])
-                _t, st = _streamed_table_update(
-                    opt, g_aug.contiguous(), cols[name], states[key], table,
-                    spec, use_kernels=use_kernels,
-                    mesh=mesh if name in split else None,
-                )
-            states[key] = _keep_unless(finite, st, states[key])
-        return TrainState(new_params, opt_w_state, opt_d_state,
-                          state.step + 1, rng), losses
+        dev = state.step.device
+        with span("update", dev):
+            with span("update.dense", dev):
+                new_params, opt_w_state, opt_d_state = dense_updates(
+                    state, dense_grads, finite)
+            with span("update.tables", dev):
+                for key, (name, path, spec) in table_keys.items():
+                    wide = is_wide_key(key)
+                    states = opt_w_state if wide else opt_d_state
+                    opt = opt_w if wide else opt_d
+                    table = _get(params, path)
+                    gate = touch_mask.get(name)
+                    if finite is not None:  # no touch at all on overflow
+                        f = finite.to(torch.float32).reshape(1, 1)
+                        gate = f if gate is None else gate * f
+                    if spec.row_packed:
+                        u = cols[name].shape[0]
+                        present = None if gate is None else (
+                            (gate > 0).to(torch.int32).expand(1, u)
+                            .reshape(-1).contiguous())
+                        _t, st = _packed_table_update(
+                            opt, col_grads[name], cols[name], subs[name],
+                            states[key], table, spec, present=present,
+                            use_kernels=use_kernels,
+                        )
+                    else:
+                        g_aug = make_aug_grads(col_grads[name], subs[name])
+                        if gate is not None:  # absent ids of a tiny group
+                            g_aug = torch.cat([g_aug[:-AUG],
+                                               g_aug[-AUG:] * gate])
+                        _t, st = _streamed_table_update(
+                            opt, g_aug.contiguous(), cols[name], states[key],
+                            table, spec, use_kernels=use_kernels,
+                            mesh=mesh if name in split else None,
+                        )
+                    states[key] = _keep_unless(finite, st, states[key])
+            return TrainState(new_params, opt_w_state, opt_d_state,
+                              state.step + 1, rng), losses
 
     def step_rows(state: TrainState, batch):
-        rng, sub = prng.split(state.rng)
-        gdata = forward_meta(state.params, batch)
-        rows_pos = [
-            gd["buf"].to(matmul_dtype)[gd["uidx_b"].long()]
-            .requires_grad_(True)
-            for gd in gdata.values()
-        ]
-        dense_grads, g_deltas, losses = run_model(
+        dev = state.step.device
+        with span("meta", dev):
+            gdata = forward_meta(state.params, batch)
+        with span("expand", dev):
+            rows_pos = [
+                gd["buf"].to(matmul_dtype)[gd["uidx_b"].long()]
+                .requires_grad_(True)
+                for gd in gdata.values()
+            ]
+        dense_grads, g_deltas, losses, rng = run_model(
             state.params, batch["label"], rows_pos,
-            lambda p, rp: call_rows(
-                p, table_rows(gdata, dict(zip(gdata, rp))), batch, sub))
-        finite, dense_grads, g_deltas = guard(dense_grads, g_deltas)
-        col_grads, touch_mask = backward_sums(gdata,
-                                              dict(zip(gdata, g_deltas)))
+            lambda p, rp, sub: call_rows(
+                p, table_rows(gdata, dict(zip(gdata, rp))), batch, sub),
+            state.rng)
+        finite, dense_grads, g_deltas = guard(dense_grads, g_deltas, dev)
+        with span("segsum", dev):
+            col_grads, touch_mask = backward_sums(gdata,
+                                                  dict(zip(gdata, g_deltas)))
         cols, subs = {}, {}
         for gd in gdata.values():
             cols.update(gd["cols"])
@@ -1026,34 +1046,40 @@ def make_train_step(
 
     def step_cols(state: TrainState, batch):
         """The feature-major formulation (``row_layout=False``)."""
-        rng, sub = prng.split(state.rng)
+        dev = state.step.device
         ids = batch["ids"]
         flat = ids.reshape(-1).contiguous()
         n_pos = flat.numel()
-        perm, uq, uidx_b, uidx_s, uq_len = _sort_meta(batch, flat)
-        if uq_len != n_pos:
-            raise ValueError(
-                f"row_layout=False takes uq_ids at their full length "
-                f"{n_pos} (one slot per position), got {uq_len}; trimming "
-                f"them to a bucket is a row_layout=True contract")
-        uq = uq.to(torch.int32)
-        parts, dims, cols, subs = [], {}, {}, {}
-        for name, (path, spec) in table_specs.items():
-            r = spec.fold
-            cols[name] = torch.div(uq, r, rounding_mode="floor") if r > 1 else uq
-            subs[name] = torch.remainder(uq, r) if r > 1 else None
-            rows_u = gather_c(_get(state.params, path), cols[name])  # [Dp, N]
-            if r > 1:  # keep the owning sublane only, in unique space
-                rows_u = rows_u * _fold_mask(rows_u.shape[0], spec.emb_dim,
-                                             subs[name], rows_u.dtype)
-            else:
-                rows_u = rows_u[: spec.emb_dim]  # drop sublane padding
-            parts.append(rows_u)
-            dims[name] = rows_u.shape[0]
-        big = (parts[0] if len(parts) == 1 else torch.cat(parts)).to(matmul_dtype)
-        # one gather expands every table to batch order; the gradient is
-        # taken at the expanded rows
-        rows_pos = big.T.contiguous()[uidx_b.long()].requires_grad_(True)
+        with span("meta", dev):
+            perm, uq, uidx_b, uidx_s, uq_len = _sort_meta(batch, flat)
+            if uq_len != n_pos:
+                raise ValueError(
+                    f"row_layout=False takes uq_ids at their full length "
+                    f"{n_pos} (one slot per position), got {uq_len}; "
+                    f"trimming them to a bucket is a row_layout=True "
+                    f"contract")
+            uq = uq.to(torch.int32)
+            parts, dims, cols, subs = [], {}, {}, {}
+            for name, (path, spec) in table_specs.items():
+                r = spec.fold
+                cols[name] = (torch.div(uq, r, rounding_mode="floor")
+                              if r > 1 else uq)
+                subs[name] = torch.remainder(uq, r) if r > 1 else None
+                rows_u = gather_c(_get(state.params, path),
+                                  cols[name])  # [Dp, N]
+                if r > 1:  # keep the owning sublane only, in unique space
+                    rows_u = rows_u * _fold_mask(rows_u.shape[0], spec.emb_dim,
+                                                 subs[name], rows_u.dtype)
+                else:
+                    rows_u = rows_u[: spec.emb_dim]  # drop sublane padding
+                parts.append(rows_u)
+                dims[name] = rows_u.shape[0]
+            big = (parts[0] if len(parts) == 1
+                   else torch.cat(parts)).to(matmul_dtype)
+        with span("expand", dev):
+            # one gather expands every table to batch order; the gradient
+            # is taken at the expanded rows
+            rows_pos = big.T.contiguous()[uidx_b.long()].requires_grad_(True)
 
         def rows_of(rp):
             rows, off = {}, 0
@@ -1062,37 +1088,41 @@ def make_train_step(
                 off += dn
             return rows
 
-        dense_grads, g_deltas, losses = run_model(
+        dense_grads, g_deltas, losses, rng = run_model(
             state.params, batch["label"], [rows_pos],
-            lambda p, rp: call_rows(p, rows_of(rp), batch, sub))
-        finite, dense_grads, g_deltas = guard(dense_grads, g_deltas)
-        g_sorted = g_deltas[0][perm.long()]  # [N, sum_d], sorted order
-        # the kernel reads the [sum_d, N] view's row-major memory: no copy
-        g_uq = segsum_c(g_sorted.T, uidx_s.to(torch.int32), n_pos)
-        col_grads, off = {}, 0
-        for name, (path, spec) in table_specs.items():
-            dn = dims[name]
-            g = g_uq[off: off + dn]
-            off += dn
-            if spec.fold > 1:
-                # the expanded rows are unmasked: zero the sublanes the
-                # fold mask zeroed in the forward
-                g = g * _fold_mask(dn, spec.emb_dim, subs[name], g.dtype)
-            dp_full = _get(state.params, path).shape[0]
-            if dn < dp_full:  # restore the sublane padding
-                g = torch.cat([g, g.new_zeros((dp_full - dn, n_pos))])
-            col_grads[name] = g
+            lambda p, rp, sub: call_rows(p, rows_of(rp), batch, sub),
+            state.rng)
+        finite, dense_grads, g_deltas = guard(dense_grads, g_deltas, dev)
+        with span("segsum", dev):
+            g_sorted = g_deltas[0][perm.long()]  # [N, sum_d], sorted order
+            # the kernel reads the [sum_d, N] view's row-major memory: no
+            # copy
+            g_uq = segsum_c(g_sorted.T, uidx_s.to(torch.int32), n_pos)
+            col_grads, off = {}, 0
+            for name, (path, spec) in table_specs.items():
+                dn = dims[name]
+                g = g_uq[off: off + dn]
+                off += dn
+                if spec.fold > 1:
+                    # the expanded rows are unmasked: zero the sublanes the
+                    # fold mask zeroed in the forward
+                    g = g * _fold_mask(dn, spec.emb_dim, subs[name], g.dtype)
+                dp_full = _get(state.params, path).shape[0]
+                if dn < dp_full:  # restore the sublane padding
+                    g = torch.cat([g, g.new_zeros((dp_full - dn, n_pos))])
+                col_grads[name] = g
         return finish(state, dense_grads, col_grads, cols, subs, {}, losses,
                       rng, finite)
 
     def step_dense(state: TrainState, batch):
         """The dense step (``sparse=False``): every leaf's gradient by
         autograd through the model's lookups, then its dense update."""
-        rng, sub = prng.split(state.rng)
-        dense_grads, _, losses = run_model(
+        dense_grads, _, losses, rng = run_model(
             state.params, batch["label"], [],
-            lambda p, _rp: model.apply_batch(p, batch, train=True, rng=sub))
-        finite, dense_grads, _ = guard(dense_grads, [])
+            lambda p, _rp, sub: model.apply_batch(p, batch, train=True,
+                                                  rng=sub),
+            state.rng)
+        finite, dense_grads, _ = guard(dense_grads, [], state.step.device)
         return finish(state, dense_grads, {}, {}, {}, {}, losses, rng, finite)
 
     group_of = {t: g for g, info in table_groups.items() for t in info["tables"]}
@@ -1212,10 +1242,11 @@ def make_train_step(
 
     def step_generic(state: TrainState, batch):
         """The generic path (``use_pallas=False``, module docstring)."""
-        rng, sub = prng.split(state.rng)
-        ids_g = {g: _group_ids(batch, info["keys"])
-                 for g, info in table_groups.items()}
-        rows_in, flats = generic_rows(state.params, ids_g)
+        dev = state.step.device
+        with span("meta", dev):
+            ids_g = {g: _group_ids(batch, info["keys"])
+                     for g, info in table_groups.items()}
+            rows_in, flats = generic_rows(state.params, ids_g)
         names = list(rows_in)
 
         def rows_of(rp):
@@ -1231,26 +1262,32 @@ def make_train_step(
                 rows[name] = r.reshape(*ids_g[group_of[name]].shape[:2], -1)
             return rows
 
-        dense_grads, g_rows, losses = run_model(
+        dense_grads, g_rows, losses, rng = run_model(
             state.params, batch["label"], [rows_in[n] for n in names],
-            lambda p, rp: call_rows(p, rows_of(rp), batch, sub))
-        finite, dense_grads, g_rows = guard(dense_grads, g_rows)
-        new_params, opt_w_state, opt_d_state = dense_updates(
-            state, dense_grads, finite)
+            lambda p, rp, sub: call_rows(p, rows_of(rp), batch, sub),
+            state.rng)
+        finite, dense_grads, g_rows = guard(dense_grads, g_rows, dev)
         grads_of = dict(zip(names, g_rows))
-        for key, (name, path, spec) in table_keys.items():
-            opt, states = ((opt_w, opt_w_state) if is_wide_key(key)
-                           else (opt_d, opt_d_state))
-            g, flat = grads_of[name], flats[name]
-            if n_data > 1:  # every position of the global batch, per rank
-                g = all_gather(g.contiguous(), DATA_AXIS, mesh)
-                flat = all_gather(flat.contiguous(), DATA_AXIS, mesh)
-            _t, st = generic_table_update(
-                opt, g, flat, states[key], _get(state.params, path), spec,
-                finite, shard=name in sliced)
-            states[key] = _keep_unless(finite, st, states[key])
-        return TrainState(new_params, opt_w_state, opt_d_state,
-                          state.step + 1, rng), losses
+        with span("update", dev):
+            with span("update.dense", dev):
+                new_params, opt_w_state, opt_d_state = dense_updates(
+                    state, dense_grads, finite)
+            # the generic path sums each table's gradients per id inside
+            # its update
+            with span("update.tables", dev):
+                for key, (name, path, spec) in table_keys.items():
+                    opt, states = ((opt_w, opt_w_state) if is_wide_key(key)
+                                   else (opt_d, opt_d_state))
+                    g, flat = grads_of[name], flats[name]
+                    if n_data > 1:  # the global batch's positions, per rank
+                        g = all_gather(g.contiguous(), DATA_AXIS, mesh)
+                        flat = all_gather(flat.contiguous(), DATA_AXIS, mesh)
+                    _t, st = generic_table_update(
+                        opt, g, flat, states[key], _get(state.params, path),
+                        spec, finite, shard=name in sliced)
+                    states[key] = _keep_unless(finite, st, states[key])
+            return TrainState(new_params, opt_w_state, opt_d_state,
+                              state.step + 1, rng), losses
 
     if not sparse:
         step = step_dense
@@ -1319,9 +1356,10 @@ def _step_in_place(step, state: TrainState, batch):
     tensors (the tables it already updates in place), so that ``state``
     stays the live state at fixed addresses."""
     new, losses = step(state, batch)
-    for old, fresh in zip(_state_tensors(state), _state_tensors(new)):
-        if fresh is not old:
-            old.copy_(fresh)
+    with span("update", state.step.device):
+        for old, fresh in zip(_state_tensors(state), _state_tensors(new)):
+            if fresh is not old:
+                old.copy_(fresh)
     return losses
 
 
@@ -1476,10 +1514,13 @@ class CapturedStep:
                                   for k, v in sorted(batch.items())))
         cap = self._graphs.get(sig)
         if cap is None:
-            return state, self._capture(sig, state, batch)
-        for k, v in batch.items():
-            cap.static[k].copy_(v)
-        cap.replay()
+            with span("captured.capture"):
+                return state, self._capture(sig, state, batch)
+        with span("inputs", state.step.device):
+            for k, v in batch.items():
+                cap.static[k].copy_(v)
+        with span("captured.replay"):
+            cap.replay()
         self.replays += 1
         for k, n in cap.per_replay.items():
             self.replayed[k] = self.replayed.get(k, 0) + n

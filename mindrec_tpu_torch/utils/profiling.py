@@ -7,7 +7,14 @@ Port of ``mindrec_tpu/utils/profiling.py``:
   stopped at :meth:`Profiler.analyse`, which writes a Chrome trace
   (``<output_path>/trace.json``, readable by ``chrome://tracing`` and
   Perfetto);
-* :func:`step_annotation`: a named range ``<name>#<step>`` in that trace;
+* spans (:func:`span`, one switch :func:`enable_spans`, off by default):
+  named phases of the program.  On, a span is a host range in that trace
+  and, on a CUDA device, a mark at its enter and its exit
+  (``csrc/span.cu``) that accumulates the phase's device time in a small
+  buffer per device, read by :func:`span_totals`; the marks are nodes of
+  a captured step's CUDA graph, so they time the phases inside it on
+  every replay;
+* :func:`step_annotation`: a span named ``<name>#<step>``;
 * :func:`dump_ir`: the reference's ``save_graphs`` dump, here a listing
   of one step's operators and, on the card, the captured step's CUDA
   graph as DOT;
@@ -19,9 +26,13 @@ Port of ``mindrec_tpu/utils/profiling.py``:
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import threading
 from pathlib import Path
 
 import torch
+
+from mindrec_tpu_torch.ops.kernels import _build
 
 # NVIDIA H100 SXM (data sheet, dense rates): HBM3 at 3.35 TB/s, 989
 # TFLOP/s bf16 on the tensor cores; HBM moves whole 32-byte sectors, so a
@@ -34,7 +45,9 @@ SECTOR_BYTES = 32
 
 class Profiler:
     """Start the profiler now, stop it and write the trace at
-    :meth:`analyse` (the reference's ``Profiler`` shape)."""
+    :meth:`analyse` (the reference's ``Profiler`` shape).  It records
+    every thread where this PyTorch can, so the input pipeline's spans on
+    its worker threads are in the trace too."""
 
     def __init__(self, output_path: str = "./profiler_data"):
         self.output_path = Path(output_path)
@@ -43,7 +56,8 @@ class Profiler:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-        self._prof = torch.profiler.profile(activities=acts)
+        self._prof = torch.profiler.profile(
+            activities=acts, experimental_config=all_threads_config())
         self._prof.__enter__()
         self._started = True
 
@@ -65,9 +79,205 @@ def profile(output_path: str = "./profiler_data"):
         p.analyse()
 
 
+def all_threads_config():
+    """The profiler's setting that records every thread, or None where
+    this PyTorch has none (it then records the thread that started it)."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
+
+
 def step_annotation(name: str, step: int):
-    """A per-step range in the trace, named ``<name>#<step>``."""
-    return torch.profiler.record_function(f"{name}#{step}")
+    """A per-step span named ``<name>#<step>`` (host range only)."""
+    return span(f"{name}#{step}")
+
+
+# ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+
+SPAN_SLOTS = 64  # distinct span names a process can mark on the device
+_HEAD = 4  # csrc/span.cu: last top-level exit, gap ns, gap count, spare
+_ENTER, _TOP = 1, 4  # mark flags (an exit has no _ENTER)
+_NOOP = contextlib.nullcontext()
+
+
+class _Spans:
+    """The switch, the slot of each span name and each device's buffer of
+    ``int64[_HEAD + 3 * SPAN_SLOTS]`` (start, total ns, count per slot)."""
+
+    def __init__(self):
+        self.on = False
+        self.slots: dict[str, int] = {}
+        self.buffers: dict[int, torch.Tensor] = {}
+        self.lock = threading.Lock()
+        self.open = threading.local()  # per thread: device -> open spans
+
+
+_SPANS = _Spans()
+
+
+def enable_spans(on: bool = True) -> None:
+    """Turn the program's spans on or off (off by default).  A step reads
+    the switch when it is captured or run eagerly: a captured graph keeps
+    the marks it was captured with, so turn spans on before the first
+    step."""
+    _SPANS.on = bool(on)
+
+
+def spans_enabled() -> bool:
+    return _SPANS.on
+
+
+def _device_index(device: torch.device) -> int:
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
+def _slot(name: str) -> int:
+    slot = _SPANS.slots.get(name)
+    if slot is None:
+        with _SPANS.lock:
+            slot = _SPANS.slots.setdefault(name, len(_SPANS.slots))
+        if slot >= SPAN_SLOTS:
+            raise RuntimeError(f"span {name!r}: more than {SPAN_SLOTS} span "
+                               f"names marked on the device")
+    return slot
+
+
+def _buffer(device: torch.device) -> torch.Tensor:
+    """The device's mark buffer, made at the first mark on it.  That mark
+    has to come before any capture (a capture's warm-up step makes it), so
+    the buffer lies outside every graph's memory pool and lives for the
+    process."""
+    i = _device_index(device)
+    buf = _SPANS.buffers.get(i)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the span buffer of cuda:{i} is made at the first mark, "
+                f"which has to run outside a CUDA-graph capture (run the "
+                f"step once eagerly first)")
+        with _SPANS.lock:
+            buf = _SPANS.buffers.get(i)
+            if buf is None:
+                buf = torch.zeros(_HEAD + 3 * SPAN_SLOTS, dtype=torch.int64,
+                                  device=torch.device("cuda", i))
+                torch.cuda.synchronize(i)
+                _SPANS.buffers[i] = buf
+    return buf
+
+
+def _mark(name: str, device: torch.device, flags: int) -> None:
+    """One ``span_mark`` launch on the current stream of ``device``."""
+    buf = _buffer(device)
+    fn = _build.kernel_fn("mr_span_mark", [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p])
+    _build.check(fn(buf.data_ptr(), SPAN_SLOTS, _slot(name), flags,
+                    _build.stream_of(buf)), "span_mark")
+
+
+class _Span:
+    """A span that is on: a host range, and on a CUDA device an enter and
+    an exit mark.  A span opened while no other is open on the device in
+    this thread is top-level: the device time between two top-level spans
+    is ``between_steps``."""
+
+    __slots__ = ("name", "device", "top", "range")
+
+    def __init__(self, name: str, device):
+        self.name = name
+        dev = None if device is None else torch.device(device)
+        self.device = dev if dev is not None and dev.type == "cuda" else None
+
+    def __enter__(self):
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        if self.device is not None:
+            depth = getattr(_SPANS.open, "depth", None)
+            if depth is None:
+                depth = _SPANS.open.depth = {}
+            i = _device_index(self.device)
+            self.top = depth.get(i, 0) == 0
+            depth[i] = depth.get(i, 0) + 1
+            _mark(self.name, self.device, _ENTER | (_TOP if self.top else 0))
+        return self
+
+    def __exit__(self, *exc):
+        if self.device is not None:
+            _mark(self.name, self.device, _TOP if self.top else 0)
+            _SPANS.open.depth[_device_index(self.device)] -= 1
+        self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str, device=None):
+    """A span of the program named ``name``, as a context manager.
+
+    Off (the default): one shared no-op context; nothing is launched and
+    nothing goes into a graph.  On: a ``torch.profiler.record_function``
+    range, and where ``device`` is a CUDA device a mark at enter and at
+    exit on its current stream (:func:`span_totals` sums their device
+    time).  ``device=None``: the host range alone."""
+    if not _SPANS.on:
+        return _NOOP
+    return _Span(name, device)
+
+
+def backward_span(name: str, out: torch.Tensor, inp: torch.Tensor) -> None:
+    """The backward of the work from ``inp`` to ``out`` as device time of
+    span ``name``: a mark when ``out``'s gradient is ready (that backward
+    starts) and one when ``inp``'s is (it has ended), from gradient hooks,
+    which the autograd engine runs on its own thread on the forward's
+    stream (inside a capture too).  No host range: the backward runs on
+    another thread than the step.  Nothing when spans are off, off the
+    card, or when either tensor takes no gradient."""
+    if not (_SPANS.on and out.is_cuda and out.requires_grad
+            and inp.requires_grad):
+        return
+    dev = out.device
+    out.register_hook(lambda _g: _mark(name, dev, _ENTER))
+    inp.register_hook(lambda _g: _mark(name, dev, 0))
+
+
+def span_totals(device) -> dict:
+    """``{name: (device ms, count)}`` of every span marked on ``device``
+    since the process started, and ``between_steps``: the device time
+    from one top-level span's exit to the next one's enter (between two
+    steps, and where the host launches a graph between two top-level
+    spans), with the number of such gaps.  Waits for the device, then
+    copies the buffer to the host once; empty off the card or before the
+    first mark."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {}
+    buf = _SPANS.buffers.get(_device_index(dev))
+    if buf is None:
+        return {}
+    torch.cuda.synchronize(dev)
+    v = buf.cpu().tolist()
+    total = v[_HEAD + SPAN_SLOTS: _HEAD + 2 * SPAN_SLOTS]
+    count = v[_HEAD + 2 * SPAN_SLOTS:]
+    out = {name: (total[s] / 1e6, count[s])
+           for name, s in sorted(_SPANS.slots.items(), key=lambda kv: kv[1])
+           if count[s]}
+    if v[2]:
+        out["between_steps"] = (v[1] / 1e6, v[2])
+    return out
+
+
+def per_step(after: dict, before: dict, steps: int) -> dict:
+    """Device ms per step of each span between two :func:`span_totals`
+    readings over ``steps`` steps."""
+    if steps <= 0:
+        return {}
+    return {name: (ms - before.get(name, (0.0, 0))[0]) / steps
+            for name, (ms, n) in after.items()
+            if n != before.get(name, (0.0, 0))[1]}
 
 
 def _copy_args(x):

@@ -114,11 +114,17 @@ def test_time_monitor_line_matches_reference():
 
 
 def test_profile_writes_a_trace_with_the_annotation(tmp_path):
+    """With the program's spans on, ``step_annotation`` is a span of its
+    name (off, it is the shared no-op)."""
     x = torch.randn(64, 64)
-    with profiling.profile(str(tmp_path / "prof")) as p:
-        for step in range(2):
-            with profiling.step_annotation("train_step", step):
-                x = torch.tanh(x @ x)
+    profiling.enable_spans(True)
+    try:
+        with profiling.profile(str(tmp_path / "prof")) as p:
+            for step in range(2):
+                with profiling.step_annotation("train_step", step):
+                    x = torch.tanh(x @ x)
+    finally:
+        profiling.enable_spans(False)
     path = p.analyse()  # a second call returns the same path
     trace = json.loads(open(path).read())
     names = {e.get("name") for e in trace["traceEvents"]}
