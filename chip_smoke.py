@@ -32,10 +32,12 @@ Phases (any failure exits non-zero):
    emb128 table into its group's [ub, 256] buffer (timed beside its
    sector bound and the time of reading the table whole and writing the
    valid lanes), then the gather of each of the eight feature-major
-   tables and FTRL on each of the four folded wide tables at the
-   launch shapes the step gives them (``[launch]`` lines: time, bound,
-   sector bound, ms lost over 10 steps; a tiny group's touch rows gated
-   by its presence), the
+   tables, FTRL on each of the four folded wide tables and LazyAdam (f32
+   m/v) on each of the four deep ones at the launch shapes the step
+   gives them, each column update reading the sums where the step's
+   segment sum leaves them, re-masked, a tiny group's gated by its
+   presence (``[launch]`` and ``[kernel]`` lines: time, bound, sector
+   bound; emb128's LazyAdam in the kernels line), the
    unsorted segment-sum of the indicator group's [1.7M, 128] bf16
    gradient and its [1.7M, 1] presence counts, the sorted segment-sum of
    the emb128 group's [N, 256], the emb64_single group's and the
@@ -45,8 +47,7 @@ Phases (any failure exits non-zero):
    ``tests/test_torch_cuda.py`` (no positions, a hot id
    over 105 chunks, all distinct, ids below 0 and past n_out, D 1, 13,
    128, 256, identity, reversed, random and compacted ``perm``, bf16 and
-   float32), LazyAdam on emb128 with
-   f32 m/v; the unsorted segment-sum again at
+   float32); the unsorted segment-sum again at
    D = 1, D = 13 (bf16), D = 20 and D = 128 (f32) with ids outside
    [0, n_out) mixed in, against the float64 sum and the exact sum of
    small integers;
@@ -67,8 +68,9 @@ Phases (any failure exits non-zero):
    W&D recipe's ([16, 5.86M], [8, 733k] fold 8, 24 feature rows):
    the column gather (exact), the row gather as the DeepFM
    ``row_layout=True`` step launches it (fm and the folded linear table,
-   bucket 131,072), the column Adam as the DeepFM steps launch
-   it (bf16 m/v over the sentinel-padded N slots, fold 1 and fold 8), the
+   bucket 131,072), the column Adam as the DeepFM ``row_layout=False``
+   step launches it (bf16 m/v over the sentinel-padded N slots, fold 1
+   and fold 8, reading its rows of the column segment sum's [88, N]), the
    column-major segment-sum on the transposed view of a contiguous
    [N, D] gradient, as the step passes it (against a float64 sum, at
    these shapes and at edge shapes: D 1, 5, 24, 88, hot ids over several
@@ -80,7 +82,8 @@ Phases (any failure exits non-zero):
    and gather kernels, together and each alone, and the sector bound;
 9. the fused pump at the W&D shapes: batch k's update fused with batch
    k+1's gather over 4 batches, rows and state held against
-   ``adam_cols`` / ``ftrl_cols`` followed by ``gather_cols`` from the
+   ``adam_cols_from_sums`` / ``ftrl_cols_from_sums`` (on the augmented
+   rows' gradient rows) followed by ``gather_cols`` from the
    same state, the launch counters set to 0 just before and read just
    after;
 10. drive the DeepFM recipe (batch 16000 x 39, vocab 184,965, emb 80, MLP
@@ -386,7 +389,8 @@ from mindrec_tpu_torch.ops.kernels.segsum import (
     segsum_unsorted, segsum_unsorted_plain,
 )
 from mindrec_tpu_torch.ops.kernels.update_cols import (
-    adam_cols, adam_cols_plain, ftrl_cols, ftrl_cols_plain, make_aug_grads,
+    AUG, adam_cols_from_sums, adam_cols_from_sums_plain, ftrl_cols_from_sums,
+    ftrl_cols_from_sums_plain, make_aug_grads,
 )
 from mindrec_tpu_torch.ops.kernels.update_rows import (
     adam_rows, adam_rows_plain, ftrl_rows, ftrl_rows_plain,
@@ -415,7 +419,8 @@ from mindrec_tpu_torch.utils.profiling import (
     enable_spans, profile, sparse_step_floor, step_annotation,
 )
 from mindrec_tpu_torch.train.step import (
-    SENTINEL, CapturedStep, TrainState, _group_layouts, _state_tensors,
+    SENTINEL, CapturedStep, TrainState, _fold_mask, _group_layouts,
+    _state_tensors,
     flatten_params, init_train_state, make_batch_sort, make_eval_step,
     make_train_step, map_leaves, prep_groups, real_launches,
 )
@@ -452,10 +457,14 @@ SOURCES = {
 }
 # launches per step of each kernel on each driven path
 WD_PER_STEP = {"segsum_sorted": 1, "adam_rows": 1, "ftrl_rows": 1}
+# (cols_in_place: the column updates that read the summed gradients in
+# place, counted in adam_cols / ftrl_cols too)
 MT_PER_STEP = {"gather_rows": 8, "segsum_unsorted": 2, "adam_cols": 4,
-               "ftrl_cols": 4, "segsum_sorted": 3}
-FM_COL_PER_STEP = {"gather_cols": 2, "segsum_cols": 1, "adam_cols": 2}
-FM_ROW_PER_STEP = {"gather_rows": 2, "segsum_sorted": 1, "adam_cols": 2}
+               "ftrl_cols": 4, "segsum_sorted": 3, "cols_in_place": 8}
+FM_COL_PER_STEP = {"gather_cols": 2, "segsum_cols": 1, "adam_cols": 2,
+                   "cols_in_place": 2}
+FM_ROW_PER_STEP = {"gather_rows": 2, "segsum_sorted": 1, "adam_cols": 2,
+                   "cols_in_place": 2}
 FM_PACKED_PER_STEP = {"segsum_sorted": 1, "adam_rows": 2}
 DCN_PER_STEP = {"segsum_sorted": 1, "adam_rows": 1}
 FM_VOCAB, DCN_VOCAB, FM_BUCKET = 184_965, 200_000, 131_072  # bench.py
@@ -1039,8 +1048,10 @@ def mt_setup(batch=MT_BATCH, steps=2):
 
 def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
     """Kernels 5-8 against their plain versions at the multitable
-    recipe's shapes, on host batch 0's ids; ``gather_rows`` and
-    ``ftrl_cols`` at every launch shape of the step."""
+    recipe's shapes, on host batch 0's ids; ``gather_rows`` and the column
+    updates at every launch shape of the step (LazyAdam on the deep
+    tables, FTRL on the folded wide ones), each on the sums where the
+    step's segment sum leaves them, its fold re-mask and its gate."""
     res = {}
     ub = buckets["emb128"]
     uq = torch.from_numpy(host0["emb128:uq_ids"][:ub]).to(dev)
@@ -1144,18 +1155,25 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
     check_sorted_edges(dev, gen)
     torch.cuda.empty_cache()
 
-    # -- LazyAdam on emb128 [128, 655360], f32 m/v ----------------------
-    res["adam_cols"] = check_adam_cols(
-        "emb128, f32 m/v", dev, gen, model.specs["emb128"].storage_shape, 1,
-        uq, None, torch.float32, eps=1e-6, loss_scale=1000.0)
-
-    # -- FTRL on the four folded wide tables, as the step launches it ----
+    # -- LazyAdam on the four deep tables (emb128 [128, 655360] in the
+    #    kernels line), FTRL on the four folded wide tables, f32 state, as
+    #    the step launches them ----------------------------------------
     for case in launches:
+        name = case["name"]
         if case["fold"] > 1:
             out = check_ftrl_launch(dev, gen, "multitable", case,
-                                    plain=case["name"] == "w128")
-            if case["name"] == "w128":
+                                    plain=name == "w128")
+            if name == "w128":
                 res["ftrl_cols"] = out
+            continue
+        out = check_adam_cols(
+            f"multitable {name}, f32 m/v", dev, gen, case["shape"], 1,
+            case["cols"], None, torch.float32, eps=1e-6, loss_scale=1000.0,
+            off=case["off"], width=case["width"], rows=case["rows"],
+            gate=case["gate"])
+        if name == "emb128":
+            res["adam_cols"] = out
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return res
 
@@ -1209,8 +1227,10 @@ def table_launches(dev, model, host, tiny_vocab=2048) -> list:
     storage columns (the group's unique ids, sentinel-padded to the bucket
     that the batch's ``uq_ids`` length rounds to, // fold; a tiny group's
     whole id space), their fold sub-rows (or None), the table's lane offset
-    and the buffer's width, and for a tiny group the presence gate [1, ub]
-    of the batch's ids, which multiplies the touch rows."""
+    and the buffer's width, whether the group's summed gradients are
+    row-major [ub, width] rows (``rows``; a tiny group's unsorted sum gives
+    [width, ub]), and for a tiny group the presence gate [1, ub] of the
+    batch's ids, which gates the touch."""
     groups = getattr(model, "table_groups", None) or {
         "_default": {"keys": ("ids",), "tables": tuple(model.table_specs)}}
     out = []
@@ -1237,7 +1257,8 @@ def table_launches(dev, model, host, tiny_vocab=2048) -> list:
                 name=name, group=g, shape=spec.storage_shape, fold=fold,
                 cols=torch.div(uq, fold, rounding_mode="floor").contiguous(),
                 sub=torch.remainder(uq, fold) if fold > 1 else None,
-                off=lay.offs[name], width=lay.width, gate=gate))
+                off=lay.offs[name], width=lay.width, rows=not lay.tiny,
+                gate=gate))
     return out
 
 
@@ -1310,10 +1331,18 @@ def check_gather_launch(dev, gen, path, case, per_10=10) -> dict:
     return out
 
 
-def ftrl_cols_bounds(table, cols, fold):
-    """(bound ms, its kind, sector bound ms) of ``ftrl_cols``: every slot's
-    column, the gradient and touch rows of the live slots (a sentinel
-    slot's are not needed), and each touched element's weight and two
+def sums_io(cols, vc, dp, fold, gate) -> int:
+    """Bytes of a column update's inputs: every slot's column, and each
+    live slot's dp sums, fold sub-row (fold > 1) and gate value (a [U]
+    gate) (a sentinel slot's are not needed)."""
+    valid = int(live_cols(cols, vc).numel())
+    per = dp * 4 + 4 * (fold > 1) + 4 * (gate is not None and gate.numel() > 1)
+    return cols.numel() * 4 + valid * per
+
+
+def ftrl_cols_bounds(table, cols, fold, gate=None):
+    """(bound ms, its kind, sector bound ms) of ``ftrl_cols_from_sums``:
+    its inputs (:func:`sums_io`), and each touched element's weight and two
     state values read and written once (fold > 1: one element per live
     slot; fold 1: the dp sublanes of each distinct column); the sector
     bound moves whole 32-byte sectors of the three arrays' touched
@@ -1322,7 +1351,7 @@ def ftrl_cols_bounds(table, cols, fold):
     live = live_cols(cols, vc)
     valid = int(live.numel())
     touched = valid if fold > 1 else int(torch.unique(live).numel()) * dp
-    io = cols.numel() * 4 + (dp + 8) * valid * 4
+    io = sums_io(cols, vc, dp, fold, gate)
     t_b, by = bound(io + touched * (table.element_size() + 8) * 2,
                     touched * 16)
     sec = sum(sectors(live, e) for e in (table.element_size(), 4, 4))
@@ -1330,17 +1359,19 @@ def ftrl_cols_bounds(table, cols, fold):
 
 
 def check_ftrl_launch(dev, gen, path, case, per_10=10, plain=False) -> dict:
-    """ftrl_cols at one launch shape of a step (``case`` as
-    :func:`table_launches` gives it; a tiny group's touch rows gated by
-    its presence) on random state: held to its plain version within rtol
-    1e-6 (the same float32 operations in the same order, sums in slot
-    order; ``bit_equal`` says whether it is exact), timed beside its
-    bounds; ``plain`` also times the plain version."""
+    """ftrl_cols_from_sums at one launch shape of a step (``case`` as
+    :func:`table_launches` gives it: the sums in its lanes of the segment
+    sum's rows, re-masked, and a tiny group's presence gate) on random
+    state: held to its plain version within rtol 1e-6 (the same float32
+    operations in the same order, sums in slot order; ``bit_equal`` says
+    whether it is exact), timed beside its bounds; ``plain`` also times
+    the plain version."""
     dp, vc = case["shape"]
-    cols, fold = case["cols"], case["fold"]
-    aug = slot_grads(dev, gen, dp, fold, cols, case["sub"])
-    if case["gate"] is not None:  # absent ids of a tiny group: no touch
-        aug[dp:] *= case["gate"]
+    cols, fold, sub = case["cols"], case["fold"], case["sub"]
+    grads = step_sums(dev, gen, dp, fold, cols, sub, case["off"],
+                      case["width"], case["rows"])
+    gate = None if case["gate"] is None else case["gate"].reshape(-1)
+    ins = (cols, grads, sub, gate)
     shape = (dp, vc)
     base = [0.01 * torch.randn(shape, generator=gen, device=dev),
             0.1 + torch.rand(shape, generator=gen, device=dev),
@@ -1349,14 +1380,14 @@ def check_ftrl_launch(dev, gen, path, case, per_10=10, plain=False) -> dict:
     b = [x.clone() for x in base]
     hyper = dict(dim=1 if fold > 1 else dp, fold=fold, learning_rate=5e-2,
                  l1=5e-4, l2=5e-4, loss_scale=1000.0)
-    ftrl_cols(*a, cols, aug, **hyper)
-    ftrl_cols_plain(*b, cols, aug, **hyper)
+    ftrl_cols_from_sums(*a, *ins, **hyper)
+    ftrl_cols_from_sums_plain(*b, *ins, **hyper)
     err, rel = max_errs(zip(a, b))
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
     bit_equal = all(torch.equal(x, y) for x, y in zip(a, b))
-    t_b, by, sec = ftrl_cols_bounds(a[0], cols, fold)
-    ms = graph_ms(lambda: ftrl_cols(*a, cols, aug, **hyper))
+    t_b, by, sec = ftrl_cols_bounds(a[0], cols, fold, gate)
+    ms = graph_ms(lambda: ftrl_cols_from_sums(*a, *ins, **hyper))
     out = dict(
         max_abs_err=err, max_rel_err=rel, bit_equal=bit_equal,
         digest=digest(a),
@@ -1365,23 +1396,28 @@ def check_ftrl_launch(dev, gen, path, case, per_10=10, plain=False) -> dict:
         slots=cols.numel(), live_slots=int(live_cols(cols, vc).numel()))
     if plain:
         out["plain_ms"] = cuda_ms(
-            lambda: ftrl_cols_plain(*b, cols, aug, **hyper), 5)
+            lambda: ftrl_cols_from_sums_plain(*b, *ins, **hyper), 5)
     log(f"[launch] ftrl_cols ({path} {case['name']} [{dp}, {vc}] fold {fold}, "
-        f"n {cols.numel()})", json.dumps(out))
+        f"n {cols.numel()}, sums {'rows' if case['rows'] else 'cols'} at "
+        f"lanes {case['off']}.. of width {case['width']}"
+        f"{', gated' if gate is not None else ''})",
+        json.dumps(out))
     return out
 
 
 def check_adam_cols(tag, dev, gen, shape, fold, cols, sub, state_dtype, *,
-                    eps, loss_scale) -> dict:
-    """adam_cols against its plain version on clones of one random state
-    (the same float32 operations: equal to rounding), timed beside it.
-    ``cols`` [n] sorted storage columns, sentinel-padded; ``sub`` their
-    fold sub-rows or None.  Bound: every slot's column id, the gradient and
-    touch rows of the live slots (a sentinel slot returns before it reads
-    them) and each touched element's weight and moments, read and
-    written.  ``whole_table_ms`` is a yardstick for dense batches: the
-    time of reading and writing the three arrays whole (``mul_(1.0)``),
-    what the sector bound comes to when every sector holds a live column."""
+                    eps, loss_scale, off=0, width=None, rows=True,
+                    gate=None) -> dict:
+    """adam_cols_from_sums against its plain version on clones of one
+    random state (the same float32 operations: equal to rounding), timed
+    beside it.  ``cols`` [n] sorted storage columns, sentinel-padded;
+    ``sub`` their fold sub-rows or None; the sums where the step leaves
+    them (:func:`step_sums` at ``off``, ``width``, ``rows``); ``gate`` a
+    tiny group's presence or None.  Bound: its inputs (:func:`sums_io`)
+    and each touched element's weight and moments, read and written.
+    ``whole_table_ms`` is a yardstick for dense batches: the time of
+    reading and writing the three arrays whole (``mul_(1.0)``), what the
+    sector bound comes to when every sector holds a live column."""
     dp, vc = shape
     n = cols.numel()
 
@@ -1390,14 +1426,16 @@ def check_adam_cols(tag, dev, gen, shape, fold, cols, sub, state_dtype, *,
 
     state = [rnd(0.01), rnd(1e-3).to(state_dtype),
              rnd(1e-6).abs().to(state_dtype)]
-    aug = slot_grads(dev, gen, dp, fold, cols, sub)
+    gate = None if gate is None else gate.reshape(-1)
+    ins = (cols, step_sums(dev, gen, dp, fold, cols, sub, off, width, rows),
+           sub, gate)
     lr_t = torch.tensor(1e-3, device=dev)
     hyper = dict(dim=1 if fold > 1 else dp, fold=fold, eps=eps,
                  loss_scale=loss_scale)
     a, b = [x.clone() for x in state], [x.clone() for x in state]
     del state
-    adam_cols(*a, cols, aug, lr_t, **hyper)
-    adam_cols_plain(*b, cols, aug, lr_t, **hyper)
+    adam_cols_from_sums(*a, *ins, lr_t, **hyper)
+    adam_cols_from_sums_plain(*b, *ins, lr_t, **hyper)
     err, rel = max_errs(zip(a, b))
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
@@ -1407,7 +1445,7 @@ def check_adam_cols(tag, dev, gen, shape, fold, cols, sub, state_dtype, *,
     distinct = torch.unique(live)
     touched = int(distinct.numel()) * dp if fold == 1 else n_live
     el_b = a[0].element_size() + 2 * a[1].element_size()
-    io = n * 4 + (dp + 8) * n_live * 4
+    io = sums_io(cols, vc, dp, fold, gate)
     t_b, by = bound(io + touched * el_b * 2, touched * 12)
     # whole 32-byte sectors of each array's touched columns, in and out
     sec_bytes = sum(
@@ -1416,14 +1454,17 @@ def check_adam_cols(tag, dev, gen, shape, fold, cols, sub, state_dtype, *,
         for x in a)
     out = dict(
         max_abs_err=err, max_rel_err=rel,
-        ms=graph_ms(lambda: adam_cols(*a, cols, aug, lr_t, **hyper)),
-        plain_ms=cuda_ms(lambda: adam_cols_plain(*b, cols, aug, lr_t, **hyper), 5),
+        ms=graph_ms(lambda: adam_cols_from_sums(*a, *ins, lr_t, **hyper)),
+        plain_ms=cuda_ms(
+            lambda: adam_cols_from_sums_plain(*b, *ins, lr_t, **hyper), 5),
         bound_ms=t_b, bound_by=by, library_ms=None,
         sector_bound_ms=bound(io + sec_bytes, 0)[0],
         whole_table_ms=graph_ms(lambda: [x.mul_(1.0) for x in b]),
         slots=n, live_slots=n_live, digest=state_digest,
     )
-    log(f"[kernel] adam_cols ({tag} [{dp}, {vc}] fold {fold}, n {n})",
+    log(f"[kernel] adam_cols ({tag} [{dp}, {vc}] fold {fold}, n {n}, sums "
+        f"{'rows' if rows else 'cols'} at lanes {off}.. of width "
+        f"{width or dp}{', gated' if gate is not None else ''})",
         json.dumps(out))
     return out
 
@@ -1549,9 +1590,29 @@ def check_segsum_cols_edges(dev, gen) -> None:
         f"zero tail")
 
 
+def step_sums(dev, gen, dp, fold, cols, sub, off=0, width=None, rows=True):
+    """Random summed gradients [dp, n] of one batch's slots where the
+    step's segment sum leaves them: the transposed view of a row-major
+    [n, width] buffer at lane ``off`` (``rows``: the row layout), or rows
+    ``off`` .. ``off + dp - 1`` of a contiguous [width, n] (the DeepFM
+    column path); folded tables re-masked to each slot's sublane, as the
+    step does."""
+    n, width = cols.numel(), width or dp
+    if rows:
+        buf = 10.0 * torch.randn((n, width), generator=gen, device=dev)
+        grads = buf.T[off:off + dp]
+    else:
+        buf = 10.0 * torch.randn((width, n), generator=gen, device=dev)
+        grads = buf[off:off + dp]
+    if fold > 1:
+        grads = grads * _fold_mask(dp, 1, sub, grads.dtype)
+    return grads
+
+
 def slot_grads(dev, gen, dp, fold, cols, sub):
     """Touch-augmented random gradients [dp + 8, n] of one batch's slots,
-    folded slots masked to their sublane as the step builds them."""
+    folded slots masked to their sublane as the step builds them (the
+    fused kernels' input)."""
     g = 10.0 * torch.randn((dp, cols.numel()), generator=gen, device=dev)
     if fold > 1:
         g = g * (torch.arange(dp, device=dev)[:, None] == sub[None, :])
@@ -1579,18 +1640,22 @@ def fused_case(dev, gen, kind, shape, fold, state_dtype):
 
 def fused_calls(kind, lr_t):
     """(fused kernel, its plain version, separate update kernel) with one
-    call signature: f(state, cols, aug[, next_cols], **hyper)."""
+    call signature: f(state, cols, aug[, next_cols], **hyper); the separate
+    update reads the augmented rows' gradient rows in place and takes the
+    fold sub-rows too: f(state, cols, aug, sub, **hyper)."""
     if kind == "adam":
         return (
             lambda st, c, a, nx, **h: fused_adam_gather(*st, c, a, lr_t, nx, **h),
             lambda st, c, a, nx, **h: fused_adam_gather_plain(*st, c, a, lr_t,
                                                               nx, **h),
-            lambda st, c, a, **h: adam_cols(*st, c, a, lr_t, **h),
+            lambda st, c, a, s, **h: adam_cols_from_sums(
+                *st, c, a[:-AUG], s, None, lr_t, **h),
         )
     return (
         lambda st, c, a, nx, **h: fused_ftrl_gather(*st, c, a, nx, **h),
         lambda st, c, a, nx, **h: fused_ftrl_gather_plain(*st, c, a, nx, **h),
-        lambda st, c, a, **h: ftrl_cols(*st, c, a, **h),
+        lambda st, c, a, s, **h: ftrl_cols_from_sums(*st, c, a[:-AUG], s,
+                                                     None, **h),
     )
 
 
@@ -1656,7 +1721,7 @@ def check_fused(tag, dev, gen, kind, shape, fold, ids_u, ids_g,
     c = [x.clone() for x in state]
 
     def separate():
-        update(c, cols_u, aug, **hyper)
+        update(c, cols_u, aug, sub_u, **hyper)
         gather_cols(c[0], cols_g)
 
     out = dict(
@@ -1665,7 +1730,8 @@ def check_fused(tag, dev, gen, kind, shape, fold, ids_u, ids_g,
         plain_ms=cuda_ms(lambda: plain(c, cols_u, aug, cols_g, **hyper), 3),
         bound_ms=t_b, bound_by=by, library_ms=None, sector_bound_ms=sec,
         separate_kernels_ms=graph_ms(separate),
-        update_kernel_ms=graph_ms(lambda: update(c, cols_u, aug, **hyper)),
+        update_kernel_ms=graph_ms(lambda: update(c, cols_u, aug, sub_u,
+                                                 **hyper)),
         gather_kernel_ms=graph_ms(lambda: gather_cols(c[0], cols_g)),
         live_update_slots=int(((cols_u >= 0) & (cols_u < vc)).sum()),
         live_next=int(((cols_g >= 0) & (cols_g < vc)).sum()),
@@ -1719,11 +1785,17 @@ def phase_col_kernels(dev, gen, fm_host, wd_host) -> dict:
     check_gather_cols("W&D deep bf16", dev, gen, wd_d,
                       padded_cols(wd_host[0]["uq_ids"], 1, dev)[0],
                       dtype=torch.bfloat16)
-    # kernel 6 as the DeepFM steps launch it: bf16 m/v, N slots, 91% pads
-    for tag, shape, fold in (("DeepFM fm, bf16 m/v", fm_v, 1),
-                             ("DeepFM linear, bf16 m/v", fm_w, 8)):
-        check_adam_cols(tag, dev, gen, shape, fold, *padded_cols(uq0, fold, dev),
-                        torch.bfloat16, eps=5e-8, loss_scale=1024.0)
+    # kernel 6 as the DeepFM row_layout=False step launches it: bf16 m/v,
+    # N slots, 91% pads, the sums rows of the column segment sum's
+    # contiguous [88, N] (the folded linear table's re-masked)
+    fm_width = fm_v[0] + fm_w[0]
+    for tag, shape, fold, off in (("DeepFM fm, bf16 m/v", fm_v, 1, 0),
+                                  ("DeepFM linear, bf16 m/v", fm_w, 8,
+                                   fm_v[0])):
+        check_adam_cols(tag, dev, gen, shape, fold,
+                        *padded_cols(uq0, fold, dev), torch.bfloat16,
+                        eps=5e-8, loss_scale=1024.0, off=off, width=fm_width,
+                        rows=False)
     # gather_rows as the DeepFM row_layout=True step launches it (the
     # feature-major fm and folded linear tables, bucket 131,072)
     fm_rows = {**fm_host[0], "uq_ids": fm_host[0]["uq_ids"][:FM_BUCKET]}
@@ -1783,7 +1855,7 @@ def phase_fused_pump(dev, gen, wd_host) -> dict:
         _fused, _plain, update = fused_calls(kind, lr_t)
         b = [x.clone() for x in state]
         for k in range(len(augs)):
-            update(b, cols[k][0], augs[k], **hyper)
+            update(b, cols[k][0], augs[k], cols[k][1], **hyper)
             if not torch.equal(rows[k], gather_cols(b[0], cols[k + 1][0])):
                 fail(f"fused {kind} pump: rows of batch {k + 1} differ from "
                      f"gather-after-update")
@@ -4202,7 +4274,9 @@ def tb_kernels(dev, model, batch0) -> dict:
     res["ftrl_cols"] = check_ftrl_launch(dev, gen, "ps-tb", wide, 0, plain=True)
     res["adam_cols"] = check_adam_cols(
         "ps-tb deep", dev, gen, deep["shape"], deep["fold"], deep["cols"],
-        deep["sub"], torch.float32, eps=1e-8, loss_scale=1024.0)
+        deep["sub"], torch.float32, eps=1e-8, loss_scale=1024.0,
+        off=deep["off"], width=deep["width"], rows=deep["rows"],
+        gate=deep["gate"])
     torch.cuda.empty_cache()
     res["segsum_sorted"] = check_sorted(
         dev, gen, ("ps-tb", torch.from_numpy(host["uidx_sorted"]).to(dev),
@@ -5074,7 +5148,8 @@ def shard_kernels(dev, gen, bucket, data) -> None:
                                       width=128, fold=1), per_10=10)
     res["adam_cols"] = check_adam_cols(
         "sharded-wd deep, model rank 1 of 2", dev, gen, (dp, vc // 2), 1,
-        cols, None, torch.bfloat16, eps=1e-8, loss_scale=1024.0)
+        cols, None, torch.bfloat16, eps=1e-8, loss_scale=1024.0, off=1,
+        width=128)
     n_l = ids.numel() // 2  # data rank 1's positions
     uidx, perm = sharded_stream.local_segments(ids[n_l:], uq)
     res["segsum_sorted"] = check_sorted(

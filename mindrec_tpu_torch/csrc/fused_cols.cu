@@ -18,11 +18,11 @@
 // runs them side by side: no thread of the launch waits for another.  A
 // block takes one of two roles (the first blocks alternate, so both start
 // at once):
-// * update blocks run the column updates' own layouts and schedules
-//   (update_cols.cuh, update_cols.cu): LazyAdam at every fold and FTRL at
-//   fold 1 a slot and kSub sublanes per thread, blocks striding over the
-//   slots as adam_cols' do; FTRL at fold > 1 a lane per slot over all
-//   sublanes with the touched elements compacted over the warp.  The head
+// * update blocks run the column updates' code (update_cols.cuh) on the
+//   touch-augmented rows: LazyAdam at every fold and FTRL at fold 1 a slot
+//   and kSub sublanes per thread (update_slot), blocks striding over the
+//   slots; FTRL at fold > 1 update_cols.cu's layout, a lane per slot over
+//   all sublanes with the touched elements compacted over the warp.  The head
 //   of a run of equal columns also finds its column among the sorted next
 //   ids, while its weight and state loads are in flight, and writes, for
 //   every next id j that names it, rows[p, j] for each of its sublanes:
@@ -60,8 +60,8 @@
 namespace {
 
 constexpr int kThreads = 256;  // threads of a block, of either role
-constexpr int kSub = 2;        // sublanes per update thread, as adam_cols
-constexpr int kMaxBlocksX = 1024;  // update blocks along the slots, as adam_cols
+constexpr int kSub = 2;        // sublanes per update thread
+constexpr int kMaxBlocksX = 1024;  // update blocks along the slots; they stride
 constexpr int kGRows = 8;      // sublanes per gather thread
 constexpr int kWindows = 4;    // windows of 32 a warp walks in warp_span
 constexpr int kMinBlocks = 5;  // resident blocks the registers must allow
@@ -248,7 +248,7 @@ __device__ __forceinline__ void gather_round(const TW* table, int64_t vc,
 }
 
 // LazyAdam at every fold (Opt = AdamCols) and FTRL at fold 1 (FtrlCols).
-// Update block k takes adam_cols' schedule: the slots from 256 (k % nux)
+// Update block k takes the slot schedule: the slots from 256 (k % nux)
 // in strides of 256 nux, the kSub sublanes from kSub (k / nux); a gather
 // block takes 256 next ids.
 template <typename Opt>
@@ -267,8 +267,8 @@ fused_cols_kernel(Opt opt, int64_t vc, int dp, const int* __restrict__ cols,
   const int p0 = k / nux * kSub;
   for (int64_t b = static_cast<int64_t>(k % nux) * kThreads;
        mr::live_round(cols, n, vc, b); b += static_cast<int64_t>(nux) * kThreads)
-    mr::update_slot<kSub>(opt, vc, dp, cols, g, n, fold,
-                          static_cast<int>(b) + threadIdx.x, p0, out);
+    mr::update_slot<kSub>(opt, vc, dp, cols, mr::AugRows{g, n, dp}, n,
+                          fold, static_cast<int>(b) + threadIdx.x, p0, out);
 }
 
 // FTRL at fold > 1: update block k takes the slots from 256 k in strides
@@ -291,7 +291,8 @@ fused_fold_kernel(TW* table, float* accum, float* linear, int64_t vc, int dp,
   const FoldRows<TW> out{table, vc, next, n_g, dp, rows, spans[w]};
   for (int64_t b = static_cast<int64_t>(k) * kThreads;
        mr::live_round(cols, n, vc, b); b += static_cast<int64_t>(nu) * kThreads)
-    mr::ftrl_fold_round(table, accum, linear, vc, dp, cols, g, n, h,
+    mr::ftrl_fold_round(table, accum, linear, vc, dp, cols,
+                        mr::AugRows{g, n, dp}, n, h,
                         static_cast<int>(b) + threadIdx.x, stage[w], out);
 }
 

@@ -2,62 +2,101 @@
 // fused update + gather (fused_cols.cu): the sums of a run of equal sorted
 // columns, one LazyAdam / FTRL-proximal step of one element, float32, in
 // the order of the plain PyTorch versions (built with --fmad=false), the
-// folded FTRL round that both run, and the fused kernel's slot layout
-// (a slot and R sublanes per thread, the twin of update_cols.cu's
-// adam_cols_kernel and ftrl_cols_kernel).  Stored values round to their
-// type.
+// folded FTRL round that both run, and the update of one slot's R
+// sublanes (update_slot: the column updates take 8 staged sublanes a
+// thread, the fused kernel 2).  Stored values round to their type.
 //
 // A layout takes a Rows policy: what a run head does with the column it
 // owns besides updating it.  NoRows (the column update) does nothing, and
 // the compiler drops every call; the fused kernel's policies write the
 // head's column, as stored, into the rows of the next ids that name it.
+//
+// It also takes an input accessor, where each slot's gradient and touch
+// values come from: AugRows (the touch-augmented rows of make_aug_grads,
+// which the fused kernel reads) or Sums (the summed gradient where the
+// segment sum left it, touch made from the fold sub-rows and a gate, which
+// the column updates read, in update_cols.cu staged in shared memory).
 #pragma once
 
 #include "common.cuh"
 
 namespace mr {
 
+// grads_aug [dp + 8, n]: slot u's gradient in rows 0..dp-1, its touch in
+// the 8 rows under them (fold 1: touch row 0 gates every sublane; fold 8:
+// touch row p gates sublane p).
+struct AugRows {
+  const float* g;
+  int n, dp;
+  __device__ __forceinline__ float grad(int p, int u) const {
+    return g[static_cast<int64_t>(p) * n + u];
+  }
+  __device__ __forceinline__ float touch(int p, int u) const {
+    return g[static_cast<int64_t>(dp + p) * n + u];
+  }
+};
+
+// The summed gradient [dp, n] in place, element (p, u) at
+// g[u * slot + p * lane] (any two strides: the transposed view of the
+// segment sum's row-major [n, width] rows, or a contiguous [dp, n]), and
+// the touch that make_aug_grads and the gate multiply would give it:
+// gate[u * gate_step] (one flag when gate_step is 0; 1 without a gate),
+// at fold > 1 only on sublane p == sub[u] (sub: the slot's fold sub-row;
+// null at fold 1).  Products and sums of 0 and 1 are exact, so the sums
+// of a run and every update are the augmented rows' bit for bit.
+struct Sums {
+  const float* g;
+  int64_t slot, lane;
+  const int* sub;
+  const float* gate;
+  int gate_step;
+  __device__ __forceinline__ float grad(int p, int u) const {
+    return __ldg(g + u * slot + p * lane);
+  }
+  __device__ __forceinline__ float touch(int p, int u) const {
+    const float t =
+        gate ? __ldg(gate + static_cast<int64_t>(u) * gate_step) : 1.f;
+    return sub == nullptr || __ldg(sub + u) == p ? t : 0.f;
+  }
+};
+
 // Sums of the run of equal columns that starts at slot u, for the R
-// sublanes from p0: each sublane's gradient row and the touch row that
-// gates it (fold 1: touch row 0 for all; fold 8: touch row p), added in
-// slot order.  g is [dp + 8, n].  The column, its two neighbours and the
-// slot's own R + 1 (fold 8: 2 R) values are loaded together, before any
-// test, so a thread waits for memory once here; the slots behind it in a
-// run are added after.  Returns false when u does not start a run or its
-// column is outside [0, vc); sublanes at or past dp get zeros.
-template <int R>
+// sublanes from p0: each sublane's gradient and the touch that gates it
+// (fold 1: touch 0 for all; fold 8: touch p), added in slot order, read
+// through the accessor in.  The column, its two neighbours and the slot's
+// own R + 1 (fold 8: 2 R) values are loaded together, before any test, so
+// a thread waits for memory once here; the slots behind it in a run are
+// added after.  Returns false when u does not start a run or its column
+// is outside [0, vc); sublanes at or past dp get zeros.
+template <int R, typename In>
 __device__ __forceinline__ bool run_sums(const int* __restrict__ cols,
-                                         const float* __restrict__ g, int n,
-                                         int64_t vc, int dp, int fold, int u,
-                                         int p0, int* col, float (&G)[R],
+                                         const In& in, int n, int64_t vc,
+                                         int dp, int fold, int u, int p0,
+                                         int* col, float (&G)[R],
                                          float (&touch)[R]) {
   const int c = cols[u];
   const bool after = u > 0 && cols[u - 1] == c;
   const bool before = u + 1 < n && cols[u + 1] == c;
-  const float* t0 = g + static_cast<int64_t>(dp) * n;
-  float t = fold == 1 ? t0[u] : 0.f;
+  float t = fold == 1 ? in.touch(0, u) : 0.f;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int p = p0 + r;
-    G[r] = p < dp ? g[static_cast<int64_t>(p) * n + u] : 0.f;
-    touch[r] = (fold != 1 && p < dp) ? t0[static_cast<int64_t>(p) * n + u] : 0.f;
+    G[r] = p < dp ? in.grad(p, u) : 0.f;
+    touch[r] = (fold != 1 && p < dp) ? in.touch(p, u) : 0.f;
   }
   if (c < 0 || c >= vc || after) return false;
   if (before) {  // a run: add the slots behind u, in slot order
     int len = 2;
     while (u + len < n && cols[u + len] == c) ++len;
     if (fold == 1)
-      for (int k = 1; k < len; ++k) t += t0[u + k];
+      for (int k = 1; k < len; ++k) t += in.touch(0, u + k);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int p = p0 + r;
       if (p >= dp) continue;
-      const float* gp = g + static_cast<int64_t>(p) * n;
-      for (int k = 1; k < len; ++k) G[r] += gp[u + k];
-      if (fold != 1) {
-        const float* tr = t0 + static_cast<int64_t>(p) * n;
-        for (int k = 1; k < len; ++k) touch[r] += tr[u + k];
-      }
+      for (int k = 1; k < len; ++k) G[r] += in.grad(p, u + k);
+      if (fold != 1)
+        for (int k = 1; k < len; ++k) touch[r] += in.touch(p, u + k);
     }
   }
   if (fold == 1) {
@@ -190,23 +229,21 @@ struct NoRows {
   __device__ __forceinline__ void element(int, int, float) const {}
 };
 
-// Slot u (none when u >= n) for the R sublanes from p0 (the layout of the
-// column updates, see update_cols.cu): the run test and sums, then every
+// Slot u (none when u >= n) for the R sublanes from p0: the run test and sums, then every
 // load of weight and state before any arithmetic, the update of the
 // touched sublanes, and rows.write() of each sublane's weight as stored
 // (as loaded where the touch gate kept it) where rows.find() places the
 // head's column (it runs while the loads are in flight).  With a Rows
 // policy that writes, every lane of the warp calls it together.
-template <int R, typename Opt, typename Rows>
+template <int R, typename Opt, typename Rows, typename In>
 __device__ __forceinline__ void update_slot(const Opt& opt, int64_t vc, int dp,
                                             const int* __restrict__ cols,
-                                            const float* __restrict__ g, int n,
-                                            int fold, int u, int p0,
-                                            const Rows& rows) {
+                                            const In& in, int n, int fold,
+                                            int u, int p0, const Rows& rows) {
   int c = 0;
   float sum[R], touch[R], wq[R];
   const bool head =
-      u < n && run_sums<R>(cols, g, n, vc, dp, fold, u, p0, &c, sum, touch);
+      u < n && run_sums<R>(cols, in, n, vc, dp, fold, u, p0, &c, sum, touch);
   typename Opt::Elt e[R];
   if (head) {
 #pragma unroll
@@ -238,11 +275,11 @@ constexpr int kFoldRow = 5;  // float4 staged per lane (4 + padding)
 // writes the untouched sublanes' rows (rows.untouched()) and stages what it
 // found (rows.stage()); the lane that updates a touched element writes its
 // rows (rows.element()).
-template <typename TW, typename Rows>
+template <typename TW, typename Rows, typename In>
 __device__ __forceinline__ void ftrl_fold_round(
     TW* table, float* accum, float* linear, int64_t vc, int dp,
-    const int* __restrict__ cols, const float* __restrict__ g, int n,
-    const FtrlHyper& h, int u, float4* stage, const Rows& rows) {
+    const int* __restrict__ cols, const In& in, int n, const FtrlHyper& h,
+    int u, float4* stage, const Rows& rows) {
   constexpr unsigned kAll = 0xffffffffu;
   // per warp: its lanes' gradient and touch values, then (once the runs
   // are summed) its touched elements: column, sum and sublane (with the
@@ -253,27 +290,26 @@ __device__ __forceinline__ void ftrl_fold_round(
   float* e_sum = reinterpret_cast<float*>(e_col + 32 * kFoldMax);
   unsigned char* e_sub =
       reinterpret_cast<unsigned char*>(e_sum + 32 * kFoldMax);
-  const float* t0 = g + static_cast<int64_t>(dp) * n;  // touch rows
-  const bool in = u < n;
+  const bool live = u < n;
   // the slot's column, the columns beside the warp's edges, and its dp
   // gradient and dp touch values: one wait for memory
-  const int c = in ? cols[u] : -1;
+  const int c = live ? cols[u] : -1;
   int edge = -1;
-  if (lane == 0 && in && u > 0) edge = cols[u - 1];
+  if (lane == 0 && live && u > 0) edge = cols[u - 1];
   if (lane == 31 && u + 1 < n) edge = cols[u + 1];
   float G[kFoldMax], touch[kFoldMax];
 #pragma unroll
   for (int p = 0; p < kFoldMax; ++p) {
-    const bool ld = in && p < dp;
-    G[p] = ld ? g[static_cast<int64_t>(p) * n + u] : 0.f;
-    touch[p] = ld ? t0[static_cast<int64_t>(p) * n + u] : 0.f;
+    const bool ld = live && p < dp;
+    G[p] = ld ? in.grad(p, u) : 0.f;
+    touch[p] = ld ? in.touch(p, u) : 0.f;
   }
   int prev = __shfl_up_sync(kAll, c, 1);
   if (lane == 0) prev = edge;
   const int next = __shfl_sync(kAll, edge, 31);  // column after the warp
   // runs start at slot 0, where the column changes, and past n
-  const unsigned starts = __ballot_sync(kAll, !in || u == 0 || prev != c);
-  const bool head = ((starts >> lane) & 1u) && in && c >= 0 && c < vc;
+  const unsigned starts = __ballot_sync(kAll, !live || u == 0 || prev != c);
+  const bool head = ((starts >> lane) & 1u) && live && c >= 0 && c < vc;
   typename Rows::At at{};
   if (Rows::kOn) at = rows.find(c, head);
   const unsigned later = starts & ~((2u << lane) - 1u);
@@ -300,8 +336,8 @@ __device__ __forceinline__ void ftrl_fold_round(
 #pragma unroll
         for (int p = 0; p < kFoldMax; ++p) {
           if (p >= dp) break;
-          G[p] += g[static_cast<int64_t>(p) * n + k];
-          touch[p] += t0[static_cast<int64_t>(p) * n + k];
+          G[p] += in.grad(p, k);
+          touch[p] += in.touch(p, k);
         }
       }
     }

@@ -14,6 +14,10 @@ LAUNCHES = {
     "segsum_unsorted": 0, "adam_cols": 0, "ftrl_cols": 0, "gather_rows": 0,
     "segsum_cols": 0, "gather_cols": 0, "fused_adam_gather": 0,
     "fused_ftrl_gather": 0,
+    # launches of adam_cols / ftrl_cols (counted there too) that read the
+    # summed gradients in place (update_cols.adam_cols_from_sums /
+    # ftrl_cols_from_sums)
+    "cols_in_place": 0,
 }
 
 

@@ -4,8 +4,8 @@ of the next batch's columns from the updated table, in one kernel.
 Counterpart of ``mindrec_tpu/ops/pallas/stream_fused.py``
 (``fused_adam_gather`` / ``fused_ftrl_gather``; the kernels are in
 ``csrc/fused_cols.cu``, see its header for the design and bound).  The
-update is that of ``update_cols.adam_cols`` / ``ftrl_cols`` (sorted
-storage columns, touch-augmented gradients, duplicate columns summed,
+update is that of ``update_cols.adam_cols_plain`` / ``ftrl_cols_plain``
+(sorted storage columns, touch-augmented gradients, duplicate columns summed,
 the touch rows gate, ``1 / loss_scale``) and the gather that of
 ``gather.gather_cols``: ``rows[:, j] = table'[:, next_cols_sorted[j]]``
 read from the **updated** table, zeros for columns outside the table.

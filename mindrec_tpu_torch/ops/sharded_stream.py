@@ -26,13 +26,15 @@ past ``Vc_local``; the kernels skip both.
   binary search; the segments it skips read zero), then one sum over
   ``data``;
 * update: each model rank updates its block for its owned columns only
-  (``adam_cols`` / ``ftrl_cols``); unowned columns and their state are
-  untouched, as lazy updates require.
+  (``adam_cols_from_sums`` / ``ftrl_cols_from_sums`` on the summed
+  gradients where the segment sum left them); unowned columns and their
+  state are untouched, as lazy updates require.
 
 Column slice keeps ``[Dp/M, Vc]`` per model rank: every rank streams all
 unique ids over its sublanes, into the lane window ``off + m * Dp/M``
 of the buffer (a run-time argument of ``gather_rows``), and updates its
-sublanes from its rows of the gradient, with no collective.
+sublanes from its rows of the summed gradient (a view), with no
+collective.
 
 Every collective carries unique rows or gradients, never a table.  The
 bucket must hold every distinct id of the global batch (the host prep's
@@ -51,7 +53,8 @@ from mindrec_tpu_torch.ops.kernels.segsum import (
     segsum_sorted, segsum_sorted_plain, segsum_unsorted, segsum_unsorted_plain,
 )
 from mindrec_tpu_torch.ops.kernels.update_cols import (
-    AUG, adam_cols, adam_cols_plain, ftrl_cols, ftrl_cols_plain,
+    adam_cols_from_sums, adam_cols_from_sums_plain, ftrl_cols_from_sums,
+    ftrl_cols_from_sums_plain,
 )
 from mindrec_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, all_reduce
 
@@ -117,36 +120,36 @@ def gather_cols_sharded(mesh, tables, uq_cols_list, lane_offsets,
     return _reduce_lanes(buf, lo, hi, axis, mesh)
 
 
-def _colsliced_aug(mesh, grads_aug, axis):
-    """This rank's sublane rows of a ``[Dp + 8, U]`` touch-augmented
-    gradient, over the shared touch rows."""
-    dp = grads_aug.shape[0] - AUG
+def _colsliced_rows(mesh, grads, axis):
+    """This rank's sublane rows of the summed gradients ``[Dp, U]`` (a
+    view)."""
     nm, m = mesh.shape[axis], mesh.axis_index(axis)
-    dpl = dp // nm
-    return torch.cat([grads_aug[m * dpl:(m + 1) * dpl], grads_aug[dp:]]).contiguous()
+    dpl = grads.shape[0] // nm
+    return grads[m * dpl:(m + 1) * dpl]
 
 
-def adam_colsliced_sharded(mesh, table, m, v, uq_cols, grads_aug, lr_t, *,
+def adam_colsliced_sharded(mesh, table, m, v, uq_cols, grads, gate, lr_t, *,
                            b1=0.9, b2=0.999, eps=1e-8, loss_scale=1.0,
                            use_kernels=True, axis=MODEL_AXIS):
     """Column-sliced LazyAdam, in place: this rank's sublane rows of the
-    gradient over its ``[Dp/M, Vc]`` block and state, every unique
-    column, no collective (fold 1 only)."""
-    fn = adam_cols if use_kernels else adam_cols_plain
-    ga = _colsliced_aug(mesh, grads_aug, axis)
-    return fn(table, m, v, uq_cols, ga, lr_t, dim=table.shape[0], fold=1,
-              b1=b1, b2=b2, eps=eps, loss_scale=loss_scale)
+    summed gradients ``[Dp, U]`` (any strides; ``gate`` as in
+    ``adam_cols_from_sums``) over its ``[Dp/M, Vc]`` block and state,
+    every unique column, no collective (fold 1 only)."""
+    fn = adam_cols_from_sums if use_kernels else adam_cols_from_sums_plain
+    return fn(table, m, v, uq_cols, _colsliced_rows(mesh, grads, axis), None,
+              gate, lr_t, dim=table.shape[0], fold=1, b1=b1, b2=b2, eps=eps,
+              loss_scale=loss_scale)
 
 
-def ftrl_colsliced_sharded(mesh, table, accum, linear, uq_cols, grads_aug, *,
-                           learning_rate=5e-2, l1=1e-8, l2=1e-8,
+def ftrl_colsliced_sharded(mesh, table, accum, linear, uq_cols, grads, gate,
+                           *, learning_rate=5e-2, l1=1e-8, l2=1e-8,
                            loss_scale=1.0, use_kernels=True, axis=MODEL_AXIS):
     """Column-sliced FTRL twin of :func:`adam_colsliced_sharded`."""
-    fn = ftrl_cols if use_kernels else ftrl_cols_plain
-    ga = _colsliced_aug(mesh, grads_aug, axis)
-    return fn(table, accum, linear, uq_cols, ga, dim=table.shape[0], fold=1,
-              learning_rate=learning_rate, l1=l1, l2=l2,
-              loss_scale=loss_scale)
+    fn = ftrl_cols_from_sums if use_kernels else ftrl_cols_from_sums_plain
+    return fn(table, accum, linear, uq_cols,
+              _colsliced_rows(mesh, grads, axis), None, gate,
+              dim=table.shape[0], fold=1, learning_rate=learning_rate, l1=l1,
+              l2=l2, loss_scale=loss_scale)
 
 
 def local_segments(ids_flat: torch.Tensor, uq: torch.Tensor):
@@ -188,23 +191,25 @@ def unsorted_segsum_sharded(mesh, g_delta, ids_flat, ub: int, *,
     return all_reduce(part.contiguous(), data_axis, mesh)
 
 
-def adam_cols_sharded(mesh, table, m, v, uq_cols, grads_aug, lr_t, *, dim,
-                      fold=1, b1=0.9, b2=0.999, eps=1e-8, loss_scale=1.0,
+def adam_cols_sharded(mesh, table, m, v, uq_cols, grads, sub, gate, lr_t, *,
+                      dim, fold=1, b1=0.9, b2=0.999, eps=1e-8, loss_scale=1.0,
                       use_kernels=True, axis=MODEL_AXIS):
     """Row-sliced LazyAdam, in place: this rank's owned columns of its
-    ``[Dp, Vc/M]`` block and state."""
-    fn = adam_cols if use_kernels else adam_cols_plain
+    ``[Dp, Vc/M]`` block and state, from the summed gradients ``[Dp, U]``
+    of every unique column (``sub`` and ``gate`` as in
+    ``adam_cols_from_sums``; the clipped columns skip the unowned)."""
+    fn = adam_cols_from_sums if use_kernels else adam_cols_from_sums_plain
     cols = owned_cols(uq_cols, table.shape[1], mesh.axis_index(axis))
-    return fn(table, m, v, cols, grads_aug, lr_t, dim=dim, fold=fold, b1=b1,
-              b2=b2, eps=eps, loss_scale=loss_scale)
+    return fn(table, m, v, cols, grads, sub, gate, lr_t, dim=dim, fold=fold,
+              b1=b1, b2=b2, eps=eps, loss_scale=loss_scale)
 
 
-def ftrl_cols_sharded(mesh, table, accum, linear, uq_cols, grads_aug, *, dim,
-                      fold=1, learning_rate=5e-2, l1=1e-8, l2=1e-8,
+def ftrl_cols_sharded(mesh, table, accum, linear, uq_cols, grads, sub, gate,
+                      *, dim, fold=1, learning_rate=5e-2, l1=1e-8, l2=1e-8,
                       loss_scale=1.0, use_kernels=True, axis=MODEL_AXIS):
     """Row-sliced FTRL twin of :func:`adam_cols_sharded`."""
-    fn = ftrl_cols if use_kernels else ftrl_cols_plain
+    fn = ftrl_cols_from_sums if use_kernels else ftrl_cols_from_sums_plain
     cols = owned_cols(uq_cols, table.shape[1], mesh.axis_index(axis))
-    return fn(table, accum, linear, cols, grads_aug, dim=dim, fold=fold,
-              learning_rate=learning_rate, l1=l1, l2=l2,
+    return fn(table, accum, linear, cols, grads, sub, gate, dim=dim,
+              fold=fold, learning_rate=learning_rate, l1=l1, l2=l2,
               loss_scale=loss_scale)

@@ -43,8 +43,14 @@ per id group, in order:
    (kernel), whose presence counts gate the lazy updates;
 5. the tables update only the touched rows: row_packed tables with
    ``adam_rows`` / ``ftrl_rows``, feature-major tables with
-   ``adam_cols`` / ``ftrl_cols`` from touch-augmented gradients
-   (kernels); the dense parameters take their optimizer's dense update.
+   ``adam_cols`` / ``ftrl_cols`` (kernels), which read each table's sums
+   in place, as the transposed view of the segment sum's row-major
+   ``[ub, width]`` rows at the table's lanes (folded tables: their
+   re-masked copy), and make the touch from the fold sub-rows and the
+   gate (a tiny group's presence, the overflow guard's flag) themselves
+   (``adam_cols_from_sums`` / ``ftrl_cols_from_sums``; tables sliced over
+   a mesh run them per shard on the same sums); the dense parameters take
+   their optimizer's dense update.
 
 ``row_layout=False`` is the feature-major formulation for a single id
 group of feature-major tables; nothing in it is row-major until the
@@ -64,7 +70,9 @@ expansion:
    unique slot by ``segsum_cols`` (kernel), which takes their transposed
    view ``[sum_d, N]`` and reads the row-major memory itself;
 5. split per table, fold-masked and padded back to ``Dp`` sublanes, they
-   update the tables with ``adam_cols`` / ``ftrl_cols`` (kernels).
+   update the tables with ``adam_cols`` / ``ftrl_cols`` (kernels), which
+   read each table's ``[Dp, N]`` rows of the sums in place and make the
+   touch themselves, as in the row layout.
 
 ``use_pallas=False`` is the reference's generic path, framework ops
 over any id groups and every layout (``mindrec_tpu/train/step.py``
@@ -157,8 +165,8 @@ from mindrec_tpu_torch.ops.kernels.segsum import (
     segsum_unsorted, segsum_unsorted_plain,
 )
 from mindrec_tpu_torch.ops.kernels.update_cols import (
-    AUG, adam_cols, adam_cols_plain, expand_touch, ftrl_cols, ftrl_cols_plain,
-    make_aug_grads,
+    adam_cols_from_sums, adam_cols_from_sums_plain, expand_touch,
+    ftrl_cols_from_sums, ftrl_cols_from_sums_plain, make_aug_grads,
 )
 from mindrec_tpu_torch.ops.kernels.update_rows import (
     adam_rows, adam_rows_plain, ftrl_rows, ftrl_rows_plain,
@@ -311,25 +319,30 @@ def _packed_table_update(opt: Optimizer, g_cols, rows_sorted, sub_sorted,
 # ---------------------------------------------------------------------------
 
 
-def _streamed_table_update(opt: Optimizer, grads_aug, cols, leaf_state, table,
-                           spec, use_kernels=True, mesh=None):
+def _streamed_table_update(opt: Optimizer, grads, cols, sub, gate, leaf_state,
+                           table, spec, use_kernels=True, mesh=None):
     """Column-sparse optimizer update of a feature-major ``[Dp, Vc]``
     table, in place.
 
-    ``grads_aug``: [Dp+8, U] touch-augmented summed gradients
-    (``make_aug_grads``); ``cols``: [U] int32 sorted storage columns.
-    With ``mesh`` the table is this rank's block of a sliced table and
-    the update runs per shard (``ops/sharded_stream.py``).
-    Returns (table, new leaf state)."""
+    ``grads``: [Dp, U] summed gradients, any strides (read where the
+    segment sum left them); ``cols``: [U] int32 sorted storage columns;
+    ``sub``: their fold sub-rows (None at fold 1); ``gate``: None, or a
+    float32 [U] or one-element gate of every touch (a tiny group's
+    presence, the overflow guard's flag, or their product).  The update
+    kernels read the sums in place and make the touch themselves
+    (``adam_cols_from_sums`` / ``ftrl_cols_from_sums``).  With ``mesh``
+    the table is this rank's block of a sliced table and the update runs
+    per shard (``ops/sharded_stream.py``), on the same sums.  Returns
+    (table, new leaf state)."""
     h = opt.hyper
     if mesh is not None:
-        return _sharded_table_update(opt, grads_aug, cols, leaf_state, table,
-                                     spec, use_kernels, mesh)
-    dp, vc = table.shape
+        return _sharded_table_update(opt, grads, cols, sub, gate, leaf_state,
+                                     table, spec, use_kernels, mesh)
+    vc = table.shape[1]
     kw = dict(dim=spec.emb_dim, fold=spec.fold, loss_scale=h["loss_scale"])
     if opt.kind == "sgd":
         # no touch mask (as the reference): absent columns get no gradient
-        delta = (-h["learning_rate"] / h["loss_scale"]) * grads_aug[:dp].float()
+        delta = (-h["learning_rate"] / h["loss_scale"]) * grads.float()
         ok = (cols >= 0) & (cols < vc)
         table.index_add_(1, cols[ok].long(), delta[:, ok].to(table.dtype))
         return table, leaf_state
@@ -337,30 +350,32 @@ def _streamed_table_update(opt: Optimizer, grads_aug, cols, leaf_state, table,
         step = leaf_state["step"] + 1
         lr_t = adam_lr_t(step, learning_rate=h["learning_rate"], b1=h["b1"],
                          b2=h["b2"])
-        fn = adam_cols if use_kernels else adam_cols_plain
-        fn(table, leaf_state["m"], leaf_state["v"], cols, grads_aug, lr_t,
-           b1=h["b1"], b2=h["b2"], eps=h["eps"], **kw)
+        fn = adam_cols_from_sums if use_kernels else adam_cols_from_sums_plain
+        fn(table, leaf_state["m"], leaf_state["v"], cols, grads, sub, gate,
+           lr_t, b1=h["b1"], b2=h["b2"], eps=h["eps"], **kw)
         return table, {"m": leaf_state["m"], "v": leaf_state["v"],
                        "step": step}
     if opt.kind == "ftrl":
         if h["lr_power"] != -0.5:
             raise NotImplementedError(_LR_POWER_MSG)
-        fn = ftrl_cols if use_kernels else ftrl_cols_plain
-        fn(table, leaf_state["accum"], leaf_state["linear"], cols, grads_aug,
-           learning_rate=h["learning_rate"], l1=h["l1"], l2=h["l2"], **kw)
+        fn = ftrl_cols_from_sums if use_kernels else ftrl_cols_from_sums_plain
+        fn(table, leaf_state["accum"], leaf_state["linear"], cols, grads, sub,
+           gate, learning_rate=h["learning_rate"], l1=h["l1"], l2=h["l2"],
+           **kw)
         return table, leaf_state
     raise ValueError(f"feature-major update supports ftrl/adam/sgd "
                      f"(kind={opt.kind})")
 
 
-def _sharded_table_update(opt: Optimizer, grads_aug, cols, leaf_state, table,
-                          spec, use_kernels, mesh):
+def _sharded_table_update(opt: Optimizer, grads, cols, sub, gate, leaf_state,
+                          table, spec, use_kernels, mesh):
     """:func:`_streamed_table_update` of this rank's block of a row- or
     column-sliced table: its owned columns (row slice) or its sublanes
-    of every column (column slice)."""
+    of every column (column slice, fold 1: no ``sub``)."""
     h = opt.hyper
     col = spec.slice_mode == "table_column_slice"
     kw = dict(loss_scale=h["loss_scale"], use_kernels=use_kernels)
+    ins = (grads, gate) if col else (grads, sub, gate)
     if not col:
         kw.update(dim=spec.emb_dim, fold=spec.fold)
     if opt.kind == "adam":
@@ -368,17 +383,16 @@ def _sharded_table_update(opt: Optimizer, grads_aug, cols, leaf_state, table,
         lr_t = adam_lr_t(step, learning_rate=h["learning_rate"], b1=h["b1"],
                          b2=h["b2"])
         fn = ss.adam_colsliced_sharded if col else ss.adam_cols_sharded
-        fn(mesh, table, leaf_state["m"], leaf_state["v"], cols, grads_aug,
-           lr_t, b1=h["b1"], b2=h["b2"], eps=h["eps"], **kw)
+        fn(mesh, table, leaf_state["m"], leaf_state["v"], cols, *ins, lr_t,
+           b1=h["b1"], b2=h["b2"], eps=h["eps"], **kw)
         return table, {"m": leaf_state["m"], "v": leaf_state["v"],
                        "step": step}
     if opt.kind == "ftrl":
         if h["lr_power"] != -0.5:
             raise NotImplementedError(_LR_POWER_MSG)
         fn = ss.ftrl_colsliced_sharded if col else ss.ftrl_cols_sharded
-        fn(mesh, table, leaf_state["accum"], leaf_state["linear"], cols,
-           grads_aug, learning_rate=h["learning_rate"], l1=h["l1"],
-           l2=h["l2"], **kw)
+        fn(mesh, table, leaf_state["accum"], leaf_state["linear"], cols, *ins,
+           learning_rate=h["learning_rate"], l1=h["l1"], l2=h["l2"], **kw)
         return table, leaf_state
     raise ValueError(f"sharded streamed update supports ftrl/adam "
                      f"(kind={opt.kind})")
@@ -1002,13 +1016,12 @@ def make_train_step(
                             use_kernels=use_kernels,
                         )
                     else:
-                        g_aug = make_aug_grads(col_grads[name], subs[name])
-                        if gate is not None:  # absent ids of a tiny group
-                            g_aug = torch.cat([g_aug[:-AUG],
-                                               g_aug[-AUG:] * gate])
+                        # the sums where the segment sum left them; the
+                        # gate keeps absent ids of a tiny group untouched
                         _t, st = _streamed_table_update(
-                            opt, g_aug.contiguous(), cols[name], states[key],
-                            table, spec, use_kernels=use_kernels,
+                            opt, col_grads[name], cols[name], subs[name],
+                            None if gate is None else gate.reshape(-1),
+                            states[key], table, spec, use_kernels=use_kernels,
                             mesh=mesh if name in split else None,
                         )
                     states[key] = _keep_unless(finite, st, states[key])

@@ -32,7 +32,7 @@ from mindrec_tpu_torch.ops.kernels.fused import (
 from mindrec_tpu_torch.ops.kernels.gather import gather_cols
 from mindrec_tpu_torch.ops.kernels.segsum import segsum_cols
 from mindrec_tpu_torch.ops.kernels.update_cols import (
-    adam_cols, ftrl_cols, make_aug_grads,
+    adam_cols_plain, ftrl_cols_plain, make_aug_grads,
 )
 from mindrec_tpu_torch.train import optim
 from mindrec_tpu_torch.train.step import make_batch_sort, make_train_step
@@ -224,7 +224,8 @@ def test_fused_adam_gather_matches_pallas(case):
     assert np.all(rows[:, live_g:] == 0.0)
     # and the whole is the separate update followed by the gather
     t2, m2, v2 = _t(table), _t(m), _t(v)
-    adam_cols(t2, m2, v2, _t(cols_u), _t(aug), torch.tensor(1e-2), **hyper)
+    adam_cols_plain(t2, m2, v2, _t(cols_u), _t(aug), torch.tensor(1e-2),
+                    **hyper)
     for x, y in ((t_t, t2), (m_t, m2), (v_t, v2),
                  (out[3], gather_cols(t2, _t(cols_g)))):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
@@ -263,7 +264,7 @@ def test_fused_ftrl_gather_matches_pallas(case):
                                   t_t.numpy()[:, cols_g[:live_g]])
     assert np.all(rows[:, live_g:] == 0.0)
     t2, a2, l2 = _t(table), _t(accum), _t(linear)
-    ftrl_cols(t2, a2, l2, _t(cols_u), _t(aug), **hyper)
+    ftrl_cols_plain(t2, a2, l2, _t(cols_u), _t(aug), **hyper)
     for x, y in ((t_t, t2), (a_t, a2), (l_t, l2),
                  (out[3], gather_cols(t2, _t(cols_g)))):
         np.testing.assert_array_equal(x.numpy(), y.numpy())

@@ -31,7 +31,9 @@ from mindrec_tpu_torch.ops.kernels.segsum import (
     segsum_unsorted, segsum_unsorted_plain,
 )
 from mindrec_tpu_torch.ops.kernels.update_cols import (
-    adam_cols, adam_cols_plain, ftrl_cols, ftrl_cols_plain, make_aug_grads,
+    adam_cols_from_sums, adam_cols_from_sums_plain, adam_cols_plain,
+    aug_from_sums, ftrl_cols_from_sums, ftrl_cols_from_sums_plain,
+    ftrl_cols_plain, make_aug_grads,
 )
 from mindrec_tpu_torch.ops.kernels.update_rows import (
     adam_rows, adam_rows_plain, ftrl_rows, ftrl_rows_plain,
@@ -167,14 +169,18 @@ def test_feature_major_kernels_match_plain_on_card(cuda_device):
         aug = make_aug_grads(_t(gr), _t(sub) if fold > 1 else None)
         aug[dp:, 3::7] = 0.0  # zeroed touch rows: no update
         aug, c = aug.contiguous().to(dev), _t(cols).to(dev)
+        # the in-place entries' inputs that stand for aug
+        gate = torch.ones(cols.size, device=dev)
+        gate[3::7] = 0.0
+        sums = (_t(gr).to(dev), _t(sub).to(dev) if fold > 1 else None, gate)
         base = [_t(rng.normal(size=(dp, vc)).astype(np.float32) * sc).to(dev)
                 for sc in (1e-2, 1e-3, 1e-3)]
         base[2] = base[2].abs()
         for sd in (torch.float32, torch.bfloat16):
             a = [base[0].clone(), base[1].to(sd), base[2].to(sd)]
             b = [x.clone() for x in a]
-            adam_cols(*a, c, aug, lr, dim=dim, fold=fold, eps=1e-6,
-                      loss_scale=1000.0)
+            adam_cols_from_sums(*a, c, *sums, lr, dim=dim, fold=fold,
+                                eps=1e-6, loss_scale=1000.0)
             adam_cols_plain(*b, c, aug, lr, dim=dim, fold=fold, eps=1e-6,
                             loss_scale=1000.0)
             for x, y in zip(a, b):
@@ -182,7 +188,7 @@ def test_feature_major_kernels_match_plain_on_card(cuda_device):
         a = [base[0].clone(), base[2] + 0.1, base[1].clone()]
         b = [x.clone() for x in a]
         kw = dict(dim=dim, fold=fold, l1=5e-4, l2=5e-4, loss_scale=1000.0)
-        ftrl_cols(*a, c, aug, **kw)
+        ftrl_cols_from_sums(*a, c, *sums, **kw)
         ftrl_cols_plain(*b, c, aug, **kw)
         for x, y in zip(a, b):
             torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
@@ -409,12 +415,19 @@ ADAM_COLS_CASES = ["long-run", "run-across-255-256", "all-sentinel",
                    "sentinels-from-mid-block", "n-below-32"]
 
 
+def sums_of(c, dev=None):
+    """A case's ``sums`` as the in-place entries take them: (grads, sub,
+    gate) tensors, on ``dev`` if given."""
+    return tuple(None if x is None else _t(x).to(dev) for x in c["sums"])
+
+
 def adam_cols_case(kind, fold):
     """Numpy inputs of one column update on a [dp, 1024] table: sorted
     sentinel-padded ``cols``, touch-augmented ``aug`` [dp + 8, n] of
     bf16-exact values (every fifth slot a zero gradient, every seventh
-    slot's touch rows zeroed),
-    ``table``, ``m``, ``v`` float32, and ``dim``."""
+    slot's touch rows zeroed), the in-place entries' ``sums`` that stand
+    for it (the gradients [dp, n], the fold sub-rows or None, the gate
+    [n]), ``table``, ``m``, ``v`` float32, and ``dim``."""
     rng = np.random.default_rng(len(kind) * 10 + fold)
     dim, dp = (1, 8) if fold > 1 else (16, 16)
     space = ADAM_COLS_VC * fold
@@ -452,9 +465,11 @@ def adam_cols_case(kind, fold):
     g[:, ::5] = 0.0
     aug = make_aug_grads(_t(g), _t(sub) if fold > 1 else None).numpy().copy()
     aug[dp:, 3::7] = 0.0
+    gate = np.ones(n, np.float32)
+    gate[3::7] = 0.0
     shape = (dp, ADAM_COLS_VC)
     return dict(
-        cols=cols, aug=aug, dim=dim,
+        cols=cols, aug=aug, dim=dim, sums=(g, sub if fold > 1 else None, gate),
         table=(rng.normal(size=shape) * 0.01).astype(np.float32),
         m=(rng.normal(size=shape) * 1e-3).astype(np.float32),
         v=np.abs(rng.normal(size=shape) * 1e-6).astype(np.float32),
@@ -528,9 +543,10 @@ def test_adam_cols_edge_cases_on_card(cuda_device, kind, fold, state_dtype):
          _t(c["v"]).to(sd).to(dev)]
     b = [x.clone() for x in a]
     cols, aug = _t(c["cols"]).to(dev), _t(c["aug"]).to(dev)
+    sums = sums_of(c, dev)
     lr = torch.tensor(1e-3, device=dev)
     kw = dict(dim=c["dim"], fold=fold, eps=1e-6, loss_scale=1000.0)
-    adam_cols(*a, cols, aug, lr, **kw)
+    adam_cols_from_sums(*a, cols, *sums, lr, **kw)
     adam_cols_plain(*b, cols, aug, lr, **kw)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
@@ -539,7 +555,7 @@ def test_adam_cols_edge_cases_on_card(cuda_device, kind, fold, state_dtype):
              _t(c["m"]).to(dev)]
         b = [x.clone() for x in a]
         kw = dict(dim=c["dim"], fold=fold, l1=5e-4, l2=5e-4, loss_scale=1000.0)
-        ftrl_cols(*a, cols, aug, **kw)
+        ftrl_cols_from_sums(*a, cols, *sums, **kw)
         ftrl_cols_plain(*b, cols, aug, **kw)
         for x, y in zip(a, b):
             torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
@@ -662,8 +678,8 @@ def ftrl_cols_case(kind, fold, dp, n):
     ``aug`` [dp + 8, N] (gradients multiples of 1/8 below 32 in magnitude,
     so every float32 sum of them is exact in any order; at fold > 1
     masked to the slot's sublane except for ``non-owner``; every seventh
-    slot's touch rows zeroed), ``table``, ``accum``, ``linear`` float32
-    and ``dim``."""
+    slot's touch rows zeroed), its ``sums`` (as ``adam_cols_case``'s),
+    ``table``, ``accum``, ``linear`` float32 and ``dim``."""
     rng = np.random.default_rng(len(kind) * 100 + fold * 10 + dp)
     if kind == "all-sentinel":
         cols = np.full(n, SENT // fold)
@@ -694,11 +710,15 @@ def ftrl_cols_case(kind, fold, dp, n):
     g[:, ::5] = 0.0
     aug = make_aug_grads(_t(g), _t(sub) if fold > 1 else None).numpy().copy()
     aug[dp:, 3::7] = 0.0
+    gate = np.ones(n, np.float32)
+    gate[3::7] = 0.0
     if kind == "gate":
         aug[dp:, (cols % 3) == 1] = 0.0
+        gate[(cols % 3) == 1] = 0.0
     shape = (dp, FTRL_COLS_VC)
     return dict(
         cols=cols.astype(np.int32), aug=aug, dim=1 if fold > 1 else dp,
+        sums=(g, sub.astype(np.int32) if fold > 1 else None, gate),
         table=(rng.normal(size=shape) * 0.01).astype(np.float32),
         accum=(0.1 + rng.uniform(size=shape)).astype(np.float32),
         linear=(rng.normal(size=shape) * 0.1).astype(np.float32),
@@ -737,7 +757,7 @@ def test_ftrl_cols_edge_cases_on_card(cuda_device, case, dtype):
     before = [x.clone() for x in a]
     cols, aug = _t(c["cols"]).to(dev), _t(c["aug"]).to(dev)
     kw = dict(dim=c["dim"], fold=fold, l1=5e-4, l2=5e-4, loss_scale=1000.0)
-    ftrl_cols(*a, cols, aug, **kw)
+    ftrl_cols_from_sums(*a, cols, *sums_of(c, dev), **kw)
     ftrl_cols_plain(*b, cols, aug, **kw)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
@@ -1896,7 +1916,7 @@ def _shard_uq(rng, vc_global, n_uq, n_sent):
 def test_per_shard_kernels_match_plain_on_card(cuda_device, dtype):
     """Each model rank's inputs: the global sorted unique columns clipped
     to -1 below its block and past ``Vc_local`` above it (gather_rows,
-    adam_cols, ftrl_cols), gather_rows at a lane offset chosen at run
+    adam_cols_from_sums, ftrl_cols_from_sums), gather_rows at a lane offset chosen at run
     time (the column slice's ``off + m * Dp/M``), and segsum_sorted of a
     data rank's own sorted ids at their places in the global unique
     order (``local_segments``: steps with gaps, the skipped rows zero)."""
@@ -1920,13 +1940,13 @@ def test_per_shard_kernels_match_plain_on_card(cuda_device, dtype):
         assert torch.equal(bufs[0], bufs[1])
         # the owned columns are distinct: each sum is one gradient
         g = rng.normal(size=(dp, uq.numel())) * 5.0
-        aug = make_aug_grads(_t(g.astype(np.float32)).to(cuda_device),
-                             None).contiguous()
+        gs = _t(g.astype(np.float32)).to(cuda_device)
+        aug = make_aug_grads(gs, None).contiguous()
         lr = torch.tensor(1e-3, device=cuda_device)
         st = [table.clone(), (table.float() * 0.1).to(dt),
               (table.float().abs() * 0.01).to(dt)]
         a, b = [x.clone() for x in st], [x.clone() for x in st]
-        adam_cols(*a, cols, aug, lr, dim=dp, fold=1)
+        adam_cols_from_sums(*a, cols, gs, None, None, lr, dim=dp, fold=1)
         adam_cols_plain(*b, cols, aug, lr, dim=dp, fold=1)
         for x, y in zip(a, b):
             torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
@@ -1937,7 +1957,7 @@ def test_per_shard_kernels_match_plain_on_card(cuda_device, dtype):
             a = [table.float() * scale, accum.to(cuda_device),
                  table.float() * (10.0 * scale)]
             b = [x.clone() for x in a]
-            ftrl_cols(*a, cols, aug, dim=dp, fold=1)
+            ftrl_cols_from_sums(*a, cols, gs, None, None, dim=dp, fold=1)
             ftrl_cols_plain(*b, cols, aug, dim=dp, fold=1)
             for x, y in zip(a, b):
                 torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
@@ -2139,3 +2159,217 @@ def test_failed_mesh_capture_fails_the_spawn(cuda_device):
         launch.run_job(f"{__file__}:mesh_capture_fails_job",
                        {"device": "cuda", "data": 2, "model": 1}, 2,
                        timeout=240)
+
+
+# ---------------------------------------------------------------------------
+# the column updates read the summed gradients in place
+# ---------------------------------------------------------------------------
+
+# (name, optimizer, fold, Dp, Vc, slots, live slots (distinct ids) or None
+# for a tiny group's whole id space, sums layout, width, lane offset, gate,
+# state dtype): the multitable recipe's lossless launches (rows: the
+# transposed view of the segment sum's [slots, width] rows; cols: a tiny
+# group's contiguous [width, slots] sums), two with the overflow flag, the
+# DeepFM [88, 624000] column path and its row_layout=True lanes of the
+# [131072, 128] rows (bf16 m/v)
+SUMS_CASES = [
+    ("emb128", "adam", 1, 128, 655360, 393216, 295000, "rows", 256, 0, None,
+     "float32"),
+    ("w128", "ftrl", 8, 8, 81920, 393216, 295000, "rows", 256, 128, None, None),
+    ("emb64_multi", "adam", 1, 64, 24576, 131072 * 39, 20900, "rows", 128, 0,
+     None, "float32"),
+    ("w64_multi", "ftrl", 8, 8, 3072, 131072 * 39, 20900, "rows", 128, 64,
+     None, None),
+    ("emb64_indicator", "adam", 1, 64, 8192, 2048, None, "cols", 128, 0,
+     "presence", "float32"),
+    ("w_indicator", "ftrl", 8, 8, 1024, 2048, None, "cols", 128, 64,
+     "presence", None),
+    ("emb64_single-flag0", "adam", 1, 64, 24576, 786432, 17300, "rows", 128, 0,
+     "flag0", "float32"),
+    ("w64_single-flag1", "ftrl", 8, 8, 3072, 786432, 17300, "rows", 128, 64,
+     "flag1", None),
+    ("deepfm_fm", "adam", 1, 80, 188416, 624000, 56000, "cols", 88, 0, None,
+     "bfloat16"),
+    ("deepfm_linear", "adam", 8, 8, 23552, 624000, 56000, "cols", 88, 80,
+     None, "bfloat16"),
+    ("deepfm_rows_fm", "adam", 1, 80, 188416, 131072, 56000, "rows", 128, 8,
+     None, "bfloat16"),
+    ("deepfm_rows_linear", "adam", 8, 8, 23552, 131072, 56000, "rows", 128,
+     0, None, "bfloat16"),
+]
+
+
+def sums_launch(dev, gen, case):
+    """One launch's inputs as the step makes them: (cols, sub, grads,
+    gate, state [table and its two arrays])."""
+    from mindrec_tpu_torch.train.step import _fold_mask
+
+    (_name, opt, fold, dp, vc, n, live, layout, width, off, gate,
+     state_dtype) = case
+    if live is None:  # a tiny group: the whole id space, gated
+        uq = torch.arange(n, dtype=torch.int32, device=dev)
+    else:
+        ids = torch.randperm(vc * fold, generator=gen, device=dev)[:live]
+        uq = torch.full((n,), SENT, dtype=torch.int32, device=dev)
+        uq[:live] = ids.sort().values.int()
+    cols = torch.div(uq, fold, rounding_mode="floor").contiguous()
+    sub = torch.remainder(uq, fold).contiguous() if fold > 1 else None
+    if layout == "rows":
+        buf = 10.0 * torch.randn((n, width), generator=gen, device=dev)
+        grads = buf.T[off: off + dp]
+    else:
+        buf = 10.0 * torch.randn((width, n), generator=gen, device=dev)
+        grads = buf[off: off + dp]
+    if fold > 1:  # the step's re-mask of a folded table's lanes
+        grads = grads * _fold_mask(dp, 1, sub, grads.dtype)
+    g = {None: None, "flag0": torch.zeros(1, device=dev),
+         "flag1": torch.ones(1, device=dev),
+         "presence": (torch.rand(n, generator=gen, device=dev) > 0.3).float()
+         }[gate]
+    shape = (dp, vc)
+    w = 0.01 * torch.randn(shape, generator=gen, device=dev)
+    if opt == "adam":
+        sd = getattr(torch, state_dtype)
+        st = [w, (1e-3 * torch.randn(shape, generator=gen, device=dev)).to(sd),
+              (1e-6 * torch.randn(shape, generator=gen, device=dev)).abs().to(sd)]
+    else:
+        st = [w, 0.1 + torch.rand(shape, generator=gen, device=dev),
+              0.1 * torch.randn(shape, generator=gen, device=dev)]
+    return cols, sub, grads, g, st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SUMS_CASES, ids=[c[0] for c in SUMS_CASES])
+def test_cols_from_sums_matches_plain_on_card(cuda_device, case):
+    """Each in-place launch, on clones of one state: against its plain
+    version (the touch-augmented rows of ``aug_from_sums`` through
+    ``adam_cols_plain`` / ``ftrl_cols_plain``: the same float32 operations
+    in the same order, so equal to rounding, rtol 1e-6) in the table and
+    both state arrays, and bit for bit the same kernel fed the same sums
+    contiguous (the other staging of the tile); each launch counts one
+    ``cols_in_place``."""
+    gen = torch.Generator(device=cuda_device).manual_seed(len(case[0]))
+    cols, sub, grads, gate, st = sums_launch(cuda_device, gen, case)
+    opt, fold, dp = case[1], case[2], case[3]
+    a, b, c = ([x.clone() for x in st] for _ in range(3))
+    kw = dict(dim=1 if fold > 1 else dp, fold=fold, loss_scale=1000.0)
+    kernels.reset_launches()
+    if opt == "adam":
+        lr_t = torch.tensor(1e-3, device=cuda_device)
+        adam_cols_from_sums(*a, cols, grads, sub, gate, lr_t, eps=1e-6, **kw)
+        adam_cols_from_sums(*c, cols, grads.contiguous(), sub, gate, lr_t,
+                            eps=1e-6, **kw)
+        adam_cols_from_sums_plain(*b, cols, grads, sub, gate, lr_t, eps=1e-6,
+                                  **kw)
+    else:
+        hyper = dict(learning_rate=5e-2, l1=5e-4, l2=5e-4, **kw)
+        ftrl_cols_from_sums(*a, cols, grads, sub, gate, **hyper)
+        ftrl_cols_from_sums(*c, cols, grads.contiguous(), sub, gate, **hyper)
+        ftrl_cols_from_sums_plain(*b, cols, grads, sub, gate, **hyper)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[f"{opt}_cols"] == 2
+    assert kernels.LAUNCHES["cols_in_place"] == 2
+    for x, y, z in zip(a, b, c):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+        assert torch.equal(x, z)
+    moved = any(not torch.equal(x, y) for x, y in zip(a, st))
+    assert moved == (case[10] != "flag0")
+
+
+def _cats(path) -> int:
+    return sum("CatArrayBatchedCopy" in n for n in _dot_kernels(path))
+
+
+@pytest.mark.cuda
+def test_multitable_step_reads_sums_in_place_on_card(cuda_device, tmp_path,
+                                                     monkeypatch):
+    """The small multitable step captured and run 3 times equals the plain
+    step within the kernel-vs-plain tolerances; each replay launches its 8
+    column updates (4 adam_cols, 4 ftrl_cols) reading the sums in place;
+    no ``make_aug_grads`` runs and its copies are gone from the graph (the
+    step with the augmented route put back has at least 8 more)."""
+    from mindrec_tpu_torch.train import step as step_mod
+    from mindrec_tpu_torch.train.step import (
+        init_train_state, make_train_step, real_launches,
+    )
+    from mindrec_tpu_torch.utils.profiling import dump_ir
+
+    model, opts, batches = _small_recipe("multitable", cuda_device)
+    batches = batches[:3]
+    built = []
+
+    def counted(*a, **k):
+        built.append(1)
+        return make_aug_grads(*a, **k)
+
+    monkeypatch.setattr(step_mod, "make_aug_grads", counted)
+    monkeypatch.setattr(
+        "mindrec_tpu_torch.ops.kernels.update_cols.make_aug_grads", counted)
+    sa = init_train_state(model, 4, *opts, device=cuda_device)
+    sb = init_train_state(model, 4, *opts, device=cuda_device)
+    cap = make_train_step(model, *opts, jit=True)
+    plain = make_train_step(model, *opts, use_kernels=False)
+    for i, b in enumerate(batches):
+        if i == 1:
+            kernels.reset_launches()
+            cap.reset_counts()
+        sa, _ = cap(sa, b)
+        sb, _ = plain(sb, b)
+    torch.cuda.synchronize()
+    launches = real_launches(cap)
+    assert cap.replays == 2
+    assert launches["cols_in_place"] == 16
+    assert launches["adam_cols"] == launches["ftrl_cols"] == 8
+    for x, y in zip(_state_tensors(sa), _state_tensors(sb)):
+        rtol = 2.0**-7 if x.dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(x.float(), y.float(), rtol=rtol, atol=1e-6)
+    n_plain = len(built)  # the plain step builds its augmented rows
+    st = init_train_state(model, 4, *opts, device=cuda_device)
+    eager = make_train_step(model, *opts)
+    eager(st, batches[0])
+    now = dump_ir(eager, st, batches[1], path=str(tmp_path), name="sums")
+    assert len(built) == n_plain
+    names = " ".join(_dot_kernels(now["cuda_graph"]))
+    assert "adam_cols_kernel" in names and "ftrl_fold_kernel" in names
+
+    def augmented(kernel):
+        # the copies of the augmented route put back: the touch-augmented
+        # rows built contiguous, their gradient rows fed to the kernel
+        def run(*a, **k):
+            args = list(a)
+            grads, sub, gate = args[4:7]
+            args[4] = aug_from_sums(grads, sub, gate).contiguous()[:-8]
+            return kernel(*args, **k)
+        return run
+
+    monkeypatch.setattr(step_mod, "adam_cols_from_sums",
+                        augmented(adam_cols_from_sums))
+    monkeypatch.setattr(step_mod, "ftrl_cols_from_sums",
+                        augmented(ftrl_cols_from_sums))
+    eager = make_train_step(model, *opts)
+    before = dump_ir(eager, st, batches[1], path=str(tmp_path), name="aug")
+    assert len(built) - n_plain >= 8  # once per table and traced call
+    assert _cats(before["cuda_graph"]) >= _cats(now["cuda_graph"]) + 8
+
+
+@pytest.mark.cuda
+def test_wd_step_reads_no_sums_in_place_on_card(cuda_device):
+    """The W&D step's tables are row_packed: its replays launch the row
+    updates and no column update, in place or augmented."""
+    from mindrec_tpu_torch.train.step import (
+        init_train_state, make_train_step, real_launches,
+    )
+
+    model, opts, batches = _small_recipe("wd", cuda_device)
+    st = init_train_state(model, 4, *opts, device=cuda_device)
+    cap = make_train_step(model, *opts, jit=True)
+    for i, b in enumerate(batches[:3]):
+        if i == 1:
+            kernels.reset_launches()
+            cap.reset_counts()
+        st, _ = cap(st, b)
+    torch.cuda.synchronize()
+    launches = real_launches(cap)
+    assert cap.replays == 2
+    assert launches["adam_rows"] == launches["ftrl_rows"] == 2
+    assert launches["cols_in_place"] == launches["adam_cols"] == 0

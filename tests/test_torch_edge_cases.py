@@ -1,6 +1,6 @@
-"""Edge cases of ``segsum_unsorted``, ``segsum_cols``, ``adam_cols``,
-``gather_rows``, ``ftrl_cols`` and the fused update + gather on the CPU: the
-port's plain versions (which the wrappers take for CPU tensors) against
+"""Edge cases of ``segsum_unsorted``, ``segsum_cols``,
+``adam_cols_from_sums``, ``gather_rows``, ``ftrl_cols_from_sums`` and the
+fused update + gather on the CPU: the port's plain versions (which the wrappers take for CPU tensors) against
 the JAX package's Pallas kernels in interpret mode, on the same numpy
 inputs.  The case lists are shared with ``tests/test_torch_cuda.py``,
 which runs them on a card, CUDA kernel against plain version.
@@ -19,13 +19,16 @@ from mindrec_tpu.ops.pallas.stream_segsum import (
 )
 from mindrec_tpu_torch.ops.kernels.gather import gather_rows
 from mindrec_tpu_torch.ops.kernels.segsum import segsum_cols, segsum_unsorted
-from mindrec_tpu_torch.ops.kernels.update_cols import adam_cols, ftrl_cols
+from mindrec_tpu_torch.ops.kernels.update_cols import (
+    adam_cols_from_sums, ftrl_cols_from_sums,
+)
 from test_torch_cuda import (
     ADAM_COLS_CASES, FTRL_COLS_CASES, FTRL_COLS_IDS, FUSED_EDGE_CASES,
     FUSED_EDGE_IDS, GATHER_ROWS_CASES, GATHER_ROWS_IDS, SEGSUM_COLS_CASES,
     SEGSUM_COLS_IDS, SEGSUM_IDS, SEGSUM_UNSORTED_CASES, adam_cols_case,
     ftrl_cols_case, fused_call, fused_edge_case, fused_edge_state,
     gather_rows_case, segsum_cols_case, segsum_float64, segsum_unsorted_case,
+    sums_of,
 )
 
 
@@ -108,9 +111,9 @@ def test_adam_cols_edge_cases_match_pallas(kind, fold, state_dtype):
         **hyper)
     state = [_t(c["table"]), _t(c["m"]).to(sd_t), _t(c["v"]).to(sd_t)]
     before = [x.clone() for x in state]
-    out = adam_cols(*state, _t(c["cols"]), _t(c["aug"]),
-                    torch.tensor(lr_t, dtype=torch.float32), dim=c["dim"],
-                    fold=fold, **hyper)
+    out = adam_cols_from_sums(*state, _t(c["cols"]), *sums_of(c),
+                              torch.tensor(lr_t, dtype=torch.float32),
+                              dim=c["dim"], fold=fold, **hyper)
     for got, want in zip(out, ref):
         rtol = 2.0**-7 if got.dtype == torch.bfloat16 else 2e-5
         np.testing.assert_allclose(got.float().numpy(),
@@ -170,7 +173,7 @@ def test_ftrl_cols_edge_cases_match_pallas(case, table_dtype):
         matmul_dtype=jnp.float32, interpret=True, **hyper)
     state = [_t(c["table"]).to(tt), _t(c["accum"]), _t(c["linear"])]
     before = [x.clone() for x in state]
-    out = ftrl_cols(*state, _t(c["cols"]), _t(c["aug"]), **hyper)
+    out = ftrl_cols_from_sums(*state, _t(c["cols"]), *sums_of(c), **hyper)
     for got, want in zip(out, ref):
         rtol = 2.0**-7 if got.dtype == torch.bfloat16 else 2e-5
         np.testing.assert_allclose(got.float().numpy(),

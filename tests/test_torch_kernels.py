@@ -28,7 +28,8 @@ from mindrec_tpu_torch.ops.kernels.segsum import (
     segsum_cols, segsum_sorted, segsum_sorted_plain, segsum_unsorted,
 )
 from mindrec_tpu_torch.ops.kernels.update_cols import (
-    adam_cols, ftrl_cols, make_aug_grads,
+    adam_cols_from_sums, adam_cols_plain, ftrl_cols_from_sums,
+    ftrl_cols_plain, make_aug_grads,
 )
 from mindrec_tpu_torch.ops.kernels.update_rows import adam_rows, ftrl_rows
 
@@ -235,7 +236,8 @@ def test_wrappers_take_plain_only_on_cpu():
     assert kernels.LAUNCHES == dict.fromkeys(
         ("segsum_sorted", "adam_rows", "ftrl_rows", "segsum_unsorted",
          "adam_cols", "ftrl_cols", "gather_rows", "segsum_cols",
-         "gather_cols", "fused_adam_gather", "fused_ftrl_gather"), 0)
+         "gather_cols", "fused_adam_gather", "fused_ftrl_gather",
+         "cols_in_place"), 0)
     with pytest.raises(ValueError, match="segsum_sorted"):
         segsum_sorted(g.to("meta"), uidx.to("meta"), 4)
     t = torch.zeros((8, 128), device="meta")
@@ -364,7 +366,9 @@ def _aug(rng, dp, dim, fold, sub, scale=10.0):
     """[Dp+8, U] touch-augmented gradients as the step builds them: folded
     slots masked to their sublane; every fifth slot a zero gradient;
     every seventh slot's touch rows zeroed (an absent tiny-group id) with
-    a gradient that must not apply."""
+    a gradient that must not apply.  Also the in-place entries' inputs
+    that stand for them: (aug, the sums [Dp, U], sub or None, the gate
+    [U])."""
     n = sub.size
     g = (rng.normal(size=(dp, n)) * scale).astype(np.float32)
     if fold > 1:
@@ -372,7 +376,9 @@ def _aug(rng, dp, dim, fold, sub, scale=10.0):
     g[:, ::5] = 0.0
     aug = make_aug_grads(_t(g), _t(sub) if fold > 1 else None).numpy().copy()
     aug[dp:, 3::7] = 0.0
-    return aug
+    gate = np.ones(n, np.float32)
+    gate[3::7] = 0.0
+    return aug, (_t(g), _t(sub) if fold > 1 else None, _t(gate))
 
 
 @pytest.mark.parametrize("fold,dim,dp,state_dtype", [
@@ -384,7 +390,7 @@ def test_adam_cols_matches_pallas(fold, dim, dp, state_dtype):
     rng = np.random.default_rng(fold * 100 + dim)
     cols, sub = _col_slots(rng, fold, n_uq=600, n_sent=44,
                            dups=20 if fold == 1 else 0)
-    aug = _aug(rng, dp, dim, fold, sub)
+    aug, sums = _aug(rng, dp, dim, fold, sub)
     table = (rng.normal(size=(dp, VC)) * 0.01).astype(np.float32)
     m = (rng.normal(size=(dp, VC)) * 1e-3).astype(np.float32)
     v = np.abs(rng.normal(size=(dp, VC)) * 1e-6).astype(np.float32)
@@ -399,9 +405,9 @@ def test_adam_cols_matches_pallas(fold, dim, dp, state_dtype):
     )
     sd_t = getattr(torch, state_dtype)
     t_t, m_t, v_t = _t(table), _t(m).to(sd_t), _t(v).to(sd_t)
-    out = adam_cols(t_t, m_t, v_t, _t(cols), _t(aug),
-                    torch.tensor(lr_t, dtype=torch.float32), dim=dim,
-                    fold=fold, **hyper)
+    out = adam_cols_from_sums(t_t, m_t, v_t, _t(cols), *sums,
+                              torch.tensor(lr_t, dtype=torch.float32),
+                              dim=dim, fold=fold, **hyper)
     assert out[0] is t_t and out[2] is v_t  # in place
     # tolerances as the rows test: the reference's one-hot f32 dot; a
     # bf16 moment may round to its neighbour
@@ -416,7 +422,7 @@ def test_adam_cols_matches_pallas(fold, dim, dp, state_dtype):
 def test_ftrl_cols_matches_pallas(fold, dim, dp):
     rng = np.random.default_rng(fold + 7)
     cols, sub = _col_slots(rng, fold, n_uq=700, n_sent=68)
-    aug = _aug(rng, dp, dim, fold, sub)
+    aug, sums = _aug(rng, dp, dim, fold, sub)
     table = (rng.normal(size=(dp, VC)) * 0.01).astype(np.float32)
     accum = (0.1 + np.abs(rng.normal(size=(dp, VC)))).astype(np.float32)
     linear = (rng.normal(size=(dp, VC)) * 0.1).astype(np.float32)
@@ -426,8 +432,8 @@ def test_ftrl_cols_matches_pallas(fold, dim, dp):
         jnp.asarray(cols), jnp.asarray(aug), dim=dim, fold=fold, tile=256,
         chunk=256, matmul_dtype=jnp.float32, interpret=True, **hyper,
     )
-    out = ftrl_cols(_t(table), _t(accum), _t(linear), _t(cols), _t(aug),
-                    dim=dim, fold=fold, **hyper)
+    out = ftrl_cols_from_sums(_t(table), _t(accum), _t(linear), _t(cols),
+                              *sums, dim=dim, fold=fold, **hyper)
     for got, want in zip(out, ref):
         # as the rows test: G from the reference's one-hot f32 dot, carried
         # through the cancellation in (sign*l1 - lin')
@@ -445,7 +451,7 @@ def test_col_updates_touch_rules(kind, fold):
     rng = np.random.default_rng(31 + fold)
     dim, dp = (1, 8) if fold > 1 else (16, 16)
     cols, sub = _col_slots(rng, fold, n_uq=300, n_sent=12)
-    aug = _aug(rng, dp, dim, fold, sub)
+    aug, sums = _aug(rng, dp, dim, fold, sub)
     table = _t(rng.normal(size=(dp, VC)).astype(np.float32) * 1e-2)
     # |s1| bounded away from 0, so a zero-gradient Adam step still moves
     # every touched weight by more than its rounding
@@ -454,10 +460,11 @@ def test_col_updates_touch_rules(kind, fold):
     s2 = _t(1.0 + np.abs(rng.normal(size=(dp, VC))).astype(np.float32))
     before = [x.clone() for x in (table, s1, s2)]
     if kind == "adam":  # m = s1, v = s2
-        adam_cols(table, s1, s2, _t(cols), _t(aug), torch.tensor(1e-3),
-                  dim=dim, fold=fold)
+        adam_cols_from_sums(table, s1, s2, _t(cols), *sums,
+                            torch.tensor(1e-3), dim=dim, fold=fold)
     else:  # accum = s2 (> 0), linear = s1
-        ftrl_cols(table, s2, s1, _t(cols), _t(aug), dim=dim, fold=fold)
+        ftrl_cols_from_sums(table, s2, s1, _t(cols), *sums, dim=dim,
+                            fold=fold)
     expect = np.zeros((dp, VC), bool)
     for u, c in enumerate(cols):
         if c >= VC:
@@ -473,6 +480,84 @@ def test_col_updates_touch_rules(kind, fold):
     live = cols < VC
     assert ((aug[:dp, live] == 0).all(axis=0) & (aug[dp:, live] > 0).any(axis=0)).any()
     assert ((aug[dp:, live] == 0).all(axis=0) & (aug[:dp, live] != 0).any(axis=0)).any()
+
+
+def sums_case(fold, layout, slots, seed):
+    """(cols, sub, grads) of a column update read in place: the summed
+    gradients [Dp, U] contiguous, or (``rows``) the transposed view of a
+    row-major [U, width] buffer at a lane offset, as the segment sum
+    leaves them; folded slots masked to their sublane; ``runs``: repeated
+    columns and no sentinel, ``tail``: distinct columns and a sentinel
+    tail."""
+    rng = np.random.default_rng(seed)
+    dp = 16 if fold == 1 else 8
+    runs = slots == "runs"
+    cols, sub = _col_slots(rng, fold, n_uq=500, n_sent=0 if runs else 60,
+                           dups=40 if runs else 0)
+    n = cols.size
+    g = (rng.normal(size=(n, dp)) * 10.0).astype(np.float32)
+    if fold > 1:
+        g *= np.arange(dp)[None, :] == sub[:, None]
+    g[::5] = 0.0  # touched with a zero gradient
+    if layout == "rows":
+        buf = np.zeros((n, 40), np.float32)
+        buf[:, 3:3 + dp] = g
+        grads = _t(buf).T[3:3 + dp]
+        assert grads.stride() == (1, 40)
+    else:
+        grads = _t(g.T.copy())
+    return (_t(cols), _t(sub) if fold > 1 else None, grads)
+
+
+@pytest.mark.parametrize("slots", ["runs", "tail"])
+@pytest.mark.parametrize("layout", ["contiguous", "rows"])
+@pytest.mark.parametrize("gate", ["none", "presence", "flag0", "flag1"])
+@pytest.mark.parametrize("fold", [1, 8])
+@pytest.mark.parametrize("opt", ["adam", "ftrl"])
+def test_cols_from_sums_equals_augmented(opt, fold, gate, layout, slots):
+    """The in-place entries' plain route (what the CPU runs) is the
+    augmented route bit for bit: the plain update of the gradients over 8
+    touch rows written out here in numpy (fold 1: row 0 the gate, 1
+    without one; fold 8: row p the gate where p is the slot's sub-row),
+    in table and state."""
+    seed = ["adam", "ftrl"].index(opt) * 100 + fold * 10 + len(gate)
+    cols, sub, grads = sums_case(fold, layout, slots, seed)
+    rng = np.random.default_rng(seed + 1)
+    n, dp = cols.numel(), grads.shape[0]
+    g_t = {"none": None, "flag0": torch.zeros(1), "flag1": torch.ones(1),
+           "presence": _t((rng.uniform(size=n) > 0.3).astype(np.float32))}[gate]
+    base = [(rng.normal(size=(dp, VC)) * 0.01).astype(np.float32),
+            (rng.normal(size=(dp, VC)) * 1e-3).astype(np.float32),
+            np.abs(rng.normal(size=(dp, VC)) * 1e-3).astype(np.float32)]
+    if opt == "ftrl":
+        base[1] = 0.1 + np.abs(base[1])  # accumulators stay positive
+    kw = dict(dim=1 if fold > 1 else dp, fold=fold, loss_scale=1000.0)
+    lr_t = torch.tensor(1e-3)
+    gate_np = np.ones(n, np.float32) if g_t is None else np.broadcast_to(
+        g_t.numpy(), (n,))
+    touch = np.zeros((8, n), np.float32)
+    if fold == 1:
+        touch[0] = gate_np
+    else:
+        touch[sub.numpy(), np.arange(n)] = gate_np
+    aug = _t(np.concatenate([grads.numpy(), touch]))
+    want = [_t(x) for x in base]
+    got = [_t(x) for x in base]
+    kernels.reset_launches()
+    if opt == "adam":
+        adam_cols_plain(*want, cols, aug, lr_t, eps=1e-6, **kw)
+        out = adam_cols_from_sums(*got, cols, grads, sub, g_t, lr_t, eps=1e-6,
+                                  **kw)
+    else:
+        ftrl_cols_plain(*want, cols, aug, l1=5e-4, l2=5e-4, **kw)
+        out = ftrl_cols_from_sums(*got, cols, grads, sub, g_t, l1=5e-4,
+                                  l2=5e-4, **kw)
+    assert all(a is b for a, b in zip(out, got))  # in place
+    assert not any(kernels.LAUNCHES.values())  # the CPU launches nothing
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    moved = any(not np.array_equal(a.numpy(), b) for a, b in zip(got, base))
+    assert moved == (gate != "flag0")
 
 
 def test_make_aug_grads_matches_reference():
@@ -494,10 +579,11 @@ def test_new_wrappers_take_plain_only_on_cpu():
     cols = torch.tensor([0, 0, 3, SENT // 8], dtype=torch.int32)
     gather_rows(t, cols, torch.zeros((4, 128)), 8)
     segsum_unsorted(torch.ones((4, 2)), cols, 16)
-    aug = torch.ones((16, 4))
-    adam_cols(t, t.clone(), t.clone(), cols, aug, torch.tensor(1e-3), dim=1,
-              fold=8)
-    ftrl_cols(t, t + 1.0, t.clone(), cols, aug, dim=1, fold=8)
+    g, sub = torch.ones((8, 4)), torch.tensor([0, 1, 0, 5], dtype=torch.int32)
+    adam_cols_from_sums(t, t.clone(), t.clone(), cols, g, sub, None,
+                        torch.tensor(1e-3), dim=1, fold=8)
+    ftrl_cols_from_sums(t, t + 1.0, t.clone(), cols, g, sub, None, dim=1,
+                        fold=8)
     assert sum(kernels.LAUNCHES.values()) == 0
     m = torch.zeros((8, 64), device="meta")
     mc = cols.to("meta")
@@ -505,11 +591,12 @@ def test_new_wrappers_take_plain_only_on_cpu():
         gather_rows(m, mc, torch.zeros((4, 128), device="meta"), 8)
     with pytest.raises(ValueError, match="segsum_unsorted"):
         segsum_unsorted(torch.ones((4, 2), device="meta"), mc, 16)
+    gm, sm = g.to("meta"), sub.to("meta")
     with pytest.raises(ValueError, match="adam_cols"):
-        adam_cols(m, m, m, mc, aug.to("meta"), torch.zeros((), device="meta"),
-                  dim=1, fold=8)
+        adam_cols_from_sums(m, m, m, mc, gm, sm, None,
+                            torch.zeros((), device="meta"), dim=1, fold=8)
     with pytest.raises(ValueError, match="ftrl_cols"):
-        ftrl_cols(m, m, m, mc, aug.to("meta"), dim=1, fold=8)
+        ftrl_cols_from_sums(m, m, m, mc, gm, sm, None, dim=1, fold=8)
 
 
 @pytest.mark.parametrize("emb_dim", [1, 12, 64, 128])

@@ -3,7 +3,7 @@
 
     python3 tools/ftrl_division_check.py
 
-Runs ``ftrl_cols`` and ``ftrl_cols_plain`` on the inputs of
+Runs ``ftrl_cols_from_sums`` and ``ftrl_cols_plain`` on the inputs of
 ``tests/test_torch_cuda.py::test_per_shard_kernels_match_plain_on_card``
 at the table's scale (weights ~N(0, 1), accumulators in [0.1, 1.1),
 distinct columns, gradients ~N(0, 25)), and a plain version that divides
@@ -74,13 +74,13 @@ def main() -> int:
         table = torch.from_numpy(
             rng.normal(size=(dp, vl)).astype(np.float32)).to(dev)
         g = rng.normal(size=(dp, uq.numel())) * 5.0
-        aug = uc.make_aug_grads(
-            torch.from_numpy(g.astype(np.float32)).to(dev), None).contiguous()
+        gs = torch.from_numpy(g.astype(np.float32)).to(dev)
+        aug = uc.make_aug_grads(gs, None).contiguous()
         accum = torch.from_numpy(
             0.1 + rng.uniform(size=(dp, vl)).astype(np.float32)).to(dev)
         base = [table.clone(), accum, table * 10.0]
         k = [x.clone() for x in base]
-        uc.ftrl_cols(*k, cols, aug, dim=dp, fold=1)
+        uc.ftrl_cols_from_sums(*k, cols, gs, None, None, dim=dp, fold=1)
         out = {}
         for name, fn in (("tensor divisor", optim.ftrl_math),
                          ("python divisor", ftrl_math_scalar)):

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time ``adam_cols``, ``segsum_unsorted``, ``segsum_cols``,
+"""Time ``adam_cols_from_sums``, ``segsum_unsorted``, ``segsum_cols``,
 ``segsum_sorted``, ``gather_rows``, ``ftrl_cols`` or the fused update +
 gather at the recipes' shapes with the kernels' code changed, on one GPU.
 
 Run from the repository root::
 
-    python3 tools/kernel_sweep.py cols base sub4:'kSub = 2;=>kSub = 4;'
+    python3 tools/kernel_sweep.py cols base t128:'kSlots = 256;=>kSlots = 128;'
     python3 tools/kernel_sweep.py seg base c512:'kUChunk = 256;=>kUChunk = 512;'
     python3 tools/kernel_sweep.py colsum base l4:'kCLoads = 8;=>kCLoads = 4;'
     python3 tools/kernel_sweep.py sorted base r16:'kSRows = 8;=>kSRows = 16;'
@@ -33,7 +33,7 @@ emb64_single and multi [N, 128] shapes (bf16, batch-order rows, with
 ``gather`` - ``gather_rows`` at every launch shape of the multitable step
 and of the DeepFM ``row_layout=True`` step (``check_gather_launch``:
 kernel against plain version, device time, bounds); ``ftrl`` -
-``ftrl_cols`` at the multitable step's four folded wide tables
+``ftrl_cols_from_sums`` at the multitable step's four folded wide tables
 (``check_ftrl_launch``); ``fused`` - ``fused_adam_gather`` and
 ``fused_ftrl_gather`` at the five launch shapes of ``chip_smoke.py``
 (``check_fused``: kernel against plain version, device time beside the
@@ -66,10 +66,13 @@ def time_launch(cs, dev, gen, what, case) -> None:
         buf = torch.zeros((cols.numel(), case["width"]), device=dev)
         ms = cs.graph_ms(lambda: cs.gather_rows(table, cols, buf, case["off"]))
     elif fold > 1:
-        aug = cs.slot_grads(dev, gen, dp, fold, cols, case["sub"])
+        sub = case["sub"]
+        grads = cs.step_sums(dev, gen, dp, fold, cols, sub, case["off"],
+                             case["width"], case["rows"])
+        gate = None if case["gate"] is None else case["gate"].reshape(-1)
         st = [torch.rand((dp, vc), generator=gen, device=dev) for _ in range(3)]
-        ms = cs.graph_ms(lambda: cs.ftrl_cols(*st, cols, aug, dim=1,
-                                              fold=fold))
+        ms = cs.graph_ms(lambda: cs.ftrl_cols_from_sums(
+            *st, cols, grads, sub, gate, dim=1, fold=fold))
     else:
         return
     cs.log(f"[sweep] {what} {case['name']} [{dp}, {vc}] n {cols.numel()}, "
