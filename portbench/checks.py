@@ -10,13 +10,16 @@ once the window has closed and the program's state is freed:
 
 * ``loss``: each step's loss; the number is the largest relative gap;
 * ``grad``: the norm of the first gradient as each optimizer got it,
-  worked out from its state after one step (Adam: ``m / (1 - b1)``;
-  FTRL: ``linear + (sqrt(accum) - sqrt(accum0)) / lr * w0``, which is
-  the gradient exactly), per parameter leaf;
+  worked out from its state and weight after one step by the
+  optimizer's own module (``portbench/optimizers/<kind>.py``:
+  Adam ``m / (1 - b1)``; FTRL ``linear + (sqrt(accum) - sqrt(accum0)) /
+  lr * w0``, the gradient exactly; SGD ``(w0 - w1) / lr``), per
+  parameter leaf;
 * ``change``: the norm of each parameter leaf's change after the three
   steps;
-* ``moved``: per table, the rows whose weight or optimizer state changed
-  in the three steps (logical rows; the reference's touched rows are the
+* ``moved``: per table, the rows whose weight or optimizer state
+  (each state the optimizer's ``state_inits`` names) changed in the
+  three steps (logical rows; the reference's touched rows are the
   ids the three batches hold).
 
 The numbers (:func:`compare`): ``loss_gap``; ``grad_gap`` and
@@ -48,6 +51,8 @@ import statistics
 
 import torch
 
+from portbench.optimizers import optimizer
+
 NUMBERS = ("loss_gap", "grad_gap", "change_gap", "grad_gap_median",
            "change_gap_median", "table_grad_gap", "table_grad_err",
            "untouched_moved")
@@ -59,22 +64,19 @@ def norm(x: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(x.reshape(-1), dtype=torch.float64))
 
 
-def grad_from_state(kind: str, hyper: dict, w0, state: dict) -> torch.Tensor:
-    """The first gradient an optimizer took, from its state after one
-    step (both sides use this, so the two are read alike)."""
-    if kind == "adam":
-        return state["m"].float() / (1.0 - hyper["b1"])
-    a0 = float(hyper["initial_accum"])
-    sigma = (torch.sqrt(state["accum"].float()) - math.sqrt(a0)) / hyper["learning_rate"]
-    return state["linear"].float() + sigma * w0.float()
+def grad_from_state(hyper: dict, w0, w1, state: dict) -> torch.Tensor:
+    """The first gradient an optimizer took, from the weight before and
+    after step 1 and its state after it, by the optimizer's module (both
+    sides use this, so the two are read alike)."""
+    return optimizer(hyper).grad_from_state(hyper, w0, w1, state)
 
 
 def moved_rows(new, old, states: dict, inits: dict) -> torch.Tensor:
-    """[rows] bool: the weight or any optimizer state of a logical row
-    differs from its start."""
+    """[rows] bool: the weight, or any optimizer state that ``inits``
+    names, of a logical row differs from its start."""
     moved = (new != old).reshape(new.shape[0], -1).any(1)
-    for k, s in states.items():
-        moved |= (s != inits[k]).reshape(s.shape[0], -1).any(1)
+    for k, init in inits.items():
+        moved |= (states[k] != init).reshape(states[k].shape[0], -1).any(1)
     return moved
 
 
@@ -86,7 +88,7 @@ def reference_readings(trainer, weights: dict, batches: list) -> dict:
         out["loss"].append(trainer.step(batch))
         if i == 0:
             for k, w in weights.items():
-                g = grad_from_state(trainer.kinds[k], trainer.side(k), w,
+                g = grad_from_state(trainer.side(k), w, trainer.params[k],
                                     trainer.state[k])
                 out["grad"][k] = norm(g)
                 if k in deep_tables(trainer.touched):
@@ -94,10 +96,9 @@ def reference_readings(trainer, weights: dict, batches: list) -> dict:
     for k, w in weights.items():
         out["change"][k] = norm(trainer.params[k] - w)
     for k in trainer.tables:
-        st = trainer.state[k]
-        inits = {n: (trainer.side(k)["initial_accum"] if n == "accum" else 0.0)
-                 for n in st}
-        out["moved"][k] = moved_rows(trainer.params[k], weights[k], st, inits)
+        inits = trainer.optimizer(k).state_inits(trainer.side(k))
+        out["moved"][k] = moved_rows(trainer.params[k], weights[k],
+                                     trainer.state[k], inits)
     out["touched"] = {k: t.clone() for k, t in trainer.touched.items()}
     return out
 

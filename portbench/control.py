@@ -51,7 +51,7 @@ def readings(cd: dict, program_seeds, seeds, device) -> list[dict]:
     import torch
 
     from portbench import checks, harness
-    from portbench.generators import make_source
+    from portbench.sources import make_source
 
     dev = torch.device(device)
     config, traffic = cd["config"], cd["traffic"]

@@ -1,22 +1,37 @@
 """One run of one cell: set-up, the measured window, the check.
 
 A cell of ``BENCHMARK.json`` names a configuration
-(``portbench/configs/<config>.json``, whose ``model`` names its plain
-reference ``portbench/reference/<model>.py`` and its plan of kernel
-calls ``portbench/yardstick/steps/<model>.py``, and whose ``program``
-names the port's classes) and a traffic mix
-(``portbench/traffic/<traffic>.json``); its limits are
-``portbench/limits/<workload>.json`` and its per-layer metrics are read
-by ``portbench/metrics/<metric>.py``.  A metric named ``<base>.<suffix>``
-(the same quantity, split by the cells that report it, with a bound or
-an end-to-end metric of their own) is measured or read as ``<base>``.
-Everything is found by name, so a new cell, mix, model or metric is new
-files and entries, not an edit.
+(``portbench/configs/<config>.json``) and a traffic mix
+(``portbench/traffic/<traffic>.json``).  Each is found by name, with
+what it names in turn:
+
+* the configuration's ``model`` names its plain reference
+  ``portbench/reference/<model>.py`` (``leaves``, ``TABLES``,
+  ``Reference``, and where the model needs them ``init_std`` for its
+  initial weights and ``matmul_flops_per_step`` for its MFU), its plan
+  of kernel calls ``portbench/yardstick/steps/<model>.py`` and its small
+  CPU cut ``portbench/tests/small/<model>.json``; its ``program`` names
+  the port's classes; each side of its ``optimizers`` names a kind,
+  ``portbench/optimizers/<kind>.py``;
+* the traffic's ``generator`` names ``portbench/sources/<generator>.py``;
+* the cell's limits are ``portbench/limits/<workload>.json``, and each
+  per-layer metric is read by ``portbench/metrics/<metric>.py``.
+
+A metric named ``<base>.<suffix>`` (the same quantity, split by the
+cells that report it, with a bound or an end-to-end metric of their
+own) is measured or read as ``<base>``.  So a new one-card cell, mix,
+generator, model, optimizer or per-layer metric is new files and
+entries, not an edit.  What still takes an edit: a new end-to-end
+quantity (:func:`end_to_end`), a new number of the check
+(``portbench/checks.py``), a cell on more than one card (a run drives
+one process on one card), and a model whose parameter keys do not start
+with ``wide/`` or ``deep/`` (the side that picks a leaf's optimizer).
 
 In order, a run:
 
 1. draws the ring of raw batches from ``--seed`` with the frozen
-   generators, and the initial weights on the device from the same seed;
+   generators (``portbench/sources/``), and the initial weights on the
+   device from the same seed;
 2. builds the program (``RecModel(jit=True)`` of the recipe) with those
    weights, and preps and stages the ring through the program's input
    pipeline (a single id group at the traffic's fixed unique bucket,
@@ -32,8 +47,10 @@ In order, a run:
 4. the window: the same object trains on, cycling the staged ring,
    until ``--seconds`` have passed on the host clock (``--trace 0``) or
    for the traffic's ``trace_steps`` under ``torch.profiler`` (``--trace
-   1``); a callback records a CUDA event after each step and never
-   waits for the card; the window ends with ``torch.cuda.synchronize()``;
+   1``, with the program's spans on since set-up, read after one lead
+   step under the profiler and after the window); a callback records a
+   CUDA event after each step and never waits for the card; the window
+   ends with ``torch.cuda.synchronize()``;
 5. reads the memory peak, frees the program, runs the plain reference
    over the same three batches from the same weights, and compares.
 """
@@ -53,11 +70,12 @@ from pathlib import Path
 import torch
 
 from portbench import checks
-from portbench.generators import make_source
-from portbench.program import Callback, Program
+from portbench.optimizers import optimizer
+from portbench.program import Callback, Program, span_ms_per_step
+from portbench.sources import make_source
 from portbench.trace import WINDOW, Trace, port_kernel_names
 from portbench.weights import make_weights, model_module, table_keys
-from portbench.yardstick.flops import mlp_flops_per_step
+from portbench.yardstick.flops import matmul_flops_per_step
 from portbench.yardstick.kernel_bytes import step_bound_ms
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -127,8 +145,8 @@ class Stop(Callback):
 class FirstSteps(Stop):
     """The check's readings of the program's first three steps: each
     step's loss; after step 1 each leaf's first gradient from its
-    optimizer state; after step 3 each leaf's change and each table's
-    moved rows."""
+    weight and optimizer state; after step 3 each leaf's change and each
+    table's moved rows."""
 
     def __init__(self, program):
         super().__init__(CHECK_STEPS)
@@ -144,9 +162,9 @@ class FirstSteps(Stop):
         if n == 1:
             deep = set(checks.deep_tables(
                 {k: p.logical(k, self.x0[k]) for k in table_keys(p.config)}))
+            now = p.leaves()
             for k in self.x0:
-                h = p.opt_hyper(k)
-                g = checks.grad_from_state(h["kind"], h, self.x0[k],
+                g = checks.grad_from_state(p.opt_hyper(k), self.x0[k], now[k],
                                            p.opt_state(k))
                 r["grad"][k] = checks.norm(g)
                 if k in deep:  # kept on the host until the reference ran
@@ -158,10 +176,9 @@ class FirstSteps(Stop):
                 if k not in specs_keys:
                     continue
                 h = p.opt_hyper(k)
-                st = {n_: p.logical(k, s) for n_, s in p.opt_state(k).items()
-                      if s.dim() > 0}
-                inits = {n_: (h["initial_accum"] if n_ == "accum" else 0.0)
-                         for n_ in st}
+                inits = optimizer(h).state_inits(h)
+                state = p.opt_state(k)
+                st = {n_: p.logical(k, state[n_]) for n_ in inits}
                 r["moved"][k] = checks.moved_rows(
                     p.logical(k, leaf), p.logical(k, self.x0[k]), st, inits)
             self.x0 = None
@@ -216,13 +233,18 @@ class Window(Stop):
 
 
 class TracedRun:
-    """What a per-layer metric reads (``portbench/metrics/``)."""
+    """What a per-layer metric reads (``portbench/metrics/``): the trace,
+    the program's counter of captures, the kernels' bounds over the
+    traced steps, the matmul operations of a step, and the program's
+    spans, ``{span: device ms per step}`` over the traced steps."""
 
-    def __init__(self, trace, captures, bound_ms, flops_per_step):
+    def __init__(self, trace, captures, bound_ms, flops_per_step,
+                 spans: dict):
         self.trace = trace
         self.captures = captures
-        self.bound_ms = bound_ms  # the kernels' bounds over the traced steps
+        self.bound_ms = bound_ms
         self.flops_per_step = flops_per_step
+        self.spans = spans
 
 
 def p95(values: list[float]) -> float:
@@ -253,11 +275,13 @@ def _reader(name: str):
         f"portbench.metrics.{base_name(name)}").read
 
 
-def setup(cd: dict, seed: int, dev, tamper=None, warmup: bool = True):
+def setup(cd: dict, seed: int, dev, tamper=None, warmup: bool = True,
+          spans: bool = False):
     """Set-up of one run: the ring drawn from ``seed``, the program built
-    with the seed's weights, the ring staged, the first three steps read
-    for the check, the warm-up steps.  -> (program, staged ring, raw ring,
-    the check's readings of the program)."""
+    with the seed's weights (``spans``: with the program's spans on), the
+    ring staged, the first three steps read for the check, the warm-up
+    steps.  -> (program, staged ring, raw ring, the check's readings of
+    the program)."""
     config, traffic = cd["config"], cd["traffic"]
     marks = [("start", time.perf_counter())]
 
@@ -269,7 +293,7 @@ def setup(cd: dict, seed: int, dev, tamper=None, warmup: bool = True):
     raw = [make_source(config, traffic, seed).get_batch(i)
            for i in range(traffic["ring"])]
     mark("traffic")
-    program = Program(config, make_weights(config, seed, dev), dev)
+    program = Program(config, make_weights(config, seed, dev), dev, spans)
     if tamper is not None:
         tamper(program)
     mark("program")
@@ -303,9 +327,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     config, traffic, limits = cd["config"], cd["traffic"], cd["limits"]
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    program, staged, raw, readings = setup(cd, seed, dev, tamper)
+    spans = trace and cuda
+    before_setup = time.perf_counter() - t_start  # imports, CUDA, the card
+    program, staged, raw, readings = setup(cd, seed, dev, tamper,
+                                           spans=spans)
     bounds = [step_bound_ms(config, b) for b in staged] if trace and cuda else []
-    phases = program.setup_phases
+    phases = {"start": round(before_setup, 3), **program.setup_phases}
     if cuda:
         torch.cuda.synchronize(dev)
         gc.collect()
@@ -313,20 +340,27 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         torch.cuda.reset_peak_memory_stats(dev)
     setup_s = time.perf_counter() - t_start
 
-    ring = Ring(staged, CHECK_STEPS + traffic["warmup_steps"])
+    first = CHECK_STEPS + traffic["warmup_steps"]
+    ring = Ring(staged, first + int(spans))  # the lead step takes ``first``
     win = Window(seconds, traffic["trace_steps"] if trace else None, cuda)
-    captures0 = getattr(program.step, "captures", 0)
-    prof = None
+    spans0, prof = {}, None
     if trace and cuda:
         from torch.profiler import ProfilerActivity, profile, record_function
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # one step under the profiler before the spans' first reading,
+            # so that no span holds the profiler's start (as
+            # tools/span_phases.py reads them)
+            program.train(Ring(staged, first), [Stop(1)])
+            spans0 = program.span_totals()
+            captures0 = getattr(program.step, "captures", 0)
             with record_function(WINDOW):
                 win.begin()
                 program.train(ring, [win])
                 torch.cuda.synchronize(dev)
     else:
+        captures0 = getattr(program.step, "captures", 0)
         if cuda:
             torch.cuda.synchronize(dev)
         win.begin()
@@ -336,6 +370,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     wall = time.perf_counter() - win.t0
     steps = len(win.losses)
     captures = getattr(program.step, "captures", 0) - captures0
+    span_ms = (span_ms_per_step(program.span_totals(), spans0, steps)
+               if spans else {})
     losses = torch.stack([x.float() for x in win.losses]).cpu()
     failed = int((~torch.isfinite(losses)).sum())
     step_ms = win.step_ms()
@@ -351,8 +387,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     metrics, breakdown, dev_extra = {}, None, {}
     lines = [f"setup phases (s): {phases}; window {wall:.3f} s, {steps} steps"]
     if not trace:
-        values = {"train_samples_per_s": steps * config["batch_size"] / wall,
-                  "step_ms_p95": p95(step_ms), "setup_s": setup_s}
+        values = end_to_end(steps, config["batch_size"], wall, step_ms,
+                            setup_s)
         metrics = {m["name"]: {"value": values[base_name(m["name"])],
                                "unit": m["unit"]}
                    for m in cd["end_to_end"]}
@@ -361,7 +397,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         del prof
         lines.append(tr.summary())
         run = TracedRun(tr, captures, sum(bounds[i] for i in used),
-                        mlp_flops_per_step(config))
+                        matmul_flops_per_step(config), span_ms)
         for m in cd["per_layer"]:
             value = _reader(m["name"])(run)
             if value is not None:
@@ -384,6 +420,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                          breakdown, {k: (numbers[k][0], limits.get(k))
                                      for k in checks.NUMBERS})
     return result, lines
+
+
+def end_to_end(steps: int, batch_size: int, wall: float,
+               step_ms: list[float], setup_s: float) -> dict:
+    """{quantity: value} of every end-to-end quantity the harness
+    measures; a metric of ``BENCHMARK.json`` takes the one of its base
+    name."""
+    return {"train_samples_per_s": steps * batch_size / wall,
+            "step_ms_p95": p95(step_ms), "setup_s": setup_s}
 
 
 def result_line(correct: bool, attempted: int, failed: int, metrics: dict,

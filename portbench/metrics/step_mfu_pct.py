@@ -1,5 +1,5 @@
-"""The whole step's share of the card's bf16 peak: the MLP's forward and
-backward operations per step (``portbench/yardstick/flops.py``) times
+"""The whole step's share of the card's bf16 peak: the matmuls' forward
+and backward operations per step (``portbench/yardstick/flops.py``) times
 the steps traced, over the traced steps' time on the device
 (``Trace.steps_s``) times 989 TFLOP/s, in percent."""
 

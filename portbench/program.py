@@ -1,13 +1,15 @@
 """The system under test: the port's model, optimizers, entry point and
 input pipeline, built from a configuration file.
 
-This is the only file of the benchmark that imports ``mindrec_tpu_torch``
-(a configuration names the port's model classes it runs).
+This file and the optimizers' ``build`` (``portbench/optimizers/``) are
+the only code of the benchmark that imports ``mindrec_tpu_torch`` (a
+configuration names the port's model classes it runs).
 It builds what a user of the port builds for the recipe (the model
-config, the two optimizers, ``RecModel(jit=True)``), hands the program
-the benchmark's weights in the program's own storage layout, and stages
-batches through the program's ``SparseInputPipeline`` (host prep, then
-staging on a side stream).
+config, the two optimizers by ``portbench/optimizers/<kind>.py``,
+``RecModel(jit=True)``), hands the program the benchmark's weights in
+the program's own storage layout, stages batches through the program's
+``SparseInputPipeline`` (host prep, then staging on a side stream), and
+reads the program's spans (``utils/profiling.py``) in a traced run.
 """
 
 from __future__ import annotations
@@ -21,21 +23,10 @@ from mindrec_tpu_torch import RecModel
 from mindrec_tpu_torch.data.criteo import to_device
 from mindrec_tpu_torch.data.pipeline import AdaptiveBucket, SparseInputPipeline
 from mindrec_tpu_torch.ops.embedding import from_storage, to_storage
-from mindrec_tpu_torch.train import optim
 from mindrec_tpu_torch.train.callbacks import Callback  # noqa: F401  (the harness subclasses it)
 from mindrec_tpu_torch.train.step import flatten_params, prep_groups
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _optimizer(spec: dict, loss_scale: float):
-    kw = {k: v for k, v in spec.items() if k != "kind"}
-    if spec["kind"] == "ftrl":
-        return optim.ftrl(loss_scale=loss_scale, **kw)
-    if spec["kind"] == "adam":
-        kw["state_dtype"] = _DTYPES[kw.get("state_dtype", "float32")]
-        return optim.lazy_adam(loss_scale=loss_scale, **kw)
-    raise ValueError(f"unknown optimizer {spec['kind']!r}")
+from mindrec_tpu_torch.utils import profiling
+from portbench.optimizers import optimizer
 
 
 def _config(cls, config: dict):
@@ -61,8 +52,8 @@ def build_model(config: dict):
         _config(_program_class(names["config"]), config))
     scale = float(config["loss_scale"])
     opts = config["optimizers"]
-    return (model, _optimizer(opts["wide"], scale),
-            _optimizer(opts["deep"], scale))
+    return (model, optimizer(opts["wide"]).build(opts["wide"], scale),
+            optimizer(opts["deep"]).build(opts["deep"], scale))
 
 
 def table_specs(model) -> dict:
@@ -78,11 +69,16 @@ def logical(model, key: str, storage: torch.Tensor) -> torch.Tensor:
 
 
 class Program:
-    """``RecModel`` of a configuration with the benchmark's weights."""
+    """``RecModel`` of a configuration with the benchmark's weights;
+    ``spans`` turns the program's spans on (before the step's first
+    capture, which keeps the marks it was captured with)."""
 
-    def __init__(self, config: dict, weights: dict, device):
+    def __init__(self, config: dict, weights: dict, device,
+                 spans: bool = False):
         self.config = config
         self.device = torch.device(device)
+        if spans:
+            profiling.enable_spans(True)
         self.model, self.opt_w, self.opt_d = build_model(config)
         self.rec = RecModel(self.model, self.opt_w, self.opt_d, seed=0,
                             jit=True, device=self.device)
@@ -109,8 +105,10 @@ class Program:
         return dict(flatten_params(self.rec.state.params))
 
     def opt_state(self, key: str) -> dict:
+        """{state: tensor} of a leaf's optimizer (SGD's ``()``: empty)."""
         st = self.rec.state
-        return (st.opt_w if key.split("/")[0] == "wide" else st.opt_d)[key]
+        return dict((st.opt_w if key.split("/")[0] == "wide"
+                     else st.opt_d)[key])
 
     def opt_hyper(self, key: str) -> dict:
         opt = self.opt_w if key.split("/")[0] == "wide" else self.opt_d
@@ -140,3 +138,14 @@ class Program:
         """The program's entry point over staged batches."""
         self.rec.train(1, batches, callbacks=callbacks,
                        dataset_sink_mode=False)
+
+    def span_totals(self) -> dict:
+        """``{span: (device ms, count)}`` since the process started
+        (empty off the card or with spans off)."""
+        return profiling.span_totals(self.device)
+
+
+def span_ms_per_step(after: dict, before: dict, steps: int) -> dict:
+    """``{span: device ms per step}`` between two :meth:`Program.span_totals`
+    readings over ``steps`` steps."""
+    return profiling.per_step(after, before, steps)

@@ -1,14 +1,11 @@
-"""Plain float32 pieces shared by the references: the optimizers' rules,
-the loss, the MLP, and the lower-precision control.
+"""Plain float32 pieces shared by the references: the loss, the MLP, the
+lower-precision control, and the trainer that applies each leaf's
+optimizer rule (``portbench/optimizers/<kind>.py``).
 
 Nothing here imports the program or JAX.  TF32 is switched off by
 :func:`no_tf32` for every reference run, so a float32 matmul on the card
-is float32.
-
-The rules follow the published definitions the configuration files
-name: FTRL-proximal with ``lr_power`` -0.5 (McMahan et al., 2013) and
-Adam with bias correction (Kingma and Ba, 2015), lazy on tables: only
-the rows present in a batch move, with the table's own step count.
+is float32.  On tables the rules are lazy: only the rows present in a
+batch move, with the table's own step count.
 """
 
 from __future__ import annotations
@@ -16,6 +13,8 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+from portbench.optimizers import optimizer
 
 E4M3_MAX = 448.0  # largest finite float8_e4m3fn
 E5M2_MAX = 57344.0  # largest finite float8_e5m2
@@ -101,35 +100,6 @@ def mean_loss(logits, labels, half_batch: bool) -> torch.Tensor:
     return ce.mean()
 
 
-def init_state(kind: str, w: torch.Tensor, hyper: dict) -> dict:
-    if kind == "adam":
-        return {"m": torch.zeros_like(w), "v": torch.zeros_like(w)}
-    return {"accum": torch.full_like(w, hyper["initial_accum"]),
-            "linear": torch.zeros_like(w)}
-
-
-def ftrl(w, st, g, hyper):
-    """FTRL-proximal, lr_power -0.5, on whole tensors -> (w', state')."""
-    lr, l1, l2 = hyper["learning_rate"], hyper["l1"], hyper["l2"]
-    accum = st["accum"] + g * g
-    sigma = (torch.sqrt(accum) - torch.sqrt(st["accum"])) / lr
-    linear = st["linear"] + g - sigma * w
-    quadratic = torch.sqrt(accum) / lr + 2.0 * l2
-    w_new = torch.where(linear.abs() > l1,
-                        (torch.sign(linear) * l1 - linear) / quadratic,
-                        torch.zeros_like(linear))
-    return w_new, {"accum": accum, "linear": linear}
-
-
-def adam(w, st, g, t, hyper):
-    """Adam with bias correction at step ``t`` (1-based)."""
-    b1, b2 = hyper["b1"], hyper["b2"]
-    m = b1 * st["m"] + (1.0 - b1) * g
-    v = b2 * st["v"] + (1.0 - b2) * g * g
-    lr_t = hyper["learning_rate"] * (1.0 - b2 ** t) ** 0.5 / (1.0 - b1 ** t)
-    return w - lr_t * m / (torch.sqrt(v) + hyper["eps"]), {"m": m, "v": v}
-
-
 class Trainer:
     """Parameters by key (tables logical ``[vocab, dim]``), their
     optimizer state, the touched rows of each table, and the update of
@@ -141,9 +111,8 @@ class Trainer:
     def __init__(self, weights: dict, optimizers: dict, tables: set):
         self.params = {k: v.clone().float() for k, v in weights.items()}
         self.hyper = optimizers
-        self.kinds = {k: self.kind(k) for k in self.params}
         self.tables = tables
-        self.state = {k: init_state(self.kinds[k], w, self.side(k))
+        self.state = {k: self.optimizer(k).init_state(w, self.side(k))
                       for k, w in self.params.items()}
         self.steps = {k: 0 for k in self.params}
         self.touched = {k: torch.zeros(self.params[k].shape[0],
@@ -158,8 +127,9 @@ class Trainer:
     def side(self, key: str) -> dict:
         return self.hyper["wide" if self.is_wide(key) else "deep"]
 
-    def kind(self, key: str) -> str:
-        return self.side(key)["kind"]
+    def optimizer(self, key: str):
+        """The module of leaf ``key``'s optimizer."""
+        return optimizer(self.side(key))
 
     def update(self, key: str, g: torch.Tensor, rows=None) -> None:
         """One optimizer step of leaf ``key``: the whole leaf, or (a
@@ -174,10 +144,8 @@ class Trainer:
             w_r = w[rows]
         else:
             sel, w_r = dict(st), w
-        if self.kinds[key] == "adam":
-            w_new, st_new = adam(w_r, sel, g, self.steps[key], hyper)
-        else:
-            w_new, st_new = ftrl(w_r, sel, g, hyper)
+        w_new, st_new = self.optimizer(key).update(w_r, sel, g,
+                                                   self.steps[key], hyper)
         if rows is None:
             self.params[key] = w_new
             st.update(st_new)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from portbench.generators import MULTI_FIELDS
+from portbench.sources.outbrain import MULTI_FIELDS
 from portbench.reference.common import (
     Trainer, mean_loss, mlp, mlp_leaves, no_tf32,
 )

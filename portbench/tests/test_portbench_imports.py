@@ -1,6 +1,8 @@
 """Nothing the benchmark runs imports JAX or the JAX package, and the
-reference imports nothing of the program.  Top-level module names are
-compared whole: ``mindrec_tpu_torch`` is not ``mindrec_tpu``."""
+reference, the generators and the optimizers' reference rules import
+nothing of the program (an optimizer's ``build`` imports the port's
+optimizer when it is called).  Top-level module names are compared
+whole: ``mindrec_tpu_torch`` is not ``mindrec_tpu``."""
 
 import ast
 import subprocess
@@ -30,10 +32,36 @@ def test_no_jax_import(path):
     assert not imported_tops(path) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", sorted((HERE / "reference").rglob("*.py")),
-                         ids=lambda p: p.name)
+YARDSTICK = sorted(p for d in ("reference", "sources")
+                   for p in (HERE / d).rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", YARDSTICK,
+                         ids=lambda p: str(p.relative_to(HERE)))
 def test_reference_imports_nothing_of_the_program(path):
     assert "mindrec_tpu_torch" not in imported_tops(path)
+
+
+def _modules(sub: str) -> list[str]:
+    return [f"portbench.{sub}.{p.stem}" for p in sorted((HERE / sub).glob("*.py"))
+            if p.stem != "__init__"]
+
+
+def test_reference_side_loads_nothing_of_the_program():
+    """Every reference, generator and optimizer module imported in a
+    fresh process (the optimizers' ``build`` not called) leaves no
+    module of the program behind."""
+    mods = _modules("reference") + _modules("sources") + _modules("optimizers")
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "import importlib\n"
+            "for m in %r: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] == 'mindrec_tpu_torch'))"
+            % (str(ROOT), mods))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_whole_names_compared():
@@ -49,11 +77,13 @@ def test_whole_names_compared():
 def test_a_run_loads_no_jax():
     """The harness, the program and the reference imported in a fresh
     process leave no JAX module behind."""
+    mods = _modules("reference") + _modules("sources") + _modules("optimizers")
     code = ("import sys; sys.path.insert(0, %r)\n"
+            "import importlib\n"
             "import portbench.harness, portbench.program, portbench.control\n"
-            "import portbench.reference.wide_deep, portbench.reference.multitable\n"
+            "for m in %r: importlib.import_module(m)\n"
             "from portbench.harness import forbidden_modules\n"
-            "print(forbidden_modules())" % str(ROOT))
+            "print(forbidden_modules())" % (str(ROOT), mods))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -3,6 +3,8 @@
 import json
 from types import SimpleNamespace
 
+import pytest
+
 from torch.autograd import DeviceType
 
 from portbench import harness
@@ -91,3 +93,29 @@ def test_port_kernel_names_are_read_from_the_sources():
     names = port_kernel_names(harness.ROOT)
     assert {"sorted_chunk_sum", "adam_rows_kernel", "ftrl_rows_kernel",
             "gather_rows_wide", "adam_cols_kernel"} <= names
+
+
+def test_span_marks_are_a_class_of_their_own():
+    """The program's span marks are ``__global__`` functions of its
+    sources too; they count as ``span``, not as the port's kernels."""
+    events = [
+        ev(WINDOW, 0.0, 1000.0, DeviceType.CPU),
+        ev("span_mark(long*, int, int, int)", 100.0, 102.0),
+        ev("_Z9span_markPliii", 300.0, 304.0),
+        ev("void sorted_chunk_sum<128>(float const*, int)", 110.0, 200.0),
+    ]
+    tr = Trace(SimpleNamespace(events=lambda: events),
+               {"sorted_chunk_sum", "span_mark"}, steps=2)
+    assert abs(tr.device_ms_per_step("span") - 0.003) < 1e-12
+    assert abs(tr.device_ms_per_step("kernels") - 0.045) < 1e-12
+    assert "span_mark" in port_kernel_names(harness.ROOT)
+
+
+@pytest.mark.parametrize("span", ["inputs", "meta", "expand", "forward", "mlp",
+                                  "backward", "segsum", "update"])
+def test_span_readers_read_their_span(span):
+    import importlib
+
+    read = importlib.import_module(f"portbench.metrics.{span}_span_ms").read
+    assert read(SimpleNamespace(spans={span: 0.25, "between_steps": 9.0})) == 0.25
+    assert read(SimpleNamespace(spans={})) is None

@@ -42,25 +42,28 @@ def test_names_and_units():
 
 
 def test_metric_keys_and_sources():
+    from portbench import harness
+
     e2e = {m["name"]: m for m in BENCH["end_to_end"]}
-    assert set(e2e) == {"train_samples_per_s", "step_ms_p95",
-                        "train_samples_per_s.mt", "step_ms_p95.mt",
-                        "setup_s"}
+    measured = harness.end_to_end(2, 1, 1.0, [1.0, 2.0], 1.0)
+    assert all(harness.base_name(n) in measured for n in e2e)
     assert e2e["setup_s"]["bound"] == 0.25 and "workloads" not in e2e["setup_s"]
     for m in e2e.values():
         assert set(m) <= {"name", "unit", "better", "bound", "source",
                           "workloads"}
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
-    layers = {}
+    cells = {w["name"] for w in BENCH["workloads"]}
     for m in BENCH["per_layer"]:
         assert set(m) <= {"name", "unit", "better", "source", "layer",
                           "moves", "workloads"}
         assert m["moves"] in e2e
         assert m["source"] in ("device_trace", "program_span",
                                "program_counter", "host_clock")
-        layers.setdefault(m["layer"], []).append(m["name"])
-    assert len(BENCH["per_layer"]) == 14
+        assert set(m.get("workloads", cells)) <= cells
+        mod = importlib.import_module(
+            f"portbench.metrics.{harness.base_name(m['name'])}")
+        assert callable(mod.read), m["name"]
 
 
 def _reports(metric: dict, cell: str) -> bool:
@@ -81,9 +84,9 @@ def test_each_cell_reports_what_the_contract_asks(cell):
     assert layer
     for m in layer:
         assert m["moves"] in names, (m["name"], cell)
+    measured = harness.end_to_end(2, 1, 1.0, [1.0, 2.0], 1.0)
     for m in e2e:
-        assert harness.base_name(m["name"]) in (
-            "train_samples_per_s", "step_ms_p95", "setup_s")
+        assert harness.base_name(m["name"]) in measured
     for m in layer:
         mod = importlib.import_module(
             f"portbench.metrics.{harness.base_name(m['name'])}")
@@ -96,8 +99,17 @@ def test_cell_resolves_by_name(cell):
 
     cd = harness.load_cell(cell, ROOT)
     assert cd["config"]["name"] == cd["cell"]["config"]
-    assert cd["traffic"]["generator"] in ("criteo", "outbrain")
+    gen = importlib.import_module(
+        f"portbench.sources.{cd['traffic']['generator']}")
+    assert callable(gen.make_source)
     from portbench.checks import NUMBERS
+    from portbench.optimizers import optimizer
+
+    for spec in cd["config"]["optimizers"].values():
+        opt = optimizer(spec)
+        for fn in ("build", "init_state", "update", "state_inits",
+                   "grad_from_state"):
+            assert callable(getattr(opt, fn)), (spec["kind"], fn)
 
     assert set(cd["limits"]) == set(NUMBERS)
     assert cd["limits"]["untouched_moved"] == 0
@@ -111,6 +123,8 @@ def test_cell_resolves_by_name(cell):
     plan = importlib.import_module(f"portbench.yardstick.steps.{model}")
     assert callable(plan.step_bound_ms)
     assert set(cd["config"]["program"]) == {"model", "config"}
+    small = ROOT / "portbench" / "tests" / "small" / f"{model}.json"
+    assert set(json.loads(small.read_text())) >= {"config", "traffic"}
 
 
 def test_config_files_are_the_configs():

@@ -1,8 +1,9 @@
-"""The harness's check on the CPU at small sizes: the plain reference
-against the port's CPU path (the same seed, weights and batches), and
-the same run with the timed path broken underneath, which must come out
-not correct.  The program runs eagerly on the CPU with its kernels'
-plain versions; the harness's look for a card is skipped."""
+"""The harness's check on the CPU at small sizes, for one cell of each
+configuration ``BENCHMARK.json`` names: the plain reference against the
+port's CPU path (the same seed, weights and batches), and the same run
+with the timed path broken underneath, which must come out not correct.
+The program runs eagerly on the CPU with its kernels' plain versions;
+the harness's look for a card is skipped."""
 
 import time
 
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 from portbench import checks, control, harness
-from portbench.tests.cells import MT, WD, small_cell
+from portbench.tests.cells import CONFIG_CELLS, small_cell
 
 SEED = 2**31 + 7  # larger than 32 signed bits hold
 
@@ -30,13 +31,12 @@ def few_threads():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("which", [WD, MT], ids=["wide_deep", "multitable"])
-def test_reference_matches_the_port(which):
-    res, lines = run(small_cell(*which))
+@pytest.mark.parametrize("workload", CONFIG_CELLS)
+def test_reference_matches_the_port(workload):
+    cell = small_cell(workload)
+    res, lines = run(cell)
     assert res["correct"], lines
-    suffix = ".mt" if which == MT else ""
-    assert set(res["metrics"]) == {f"train_samples_per_s{suffix}",
-                                   f"step_ms_p95{suffix}", "setup_s"}
+    assert set(res["metrics"]) == {m["name"] for m in cell["end_to_end"]}
     assert res["checks"]["untouched_moved"]["value"] == 0
     assert res["attempted"] > 0 and res["failed"] == 0
 
@@ -69,19 +69,19 @@ def _half_batch(program):
 
 @pytest.mark.parametrize("fault", [_frozen, _half_batch],
                          ids=["state_unchanged", "half_batch"])
-@pytest.mark.parametrize("which", [WD, MT], ids=["wide_deep", "multitable"])
-def test_a_broken_step_is_not_correct(which, fault):
-    res, lines = run(small_cell(*which), tamper=fault)
+@pytest.mark.parametrize("workload", CONFIG_CELLS)
+def test_a_broken_step_is_not_correct(workload, fault):
+    res, lines = run(small_cell(workload), tamper=fault)
     assert not res["correct"], lines
 
 
-@pytest.mark.parametrize("which", [WD, MT], ids=["wide_deep", "multitable"])
-def test_stand_ins_read_above_the_limits(which):
+@pytest.mark.parametrize("workload", CONFIG_CELLS)
+def test_stand_ins_read_above_the_limits(workload):
     """The float8 control, the half-batch fault and the frozen state in
     the program's place (``portbench/control.py``'s stand-ins), on three
     seeds: not correct at every seed, as on the card at each cell's own
     size (``test_portbench_card.py``)."""
-    cell = small_cell(*which)
+    cell = small_cell(workload)
     rows = control.readings(cell, [], [5, 6, 7], "cpu")
     assert len(rows) == 9
     for r in rows:

@@ -4,6 +4,9 @@ The harness wraps the traced window in a ``torch.profiler`` span named
 :data:`WINDOW`; every device operation (kernel, copy, fill) inside it is
 kept, clipped to the span, and put in one class:
 
+* ``span``: the marks of the program's spans (``span_mark`` of
+  ``mindrec_tpu_torch/csrc/span.cu``; a traced run turns the spans on),
+  so that no other class counts them;
 * ``kernels``: the port's own CUDA kernels, by the names of the
   ``__global__`` functions in ``mindrec_tpu_torch/csrc/*.cu`` (the
   program's kernel names, read at run time);
@@ -29,6 +32,7 @@ from pathlib import Path
 WINDOW = "portbench.window"
 PROFILER_OWN = frozenset({"Activity Buffer Request"})
 GEMM = re.compile(r"gemm|gemv|nvjet|xmma|cutlass|splitkreduce", re.I)
+SPAN_MARK = "span_mark"  # the program's span marks: csrc/span.cu
 _GLOBAL = re.compile(
     r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)\s*\(")
 
@@ -58,6 +62,7 @@ class Trace:
 
         events = list(prof.events())
         port = _matcher(kernel_names)
+        mark = _matcher({SPAN_MARK})
         spans = [e for e in events if e.name == WINDOW]
         if not spans:
             raise RuntimeError(f"the trace holds no {WINDOW!r} span")
@@ -75,7 +80,8 @@ class Trace:
                     continue
                 a, b = max(a, t0), min(b, t1)
                 if b > a:
-                    self.ops.append((e.name, self.classify(e.name, port), a, b))
+                    self.ops.append((e.name, self.classify(e.name, port, mark),
+                                     a, b))
             elif e.name != WINDOW and b > t0 and a < t1:
                 self.host.append((a, b, e.name))
         self.ops.sort(key=lambda o: o[2])
@@ -99,7 +105,9 @@ class Trace:
                             if edges[i + 1] > edges[i]), reverse=True)
 
     @staticmethod
-    def classify(name: str, port) -> str:
+    def classify(name: str, port, mark) -> str:
+        if mark.search(name):
+            return "span"
         if port.search(name):
             return "kernels"
         if GEMM.search(name):
@@ -119,7 +127,7 @@ class Trace:
         seen."""
         seen = sorted({n[:60] for n, c, _a, _b in self.ops if c == "kernels"})
         per = {c: self.device_ms_per_step(c) for c in ("kernels", "gemm",
-                                                       "glue")}
+                                                       "glue", "span")}
         return (f"trace: {self.steps} steps, {len(self.ops)} device ops, "
                 f"window {self.window_s:.6f} s, steps {self.steps_s:.6f} s, "
                 f"busy {self.busy_s:.6f} s, "

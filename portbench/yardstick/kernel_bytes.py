@@ -10,7 +10,10 @@ the arithmetic behind the kernel table of ``PERF.md`` (``chip_smoke.py``:
 ``segsum_unsorted`` at ``:1117`` and its presence counts at
 ``:1135-1136``, ``gather_rows`` at ``:1264-1274``, ``ftrl_cols`` at
 ``:1313-1327``, ``adam_cols`` at ``:1404-1411``), one function per
-kernel.
+kernel; the column updates' inputs as the in-place kernels read them
+(``mindrec_tpu_torch/csrc/update_cols.cu``'s header: the columns, each
+live slot's ``dp`` sums where the segment sum left them, its fold
+sub-row and its gate).
 
 :func:`step_bound_ms` sums the calls one step makes, as each model's
 plan in ``portbench/yardstick/steps/<model>.py`` lays them out.
@@ -66,23 +69,28 @@ def gather_rows(slots: int, distinct: int, valid: int, dp: int,
     return bound_ms(slots * 4 + distinct * dp * elt + valid * dp * 4, 0)
 
 
-def _cols_io(slots: int, valid: int, dp: int) -> int:
-    return slots * 4 + (dp + 8) * valid * 4
+def _cols_io(slots: int, valid: int, dp: int, sub: bool, gate: bool) -> int:
+    """Every slot's int32 column; each live slot's ``dp`` float32 sums
+    (read in place, at their slot stride: each once), its int32 fold
+    sub-row (``sub``: fold > 1) and its float32 gate (``gate``: a gate
+    of one value per slot, a tiny group's presence)."""
+    return slots * 4 + valid * (dp * 4 + 4 * sub + 4 * gate)
 
 
-def adam_cols(slots, valid, touched, dp, w_elt=4, m_elt=4,
-              v_elt=4) -> float:
-    """Every slot's column, the gradient and touch rows of the live
-    slots, and each ``touched`` element's weight and moments read and
-    written (fold 1: ``dp`` per distinct column; fold 8: one per live
-    slot; a tiny group's update gated to its present ids: those)."""
-    return bound_ms(_cols_io(slots, valid, dp)
+def adam_cols(slots, valid, touched, dp, sub=False, gate=False, w_elt=4,
+              m_elt=4, v_elt=4) -> float:
+    """The column, sums, sub-row and gate of the slots (:func:`_cols_io`),
+    and each ``touched`` element's weight and moments read and written
+    (fold 1: ``dp`` per distinct column; fold 8: one per live slot; a
+    tiny group's update gated to its present ids: those)."""
+    return bound_ms(_cols_io(slots, valid, dp, sub, gate)
                     + touched * (w_elt + m_elt + v_elt) * 2, touched * 12)
 
 
-def ftrl_cols(slots, valid, touched, dp, w_elt=4) -> float:
-    return bound_ms(_cols_io(slots, valid, dp) + touched * (w_elt + 8) * 2,
-                    touched * 16)
+def ftrl_cols(slots, valid, touched, dp, sub=False, gate=False,
+              w_elt=4) -> float:
+    return bound_ms(_cols_io(slots, valid, dp, sub, gate)
+                    + touched * (w_elt + 8) * 2, touched * 16)
 
 
 def step_bound_ms(config: dict, batch: dict) -> float:

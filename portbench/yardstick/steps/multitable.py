@@ -7,7 +7,8 @@ group's slots its lossless positions rounded to 2048 (the tiny indicator
 group: its whole id space, unsorted sums and presence counts); each
 deep table feature-major fold 1, each wide table folded 8 rows to a
 column; the gathers into the group's buffer, the sums, LazyAdam and
-FTRL on the columns.
+FTRL on the columns, which read the sums in place (a wide table's
+with its fold sub-rows; the tiny group's with its presence gate).
 """
 
 from __future__ import annotations
@@ -61,12 +62,14 @@ def step_bound_ms(config: dict, batch: dict) -> float:
         # deep table: fold 1, [dim, vp]; wide table: fold 8, [8, vp / 8]
         valid, distinct = _live(uq, vp)
         total += gather_rows(slots, distinct, valid, dim)
+        gated = present is not None
         total += adam_cols(slots, valid,
                            (distinct if present is None else present) * dim,
-                           dim)
+                           dim, gate=gated)
         valid_w, distinct_w = _live(torch.div(uq, 8, rounding_mode="floor"),
                                     vp // 8)
         total += gather_rows(slots, distinct_w, valid_w, 8)
         total += ftrl_cols(slots, valid_w,
-                           valid if present is None else present, 8)
+                           valid if present is None else present, 8,
+                           sub=True, gate=gated)
     return total
