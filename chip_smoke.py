@@ -50,7 +50,10 @@ Phases (any failure exits non-zero):
    float32); the unsorted segment-sum again at
    D = 1, D = 13 (bf16), D = 20 and D = 128 (f32) with ids outside
    [0, n_out) mixed in, against the float64 sum and the exact sum of
-   small integers;
+   small integers; then the feature assembly's two kernels
+   (``[kernel] assemble``: forward and backward on the groups one step of
+   the multitable recipe hands the model, against their plain version,
+   timed beside their byte bounds);
 6. drive the multitable step at the recipe's full width (batch 131072,
    the eight feature-major tables at reference vocab and width, 5x1024
    bf16 MLP, FTRL + LazyAdam, host prep with multi-group compaction and
@@ -377,6 +380,9 @@ from mindrec_tpu_torch.ops import kernels, prng, remote
 from mindrec_tpu_torch.ops.cache import LruCache
 from mindrec_tpu_torch.ops.embedding import from_storage, read_rows, to_storage
 from mindrec_tpu_torch.ops.kernels import _build
+from mindrec_tpu_torch.ops.kernels.assemble import (
+    assemble, assemble_backward, assemble_forward, assemble_plain,
+)
 from mindrec_tpu_torch.ops.kernels.fused import (
     fused_adam_gather, fused_adam_gather_plain, fused_ftrl_gather,
     fused_ftrl_gather_plain,
@@ -441,6 +447,9 @@ REPLACES = {
     "gather_cols": "mindrec_tpu/ops/pallas/stream_gather.py:311",
     "fused_adam_gather": "mindrec_tpu/ops/pallas/stream_fused.py:308",
     "fused_ftrl_gather": "mindrec_tpu/ops/pallas/stream_fused.py:308",
+    # no Pallas kernel: the reference leaves the assembly to XLA's fusion
+    "assemble_fwd": "none (XLA fusion, mindrec_tpu/models/multitable.py:274-283)",
+    "assemble_bwd": "none (XLA fusion, mindrec_tpu/models/multitable.py:274-283)",
 }
 SOURCES = {
     "segsum_sorted": "mindrec_tpu_torch/csrc/segsum.cu",
@@ -454,13 +463,16 @@ SOURCES = {
     "gather_cols": "mindrec_tpu_torch/csrc/gather_cols.cu",
     "fused_adam_gather": "mindrec_tpu_torch/csrc/fused_cols.cu",
     "fused_ftrl_gather": "mindrec_tpu_torch/csrc/fused_cols.cu",
+    "assemble_fwd": "mindrec_tpu_torch/csrc/assemble.cu",
+    "assemble_bwd": "mindrec_tpu_torch/csrc/assemble.cu",
 }
 # launches per step of each kernel on each driven path
 WD_PER_STEP = {"segsum_sorted": 1, "adam_rows": 1, "ftrl_rows": 1}
 # (cols_in_place: the column updates that read the summed gradients in
 # place, counted in adam_cols / ftrl_cols too)
 MT_PER_STEP = {"gather_rows": 8, "segsum_unsorted": 2, "adam_cols": 4,
-               "ftrl_cols": 4, "segsum_sorted": 3, "cols_in_place": 8}
+               "ftrl_cols": 4, "segsum_sorted": 3, "cols_in_place": 8,
+               "assemble_fwd": 1, "assemble_bwd": 1}
 FM_COL_PER_STEP = {"gather_cols": 2, "segsum_cols": 1, "adam_cols": 2,
                    "cols_in_place": 2}
 FM_ROW_PER_STEP = {"gather_rows": 2, "segsum_sorted": 1, "adam_cols": 2,
@@ -1175,6 +1187,130 @@ def phase_mt_kernels(dev, gen, model, host0, buckets) -> dict:
             res["adam_cols"] = out
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
+    return res
+
+
+def assemble_bytes(groups, cont) -> tuple[int, int]:
+    """Bytes the assembly kernels must move (forward, backward): each
+    position's deep lanes and its wide lane by whole 32-byte sectors, its
+    id, the masks and the continuous values read once, ``deep_in`` and
+    the wide sum written once; backward ``d deep_in``, the wide gradient,
+    ids and masks read once, every gradient row written whole."""
+    B = cont.shape[0]
+    out_w = cont.shape[1] + sum(
+        g.deep_dim * (len(g.fields) or g.rows.shape[0] // B) for g in groups)
+    masks = sum(m.numel() * 4 for g in groups for m in g.masks)
+    ids = sum(g.ids.numel() * 4 for g in groups)
+    live = sum(g.rows.shape[0] * (-(-g.deep_dim * 2 // 32) * 32 + 32)
+               for g in groups)
+    fwd = live + ids + masks + cont.numel() * 4 + B * out_w * 2 + B * 4
+    bwd = (B * out_w * 2 + B * 4 + ids + masks
+           + sum(g.rows.numel() * 2 for g in groups))
+    return fwd, bwd
+
+
+def step_assembly_groups(dev, model, opts, host0):
+    """The assembly's inputs as one eager multitable step hands them to
+    the model: ``assembly_groups`` of the groups ``apply_groups_batch``
+    receives (rows detached), and the continuous values."""
+    state = init_train_state(model, 0, *opts, device=dev)
+    batch = to_device(host0, dev)
+    seen = {}
+    entry = model.apply_groups_batch
+
+    def spy(params, groups, b, **kw):
+        seen["groups"] = {g: gr._replace(rows=gr.rows.detach())
+                          for g, gr in groups.items()}
+        return entry(params, groups, b, **kw)
+
+    model.apply_groups_batch = spy
+    try:
+        make_train_step(model, *opts)(state, batch)
+    finally:
+        del model.apply_groups_batch
+    del state
+    return (model.assembly_groups(seen["groups"], batch),
+            batch["continue_val"])
+
+
+def check_assemble(dev, model=None, opts=None, host0=None) -> dict:
+    """The multitable feature assembly (``csrc/assemble.cu``) against its
+    plain version on the inputs one step of the multitable recipe hands
+    the model (``step_assembly_groups``; batch 131072, host batch 0 of
+    ``mt_setup`` unless given), forward and backward: deep_in's copied
+    columns and every gradient row bit for bit, its pooled means within
+    one bf16 ulp, the wide sum within float32 rounding; then each kernel
+    timed (a graph of ten calls) beside its byte bound and the plain
+    version (eager; its backward is autograd's, timed as forward +
+    backward less forward)."""
+    if model is None:
+        model, opts, host, _ = mt_setup(steps=1)
+        host0 = host[0]
+    groups, cont = step_assembly_groups(dev, model, opts, host0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    outs, grads, d_deep, d_wide = [], [], None, None
+    for fn in (assemble, assemble_plain):
+        leaves = [g._replace(rows=g.rows.clone().requires_grad_(True))
+                  for g in groups]
+        deep_in, wide = fn(leaves, cont)
+        if d_deep is None:
+            d_deep = torch.randn(deep_in.shape, generator=gen,
+                                 device=dev).to(torch.bfloat16)
+            d_wide = torch.randn(wide.shape, generator=gen, device=dev)
+        grads.append(torch.autograd.grad(
+            (deep_in, wide), [g.rows for g in leaves], (d_deep, d_wide)))
+        outs.append((deep_in.detach(), wide.detach()))
+        del leaves, deep_in, wide
+    (deep_k, wide_k), (deep_p, wide_p) = outs
+    copied = deep_k.shape[1] - sum(g.deep_dim * len(g.fields) for g in groups)
+    copied_equal = torch.equal(deep_k[:, :copied], deep_p[:, :copied])
+    pk, pp = deep_k[:, copied:].float(), deep_p[:, copied:].float()
+    pooled_off = int((pk != pp).sum())
+    pooled_ulp = float(((pk - pp).abs() / pp.abs().clamp_min(1e-30)).max()
+                       * 2.0**7) if pk.numel() else 0.0
+    deep_err, _ = max_errs([(deep_k, deep_p)])
+    wide_err, _ = max_errs([(wide_k, wide_p)])
+    grad_err, _ = max_errs(zip(*grads))
+    grads_equal = all(torch.equal(a, b) for a, b in zip(*grads))
+    del outs, grads, deep_k, deep_p, wide_k, wide_p, pk, pp
+    torch.cuda.empty_cache()
+    fwd_b, bwd_b = assemble_bytes(groups, cont)
+    leaves = [g._replace(rows=g.rows.detach().requires_grad_(True))
+              for g in groups]
+
+    def plain_both():
+        d, w = assemble_plain(leaves, cont)
+        torch.autograd.grad((d, w), [g.rows for g in leaves], (d_deep, d_wide))
+
+    plain_fwd = cuda_ms(lambda: assemble_plain(groups, cont), 3)
+    res = {}
+    for name, ms, plain_ms, nbytes, err in (
+            ("assemble_fwd", graph_ms(lambda: assemble_forward(groups, cont)),
+             plain_fwd, fwd_b, max(deep_err, wide_err)),
+            ("assemble_bwd",
+             graph_ms(lambda: assemble_backward(groups, cont, d_deep, d_wide)),
+             cuda_ms(plain_both, 3) - plain_fwd, bwd_b, grad_err)):
+        t_b, by = bound(nbytes, 0)
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=t_b, bound_by=by, library_ms=None,
+                         bytes=nbytes)
+    res["assemble_fwd"].update(deep_in_max_abs_err=deep_err,
+                               wide_max_abs_err=wide_err,
+                               copied_equal=copied_equal,
+                               pooled_off_by_ulps=pooled_ulp,
+                               pooled_differing=pooled_off)
+    res["assemble_bwd"]["grads_equal"] = grads_equal
+    shapes = ", ".join(
+        f"{g} {gr.rows.shape[0] // cont.shape[0]} x {gr.deep_dim}"
+        + (" pooled" if gr.fields else "")
+        for g, gr in zip(model.table_groups, groups))
+    log(f"[kernel] assemble ({SMI}; the step's groups at batch "
+        f"{cont.shape[0]}: {shapes})", json.dumps(res))
+    if not (copied_equal and grads_equal and pooled_ulp <= 1.0
+            and wide_err <= 1e-5):
+        fail(f"assemble kernels disagree with the plain version: {res}")
+    del groups, cont, d_deep, d_wide, leaves
+    torch.cuda.empty_cache()
     return res
 
 
@@ -5722,6 +5858,7 @@ def main() -> int:
     model, opts, host, buckets = mt_setup()
     res.update(phase_mt_kernels(dev, gen, model, host[0], buckets))
     torch.cuda.empty_cache()
+    res.update(check_assemble(dev, model, opts, host[0]))
     mt_path = phase_mt_main_path(dev, model, opts, host, profile=args.profile)
     del host
     torch.cuda.empty_cache()

@@ -15,8 +15,11 @@ Port of ``mindrec_tpu/models/multitable.py`` (the reference's
 The sparse step (``train/step.py``) reads :attr:`table_specs` and
 :attr:`table_groups` (8 tables over 4 id spaces; the ``multi`` group
 declares ``mask_keys`` so host prep may compact masked positions) and
-calls :meth:`apply_rows_batch`; the dense step calls :meth:`apply_batch`
-(the lookups inside).  With ``dropout_flag`` and ``keep_prob < 1`` the
+calls :meth:`apply_groups_batch` with each group's batch-order rows: with
+the bf16 MLP the feature assembly (``ops/kernels/assemble.py``: one
+kernel pair on the card, its plain version on the CPU), in float32
+:meth:`apply_rows_batch` over the per-table slices.  The dense step calls :meth:`apply_batch` (the
+lookups inside).  With ``dropout_flag`` and ``keep_prob < 1`` the
 deep tower drops its input and every hidden layer before each matmul,
 as Wide&Deep's does.
 
@@ -36,6 +39,10 @@ import torch
 from mindrec_tpu_torch.models.wide_deep import ACTS, sigmoid_cross_entropy
 from mindrec_tpu_torch.ops import prng
 from mindrec_tpu_torch.ops.embedding import EmbeddingTableSpec, lookup
+from mindrec_tpu_torch.ops.group_rows import table_rows
+from mindrec_tpu_torch.ops.kernels.assemble import (
+    AsmGroup, assemble, assemble_plain,
+)
 from mindrec_tpu_torch.utils.profiling import backward_span, span
 
 MULTI_FIELDS = (
@@ -269,6 +276,57 @@ class MultiTableWideDeepModel:
         wide_out = (val_w + wsum(rows["w_indicator"]) + wsum(rows["w128"])
                     + wsum(rows["w64_single"]) + wm + w["bias"])
         return wide_out + deep_out
+
+    def apply_groups_batch(self, params, groups, batch, train=False,
+                           rng=None, use_kernels=True):
+        """The sparse step's entry: forward from each id group's rows in
+        batch order (``ops/group_rows.py:GroupRows``, keyed as
+        :attr:`table_groups`).  With the bf16 MLP and bf16 rows the
+        feature assembly builds the MLP's input and the wide tables' sum
+        (:meth:`apply_assembled`); otherwise :meth:`apply_rows_batch` over
+        :func:`table_rows`' slices."""
+        if (self.config.use_mixed_precision
+                and all(gr.rows.dtype == torch.bfloat16
+                        for gr in groups.values())):
+            return self.apply_assembled(params, groups, batch, train, rng,
+                                        use_kernels)
+        return self.apply_rows_batch(
+            params, table_rows(self.table_specs, groups), batch, train, rng)
+
+    def assembly_groups(self, groups, batch) -> list:
+        """The groups as :func:`assemble` reads them: each group's rows,
+        ids and lanes, and the multi group's fields and masks, in
+        :attr:`table_groups`' order, which is the deep input's
+        (indicator, emb128, emb64_single, then the pooled multi group)."""
+        parts = []
+        for g, info in self.table_groups.items():
+            gr = groups[g]
+            deep, wide = info["tables"]
+            pooled = "mask_keys" in info
+            parts.append(AsmGroup(
+                rows=gr.rows, ids=gr.ids, deep_off=gr.layout.offs[deep],
+                deep_dim=self.specs[deep].emb_dim,
+                wide_off=gr.layout.offs[wide], fold=self.specs[wide].fold,
+                fields=tuple(self.config.multi_hot_sizes) if pooled else (),
+                masks=tuple(batch[k] for k in info["mask_keys"]) if pooled
+                else ()))
+        return parts
+
+    def apply_assembled(self, params, groups, batch, train=False, rng=None,
+                        use_kernels=True):
+        """:meth:`apply_rows_batch` through :func:`assemble` (the kernels
+        on the card with ``use_kernels``, else their plain version): the
+        deep input in bf16 (continuous values, the indicator, emb128 and
+        single rows, the six pooled multi-hot means) and the wide tables'
+        float32 sum, each group's rows read whole.  Only the continue
+        term, the bias and the MLP stay here."""
+        cont = batch["continue_val"]
+        fn = assemble if use_kernels else assemble_plain
+        deep_in, wide_sum = fn(self.assembly_groups(groups, batch), cont)
+        deep_out = self._mlp(params["deep"]["mlp"], deep_in, train, rng)
+        w = params["wide"]
+        val_w = torch.sum(cont * w["continue_w"][None, :], dim=1, keepdim=True)
+        return val_w + wide_sum + w["bias"] + deep_out
 
     def apply(self, params, batch, train=False, rng=None):
         """Forward with the lookups inside -> logits [B, 1]."""

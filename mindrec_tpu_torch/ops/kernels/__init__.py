@@ -18,6 +18,8 @@ LAUNCHES = {
     # summed gradients in place (update_cols.adam_cols_from_sums /
     # ftrl_cols_from_sums)
     "cols_in_place": 0,
+    # the multitable feature assembly, forward and backward (assemble.py)
+    "assemble_fwd": 0, "assemble_bwd": 0,
 }
 
 

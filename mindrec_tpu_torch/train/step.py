@@ -35,8 +35,10 @@ per id group, in order:
    row_packed tables first (``packed_gather``), then feature-major
    tables, each over its full ``Dp`` sublanes (``gather_rows``, kernel);
 3. the buffer expands to batch order (``buf[uidx]``, in ``matmul_dtype``)
-   and the model runs forward and backward from it (folded wide tables
-   masked to the owning sublane);
+   and the model runs forward and backward from it: a model with
+   ``apply_groups_batch`` (the multitable model) takes each group's rows
+   whole (:class:`GroupRows`), any other its per-table slices
+   (:func:`table_rows`: folded wide tables masked to the owning sublane);
 4. the per-position gradients are summed per unique slot by
    ``segsum_sorted`` (kernel), which reads them in batch order through
    ``perm``, or, in a tiny group, by raw id with ``segsum_unsorted``
@@ -157,6 +159,9 @@ import torch
 
 from mindrec_tpu_torch.ops import prng
 from mindrec_tpu_torch.ops.embedding import packed_expand, packed_gather
+from mindrec_tpu_torch.ops.group_rows import (
+    GroupLayout, GroupRows, fold_mask_rows, table_rows,
+)
 from mindrec_tpu_torch.ops.kernels.gather import (
     gather_cols, gather_cols_plain, gather_rows, gather_rows_plain,
 )
@@ -537,12 +542,6 @@ def _fold_mask(dp: int, dim: int, sub, dtype):
     return (p_row[:, None] == sub[None, :]).to(dtype)
 
 
-def _fold_mask_rows(dp: int, dim: int, sub, dtype):
-    """Row-major twin of :func:`_fold_mask`: [N, Dp]."""
-    lane = torch.arange(dp, device=sub.device) // dim
-    return (lane[None, :] == sub[:, None]).to(dtype)
-
-
 def _sort_meta(batch, flat, pref=""):
     """-> (perm, uq_ids, uidx, uidx_sorted, uq_len) of one id group:
     host-prepared (batch keys of :func:`make_batch_sort`, ``{group}:``
@@ -585,20 +584,8 @@ def _sort_meta(batch, flat, pref=""):
     return perm, uq, uidx_s[inv], uidx_s, n
 
 
-class _Group(NamedTuple):
-    """Static layout of one id group's unique-row buffer."""
-
-    keys: tuple
-    tables: tuple  # table names, row_packed first (the lane order)
-    offs: dict  # table name -> first lane
-    lanes: dict  # table name -> lanes (emb_dim, or Dp if feature-major)
-    width: int  # buffer lanes, a multiple of 128
-    tiny: bool  # sort-free path: the whole id space is the unique set
-    id_bound: int
-
-
 def _group_layouts(table_specs, table_groups, tiny_vocab, split=()):
-    """Per id group its :class:`_Group`; a group holding a table of
+    """Per id group its :class:`GroupLayout`; a group holding a table of
     ``split`` (sliced over a mesh) is never tiny."""
     out = {}
     for g, info in table_groups.items():
@@ -611,7 +598,7 @@ def _group_layouts(table_specs, table_groups, tiny_vocab, split=()):
             lanes[name] = spec.emb_dim if spec.row_packed else spec.padded_dim
             off += lanes[name]
         bound = _id_bound(table_specs, names)
-        out[g] = _Group(
+        out[g] = GroupLayout(
             keys=tuple(info["keys"]), tables=names, offs=offs, lanes=lanes,
             width=max(128, -(-off // 128) * 128),
             tiny=(bound <= min(tiny_vocab, 2048)
@@ -815,24 +802,6 @@ def make_train_step(
                             uidx_s=uidx_s, ub=ub, cols=cols, subs=subs,
                             uq=uq_b, shape=tuple(ids_g.shape[:2]))
         return gdata
-
-    def table_rows(gdata, rows_pos):
-        """Each table's rows in batch order: its lanes of the group's
-        expanded buffer, folded tables masked to the owning sublane."""
-        rows = {}
-        for g, lay in layouts.items():
-            gd = gdata[g]
-            for name in lay.tables:
-                spec = table_specs[name][1]
-                o, dpf = lay.offs[name], lay.lanes[name]
-                r = rows_pos[g][:, o: o + dpf]
-                if spec.fold > 1:
-                    sub = torch.remainder(gd["flat"], spec.fold)
-                    r = r * _fold_mask_rows(dpf, spec.emb_dim, sub, r.dtype)
-                else:
-                    r = r[:, : spec.emb_dim]  # drop sublane padding
-                rows[name] = r.reshape(*gd["shape"], -1)
-        return rows
 
     def backward_sums(gdata, g_deltas):
         """Per table: summed gradients per unique slot [lanes, ub] f32,
@@ -1038,11 +1007,22 @@ def make_train_step(
                 .requires_grad_(True)
                 for gd in gdata.values()
             ]
+        def groups_of(rp):
+            return {g: GroupRows(r, gd["flat"], gd["shape"], layouts[g])
+                    for (g, gd), r in zip(gdata.items(), rp)}
+
+        if hasattr(model, "apply_groups_batch"):
+            # the model assembles its input from the groups' rows itself
+            def forward(p, rp, sub):
+                return model.apply_groups_batch(
+                    p, groups_of(rp), batch, train=True, rng=sub,
+                    use_kernels=use_kernels)
+        else:
+            def forward(p, rp, sub):
+                return call_rows(p, table_rows(table_specs, groups_of(rp)),
+                                 batch, sub)
         dense_grads, g_deltas, losses, rng = run_model(
-            state.params, batch["label"], rows_pos,
-            lambda p, rp, sub: call_rows(
-                p, table_rows(gdata, dict(zip(gdata, rp))), batch, sub),
-            state.rng)
+            state.params, batch["label"], rows_pos, forward, state.rng)
         finite, dense_grads, g_deltas = guard(dense_grads, g_deltas, dev)
         with span("segsum", dev):
             col_grads, touch_mask = backward_sums(gdata,
@@ -1268,7 +1248,7 @@ def make_train_step(
                 spec = table_specs[name][1]
                 if spec.fold > 1:
                     sub_f = torch.remainder(flats[name], spec.fold)
-                    r = r * _fold_mask_rows(r.shape[1], spec.emb_dim, sub_f,
+                    r = r * fold_mask_rows(r.shape[1], spec.emb_dim, sub_f,
                                             r.dtype)
                 else:
                     r = r[:, : spec.emb_dim]  # drop sublane padding

@@ -19,6 +19,9 @@ import pytest
 import torch
 
 from mindrec_tpu_torch.ops import kernels
+from mindrec_tpu_torch.ops.kernels.assemble import (
+    AsmGroup, assemble, assemble_plain,
+)
 from mindrec_tpu_torch.ops.kernels.fused import (
     fused_adam_gather, fused_adam_gather_plain, fused_ftrl_gather,
     fused_ftrl_gather_plain,
@@ -2373,3 +2376,126 @@ def test_wd_step_reads_no_sums_in_place_on_card(cuda_device):
     assert cap.replays == 2
     assert launches["adam_rows"] == launches["ftrl_rows"] == 2
     assert launches["cols_in_place"] == launches["adam_cols"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the multitable feature assembly (csrc/assemble.cu)
+# ---------------------------------------------------------------------------
+
+# (name, batch, continuous width, positions of the three copied groups,
+# the pooled group's field lengths): the small multitable recipe's widths
+# (continuous width 4: deep_in's chunks off 16-byte boundaries) and the
+# multitable recipe's (benchmarks/bench_multitable.py, the lossless cell)
+ASSEMBLE_CASES = [
+    ("small", 64, 4, (2, 1, 2), (3, 4, 3, 2, 2, 3)),
+    ("small-aligned", 96, 16, (13, 3, 6), (3, 10, 10, 10, 3, 3)),
+    ("recipe", 131072, 32, (13, 3, 6), (3, 10, 10, 10, 3, 3)),
+]
+ASSEMBLE_IDS = [c[0] for c in ASSEMBLE_CASES]
+# per group: vocabulary, deep lanes and the row width, as the multitable
+# model's groups lay out their unique-row buffer (deep table, then the
+# folded wide table)
+_ASSEMBLE_GROUPS = ((16, 64, 128), (650000, 128, 256), (17300, 64, 128),
+                    (20900, 64, 128))
+
+
+def assemble_case(case, dev, seed=0):
+    """(groups, cont) of an ``ASSEMBLE_CASES`` entry: random bf16 rows,
+    uniform ids, prefix masks of 0..L hot entries per sample."""
+    _name, B, cont_dim, copied, fields = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    groups = []
+    for i, (vocab, dim, width) in enumerate(_ASSEMBLE_GROUPS):
+        f = copied[i] if i < 3 else sum(fields)
+        n = B * f
+        rows = (torch.randn((n, width), generator=gen, device=dev)
+                * 0.05).to(torch.bfloat16)
+        ids = torch.randint(0, vocab, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        masks = ()
+        if i == 3:
+            masks = tuple(
+                (torch.arange(L, device=dev)[None, :] < torch.randint(
+                    0, L + 1, (B, 1), generator=gen, device=dev)).float()
+                for L in fields)
+        groups.append(AsmGroup(rows, ids, 0, dim, dim, 8,
+                               fields if i == 3 else (), masks))
+    cont = torch.rand((B, cont_dim), generator=gen, device=dev)
+    return groups, cont
+
+
+def assemble_both(groups, cont, seed=1):
+    """Kernel and plain version, forward and backward on the same random
+    upstream gradients: ((deep_in, wide) kernel, plain), (grads kernel,
+    plain)."""
+    B = cont.shape[0]
+    gen = torch.Generator(device=cont.device).manual_seed(seed)
+    outs, grads = [], []
+    for fn in (assemble, assemble_plain):
+        leaves = [g._replace(rows=g.rows.detach().clone().requires_grad_(True))
+                  for g in groups]
+        deep_in, wide = fn(leaves, cont)
+        if not outs:
+            d_deep = torch.randn(deep_in.shape, generator=gen,
+                                 device=cont.device).to(torch.bfloat16)
+            d_wide = torch.randn((B, 1), generator=gen, device=cont.device)
+        grads.append(torch.autograd.grad(
+            (deep_in, wide), [g.rows for g in leaves], (d_deep, d_wide)))
+        outs.append((deep_in.detach(), wide.detach()))
+    return outs, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ASSEMBLE_CASES, ids=ASSEMBLE_IDS)
+def test_assemble_matches_plain_on_card(cuda_device, case):
+    """The assembly kernels against their plain version: deep_in's
+    continuous and copied columns bit for bit, its pooled means within one
+    bf16 ulp (float32 sums in another order), the wide sum within float32
+    rounding, and every group's gradient rows bit for bit."""
+    groups, cont = assemble_case(case, cuda_device)
+    kernels.reset_launches()
+    ((deep_k, wide_k), (deep_p, wide_p)), (g_k, g_p) = assemble_both(
+        groups, cont)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["assemble_fwd"] == kernels.LAUNCHES["assemble_bwd"] == 1
+    n_pool = len(case[4]) * 64
+    assert deep_k.dtype == torch.bfloat16 and deep_k.shape == deep_p.shape
+    assert torch.equal(deep_k[:, :-n_pool], deep_p[:, :-n_pool])
+    torch.testing.assert_close(deep_k[:, -n_pool:].float(),
+                               deep_p[:, -n_pool:].float(), rtol=2.0**-7,
+                               atol=0.0)
+    torch.testing.assert_close(wide_k, wide_p, rtol=1e-5, atol=1e-6)
+    for a, b in zip(g_k, g_p):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["multitable", "wd"])
+def test_assembly_launches_once_per_captured_step_on_card(cuda_device, kind):
+    """A captured multitable step launches one assembly forward and one
+    backward per replay, and equals the plain step within the
+    kernel-vs-plain tolerances; a W&D step launches neither."""
+    from mindrec_tpu_torch.train.step import (
+        init_train_state, make_train_step, real_launches,
+    )
+
+    model, opts, batches = _small_recipe(kind, cuda_device)
+    sa = init_train_state(model, 4, *opts, device=cuda_device)
+    sb = init_train_state(model, 4, *opts, device=cuda_device)
+    cap = make_train_step(model, *opts, jit=True)
+    plain = make_train_step(model, *opts, use_kernels=False)
+    for i, b in enumerate(batches[:3]):
+        if i == 1:
+            kernels.reset_launches()
+            cap.reset_counts()
+        sa, la = cap(sa, b)
+        sb, lb = plain(sb, b)
+        torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
+    torch.cuda.synchronize()
+    launches = real_launches(cap)
+    assert cap.replays == 2
+    n = 2 if kind == "multitable" else 0
+    assert launches["assemble_fwd"] == launches["assemble_bwd"] == n
+    for x, y in zip(_state_tensors(sa), _state_tensors(sb)):
+        rtol = 2.0**-7 if x.dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(x.float(), y.float(), rtol=rtol, atol=1e-6)

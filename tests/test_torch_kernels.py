@@ -23,6 +23,7 @@ from mindrec_tpu.ops.pallas.stream_update_rows import (
 )
 from mindrec_tpu_torch.ops import embedding as temb
 from mindrec_tpu_torch.ops import kernels
+from mindrec_tpu_torch.ops.kernels.assemble import AsmGroup, assemble
 from mindrec_tpu_torch.ops.kernels.gather import gather_cols, gather_rows
 from mindrec_tpu_torch.ops.kernels.segsum import (
     segsum_cols, segsum_sorted, segsum_sorted_plain, segsum_unsorted,
@@ -233,11 +234,19 @@ def test_wrappers_take_plain_only_on_cpu():
     uidx = torch.tensor([0, 0, 1, 2], dtype=torch.int32)
     np.testing.assert_array_equal(segsum_sorted(g, uidx, 4).numpy(),
                                   segsum_sorted_plain(g, uidx, 4).numpy())
+    group = AsmGroup(torch.zeros((4, 16), dtype=torch.bfloat16),
+                     torch.arange(4, dtype=torch.int32), 0, 8, 8, 8)
+    deep_in, wide = assemble([group], torch.ones((2, 8)))
+    assert deep_in.shape == (2, 24) and wide.shape == (2, 1)
     assert kernels.LAUNCHES == dict.fromkeys(
         ("segsum_sorted", "adam_rows", "ftrl_rows", "segsum_unsorted",
          "adam_cols", "ftrl_cols", "gather_rows", "segsum_cols",
          "gather_cols", "fused_adam_gather", "fused_ftrl_gather",
-         "cols_in_place"), 0)
+         "cols_in_place", "assemble_fwd", "assemble_bwd"), 0)
+    with pytest.raises(ValueError, match="assemble_fwd"):
+        assemble([group._replace(rows=group.rows.to("meta"),
+                                 ids=group.ids.to("meta"))],
+                 torch.ones((2, 8), device="meta"))
     with pytest.raises(ValueError, match="segsum_sorted"):
         segsum_sorted(g.to("meta"), uidx.to("meta"), 4)
     t = torch.zeros((8, 128), device="meta")

@@ -5,7 +5,8 @@ kernels, and print what ``chip_smoke.py`` prints for them::
     python3 tools/chip_phases.py ps            # phases 15-16, then 23-26
     python3 tools/chip_phases.py cache dynamic
 
-Phases: ``cache`` (15), ``dynamic`` (16), ``files`` (17-20),
+Phases: ``assemble`` (the feature assembly's kernels of phase 5),
+``cache`` (15), ``dynamic`` (16), ``files`` (17-20),
 ``outbrain`` (21), ``online`` (22), ``ps`` (23-26: PS mode, which
 compares itself with phases 15 and 16's results, so it runs them first),
 ``generic`` (27-28: the generic sparse path), ``drivers`` (29),
@@ -26,7 +27,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("cache", "dynamic", "files", "outbrain", "online", "ps",
+PHASES = ("assemble", "cache", "dynamic", "files", "outbrain", "online", "ps",
           "generic", "drivers", "sharded", "workers")
 
 
@@ -56,6 +57,8 @@ def main(names) -> int:
         t = time.perf_counter()
         if name == "ps":
             out[name] = cs.phase_ps(dev, out["cache"], out["dynamic"])
+        elif name == "assemble":
+            out[name] = cs.check_assemble(dev)
         elif name == "generic":
             out[name] = (cs.phase_generic_wd(dev), cs.phase_generic_dyn(dev))
         elif name == "drivers":

@@ -13,6 +13,7 @@ Run from the repository root::
     python3 tools/kernel_sweep.py gather base q2:'kQuads = 4;=>kQuads = 2;'
     python3 tools/kernel_sweep.py ftrl base b1k:'kFoldBlocks = 2048;=>kFoldBlocks = 1024;'
     python3 tools/kernel_sweep.py fused base g128:'kGat = 256;=>kGat = 128;'
+    python3 tools/kernel_sweep.py assemble base f4:'kFwdBlocks = 5=>kFwdBlocks = 4'
     python3 tools/kernel_sweep.py fused --time-only base \
         nogather:'gather_round(opt.table,=>if (0) gather_round(opt.table,;;gather_round(table, vc,=>if (0) gather_round(table, vc,'
 
@@ -37,7 +38,10 @@ kernel against plain version, device time, bounds); ``ftrl`` -
 (``check_ftrl_launch``); ``fused`` - ``fused_adam_gather`` and
 ``fused_ftrl_gather`` at the five launch shapes of ``chip_smoke.py``
 (``check_fused``: kernel against plain version, device time beside the
-separate update + ``gather_cols`` pair and each alone).  ``--time-only``
+separate update + ``gather_cols`` pair and each alone); ``assemble`` -
+the feature assembly's forward and backward kernels on the groups one
+multitable recipe step hands the model (``check_assemble``: against the
+plain version, device time beside the byte bounds).  ``--time-only``
 (``gather``, ``ftrl`` and ``fused``) times the launches without holding
 them to the plain versions, for variants that leave a pass out, to
 account for a kernel's time by pass.
@@ -122,6 +126,9 @@ def measure(what: str, time_only: bool = False) -> None:
                              getattr(e, "self_cuda_time_total", 0))
                 cs.log(f"[sweep] {us / 10:9.2f} us  {e.key[:90]}")
 
+    if what == "assemble":
+        cs.check_assemble(dev)
+        return
     if what == "colsum":
         data = cs.SyntheticCriteo(cs.BATCH, cs.FIELDS, cs.VOCAB, steps=1,
                                   seed=0, fields="criteo")
@@ -223,7 +230,7 @@ def main() -> int:
         sys.argv.remove("--time-only")
     if len(sys.argv) < 3 or sys.argv[1] not in ("cols", "seg", "colsum",
                                                    "sorted", "gather", "ftrl",
-                                                   "fused"):
+                                                   "fused", "assemble"):
         print(__doc__, file=sys.stderr)
         return 2
     sources = "".join(f.read_text()
